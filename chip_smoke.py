@@ -16,7 +16,20 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    (same x), a second kernel tick (bit-identical), and σ against a float64
    host evaluation;
 4. the routed value against the sparse σ;
-5. paper-scale instances against the host oracle (egp_np + sigma_np).
+5. paper-scale instances against the host oracle (egp_np + sigma_np);
+6. the attention kernels (flash-attention forward B4, GQA decode B7)
+   against their plain versions in float32 and bfloat16: at the serving
+   path's shapes, at gemma2's head width with a window and a softcap, with
+   ragged lengths, and in ring mode, with their times, bounds and the
+   time of torch's scaled_dot_product_attention on the same inputs;
+7. serving at full width: smollm-360m (32 layers, d=960, 15/5 heads,
+   49,152-token vocabulary, random weights from a seed) generates 32
+   tokens for 8 prompts of 1,024 tokens through ModelServer, with launch
+   counts (B4 once per layer per prefill, B7 once per layer per step);
+   then, teacher-forced on those tokens, every attention call of the
+   bf16 model is held against its plain version on its own inputs
+   (bfloat16 tolerance), and the same weights in float32 compute must
+   give the plain attention's logits within 1e-4.
 
 It prints a JSON line of per-kernel numbers and, last, the device line
 ``{"ok": true, "device": {...}}``. It needs the repository around it and
@@ -36,15 +49,33 @@ sys.path.insert(0, str(ROOT / "src"))
 
 #: Main-path scale (the §VI-B catalog: 100 services, ≤ 10 implementations).
 U_MAIN, E_MAIN, SEED = 1_000_000, 1000, 0
-#: H100 SXM peaks (data sheet): HBM bytes/s and non-tensor-core f32 op/s.
-HBM_BYTES_S, F32_OPS_S = 3.35e12, 67e12
+#: Serving path: batch, prompt length, new tokens, cache slots.
+SERVE_B, SERVE_PROMPT, SERVE_STEPS, SERVE_SEQ = 8, 1024, 32, 2048
+#: H100 SXM peaks (data sheet): HBM bytes/s, non-tensor-core f32 op/s and
+#: bf16 tensor-core op/s.
+HBM_BYTES_S, F32_OPS_S, BF16_OPS_S = 3.35e12, 67e12, 989e12
 REPS = 25
 QOS_TOL = 1e-6
-SOURCE = "src/repro_torch/csrc/qos_kernels.cu"
+#: max abs error of an attention kernel against its plain version, by
+#: dtype (the JAX package's own kernel tolerances, tests/test_kernels.py).
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: max abs difference of float32 logits, the port's model tolerance against
+#: the JAX package (tests/test_torch_models.py).
+F32_LOGITS_TOL = 1e-4
+SOURCE = {
+    "qos_matrix": "src/repro_torch/csrc/qos_kernels.cu",
+    "qos_candidates": "src/repro_torch/csrc/qos_kernels.cu",
+    "greedy_argmax": "src/repro_torch/csrc/qos_kernels.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "gqa_decode": "src/repro_torch/csrc/gqa_decode.cu",
+}
 REPLACES = {
     "qos_matrix": "src/repro/kernels/qos_matrix/qos_matrix.py:120",
     "qos_candidates": "src/repro/kernels/qos_matrix/qos_matrix.py:190",
     "greedy_argmax": "src/repro/kernels/qos_matrix/qos_matrix.py:244",
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:119",
+    "gqa_decode": "src/repro/kernels/gqa_decode/gqa_decode.py:100",
 }
 
 
@@ -97,8 +128,9 @@ def device_ms_by_kernel(fn) -> dict:
     return out
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / F32_OPS_S
+def bound_ms(n_bytes: float, n_ops: float, ops_s: float = F32_OPS_S
+             ) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / ops_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -401,6 +433,323 @@ def phase_paper_scale(dev) -> None:
             f" host egp_np, sigma diff {pdiff:.3g}")
 
 
+# ===========================================================================
+# phase 6: attention kernels vs plain versions
+# ===========================================================================
+
+def _randn(shape, dtype, gen):
+    import torch
+
+    return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+
+
+def _visible_pairs(Sq, Skv, causal, window) -> int:
+    """(query, key) pairs a prefill attends: the work its data needs."""
+    import numpy as np
+
+    q = np.arange(Sq)
+    hi = np.minimum(Skv, q + 1) if causal else np.full(Sq, Skv)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(Sq, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _sdpa(q, k, v, **kw):
+    """torch's scaled_dot_product_attention on [B, S, H, hd] tensors."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        enable_gqa=True, **kw)
+
+
+def phase_attention_kernels(dev) -> dict:
+    """B4 and B7 against their plain versions; numbers at the serving
+    path's shapes (bfloat16)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gqa_decode as gd
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+
+    # --- B4 flash attention (prefill) ----------------------------------
+    # (label, B, Sq, Skv, Hq, Hkv, hd, causal, window, softcap)
+    main = ("serving", SERVE_B, SERVE_PROMPT, SERVE_PROMPT, 15, 5, 64, True,
+            0, 0.0)
+    cases = [main,
+             ("gemma2 width", 1, 4500, 4500, 4, 2, 128, True, 4096, 50.0),
+             ("gemma2 width, global", 1, 4500, 4500, 4, 2, 128, True, 0,
+              50.0),
+             ("non-causal ragged", 2, 200, 333, 8, 2, 32, False, 0, 0.0)]
+    err = 0.0
+    for dtype in ("float32", "bfloat16"):
+        for label, B, Sq, Skv, Hq, Hkv, hd, causal, window, cap in cases:
+            dt = getattr(torch, dtype)
+            q = _randn((B, Sq, Hq, hd), dt, gen)
+            k = _randn((B, Skv, Hkv, hd), dt, gen)
+            v = _randn((B, Skv, Hkv, hd), dt, gen)
+            kw = dict(causal=causal, window=window, softcap=cap)
+            o, lse = fa.flash_attention_cuda(q, k, v, **kw)
+            ro, rlse = fa.attention_ref(q, k, v, return_lse=True, **kw)
+            torch.cuda.synchronize()
+            e_o = float((o.float() - ro.float()).abs().max())
+            e_l = float((lse - rlse).abs().max())
+            log(f"  flash_attention {label} {dtype} [{B},{Sq},{Skv},{Hq}/"
+                f"{Hkv},{hd}] causal={causal} window={window} softcap={cap}:"
+                f" max_abs_err out {e_o:.3g}, lse {e_l:.3g}")
+            check(max(e_o, e_l) <= ATTN_TOL[dtype],
+                  f"flash_attention {label} {dtype} err {e_o}, {e_l}")
+            err = max(err, e_o, e_l)
+            del o, lse, ro, rlse
+    _, B, Sq, Skv, Hq, Hkv, hd, causal, window, cap = main
+    dt = torch.bfloat16
+    q = _randn((B, Sq, Hq, hd), dt, gen)
+    k = _randn((B, Skv, Hkv, hd), dt, gen)
+    v = _randn((B, Skv, Hkv, hd), dt, gen)
+    ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
+    plain = time_ms(lambda: fa.attention_ref(q, k, v, causal=True,
+                                             return_lse=True))
+    lib = time_ms(lambda: _sdpa(q, k, v, is_causal=True))
+    n_bytes = 2 * (2 * B * Sq * Hq * hd + 2 * B * Skv * Hkv * hd) \
+        + 4 * B * Hq * Sq
+    n_ops = 4 * hd * B * Hq * _visible_pairs(Sq, Skv, causal, window)
+    b, by = bound_ms(n_bytes, n_ops, BF16_OPS_S)
+    out["flash_attention"] = dict(
+        shape=[B, Sq, Hq, Hkv, hd], max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=b, bound_by=by, library_ms=lib)
+    del q, k, v
+
+    # --- B7 GQA decode ----------------------------------------------------
+    # (label, B, Sc, Hkv, G, hd, kv_len, window, ring, softcap)
+    main_len = (1, 7, 64, 129, 1000, 1024, 2047, 2048)[:SERVE_B]
+    cases = [("serving", SERVE_B, SERVE_SEQ, 5, 3, 64, main_len, 0, False,
+              0.0),
+             ("ring Sc=40", 2, 40, 2, 2, 32, (50, 30), 0, True, 0.0),
+             ("gemma2 width", 2, 4500, 2, 2, 128, (4500, 300), 4096, False,
+              50.0),
+             ("past Sc", 2, 48, 5, 3, 32, (200, 7), 0, False, 0.0)]
+    err = 0.0
+    for dtype in ("float32", "bfloat16"):
+        for label, B, Sc, Hkv, G, hd, lens, window, ring, cap in cases:
+            dt = getattr(torch, dtype)
+            q = _randn((B, Hkv * G, hd), dt, gen)
+            kc = _randn((B, Sc, Hkv, hd), dt, gen)
+            vc = _randn((B, Sc, Hkv, hd), dt, gen)
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+            kw = dict(window=window, ring=ring, softcap=cap)
+            o = gd.gqa_decode_cuda(q, kc, vc, kv_len, **kw)
+            ro = gd.gqa_decode_ref(q, kc, vc, kv_len, **kw)
+            torch.cuda.synchronize()
+            e = float((o.float() - ro.float()).abs().max())
+            log(f"  gqa_decode {label} {dtype} [{B},{Sc},{Hkv}x{G},{hd}] "
+                f"kv_len={list(lens)} window={window} ring={ring} "
+                f"softcap={cap}: max_abs_err {e:.3g}")
+            check(e <= ATTN_TOL[dtype], f"gqa_decode {label} {dtype} err {e}")
+            err = max(err, e)
+    # timed where the serving path decodes: 8 rows at position 1040
+    B, Sc, Hkv, G, hd = SERVE_B, SERVE_SEQ, 5, 3, 64
+    dt = torch.bfloat16
+    lens = [SERVE_PROMPT + SERVE_STEPS // 2] * B
+    q = _randn((B, Hkv * G, hd), dt, gen)
+    kc = _randn((B, Sc, Hkv, hd), dt, gen)
+    vc = _randn((B, Sc, Hkv, hd), dt, gen)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    ms = time_ms(lambda: gd.gqa_decode_cuda(q, kc, vc, kv_len))
+    plain = time_ms(lambda: gd.gqa_decode_ref(q, kc, vc, kv_len))
+    idx = torch.arange(Sc, device=dev)
+    mask = (idx[None, :] < kv_len[:, None])[:, None, None, :]
+    lib = time_ms(lambda: _sdpa(q[:, None], kc, vc, attn_mask=mask))
+    slots = sum(min(n, Sc) for n in lens)   # valid cache slots read
+    n_bytes = 2 * (2 * B * Hkv * G * hd + 2 * slots * Hkv * hd) + 4 * B
+    b, by = bound_ms(n_bytes, 4 * hd * G * Hkv * slots, BF16_OPS_S)
+    out["gqa_decode"] = dict(
+        shape=[B, Sc, Hkv, G, hd], max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=b, bound_by=by, library_ms=lib)
+    for name, r in out.items():
+        log(f"  {name} {r['shape']} bf16: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), sdpa {r['library_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    return out
+
+
+# ===========================================================================
+# phase 7: serving smollm-360m at full width
+# ===========================================================================
+
+def _teacher_forced(server, toks, new_tokens, use_kernel, cfg=None):
+    """Prefill logits and every decode step's logits of ``server``'s model
+    (under ``cfg``, by default the server's) fed the prompt and then
+    ``new_tokens`` (``[B, n]``)."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    cfg = cfg or server.cfg
+    cache, ring = T.init_cache(cfg, toks.shape[0], server.bucket_seq,
+                               toks.device)
+    with torch.inference_mode():
+        logits, cache = T.prefill(server.params, cfg, toks, cache, ring,
+                                  use_kernel)
+        out = [logits[:, :cfg.vocab_size]]
+        for t in range(new_tokens.shape[1]):
+            logits, cache = T.decode_step(server.params, cfg,
+                                          new_tokens[:, t], cache, ring,
+                                          use_kernel)
+            out.append(logits[:, :cfg.vocab_size])
+    return torch.stack(out, dim=1)            # [B, n + 1, V]
+
+
+class _HeldAgainstPlain:
+    """Within the block, every attention call of the model layers runs the
+    kernel and, on the same inputs, the plain version, and records the max
+    abs difference of their outputs; the model goes on with the kernel's."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+
+        self.layers, self.errs = layers, []
+        self.saved = (layers.attention, layers.decode_attention)
+
+    def _held(self, fn):
+        def call(*args, use_kernel=None, **kw):
+            out = fn(*args, use_kernel=True, **kw)
+            ref = fn(*args, use_kernel=False, **kw)
+            self.errs.append(float((out.float() - ref.float()).abs().max()))
+            return out
+        return call
+
+    def __enter__(self):
+        self.layers.attention = self._held(self.saved[0])
+        self.layers.decode_attention = self._held(self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.attention, self.layers.decode_attention = self.saved
+
+
+def phase_serving(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.serving import ModelServer
+
+    cfg = get_config("smollm_360m")
+    t0 = time.perf_counter()
+    server = ModelServer(cfg, bucket_batch=SERVE_B, bucket_seq=SERVE_SEQ,
+                         seed=SEED, device=dev)
+    n_params = sum(p.numel() for p in server.params.parameters())
+    server.warmup()
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd={cfg.head_dim}, "
+        f"vocab {cfg.vocab_size}, {n_params} parameters ({cfg.param_dtype} "
+        f"master, {cfg.dtype} compute); init + warmup "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT))
+
+    # the main path: one generate, counted
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    gd.reset_launch_counts()
+    tokens, prefill_s, decode_s = server.generate(prompts, SERVE_STEPS)
+    launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
+                "gqa_decode": gd.LAUNCHES["gqa_decode"]}
+    log(f"  generate launches: {launches}")
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"flash_attention launches {launches['flash_attention']} != "
+          f"{cfg.n_layers}")
+    check(launches["gqa_decode"] == cfg.n_layers * SERVE_STEPS,
+          f"gqa_decode launches {launches['gqa_decode']} != "
+          f"{cfg.n_layers * SERVE_STEPS}")
+    check(tokens.shape == (SERVE_B, SERVE_STEPS), "generated tokens shape")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          "generated tokens in the vocabulary")
+    new_tok_s = SERVE_B * SERVE_STEPS / decode_s
+    log(f"  prefill {1e3 * prefill_s:.2f} ms ({SERVE_B}x{SERVE_PROMPT} "
+        f"tokens), decode {1e3 * decode_s / SERVE_STEPS:.3f} ms/token-step "
+        f"({SERVE_STEPS} steps), {new_tok_s:.1f} new tokens/s, "
+        f"{SERVE_B * SERVE_STEPS / (prefill_s + decode_s):.1f} tokens/s "
+        "end to end")
+
+    # The same model with the plain attention, teacher-forced on those
+    # tokens. In bf16 the kernel and the plain version sum the same float32
+    # softmax in different orders, so an output near a bf16 rounding
+    # boundary rounds to a neighbouring value; 32 layers of bf16 residual
+    # stream carry those ulps to the logits. So the kernels are held, per
+    # call, at the bf16 activations of every layer, the bf16 logits are
+    # reported, and the end-to-end logits are held in float32 compute,
+    # where only the kernels' arithmetic differs.
+    toks = torch.from_numpy(prompts).to(dev)
+    new = torch.from_numpy(tokens.astype(np.int64)).to(dev)
+    with _HeldAgainstPlain() as held:
+        kern = _teacher_forced(server, toks, new, True)
+    plain = _teacher_forced(server, toks, new, False)
+    check(bool(torch.isfinite(kern).all()), "kernel logits are finite")
+    check(torch.equal(kern[:, :-1].argmax(-1), new),
+          "teacher-forced kernel logits pick the generated tokens")
+    n_calls = cfg.n_layers * (SERVE_STEPS + 1)
+    check(len(held.errs) == n_calls,
+          f"{len(held.errs)} attention calls held, expected {n_calls}")
+    call_err = max(held.errs)
+    log(f"  bf16, every attention call of the teacher-forced run ({n_calls}"
+        f" calls) kernel vs plain on its inputs: max abs {call_err:.3g} "
+        f"(prefill layers {max(held.errs[:cfg.n_layers]):.3g})")
+    check(call_err <= ATTN_TOL["bfloat16"],
+          f"serving attention calls kernel vs plain max abs {call_err}")
+    bf16_err = float((kern - plain).abs().max())
+    log(f"  bf16 teacher-forced logits, kernels vs plain attention: max abs "
+        f"{bf16_err:.3g} (|logits| up to {float(kern.abs().max()):.3g}; "
+        "reported, bf16 drift)")
+    del kern, plain
+    cfg32 = cfg.with_(dtype="float32")
+    kern = _teacher_forced(server, toks, new, True, cfg32)
+    plain = _teacher_forced(server, toks, new, False, cfg32)
+    per_step = (kern - plain).abs().amax(dim=(0, 2))
+    err = float(per_step.max())
+    log(f"  float32 teacher-forced logits, kernels vs plain attention: max "
+        f"abs {err:.3g} (prefill {float(per_step[0]):.3g}, worst step "
+        f"{int(per_step.argmax())}); |logits| up to "
+        f"{float(kern.abs().max()):.3g}")
+    check(err <= F32_LOGITS_TOL,
+          f"float32 serving logits kernels vs plain max abs {err}")
+    del kern, plain
+
+    # where the time goes: device time by kernel of the prefill and of four
+    # decode steps after it, against generate's wall time per step
+    from repro_torch.models import transformer as T
+
+    cache, ring = T.init_cache(cfg, SERVE_B, SERVE_SEQ, dev)
+    pre = device_ms_by_kernel(
+        lambda: T.prefill(server.params, cfg, toks, cache, ring))
+    n_prof = 4
+    dec = device_ms_by_kernel(lambda: [
+        T.decode_step(server.params, cfg, new[:, t], cache, ring)
+        for t in range(n_prof)])
+    step_busy = sum(dec.values()) / n_prof
+    step_wall = 1e3 * decode_s / SERVE_STEPS
+    log(f"  prefill device busy {sum(pre.values()):.2f} ms of "
+        f"{1e3 * prefill_s:.2f} ms wall; decode step device busy "
+        f"{step_busy:.3f} ms of {step_wall:.3f} ms wall (device idle "
+        f"{100 * (1 - step_busy / step_wall):.1f} %)")
+    for label, by_kernel in (("prefill", pre), (f"{n_prof} decode steps",
+                                                 dec)):
+        log(f"  {label}, device ms by kernel:")
+        for name, t in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"    {t:9.3f} ms  {name[:90]}")
+    del server
+    torch.cuda.empty_cache()
+    return dict(launches=launches, prefill_ms=1e3 * prefill_s,
+                decode_ms_per_step=step_wall, new_tokens_per_s=new_tok_s,
+                call_err=call_err, bf16_logits_err=bf16_err,
+                f32_logits_err=err)
+
+
 def main() -> int:
     import torch
 
@@ -444,10 +793,17 @@ def main() -> int:
     log("phase 5: paper scale vs host oracle")
     phase_paper_scale(dev)
 
+    log("phase 6: attention kernels vs plain versions")
+    kern.update(phase_attention_kernels(dev))
+
+    log(f"phase 7: serving smollm-360m, {SERVE_B} prompts x {SERVE_PROMPT} "
+        f"tokens, {SERVE_STEPS} new tokens")
+    serving = phase_serving(dev)
+    launches = {**main_path["launches"], **serving["launches"]}
+
     log(card)
-    rows = [dict(name=name, route="cuda", source=SOURCE,
-                 replaces=REPLACES[name],
-                 launches=main_path["launches"][name],
+    rows = [dict(name=name, route="cuda", source=SOURCE[name],
+                 replaces=REPLACES[name], launches=launches[name],
                  max_abs_err=r["max_abs_err"], ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                  bound_by=r["bound_by"], library_ms=r["library_ms"],

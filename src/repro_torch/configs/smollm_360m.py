@@ -1,0 +1,18 @@
+"""smollm-360m — llama-arch small dense GQA [hf:HuggingFaceTB/SmolLM]."""
+from repro_torch.models.config import ModelConfig
+
+
+def full() -> ModelConfig:
+    return ModelConfig(
+        name="smollm-360m", family="dense", n_layers=32, d_model=960,
+        n_heads=15, n_kv_heads=5, d_ff=2560, vocab_size=49152,
+        head_dim=64, rope_theta=10_000.0,
+    )
+
+
+def smoke() -> ModelConfig:
+    return ModelConfig(
+        name="smollm-360m-smoke", family="dense", n_layers=2, d_model=96,
+        n_heads=3, n_kv_heads=1, d_ff=192, vocab_size=512, head_dim=32,
+        rope_theta=10_000.0,
+    )

@@ -5,7 +5,10 @@ NumPy arrays (the two packages never import each other).
   converted to NumPy, into a :class:`TorchInstance`;
 * :func:`to_numpy` — the reverse, the same field names as NumPy arrays;
 * :func:`placement_to_numpy` — a port placement as an ``[E, P]`` bool
-  array the reference's host oracles (``sigma_np``) can score.
+  array the reference's host oracles (``sigma_np``) can score;
+* :func:`model_params_from_jax` — the reference's dense-model parameter
+  tree (``init_params`` output, stacked ``[L, ...]`` leaves, as NumPy) as
+  the port's :class:`~repro_torch.models.DenseLM`.
 """
 from __future__ import annotations
 
@@ -16,8 +19,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.instance import TorchInstance
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import DenseLayer, DenseLM
 
-__all__ = ["from_jax_instance", "to_numpy", "placement_to_numpy"]
+__all__ = ["from_jax_instance", "to_numpy", "placement_to_numpy",
+           "model_params_from_jax"]
 
 _INT_FIELDS = ("u_service", "u_edge", "sm_service")
 
@@ -55,3 +62,32 @@ def placement_to_numpy(x: Union[torch.Tensor, np.ndarray]) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.cpu().numpy()
     return np.asarray(x, dtype=bool)
+
+
+def model_params_from_jax(cfg: ModelConfig, tree: Dict,
+                          device: Union[str, torch.device] = "cpu"
+                          ) -> DenseLM:
+    """The reference's dense parameter tree — ``{"embed": {"tok"},
+    "layers": {"ln1": {"scale"}, "attn": {"wq", …}, "ln2", "mlp": {…},
+    ["ln_pa", "ln_pf"]}, "final_norm": {"scale"}, ["head"]}`` with
+    ``[L, ...]`` layer leaves, as NumPy arrays — as a :class:`DenseLM` on
+    ``device``, in ``cfg.param_dtype``."""
+    pdt = L.torch_dtype(cfg.param_dtype)
+
+    def t(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+            device=device, dtype=pdt)
+
+    lt = tree["layers"]
+    layers = []
+    for i in range(cfg.n_layers):
+        at, mt = lt["attn"], lt["mlp"]
+        attn = L.Attention(*(t(at[n][i]) for n in ("wq", "wk", "wv", "wo")))
+        mlp = L.MLP(*(t(mt[n][i]) for n in ("w_gate", "w_up", "w_down")))
+        post = ((t(lt["ln_pa"]["scale"][i]), t(lt["ln_pf"]["scale"][i]))
+                if cfg.post_norms else (None, None))
+        layers.append(DenseLayer(t(lt["ln1"]["scale"][i]), attn,
+                                 t(lt["ln2"]["scale"][i]), mlp, *post))
+    head = t(tree["head"]) if "head" in tree else None
+    return DenseLM(t(tree["embed"]["tok"]), layers,
+                   t(tree["final_norm"]["scale"]), head)

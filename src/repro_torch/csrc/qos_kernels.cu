@@ -175,7 +175,7 @@ inline unsigned blocks_for(int64_t n, int per_block) {
 
 extern "C" {
 
-const char* qos_error_string(int code) {
+const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

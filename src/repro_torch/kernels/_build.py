@@ -1,11 +1,16 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles the sources into a shared library with a plain C
-interface, which :mod:`ctypes` loads. The build happens at first use, into
+``nvcc`` compiles each source (one process per file, all started
+together) and links them into a shared library with a plain C interface,
+which :mod:`ctypes` loads. The build happens at first use, into
 ``build/repro_torch/<hash>/`` at the root of the checkout (or beside the
 package when it is installed), keyed by a hash of the sources and flags, so
 a fresh checkout builds once and later processes reuse the library. A
 failed build raises; nothing falls back to the plain PyTorch versions.
+
+:func:`check_cuda_tensor` and :func:`launch` are what every kernel wrapper
+(``kernels/*/ops.py``) uses to validate its arguments and call its entry
+point on the current stream.
 """
 from __future__ import annotations
 
@@ -19,14 +24,17 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_dir", "find_nvcc", "load_library"]
+import torch
+
+__all__ = ["NVCC_FLAGS", "build_dir", "check_cuda_tensor", "find_nvcc",
+           "launch", "load_library"]
 
 _PKG = Path(__file__).resolve().parents[1]          # src/repro_torch
 _CSRC = _PKG / "csrc"
-_LIB_NAME = "libqos_kernels.so"
+_LIB_NAME = "librepro_kernels.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VOID_P, _I64, _I32, _F32 = (ctypes.c_void_p, ctypes.c_longlong,
                              ctypes.c_int, ctypes.c_float)
@@ -38,7 +46,15 @@ _SIGNATURES = {
                                               _VOID_P], _I32),
     "greedy_argmax_launch": ([_VOID_P] * 4 + [_I32, _I32, _I32, _VOID_P],
                              _I32),
-    "qos_error_string": ([_I32], ctypes.c_char_p),
+    # (q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, hd, is_bf16, causal, window,
+    #  softcap, device, stream)
+    "flash_attention_launch": ([_VOID_P] * 5 + [_I32] * 9 + [_F32, _I32,
+                                                            _VOID_P], _I32),
+    # (q, k_cache, v_cache, kv_len, out, B, Sc, Hkv, G, hd, is_bf16, window,
+    #  ring, softcap, device, stream)
+    "gqa_decode_launch": ([_VOID_P] * 5 + [_I32] * 8 + [_F32, _I32, _VOID_P],
+                          _I32),
+    "cuda_error_string": ([_I32], ctypes.c_char_p),
 }
 
 
@@ -79,26 +95,39 @@ def _digest(sources: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
-def _compile(sources: list[Path], out: Path) -> str:
-    """Run nvcc into a temporary file and move it into place atomically,
-    so concurrent first uses never load a half-written library. Returns
-    nvcc's output (ptxas register and spill report included)."""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in sources if s.suffix == ".cu"]]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; wait for every one, then raise if any
+    failed. Returns their output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [proc.communicate() for proc in procs]
+    for cmd, proc, (out, err) in zip(cmds, procs, outs):
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return proc.stdout + proc.stderr
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{out}\n{err}")
+    return "".join(o + e for o, e in outs)
+
+
+def _compile(sources: list[Path], out: Path) -> str:
+    """Compile every ``.cu`` source with its own nvcc, all at once, link
+    the objects into a temporary library and move it into place
+    atomically, so concurrent first uses never load a half-written
+    library. Returns nvcc's output (ptxas register and spill report
+    included)."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [str(Path(tmp) / f"{s.stem}.o") for s in sources
+                if s.suffix == ".cu"]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                        for obj, src in zip(objs, (s for s in sources
+                                                   if s.suffix == ".cu"))])
+        lib = str(Path(tmp) / out.name)
+        log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib,
+                          *objs]])
+        os.replace(lib, out)
+    return log
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,3 +150,36 @@ def load_library() -> tuple[ctypes.CDLL, dict]:
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, restype
     return lib, info
+
+
+def check_cuda_tensor(name: str, t, dtype, shape: tuple, device,
+                      align: int = 1) -> int:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    the CUDA ``device`` whose data starts on an ``align``-byte boundary (16
+    for kernels that read it with 16-byte loads); return its data
+    pointer."""
+    if not isinstance(t, torch.Tensor) or t.device != device \
+            or device.type != "cuda":
+        raise ValueError(f"{name}: expected a tensor on a CUDA device "
+                         f"({device}), got {getattr(t, 'device', type(t))}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: expected a {align}-byte aligned tensor")
+    return t.data_ptr()
+
+
+def launch(fn: str, *args, device) -> None:
+    """Call the kernel entry point ``fn`` with ``args`` plus the device
+    index and PyTorch's current stream; raise if it reports a CUDA error."""
+    lib, _ = load_library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, fn)(*args, device.index, stream)
+    if err != 0:
+        msg = lib.cuda_error_string(err).decode()
+        raise RuntimeError(f"{fn}: CUDA error {err}: {msg}")

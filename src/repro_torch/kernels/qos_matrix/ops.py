@@ -16,6 +16,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels._build import check_cuda_tensor as _check
+from repro_torch.kernels._build import launch as _launch
+
 from .ref import greedy_argmax_ref, qos_candidates_ref, qos_matrix_ref
 
 __all__ = [
@@ -72,33 +75,6 @@ def _use_kernel(use_kernel: Optional[bool], t: torch.Tensor) -> bool:
 # ===========================================================================
 # kernel wrappers
 # ===========================================================================
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> int:
-    if not isinstance(t, torch.Tensor) or t.device != device \
-            or device.type != "cuda":
-        raise ValueError(f"{name}: expected a tensor on a CUDA device "
-                         f"({device}), got {getattr(t, 'device', type(t))}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-    return t.data_ptr()
-
-
-def _launch(fn, *args, device: torch.device) -> None:
-    from repro_torch.kernels._build import load_library
-
-    lib, _ = load_library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, fn)(*args, device.index, stream)
-    if err != 0:
-        msg = lib.qos_error_string(err).decode()
-        raise RuntimeError(f"{fn}: CUDA error {err}: {msg}")
-
 
 def qos_matrix_cuda(u_alpha, u_delta, u_share_k, u_share_w, u_service,
                     sm_acc, sm_k, sm_w, sm_service, *,

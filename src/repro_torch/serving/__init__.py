@@ -1,4 +1,7 @@
-"""repro_torch.serving — the request router (OMS on the device)."""
+"""repro_torch.serving — the request router (OMS on the device) and the
+model server (prefill + decode of a resident dense model)."""
+from .engine import BatchResult, ModelServer, Request
 from .router import Router, RoutingDecision
 
-__all__ = ["Router", "RoutingDecision"]
+__all__ = ["BatchResult", "ModelServer", "Request", "Router",
+           "RoutingDecision"]

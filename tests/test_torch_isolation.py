@@ -49,6 +49,22 @@ def test_port_runs_without_loading_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_serving_path_runs_without_loading_jax():
+    code = ("import sys, numpy as np; "
+            "from repro_torch.configs import get_smoke_config; "
+            "from repro_torch.serving import ModelServer; "
+            "s = ModelServer(get_smoke_config('gemma2_27b'), bucket_batch=2, "
+            "bucket_seq=16, device='cpu'); "
+            "out, _, _ = s.generate(np.ones((2, 6), np.int64), n_steps=3); "
+            "assert out.shape == (2, 3); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')]; assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch import resolve_device
     from repro_torch.core import synthetic_instance
