@@ -114,7 +114,8 @@ def _compile(sources: list[Path], out: Path) -> str:
     the objects into a temporary library and move it into place
     atomically, so concurrent first uses never load a half-written
     library. Returns nvcc's output (ptxas register and spill report
-    included)."""
+    included). On an H100 machine this takes 7.6–8.3 s against 16.0–16.6 s
+    for one nvcc call over all sources (``tools/kernel_build_times.py``)."""
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:

@@ -48,21 +48,18 @@ class ModelServer:
 
     ``params`` defaults to :func:`~repro_torch.models.transformer.init_params`
     from a ``torch.Generator`` seeded with ``seed`` on ``device``
-    (``None`` means CUDA). ``use_kernel`` is passed to the attention
-    dispatchers (``None``: the kernels on CUDA, the plain versions on the
-    CPU).
+    (``None`` means CUDA). The attention dispatchers follow the device: the
+    kernels on CUDA, the plain versions on the CPU.
     """
 
     def __init__(self, cfg: ModelConfig, params: Optional[T.DenseLM] = None,
                  *, bucket_batch: int = 4, bucket_seq: int = 64,
                  seed: int = 0,
-                 device: Union[str, torch.device, None] = None,
-                 use_kernel: Optional[bool] = None):
+                 device: Union[str, torch.device, None] = None):
         self.cfg = cfg
         self.bucket_batch = bucket_batch
         self.bucket_seq = bucket_seq
         self.device = resolve_device(device)
-        self.use_kernel = use_kernel
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = T.init_params(cfg, gen)
@@ -100,8 +97,7 @@ class ModelServer:
 
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = T.prefill(self.params, self.cfg, toks, cache, ring,
-                                  self.use_kernel)
+        logits, cache = T.prefill(self.params, self.cfg, toks, cache, ring)
         self._sync()
         t1 = time.perf_counter()
         outs = []
@@ -109,7 +105,7 @@ class ModelServer:
         for _ in range(n_steps):
             outs.append(tok)
             logits, cache = T.decode_step(self.params, self.cfg, tok, cache,
-                                          ring, self.use_kernel)
+                                          ring)
             tok = logits[:, :V].argmax(-1)
         self._sync()
         t2 = time.perf_counter()
