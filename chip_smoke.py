@@ -29,9 +29,26 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    then, teacher-forced on those tokens, every attention call of the
    bf16 model is held against its plain version on its own inputs
    (within 2 bf16 ulps), the bf16 logits against the plain model's
-   (within a limit that a control with one coarsened layer exceeds), and
+   (within max abs and rms limits that controls with one coarsened layer
+   exceed), and
    the same weights in float32 compute must give the plain attention's
-   logits within 1e-4.
+   logits within 1e-4;
+8. the SSD scan kernel (B8) against both plain versions (the sequential
+   recurrence and the chunked scan) in float32 at the mamba2 and zamba2
+   serving shapes and at a ragged shape with an initial state, within
+   3e-4 of the reference's largest value, with its time, the plain
+   versions' times and its bound;
+9. serving mamba2-2.7b at its published widths and full depth (64 Mamba2
+   layers, d=2560, 80 heads x 64, N=128, 50,280-token vocabulary) as
+   phase 7 does: B8 once per layer per prefill and never in a decode step,
+   every B8 call of the teacher-forced run held against the plain scan
+   on its own inputs, the bf16 logits within limits that controls (layer
+   0's SSD output at 2 and 6 mantissa bits) exceed, float32 logits within
+   1e-4;
+10. serving zamba2-2.7b at its published widths and full depth (54 Mamba2
+   layers, N=64, two shared attention blocks applied 9 times at hd=80) the
+   same way, with B8 54, B4 9 and B7 9 x 32 launches per generate and
+   every B4/B7/B8 call held against its plain version.
 
 It prints a JSON line of per-kernel numbers and, last, the device line
 ``{"ok": true, "device": {...}}``. It needs the repository around it and
@@ -69,19 +86,46 @@ BF16_ULPS, BF16_ATOL = 2, 1e-5
 #: max abs difference of float32 logits, the port's model tolerance against
 #: the JAX package (tests/test_torch_models.py).
 F32_LOGITS_TOL = 1e-4
-#: max abs difference of the bf16 teacher-forced logits of the served model,
-#: kernels vs plain attention (0.0527 measured on an H100), about 6 bf16
-#: ulps at the largest logit (3.25). Controls: the plain model with layer
-#: 0's attention output rounded to b mantissa bits (bf16 keeps 7), for each
-#: b of CONTROL_SWEEP; the one at CONTROL_BITS must land above the limit,
-#: so the limit tells a layer degraded that far from rounding drift.
-BF16_LOGITS_TOL, CONTROL_BITS, CONTROL_SWEEP = 0.1, 2, (6, 5, 4, 3, 2)
+#: Controls of a served model's bf16 logits limit (SERVED): the plain model
+#: with layer 0's attention or SSD output rounded to b mantissa bits (bf16
+#: keeps 7), for each b of CONTROL_SWEEP; the one at CONTROL_BITS must land
+#: above the limit, so the limit tells a layer degraded that far from
+#: rounding drift.
+CONTROL_BITS, CONTROL_SWEEP = 2, (6, 5, 4, 3, 2)
+#: max abs error of the SSD scan kernel against a plain version, after
+#: dividing both by the plain version's largest |value| (the reference's
+#: 3e-4 kernel tolerance, tests/test_kernels.py).
+SSD_TOL = 3e-4
+#: Each served model: the model-layer functions whose layer-0 output the
+#: control rounds; the bf16 teacher-forced logits limit (kernels vs plain,
+#: max abs), which the control at CONTROL_BITS must exceed; and a limit on
+#: the root-mean-square difference with the number of mantissa bits of
+#: the control that must exceed it. Set from H100 readings (kernels vs
+#: plain; control): max abs smollm 0.0527 (about 6 bf16 ulps at its
+#: largest logit, 3.25) and 0.1426 at b = 2, mamba2 0.2004 and 0.2998,
+#: zamba2 0.1719 and 0.2891; rms smollm 0.00916 and 0.0164 at b = 3,
+#: mamba2 0.0336 and 0.0513 at b = 6, zamba2 0.0333 and 0.0471 at b = 6.
+#: In the Mamba stacks the max abs limit tells only a gross fault from
+#: rounding (a control at b = 6 already reads 0.27-0.28 there); the rms
+#: limit resolves one layer at 6 mantissa bits, and the per-call checks
+#: are the fine gate.
+SERVED = {
+    "smollm_360m": dict(control=("attention", "decode_attention"),
+                        bf16_tol=0.1, bf16_rms=(0.013, 3)),
+    "mamba2_2p7b": dict(control=("ssd", "ssd_decode_step"), bf16_tol=0.25,
+                        bf16_rms=(0.042, 6)),
+    "zamba2_2p7b": dict(control=("ssd", "ssd_decode_step"), bf16_tol=0.25,
+                        bf16_rms=(0.042, 6)),
+}
+#: The model-layer dispatchers that launch a kernel on the serving path.
+KERNEL_DISPATCHERS = ("attention", "decode_attention", "ssd")
 SOURCE = {
     "qos_matrix": "src/repro_torch/csrc/qos_kernels.cu",
     "qos_candidates": "src/repro_torch/csrc/qos_kernels.cu",
     "greedy_argmax": "src/repro_torch/csrc/qos_kernels.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "gqa_decode": "src/repro_torch/csrc/gqa_decode.cu",
+    "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
 }
 REPLACES = {
     "qos_matrix": "src/repro/kernels/qos_matrix/qos_matrix.py:120",
@@ -90,6 +134,7 @@ REPLACES = {
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:119",
     "gqa_decode": "src/repro/kernels/gqa_decode/gqa_decode.py:100",
+    "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:86",
 }
 
 
@@ -527,7 +572,9 @@ def phase_attention_kernels(dev) -> dict:
              ("gemma2 width", 1, 4500, 4500, 4, 2, 128, True, 4096, 50.0),
              ("gemma2 width, global", 1, 4500, 4500, 4, 2, 128, True, 0,
               50.0),
-             ("non-causal ragged", 2, 200, 333, 8, 2, 32, False, 0, 0.0)]
+             ("non-causal ragged", 2, 200, 333, 8, 2, 32, False, 0, 0.0),
+             ("zamba2 width", SERVE_B, SERVE_PROMPT, SERVE_PROMPT, 32, 32,
+              80, True, 0, 0.0)]
     err = 0.0
     for dtype in ("float32", "bfloat16"):
         for label, B, Sq, Skv, Hq, Hkv, hd, causal, window, cap in cases:
@@ -575,7 +622,9 @@ def phase_attention_kernels(dev) -> dict:
              ("ring Sc=40", 2, 40, 2, 2, 32, (50, 30), 0, True, 0.0),
              ("gemma2 width", 2, 4500, 2, 2, 128, (4500, 300), 4096, False,
               50.0),
-             ("past Sc", 2, 48, 5, 3, 32, (200, 7), 0, False, 0.0)]
+             ("past Sc", 2, 48, 5, 3, 32, (200, 7), 0, False, 0.0),
+             ("zamba2 width", SERVE_B, SERVE_SEQ, 32, 1, 80, main_len, 0,
+              False, 0.0)]
     err = 0.0
     for dtype in ("float32", "bfloat16"):
         for label, B, Sc, Hkv, G, hd, lens, window, ring, cap in cases:
@@ -623,7 +672,110 @@ def phase_attention_kernels(dev) -> dict:
 
 
 # ===========================================================================
-# phase 7: serving smollm-360m at full width
+# phase 8: the SSD scan kernel vs its plain versions
+# ===========================================================================
+
+def _ssd_inputs(B, L, H, P, N, gen):
+    """x, dtA, b, c drawn as tests/test_kernels.py draws them: normal x,
+    b, c and dtA = -U(0.01, 0.4)."""
+    import torch
+
+    dev = gen.device
+    x = torch.randn((B, L, H, P), generator=gen, device=dev)
+    dtA = -(0.01 + 0.39 * torch.rand((B, L, H), generator=gen, device=dev))
+    b = torch.randn((B, L, N), generator=gen, device=dev)
+    c = torch.randn((B, L, N), generator=gen, device=dev)
+    return x, dtA, b, c
+
+
+def _ssd_err(out, ref) -> float:
+    """Scale-free error of an SSD scan's ``(y, state)`` against a plain
+    version's: the larger over the two of ``max |k - p| / max |p|``."""
+    return max(float((k - p).abs().max() / p.abs().max().clamp_min(1e-30))
+               for k, p in zip(out, ref))
+
+
+def _ssd_work(B, L, H, P, N, chunk, with_init
+              ) -> tuple[float, float, str]:
+    """``(bytes, operations, algorithm)`` one scan needs: x, dtA, b, c (and
+    the initial state) read once, y and the final state written once; and
+    the operations of the cheaper of two algorithms, 2 per multiply-add:
+    the chunked one, with the C.B^T scores over the visible (s <= q) pairs
+    once per (row, chunk) (b and c are one group for every head), and per
+    (row, head) scores.X, C.state^T and the state update; or the sequential
+    recurrence, per (row, head, step) state * decay + x b^T and state.c,
+    5 P N."""
+    pairs = sum(q * (q + 1) // 2 for q in
+                (min(chunk, L - c0) for c0 in range(0, L, chunk)))
+    n_bytes = 4 * (2 * B * L * H * P + B * L * H + 2 * B * L * N
+                   + (2 if with_init else 1) * B * H * P * N)
+    ops = {"chunked": 2 * B * (pairs * N + H * (pairs * P + 2 * L * P * N)),
+           "sequential": 5 * B * H * L * P * N}
+    algo = min(ops, key=ops.get)
+    return n_bytes, ops[algo], algo
+
+
+def phase_ssd_kernel(dev) -> dict:
+    """B8 against ssd_scan_ref and ssd_chunked; numbers at the mamba2
+    serving shape."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as ss
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    # (label, B, L, H, P, N, chunk, initial state)
+    cases = [("mamba2 serving", SERVE_B, SERVE_PROMPT, 80, 64, 128, 256,
+              False),
+             ("zamba2 serving", SERVE_B, SERVE_PROMPT, 80, 64, 64, 256,
+              False),
+             ("ragged, initial state", 1, 300, 1, 64, 128, 256, True)]
+    rows, err = {}, 0.0
+    for label, B, L, H, P, N, chunk, with_init in cases:
+        x, dtA, b, c = _ssd_inputs(B, L, H, P, N, gen)
+        s0 = torch.randn((B, H, P, N), generator=gen, device=dev) \
+            if with_init else None
+        kern = ss.ssd(x, dtA, b, c, chunk=chunk, initial_state=s0,
+                      use_kernel=True)
+        plain = {"ssd_scan_ref": ss.ssd_scan_ref(x, dtA, b, c,
+                                                 initial_state=s0),
+                 "ssd_chunked": ss.ssd(x, dtA, b, c, chunk=chunk,
+                                       initial_state=s0, use_kernel=False)}
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(kern[0]).all() and
+                   torch.isfinite(kern[1]).all()), f"ssd {label} finite")
+        parts = []
+        for name, ref in plain.items():
+            e = _ssd_err(kern, ref)
+            a = max(float((k - p).abs().max()) for k, p in zip(kern, ref))
+            parts.append(f"vs {name} {e:.3g} (max abs {a:.3g}, max|y| "
+                         f"{float(ref[0].abs().max()):.4g}, max|state| "
+                         f"{float(ref[1].abs().max()):.4g})")
+            check(e <= SSD_TOL, f"ssd_scan {label} vs {name}: {e}")
+            err = max(err, a)
+        log(f"  ssd_scan {label} [{B},{L},{H},{P},{N}] chunk {chunk}: "
+            "scale-free error " + "; ".join(parts))
+        del kern, plain
+        if L % chunk:
+            continue
+        ms = time_ms(lambda: ss.ssd_scan_cuda(x, dtA, b, c, chunk=chunk,
+                                              initial_state=s0))
+        chunked = time_ms(lambda: ss.ssd_chunked(x, dtA, b, c, chunk, s0))
+        seq = time_ms(lambda: ss.ssd_scan_ref(x, dtA, b, c, s0))
+        n_bytes, n_ops, algo = _ssd_work(B, L, H, P, N, chunk, with_init)
+        bnd, by = bound_ms(n_bytes, n_ops)
+        log(f"    kernel {ms:.4f} ms, ssd_chunked {chunked:.4f} ms, "
+            f"ssd_scan_ref {seq:.4f} ms, bound {bnd:.4f} ms ({by}: "
+            f"{n_ops / 1e9:.2f} GFLOP {algo}, {n_bytes / 1e9:.3f} GB)")
+        rows[label] = dict(shape=[B, L, H, P, N], ms=ms, plain_ms=chunked,
+                           sequential_ms=seq, bound_ms=bnd, bound_by=by,
+                           library_ms=None)
+        del x, dtA, b, c
+    torch.cuda.empty_cache()
+    return {"ssd_scan": dict(rows["mamba2 serving"], max_abs_err=err)}
+
+
+# ===========================================================================
+# phases 7, 9, 10: serving a model at full width
 # ===========================================================================
 
 def _teacher_forced(server, toks, new_tokens, use_kernel, cfg=None):
@@ -649,35 +801,39 @@ def _teacher_forced(server, toks, new_tokens, use_kernel, cfg=None):
     return torch.stack(out, dim=1)            # [B, n + 1, V]
 
 
-class _PatchedAttention:
-    """Within the block, the model layers' attention dispatchers
-    (``attention`` for the prefill, ``decode_attention`` for a step) are
-    ``wrap(dispatcher)``; each wrapper sees the calls in layer order."""
+class _Patched:
+    """Within the block, each named function of the model layers
+    (``models.layers``) is ``wrap(name, function)``; each wrapper sees the
+    calls in layer order."""
 
-    def __init__(self, wrap):
+    def __init__(self, wrap, names):
         from repro_torch.models import layers
 
         self.layers, self.wrap = layers, wrap
-        self.saved = (layers.attention, layers.decode_attention)
+        self.saved = {n: getattr(layers, n) for n in names}
 
     def __enter__(self):
-        self.layers.attention = self.wrap(self.saved[0])
-        self.layers.decode_attention = self.wrap(self.saved[1])
+        for name, fn in self.saved.items():
+            setattr(self.layers, name, self.wrap(name, fn))
         return self
 
     def __exit__(self, *exc):
-        self.layers.attention, self.layers.decode_attention = self.saved
+        for name, fn in self.saved.items():
+            setattr(self.layers, name, fn)
 
 
-def _held_against_plain(readings: list):
+def _held_against_plain(readings: dict):
     """Run the kernel and, on the same inputs, the plain version; append
-    ``bf16_ulp_err`` of the kernel's output to ``readings``; go on with the
-    kernel's output."""
-    def wrap(fn):
+    the reading of the kernel's output to ``readings[name]`` (an SSD scan:
+    ``_ssd_err``; attention: ``bf16_ulp_err``); go on with the kernel's
+    output."""
+    def wrap(name, fn):
         def call(*args, use_kernel=None, **kw):
             out = fn(*args, use_kernel=True, **kw)
-            readings.append(bf16_ulp_err(out, fn(*args, use_kernel=False,
-                                                 **kw)))
+            ref = fn(*args, use_kernel=False, **kw)
+            readings.setdefault(name, []).append(
+                _ssd_err(out, ref) if name == "ssd"
+                else bf16_ulp_err(out, ref))
             return out
         return call
     return wrap
@@ -700,58 +856,81 @@ def _round_mantissa(x, bits: int):
 
 
 def _layer0_rounded(n_layers: int, bits: int):
-    """The plain attention, with layer 0's output rounded to ``bits``
-    mantissa bits: the control of the bf16 end-to-end limit."""
-    calls = [0]
+    """The wrapped functions (run as the caller asks: the plain versions
+    in a plain run), with the output of every ``n_layers``-th call — layer
+    0's, in a model that calls the function once per layer — rounded to
+    ``bits`` mantissa bits (``y`` of a ``(y, state)`` pair): the control of
+    the bf16 end-to-end limit."""
+    calls = {}
 
-    def wrap(fn):
-        def call(*args, use_kernel=None, **kw):
-            out = fn(*args, use_kernel=False, **kw)
-            calls[0] += 1
-            return _round_mantissa(out, bits) \
-                if (calls[0] - 1) % n_layers == 0 else out
+    def wrap(name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            calls[name] = calls.get(name, 0) + 1
+            if (calls[name] - 1) % n_layers:
+                return out
+            if isinstance(out, tuple):
+                return (_round_mantissa(out[0], bits),) + tuple(out[1:])
+            return _round_mantissa(out, bits)
         return call
     return wrap
 
 
-def phase_serving(dev) -> dict:
+def _kernel_calls(cfg, steps: int) -> dict:
+    """Calls of each kernel dispatcher in one generate (prefill + ``steps``
+    decode steps): attention once per attention layer (dense) or shared-
+    block application (hybrid), the SSD scan once per Mamba layer in the
+    prefill and never in a decode step."""
+    n_attn = {"dense": cfg.n_layers, "ssm": 0,
+              "hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1)
+              }[cfg.family]
+    n_mamba = 0 if cfg.family == "dense" else cfg.n_layers
+    return {"attention": n_attn, "decode_attention": n_attn * steps,
+            "ssd": n_mamba}
+
+
+def phase_serving(dev, arch: str) -> dict:
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.serving import ModelServer
 
-    cfg = get_config("smollm_360m")
+    cfg = get_config(arch)
+    spec = SERVED[arch]
     t0 = time.perf_counter()
     server = ModelServer(cfg, bucket_batch=SERVE_B, bucket_seq=SERVE_SEQ,
                          seed=SEED, device=dev)
     n_params = sum(p.numel() for p in server.params.parameters())
     server.warmup()
     torch.cuda.synchronize()
-    log(f"  {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd={cfg.head_dim}, "
-        f"vocab {cfg.vocab_size}, {n_params} parameters ({cfg.param_dtype} "
-        f"master, {cfg.dtype} compute); init + warmup "
+    log(f"  {cfg.name} ({cfg.family}): {cfg.n_layers} layers, "
+        f"d={cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+        f"hd={cfg.head_dim}, ssm {cfg.ssm_heads}x{cfg.ssm_head_dim} N="
+        f"{cfg.ssm_state}, vocab {cfg.vocab_size}, {n_params} parameters "
+        f"({cfg.param_dtype} master, {cfg.dtype} compute); init + warmup "
         f"{time.perf_counter() - t0:.1f} s")
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT))
 
     # the main path: one generate, counted
     torch.cuda.synchronize()
-    fa.reset_launch_counts()
-    gd.reset_launch_counts()
+    for mod in (fa, gd, ss):
+        mod.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
     tokens, prefill_s, decode_s = server.generate(prompts, SERVE_STEPS)
-    launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
-                "gqa_decode": gd.LAUNCHES["gqa_decode"]}
-    log(f"  generate launches: {launches}")
-    check(launches["flash_attention"] == cfg.n_layers,
-          f"flash_attention launches {launches['flash_attention']} != "
-          f"{cfg.n_layers}")
-    check(launches["gqa_decode"] == cfg.n_layers * SERVE_STEPS,
-          f"gqa_decode launches {launches['gqa_decode']} != "
-          f"{cfg.n_layers * SERVE_STEPS}")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches = {**fa.LAUNCHES, **gd.LAUNCHES, **ss.LAUNCHES}
+    calls = _kernel_calls(cfg, SERVE_STEPS)
+    expect = {"flash_attention": calls["attention"],
+              "gqa_decode": calls["decode_attention"],
+              "ssd_scan": calls["ssd"]}
+    log(f"  generate launches: {launches} (expected {expect}); peak device "
+        f"memory {peak_gb:.2f} GB")
+    check(launches == expect, f"{arch} launches {launches} != {expect}")
     check(tokens.shape == (SERVE_B, SERVE_STEPS), "generated tokens shape")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
           "generated tokens in the vocabulary")
@@ -762,70 +941,99 @@ def phase_serving(dev) -> dict:
         f"{SERVE_B * SERVE_STEPS / (prefill_s + decode_s):.1f} tokens/s "
         "end to end")
 
-    # The same model with the plain attention, teacher-forced on those
-    # tokens. In bf16 the kernel and the plain version sum the same float32
-    # softmax in different orders, so an output near a bf16 rounding
-    # boundary rounds to a neighbouring value; 32 layers of bf16 residual
-    # stream carry those ulps to the logits. So every attention call is
-    # held at the ulp bound on its own inputs, and the bf16 logits at
-    # BF16_LOGITS_TOL, which the control must exceed.
+    # The same model with the plain versions, teacher-forced on those
+    # tokens. In bf16 a kernel and its plain version compute the same
+    # float32 values in different orders, so an output near a bf16
+    # rounding boundary rounds to a neighbouring value, and the layers'
+    # bf16 residual stream carries those ulps to the logits. So every
+    # kernel call is held on its own inputs (attention at the ulp bound,
+    # the SSD scan at SSD_TOL of its largest value), and the bf16 logits
+    # at the model's limit, which the control must exceed.
     toks = torch.from_numpy(prompts).to(dev)
     new = torch.from_numpy(tokens.astype(np.int64)).to(dev)
-    held = []
-    with _PatchedAttention(_held_against_plain(held)):
+    held = {}
+    with _Patched(_held_against_plain(held), KERNEL_DISPATCHERS):
         kern = _teacher_forced(server, toks, new, True)
     plain = _teacher_forced(server, toks, new, False)
     check(bool(torch.isfinite(kern).all()), "kernel logits are finite")
     check(torch.equal(kern[:, :-1].argmax(-1), new),
           "teacher-forced kernel logits pick the generated tokens")
-    n_calls = cfg.n_layers * (SERVE_STEPS + 1)
-    check(len(held) == n_calls,
-          f"{len(held)} attention calls held, expected {n_calls}")
-    call_err = max(r[0] for r in held)
-    call_ulps = max(r[1] for r in held)
-    log(f"  bf16, every attention call of the teacher-forced run ({n_calls}"
-        f" calls) kernel vs plain on its inputs: max abs {call_err:.3g}, "
-        f"max {call_ulps:.3g} ulps beyond {BF16_ATOL} (prefill layers max "
-        f"abs {max(r[0] for r in held[:cfg.n_layers]):.3g})")
-    check(call_ulps <= BF16_ULPS,
-          f"serving attention calls beyond {BF16_ULPS} bf16 ulps + "
-          f"{BF16_ATOL} ({call_ulps:.3g} ulps)")
-    check(call_err <= ATTN_TOL["bfloat16"],
-          f"serving attention calls kernel vs plain max abs {call_err}")
+    n_held = {n: len(r) for n, r in held.items()}
+    check(n_held == {n: c for n, c in calls.items() if c},
+          f"kernel calls held {n_held}, expected {calls}")
+    out = dict(prefill_ms=1e3 * prefill_s, new_tokens_per_s=new_tok_s,
+               peak_gb=peak_gb, held=n_held,
+               launches={k: launches[k] for k, n in expect.items() if n})
+    attn = held.get("attention", []) + held.get("decode_attention", [])
+    if attn:
+        call_err = max(r[0] for r in attn)
+        call_ulps = max(r[1] for r in attn)
+        log(f"  bf16, every attention call of the teacher-forced run "
+            f"({len(attn)} calls) kernel vs plain on its inputs: max abs "
+            f"{call_err:.3g}, max {call_ulps:.3g} ulps beyond {BF16_ATOL} "
+            f"(prefill max abs "
+            f"{max(r[0] for r in held['attention']):.3g})")
+        check(call_ulps <= BF16_ULPS,
+              f"serving attention calls beyond {BF16_ULPS} bf16 ulps + "
+              f"{BF16_ATOL} ({call_ulps:.3g} ulps)")
+        check(call_err <= ATTN_TOL["bfloat16"],
+              f"serving attention calls kernel vs plain max abs {call_err}")
+        out.update(call_err=call_err, call_ulps=call_ulps)
+    if "ssd" in held:
+        ssd_err = max(held["ssd"])
+        log(f"  every SSD scan call of the teacher-forced run "
+            f"({len(held['ssd'])} calls, float32 inputs) kernel vs plain "
+            f"on its inputs: scale-free error max {ssd_err:.3g}, layer 0 "
+            f"{held['ssd'][0]:.3g}")
+        check(ssd_err <= SSD_TOL, f"serving ssd calls kernel vs plain "
+              f"scale-free error {ssd_err}")
+        out.update(ssd_call_err=ssd_err)
     drift = _drift(kern, plain)
     del kern
     controls = {}
     for bits in CONTROL_SWEEP:
-        with _PatchedAttention(_layer0_rounded(cfg.n_layers, bits)):
+        with _Patched(_layer0_rounded(cfg.n_layers, bits), spec["control"]):
             ctrl = _teacher_forced(server, toks, new, False)
         controls[bits] = _drift(ctrl, plain)
         del ctrl
-    log(f"  bf16 teacher-forced logits, kernels vs plain attention: max abs "
-        f"{drift[0]:.4g}, rms {drift[1]:.4g} (limit {BF16_LOGITS_TOL} max "
-        f"abs, control b={CONTROL_BITS} must exceed it; |logits| up to {float(plain.abs().max()):.3g}, rms "
+    tol = spec["bf16_tol"]
+    rms_tol, rms_bits = spec["bf16_rms"]
+    log(f"  bf16 teacher-forced logits, kernels vs plain: max abs "
+        f"{drift[0]:.4g}, rms {drift[1]:.4g} (limits {tol} max abs and "
+        f"{rms_tol} rms, which the controls b={CONTROL_BITS} and "
+        f"b={rms_bits} must exceed; |logits| up to "
+        f"{float(plain.abs().max()):.3g}, rms "
         f"{float(plain.float().pow(2).mean().sqrt()):.4g})")
-    log("  control, the plain model with layer 0's attention rounded to b "
-        "mantissa bits, vs plain: " + ", ".join(
+    log(f"  control, the plain model with layer 0's {spec['control'][0]} "
+        "output rounded to b mantissa bits, vs plain: " + ", ".join(
             f"b={b} max abs {e[0]:.4g} rms {e[1]:.4g}"
             for b, e in controls.items()))
-    check(drift[0] <= BF16_LOGITS_TOL,
+    check(drift[0] <= tol,
           f"bf16 serving logits kernels vs plain max abs {drift[0]}")
-    check(controls[CONTROL_BITS][0] > BF16_LOGITS_TOL,
+    check(controls[CONTROL_BITS][0] > tol,
           f"control b={CONTROL_BITS} max abs {controls[CONTROL_BITS][0]} "
-          f"within the limit {BF16_LOGITS_TOL}: it does not separate")
-    bf16_err = drift[0]
+          f"within the limit {tol}: it does not separate")
+    check(drift[1] <= rms_tol,
+          f"bf16 serving logits kernels vs plain rms {drift[1]}")
+    check(controls[rms_bits][1] > rms_tol,
+          f"control b={rms_bits} rms {controls[rms_bits][1]} within the "
+          f"limit {rms_tol}: it does not separate")
+    out.update(bf16_logits_err=drift[0], bf16_logits_rms=drift[1],
+               control_err=controls[CONTROL_BITS][0],
+               control_rms=controls[rms_bits][1])
     del plain
     cfg32 = cfg.with_(dtype="float32")
     kern = _teacher_forced(server, toks, new, True, cfg32)
     plain = _teacher_forced(server, toks, new, False, cfg32)
     per_step = (kern - plain).abs().amax(dim=(0, 2))
     err = float(per_step.max())
-    log(f"  float32 teacher-forced logits, kernels vs plain attention: max "
-        f"abs {err:.3g} (prefill {float(per_step[0]):.3g}, worst step "
+    log(f"  float32 teacher-forced logits, kernels vs plain: max abs "
+        f"{err:.3g} (prefill {float(per_step[0]):.3g}, worst step "
         f"{int(per_step.argmax())}); |logits| up to "
         f"{float(kern.abs().max()):.3g}")
     check(err <= F32_LOGITS_TOL,
           f"float32 serving logits kernels vs plain max abs {err}")
+    out.update(f32_logits_err=err)
     del kern, plain
 
     # where the time goes: device time by kernel of the prefill and of four
@@ -850,13 +1058,10 @@ def phase_serving(dev) -> dict:
         log(f"  {label}, device ms by kernel:")
         for name, t in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
             log(f"    {t:9.3f} ms  {name[:90]}")
-    del server
+    del server, cache
     torch.cuda.empty_cache()
-    return dict(launches=launches, prefill_ms=1e3 * prefill_s,
-                decode_ms_per_step=step_wall, new_tokens_per_s=new_tok_s,
-                call_err=call_err, bf16_logits_err=bf16_err,
-                control_err=controls[CONTROL_BITS][0],
-                f32_logits_err=err)
+    out.update(decode_ms_per_step=step_wall)
+    return out
 
 
 def main() -> int:
@@ -905,10 +1110,21 @@ def main() -> int:
     log("phase 6: attention kernels vs plain versions")
     kern.update(phase_attention_kernels(dev))
 
-    log(f"phase 7: serving smollm-360m, {SERVE_B} prompts x {SERVE_PROMPT} "
-        f"tokens, {SERVE_STEPS} new tokens")
-    serving = phase_serving(dev)
-    launches = {**main_path["launches"], **serving["launches"]}
+    def serve(phase: int, arch: str) -> dict:
+        log(f"phase {phase}: serving {arch}, {SERVE_B} prompts x "
+            f"{SERVE_PROMPT} tokens, {SERVE_STEPS} new tokens")
+        return phase_serving(dev, arch)
+
+    served = {"smollm_360m": serve(7, "smollm_360m")}
+    log("phase 8: SSD scan kernel vs plain versions")
+    kern.update(phase_ssd_kernel(dev))
+    served.update(mamba2_2p7b=serve(9, "mamba2_2p7b"),
+                  zamba2_2p7b=serve(10, "zamba2_2p7b"))
+    # each kernel's launches on its slice's main path: B4/B7 serving
+    # smollm-360m, B8 serving mamba2-2.7b
+    launches = {**main_path["launches"],
+                **served["smollm_360m"]["launches"],
+                **served["mamba2_2p7b"]["launches"]}
 
     log(card)
     rows = [dict(name=name, route="cuda", source=SOURCE[name],

@@ -6,9 +6,10 @@ NumPy arrays (the two packages never import each other).
 * :func:`to_numpy` — the reverse, the same field names as NumPy arrays;
 * :func:`placement_to_numpy` — a port placement as an ``[E, P]`` bool
   array the reference's host oracles (``sigma_np``) can score;
-* :func:`model_params_from_jax` — the reference's dense-model parameter
-  tree (``init_params`` output, stacked ``[L, ...]`` leaves, as NumPy) as
-  the port's :class:`~repro_torch.models.DenseLM`.
+* :func:`model_params_from_jax` — the reference's model parameter tree
+  (``init_params`` output of the dense, ssm or hybrid family, stacked
+  ``[L, ...]`` leaves, as NumPy) as the port's
+  :class:`~repro_torch.models.LM`.
 """
 from __future__ import annotations
 
@@ -21,12 +22,14 @@ import torch
 from repro_torch.core.instance import TorchInstance
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import DenseLayer, DenseLM
+from repro_torch.models.transformer import LM, DenseLayer, MambaLayer
 
 __all__ = ["from_jax_instance", "to_numpy", "placement_to_numpy",
            "model_params_from_jax"]
 
 _INT_FIELDS = ("u_service", "u_edge", "sm_service")
+#: Mamba leaves the reference keeps in float32 whatever the param dtype.
+_F32_LEAVES = ("A_log", "D_skip", "dt_bias")
 
 
 def from_jax_instance(arrays: Dict[str, np.ndarray],
@@ -65,29 +68,49 @@ def placement_to_numpy(x: Union[torch.Tensor, np.ndarray]) -> np.ndarray:
 
 
 def model_params_from_jax(cfg: ModelConfig, tree: Dict,
-                          device: Union[str, torch.device] = "cpu"
-                          ) -> DenseLM:
-    """The reference's dense parameter tree — ``{"embed": {"tok"},
-    "layers": {"ln1": {"scale"}, "attn": {"wq", …}, "ln2", "mlp": {…},
-    ["ln_pa", "ln_pf"]}, "final_norm": {"scale"}, ["head"]}`` with
-    ``[L, ...]`` layer leaves, as NumPy arrays — as a :class:`DenseLM` on
-    ``device``, in ``cfg.param_dtype``."""
+                          device: Union[str, torch.device] = "cpu") -> LM:
+    """The reference's parameter tree — ``{"embed": {"tok"}, "layers":
+    {"ln1": {"scale"}, "attn": {"wq", …}, "ln2", "mlp": {…}, ["ln_pa",
+    "ln_pf"]}}`` (dense), ``{"mamba": {"block": {"in_proj", …}, "ln":
+    {"scale"}}}`` (ssm), the same plus ``{"shared": {"ln1", "attn", "ln2",
+    "mlp"}}`` (hybrid), then ``"final_norm": {"scale"}, ["head"]`` — with
+    stacked ``[L, ...]`` leaves, as NumPy arrays, as an :class:`LM` on
+    ``device``, in ``cfg.param_dtype`` (the Mamba blocks' ``A_log``,
+    ``D_skip`` and ``dt_bias`` stay float32, as in the reference)."""
     pdt = L.torch_dtype(cfg.param_dtype)
 
-    def t(a) -> torch.Tensor:
+    def t(a, dtype=pdt) -> torch.Tensor:
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-            device=device, dtype=pdt)
+            device=device, dtype=dtype)
 
-    lt = tree["layers"]
-    layers = []
-    for i in range(cfg.n_layers):
+    def dense_layer(lt, i: int, post_norms: bool) -> DenseLayer:
         at, mt = lt["attn"], lt["mlp"]
         attn = L.Attention(*(t(at[n][i]) for n in ("wq", "wk", "wv", "wo")))
         mlp = L.MLP(*(t(mt[n][i]) for n in ("w_gate", "w_up", "w_down")))
         post = ((t(lt["ln_pa"]["scale"][i]), t(lt["ln_pf"]["scale"][i]))
-                if cfg.post_norms else (None, None))
-        layers.append(DenseLayer(t(lt["ln1"]["scale"][i]), attn,
-                                 t(lt["ln2"]["scale"][i]), mlp, *post))
+                if post_norms else (None, None))
+        return DenseLayer(t(lt["ln1"]["scale"][i]), attn,
+                          t(lt["ln2"]["scale"][i]), mlp, *post)
+
+    def mamba_layer(mt, i: int) -> MambaLayer:
+        bt = mt["block"]
+        block = L.Mamba(*(t(bt[n][i], torch.float32 if n in _F32_LEAVES
+                            else pdt)
+                          for n in ("in_proj", "conv_w", "conv_b", "A_log",
+                                    "D_skip", "dt_bias", "norm_scale",
+                                    "out_proj")))
+        return MambaLayer(t(mt["ln"]["scale"][i]), block)
+
+    parts = {}
+    if "layers" in tree:
+        parts["layers"] = [dense_layer(tree["layers"], i, cfg.post_norms)
+                           for i in range(cfg.n_layers)]
+    if "mamba" in tree:
+        parts["mamba"] = [mamba_layer(tree["mamba"], i)
+                          for i in range(cfg.n_layers)]
+    if "shared" in tree:
+        parts["shared"] = [dense_layer(tree["shared"], i, False)
+                           for i in range(cfg.n_shared_blocks)]
     head = t(tree["head"]) if "head" in tree else None
-    return DenseLM(t(tree["embed"]["tok"]), layers,
-                   t(tree["final_norm"]["scale"]), head)
+    return LM(t(tree["embed"]["tok"]), t(tree["final_norm"]["scale"]), head,
+              **parts)

@@ -210,6 +210,9 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* out,
     case 64:
       return launch<T, 64>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal,
                            window, softcap, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal,
+                           window, softcap, stream);
     case 128:
       return launch<T, 128>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal,
                             window, softcap, stream);

@@ -175,6 +175,9 @@ int launch_hd(int hd, const void* q, const void* kc, const void* vc,
     case 64:
       return launch<T, 64>(q, kc, vc, kv_len, out, B, Sc, Hkv, G, window,
                            ring, softcap, stream);
+    case 80:
+      return launch<T, 80>(q, kc, vc, kv_len, out, B, Sc, Hkv, G, window,
+                           ring, softcap, stream);
     case 128:
       return launch<T, 128>(q, kc, vc, kv_len, out, B, Sc, Hkv, G, window,
                             ring, softcap, stream);

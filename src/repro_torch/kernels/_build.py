@@ -54,6 +54,9 @@ _SIGNATURES = {
     #  ring, softcap, device, stream)
     "gqa_decode_launch": ([_VOID_P] * 5 + [_I32] * 8 + [_F32, _I32, _VOID_P],
                           _I32),
+    # (x, dtA, b, c, initial_state, y, state, B, L, H, P, N, chunk, device,
+    #  stream)
+    "ssd_scan_launch": ([_VOID_P] * 7 + [_I32] * 7 + [_VOID_P], _I32),
     "cuda_error_string": ([_I32], ctypes.c_char_p),
 }
 
@@ -114,8 +117,9 @@ def _compile(sources: list[Path], out: Path) -> str:
     the objects into a temporary library and move it into place
     atomically, so concurrent first uses never load a half-written
     library. Returns nvcc's output (ptxas register and spill report
-    included). On an H100 machine this takes 7.6–8.3 s against 16.0–16.6 s
-    for one nvcc call over all sources (``tools/kernel_build_times.py``)."""
+    included). ``tools/kernel_build_times.py`` times this against one nvcc
+    call over all sources; its readings on an H100 machine are in
+    PERF.md."""
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:

@@ -25,7 +25,7 @@ __all__ = ["HEAD_DIMS", "LAUNCHES", "decode_attention", "gqa_decode_cuda",
 #: Kernel launches since the last :func:`reset_launch_counts`.
 LAUNCHES = {"gqa_decode": 0}
 #: Head widths the kernel is compiled for.
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -1,15 +1,18 @@
-"""Dense model layers in PyTorch: the single-device subset of the JAX
-package's ``models/layers.py``.
+"""Model layers in PyTorch: the single-device subset of the JAX package's
+``models/layers.py`` (attention, MLP and the Mamba2 block).
 
 Parameters live in small :class:`torch.nn.Module` holders
-(:class:`Attention`, :class:`MLP`); the math is plain tensor functions with
-the reference's names and layouts (``[B, S, H, hd]`` activations, ``[D, H,
-hd]`` projections), so the two packages compare like with like. Prefill
-attention goes through :func:`~repro_torch.kernels.flash_attention.attention`
-(B4) and decode attention through
-:func:`~repro_torch.kernels.gqa_decode.decode_attention` (B7); their
-``use_kernel`` flag is passed through. Mesh sharding, sequence parallelism,
-MoE and Mamba are not ported yet.
+(:class:`Attention`, :class:`MLP`, :class:`Mamba`); the math is plain
+tensor functions with the reference's names and layouts (``[B, S, H, hd]``
+activations, ``[D, H, hd]`` projections), so the two packages compare like
+with like. Prefill attention goes through
+:func:`~repro_torch.kernels.flash_attention.attention` (B4), decode
+attention through :func:`~repro_torch.kernels.gqa_decode.decode_attention`
+(B7) and a Mamba prefill's SSD scan through
+:func:`~repro_torch.kernels.ssd_scan.ssd` (B8); their ``use_kernel`` flag is
+passed through. The chunked scan :func:`ssd_chunked` (B8's plain version)
+lives beside its kernel and is re-exported here. Mesh sharding, sequence
+parallelism and MoE are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,12 +26,14 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention import attention
 from repro_torch.kernels.gqa_decode import decode_attention
+from repro_torch.kernels.ssd_scan import ssd, ssd_chunked
 
 from .config import ModelConfig
 
-__all__ = ["Attention", "MLP", "apply_rope", "attention_block", "dense",
-           "init_attention", "init_mlp", "mlp_block", "rms_norm",
-           "torch_dtype"]
+__all__ = ["Attention", "MLP", "Mamba", "apply_rope", "attention_block",
+           "dense", "init_attention", "init_mamba", "init_mlp",
+           "mamba_block", "mlp_block", "rms_norm", "ssd_chunked",
+           "ssd_decode_step", "torch_dtype"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -236,3 +241,119 @@ def mlp_block(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     dt = torch_dtype(cfg.dtype)
     h = _act(cfg.act)(dense(x, p.w_gate, dt)) * dense(x, p.w_up, dt)
     return dense(h, p.w_down, dt)
+
+
+# ===========================================================================
+# Mamba2 (SSD — state-space duality, chunked)
+# ===========================================================================
+
+class Mamba(nn.Module):
+    """One Mamba2 block: ``in_proj [D, 2·din + 2N + H]``, the depthwise
+    causal conv ``conv_w [cw, din + 2N]`` and ``conv_b``, float32 ``A_log``,
+    ``D_skip`` and ``dt_bias [H]``, the gated norm's ``norm_scale [din]``
+    and ``out_proj [din, D]``."""
+
+    def __init__(self, in_proj, conv_w, conv_b, A_log, D_skip, dt_bias,
+                 norm_scale, out_proj):
+        super().__init__()
+        (self.in_proj, self.conv_w, self.conv_b, self.A_log, self.D_skip,
+         self.dt_bias, self.norm_scale, self.out_proj) = map(
+            _param, (in_proj, conv_w, conv_b, A_log, D_skip, dt_bias,
+                     norm_scale, out_proj))
+
+
+def init_mamba(cfg: ModelConfig, generator: torch.Generator,
+               dtype: torch.dtype) -> Mamba:
+    """Normal(0, 0.02) projections and conv, zero conv bias and norm scale;
+    ``A_log = log(linspace(1, 16, H))`` and ``dt_bias`` the inverse softplus
+    of ``linspace(1e-3, 0.1, H)``, as in the reference."""
+    D = cfg.d_model
+    din, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    conv_ch = din + 2 * N
+    dev = generator.device
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    return Mamba(
+        _normal((D, 2 * din + 2 * N + H), generator, dtype),
+        _normal((cfg.conv_width, conv_ch), generator, dtype),
+        torch.zeros(conv_ch, dtype=dtype, device=dev),
+        f32(np.log(np.linspace(1.0, 16.0, H).astype(np.float32))),
+        torch.ones(H, dtype=torch.float32, device=dev),
+        f32(np.log(np.expm1(np.linspace(1e-3, 0.1, H)))),
+        torch.zeros(din, dtype=dtype, device=dev),
+        _normal((din, D), generator, dtype))
+
+
+def ssd_decode_step(x: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor,
+                    C: torch.Tensor, state: torch.Tensor):
+    """One-token SSD recurrence. x ``[b, h, p]``, dtA ``[b, h]``, B/C ``[b,
+    n]``, state ``[b, h, p, n]``. Returns ``(y [b, h, p], state)``."""
+    decay = torch.exp(dtA)[..., None, None]
+    state = state * decay + torch.einsum("bn,bhp->bhpn", B, x)
+    y = torch.einsum("bn,bhpn->bhp", C, state)
+    return y, state
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``log(1 + exp(x))`` at every x (torch's
+    ``softplus`` turns into the identity above its threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def mamba_block(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
+                cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                use_kernel: Optional[bool] = None):
+    """Mamba2 block. x: ``[B, S, D]``. ``cache = (conv_state [B, cw-1,
+    ch], ssm_state [B, H, P, N] float32)`` continues a sequence; ``None``
+    starts one. ``S > 1`` (or no cache) scans the sequence through the SSD
+    dispatcher from the cache's state; ``S == 1`` with a cache is a decode
+    step. Returns ``(out [B, S, D], (new_conv, new_ssm))``; the cache
+    tensors passed in are not modified."""
+    dt_ = torch_dtype(cfg.dtype)
+    Bsz, S, _ = x.shape
+    din, N, H, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
+        cfg.ssm_head_dim
+    conv_ch = din + 2 * N
+
+    zxbcdt = dense(x, p.in_proj, dt_)
+    z, xBC, dt = torch.split(zxbcdt, [din, din + 2 * N, H], dim=-1)
+    dt = _softplus(dt.float() + p.dt_bias.float())              # [B,S,H]
+
+    cw = cfg.conv_width
+    if cache is None:
+        xpad = F.pad(xBC, (0, 0, cw - 1, 0))
+    else:
+        xpad = torch.cat([cache[0].to(dt_), xBC], dim=1)
+    new_conv = xpad[:, xpad.shape[1] - (cw - 1):] if cw > 1 else \
+        torch.zeros((Bsz, 0, conv_ch), dtype=dt_, device=x.device)
+    # the depthwise causal conv as the reference writes it: a sum of
+    # shifted slices in order (F.conv1d would run f32 through cuDNN's TF32)
+    conv = sum(xpad[:, i:i + S] * p.conv_w[i].to(dt_)[None, None]
+               for i in range(cw))
+    xBC = F.silu(conv + p.conv_b.to(dt_))
+
+    xin, Bmat, Cmat = torch.split(xBC, [din, N, N], dim=-1)
+    xin = xin.reshape(Bsz, S, H, hp)
+    A = -torch.exp(p.A_log.float())                             # [H]
+    dtA = dt * A                                                # [B,S,H]
+    Xd = xin * dt.to(dt_)[..., None]
+
+    if cache is None or S > 1:
+        init = cache[1].float() if cache is not None else None
+        Y, final_state = ssd(Xd.float(), dtA, Bmat.float(), Cmat.float(),
+                             chunk=cfg.ssm_chunk, initial_state=init,
+                             use_kernel=use_kernel)
+    else:
+        y1, final_state = ssd_decode_step(
+            Xd[:, 0].float(), dtA[:, 0], Bmat[:, 0].float(),
+            Cmat[:, 0].float(), cache[1].float())
+        Y = y1[:, None]
+
+    Y = Y.to(dt_) + xin * p.D_skip.to(dt_)[None, None, :, None]
+    Y = Y.reshape(Bsz, S, din)
+    Y = rms_norm(Y * F.silu(z), p.norm_scale, cfg.norm_eps)
+    out = dense(Y, p.out_proj, dt_)
+    return out, (new_conv.to(dt_), final_state.float())

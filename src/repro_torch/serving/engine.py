@@ -1,11 +1,14 @@
 """Serving data plane: batched prefill + decode of one resident model.
 
-A :class:`ModelServer` holds a dense model (``repro_torch.models``) at a
-fixed batch/sequence bucket and generates greedily: pad the prompts to the
-bucket's batch, prefill (flash attention, B4, once per layer), then decode
-one token per step (GQA decode, B7, once per layer per step). It measures
-wall-clock prefill and decode time, with ``torch.cuda.synchronize()``
-before each clock read on a CUDA device.
+A :class:`ModelServer` holds a model of any ported family
+(``repro_torch.models``: dense, ssm, hybrid) at a fixed batch/sequence
+bucket and generates greedily: pad the prompts to the bucket's batch,
+prefill (flash attention, B4, once per attention layer or shared-block
+application; the SSD scan, B8, once per Mamba layer), then decode one token
+per step (GQA decode, B7, once per attention application per step; Mamba
+layers step their recurrent state in plain PyTorch). It measures wall-clock
+prefill and decode time, with ``torch.cuda.synchronize()`` before each
+clock read on a CUDA device.
 """
 from __future__ import annotations
 
@@ -52,7 +55,7 @@ class ModelServer:
     kernels on CUDA, the plain versions on the CPU.
     """
 
-    def __init__(self, cfg: ModelConfig, params: Optional[T.DenseLM] = None,
+    def __init__(self, cfg: ModelConfig, params: Optional[T.LM] = None,
                  *, bucket_batch: int = 4, bucket_seq: int = 64,
                  seed: int = 0,
                  device: Union[str, torch.device, None] = None):
@@ -80,14 +83,15 @@ class ModelServer:
         Returns ``(new_tokens [b, n_steps], prefill_seconds,
         decode_seconds)``. Greedy: the first maximum of the logits over the
         real vocabulary. Raises :class:`ValueError` when the prompt and the
-        new tokens do not fit a non-ring cache of ``bucket_seq`` slots."""
+        new tokens do not fit a non-ring KV cache of ``bucket_seq`` slots;
+        an ssm model keeps no KV cache and serves past ``bucket_seq``."""
         b, s = prompts.shape
         bb = self.bucket_batch
         if b > bb:
             raise ValueError(f"{b} prompts exceed the batch bucket {bb}")
         cache, ring = T.init_cache(self.cfg, bb, self.bucket_seq,
                                    self.device)
-        if not ring and s + n_steps > self.bucket_seq:
+        if cache.has_kv and not ring and s + n_steps > self.bucket_seq:
             raise ValueError(
                 f"{s} prompt tokens + {n_steps} new tokens overrun the "
                 f"{self.bucket_seq}-slot KV cache (bucket_seq)")

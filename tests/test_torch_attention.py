@@ -208,6 +208,7 @@ def test_decode_dispatcher_device_rules():
     (2, 300, 300, 15, 5, 64, True, 0, 0.0),
     (1, 200, 333, 8, 2, 128, False, 100, 50.0),
     (1, 1, 65, 2, 1, 32, True, 0, 0.0),
+    (1, 300, 300, 32, 32, 80, True, 0, 0.0),   # zamba2's shared blocks
 ], ids=str)
 def test_flash_kernel_matches_plain(cuda, dtype, case):
     B, Sq, Skv, Hq, Hkv, hd, causal, window, softcap = case
@@ -234,6 +235,7 @@ def test_flash_kernel_matches_plain(cuda, dtype, case):
     (8, 15, 5, 64, 2048, (1, 7, 64, 129, 1000, 1024, 2047, 2048), 0,
      False, 0.0),
     (2, 32, 16, 128, 300, (300, 170), 64, False, 50.0),
+    (2, 32, 32, 80, 2048, (1040, 7), 0, False, 0.0),   # zamba2, G = 1
 ], ids=str)
 def test_decode_kernel_matches_plain(cuda, dtype, case):
     B, Hq, Hkv, hd, Sc, kv_len, window, ring, softcap = case
