@@ -48,7 +48,24 @@ Phases, each of which must pass (any failure exits nonzero, no result):
 10. serving zamba2-2.7b at its published widths and full depth (54 Mamba2
    layers, N=64, two shared attention blocks applied 9 times at hd=80) the
    same way, with B8 54, B4 9 and B7 9 x 32 launches per generate and
-   every B4/B7/B8 call held against its plain version.
+   every B4/B7/B8 call held against its plain version;
+11. the flash-attention backward kernels (B5 dQ, B6 dK/dV) against their
+   plain version in float32 and bfloat16 at the training shape, at hd=80
+   with G=1, with a sliding window, at a ragged length and non-causal,
+   and in float32 also against torch's autograd through the plain
+   attention, with their times, bounds, the plain version's time and the
+   backward of torch's scaled_dot_product_attention;
+12. training smollm-360m at full width and depth (32 layers, random
+   weights from a seed) through run_training: 6 AdamW steps on
+   TokenPipeline batches of 8 x 1,024 tokens, bf16 compute, f32 master
+   weights and Adam state, remat: finite and falling loss, launch counts
+   (B4 64, B5 32, B6 32, B7 and B8 0 per step), no parameter without a
+   gradient, every B5/B6 call of a step within 2 bf16 ulps of its plain
+   version, float32 gradients of a 2 x 512-token step within 1e-4 of the
+   plain versions' (a control with layer 0's dQ at 6 mantissa bits must
+   exceed that), and at 4 layers 4 straight steps bitwise equal to 2
+   steps + checkpoint save + restore + 2 steps; step time, tokens/s, peak
+   memory and the device time of one step by kernel.
 
 It prints a JSON line of per-kernel numbers and, last, the device line
 ``{"ok": true, "device": {...}}``. It needs the repository around it and
@@ -56,10 +73,13 @@ exits nonzero where torch sees no CUDA device.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -119,6 +139,22 @@ SERVED = {
 }
 #: The model-layer dispatchers that launch a kernel on the serving path.
 KERNEL_DISPATCHERS = ("attention", "decode_attention", "ssd")
+#: Training path: steps of the full-size run, batch, sequence length and
+#: peak learning rate (3e-4: GPT-3's for its 350M model, Brown et al. 2020,
+#: Table 2.1; run_training's default 1e-3 made the full model's loss spike
+#: within 6 steps on an H100); the float32 gradient check's batch and
+#: length; the resume check's depth.
+TRAIN_STEPS, TRAIN_B, TRAIN_S, TRAIN_LR = 6, 8, 1024, 3e-4
+GRAD_B, GRAD_S, RESUME_LAYERS = 2, 512, 4
+#: float32 gradients, kernels vs plain, each leaf's max abs difference over
+#: its largest |value| (the port's float32 gradient tolerance against the
+#: JAX package, tests/test_torch_training.py); the control rounds layer
+#: 0's dQ to GRAD_CONTROL_BITS mantissa bits and must exceed it.
+GRAD_TOL, GRAD_CONTROL_BITS = 1e-4, 6
+#: B5/B6 in float32 against the plain version: max abs difference over the
+#: plain output's largest |value|, or over 1 where that is smaller (the
+#: reference's absolute 3e-4, tests/test_kernels.py).
+BWD_TOL = 3e-4
 SOURCE = {
     "qos_matrix": "src/repro_torch/csrc/qos_kernels.cu",
     "qos_candidates": "src/repro_torch/csrc/qos_kernels.cu",
@@ -126,6 +162,8 @@ SOURCE = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "gqa_decode": "src/repro_torch/csrc/gqa_decode.cu",
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
+    "flash_attention_dq": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_dkv": "src/repro_torch/csrc/flash_attention_bwd.cu",
 }
 REPLACES = {
     "qos_matrix": "src/repro/kernels/qos_matrix/qos_matrix.py:120",
@@ -135,6 +173,10 @@ REPLACES = {
         "src/repro/kernels/flash_attention/flash_attention.py:119",
     "gqa_decode": "src/repro/kernels/gqa_decode/gqa_decode.py:100",
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:86",
+    "flash_attention_dq":
+        "src/repro/kernels/flash_attention/backward.py:145",
+    "flash_attention_dkv":
+        "src/repro/kernels/flash_attention/backward.py:164",
 }
 
 
@@ -926,6 +968,7 @@ def phase_serving(dev, arch: str) -> dict:
     launches = {**fa.LAUNCHES, **gd.LAUNCHES, **ss.LAUNCHES}
     calls = _kernel_calls(cfg, SERVE_STEPS)
     expect = {"flash_attention": calls["attention"],
+              "flash_attention_dq": 0, "flash_attention_dkv": 0,
               "gqa_decode": calls["decode_attention"],
               "ssd_scan": calls["ssd"]}
     log(f"  generate launches: {launches} (expected {expect}); peak device "
@@ -1064,12 +1107,406 @@ def phase_serving(dev, arch: str) -> dict:
     return out
 
 
+# ===========================================================================
+# phase 11: the flash-attention backward kernels vs their plain version
+# ===========================================================================
+
+def _bwd_err(out, ref) -> float:
+    """Max abs difference over the plain output's largest |value|, or over
+    1 where that is smaller."""
+    return float((out.float() - ref.float()).abs().max()
+                 / ref.float().abs().max().clamp_min(1.0))
+
+
+def _bwd_work(B, Sq, Skv, Hq, Hkv, hd, causal, window, nbytes: int
+              ) -> dict:
+    """``{kernel: (bytes, operations)}`` of B5 and B6: each input read
+    once, each output written once; 2·hd operations per visible (query,
+    key) pair and product, three products for dQ (S, dP, dS·k), four for
+    dK/dV (S, dP, Pᵀ·dO, dSᵀ·q)."""
+    pairs = B * Hq * _visible_pairs(Sq, Skv, causal, window)
+    q_side, kv_side, rows = B * Sq * Hq * hd, B * Skv * Hkv * hd, B * Hq * Sq
+    return {"flash_attention_dq": (nbytes * (3 * q_side + 2 * kv_side)
+                                   + 8 * rows, 6 * hd * pairs),
+            "flash_attention_dkv": (nbytes * (2 * q_side + 4 * kv_side)
+                                    + 8 * rows, 8 * hd * pairs)}
+
+
+def phase_backward_kernels(dev) -> dict:
+    """B5 and B6 against flash_attention_bwd_ref (and, in float32, torch's
+    autograd through attention_ref); numbers at the training shape
+    (bfloat16)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    # (label, B, Sq, Skv, Hq, Hkv, hd, causal, window)
+    main = ("training", TRAIN_B, TRAIN_S, TRAIN_S, 15, 5, 64, True, 0)
+    cases = [main,
+             ("hd = 80, G = 1", 2, 512, 512, 8, 8, 80, True, 0),
+             ("window 256, hd = 128", 2, 1000, 1000, 6, 2, 128, True, 256),
+             ("ragged Sq = 1000", 2, 1000, 1000, 15, 5, 64, True, 0),
+             ("non-causal, Sq != Skv", 2, 300, 333, 6, 2, 32, False, 0)]
+    err = {"flash_attention_dq": 0.0, "flash_attention_dkv": 0.0}
+    for dtype in ("float32", "bfloat16"):
+        for label, B, Sq, Skv, Hq, Hkv, hd, causal, window in cases:
+            dt = getattr(torch, dtype)
+            q = _randn((B, Sq, Hq, hd), dt, gen)
+            k = _randn((B, Skv, Hkv, hd), dt, gen)
+            v = _randn((B, Skv, Hkv, hd), dt, gen)
+            do = _randn((B, Sq, Hq, hd), dt, gen)
+            kw = dict(causal=causal, window=window)
+            o, lse = fa.flash_attention_cuda(q, k, v, **kw)
+            got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+            ref = fa.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+            refs = {"plain": ref}
+            if dtype == "float32":
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                out = fa.attention_ref(*leaves, **kw)
+                refs["autograd"] = torch.autograd.grad(out, leaves, do)
+                del leaves, out
+            torch.cuda.synchronize()
+            parts = []
+            for name, r in refs.items():
+                errs = [_bwd_err(a, b) for a, b in zip(got, r)]
+                parts.append(f"vs {name}: " + ", ".join(
+                    f"{n} {e:.3g}{_held_in_ulps(a, b, f'{label} {n}')}"
+                    for n, e, a, b in zip(("dq", "dk", "dv"), errs, got, r)))
+                if dtype == "float32":
+                    check(max(errs) <= BWD_TOL,
+                          f"backward {label} vs {name} err {errs}")
+                err["flash_attention_dq"] = max(
+                    err["flash_attention_dq"],
+                    float((got[0].float() - r[0].float()).abs().max()))
+                err["flash_attention_dkv"] = max(
+                    err["flash_attention_dkv"], *(
+                        float((a.float() - b.float()).abs().max())
+                        for a, b in zip(got[1:], r[1:])))
+            check(all(bool(torch.isfinite(t).all()) for t in got),
+                  f"backward {label} {dtype} finite")
+            log(f"  backward {label} {dtype} [{B},{Sq},{Skv},{Hq}/{Hkv},"
+                f"{hd}] causal={causal} window={window}: " + "; ".join(parts))
+            del q, k, v, do, o, lse, got, ref, refs
+    _, B, Sq, Skv, Hq, Hkv, hd, causal, window = main
+    dt = torch.bfloat16
+    q = _randn((B, Sq, Hq, hd), dt, gen)
+    k = _randn((B, Skv, Hkv, hd), dt, gen)
+    v = _randn((B, Skv, Hkv, hd), dt, gen)
+    do = _randn((B, Sq, Hq, hd), dt, gen)
+    o, lse = fa.flash_attention_cuda(q, k, v)
+    dsum = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    ms = {"flash_attention_dq": time_ms(
+              lambda: fa.flash_attention_dq_cuda(q, k, v, do, lse, dsum)),
+          "flash_attention_dkv": time_ms(
+              lambda: fa.flash_attention_dkv_cuda(q, k, v, do, lse, dsum))}
+    plain = time_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, do, lse))
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True)
+    dos = do.transpose(1, 2)
+    lib = time_ms(lambda: torch.autograd.grad(sdpa, (qs, ks, vs), dos,
+                                              retain_graph=True))
+    out = {}
+    for name, (n_bytes, n_ops) in _bwd_work(B, Sq, Skv, Hq, Hkv, hd, causal,
+                                            window, 2).items():
+        b, by = bound_ms(n_bytes, n_ops, BF16_OPS_S)
+        out[name] = dict(shape=[B, Sq, Hq, Hkv, hd], max_abs_err=err[name],
+                         ms=ms[name], plain_ms=plain, bound_ms=b,
+                         bound_by=by, library_ms=lib,
+                         note="plain_ms and library_ms time dQ, dK and dV "
+                              "together (flash_attention_bwd_ref; the "
+                              "backward of scaled_dot_product_attention)")
+        log(f"  {name} {out[name]['shape']} bf16: kernel {ms[name]:.4f} ms,"
+            f" bound {b:.4f} ms ({by}, {n_ops / 1e9:.2f} GFLOP); plain "
+            f"backward {plain:.4f} ms, sdpa backward {lib:.4f} ms (both "
+            "for dQ, dK and dV)")
+    del q, k, v, do, o, lse, dsum, qs, ks, vs, sdpa
+    torch.cuda.empty_cache()
+    return out
+
+
+# ===========================================================================
+# phase 12: training smollm-360m at full width
+# ===========================================================================
+
+@contextlib.contextmanager
+def _patched_backward(wrap):
+    """Within the block, the backward dispatcher the autograd Function
+    calls (``flash_attention.ops.flash_attention_bwd``) is ``wrap(fn)``."""
+    from repro_torch.kernels.flash_attention import ops
+
+    saved = ops.flash_attention_bwd
+    ops.flash_attention_bwd = wrap(saved)
+    try:
+        yield
+    finally:
+        ops.flash_attention_bwd = saved
+
+
+def _bwd_held(readings: list):
+    """Run B5/B6 and, on the same inputs, the plain version; append the
+    largest ``bf16_ulp_err`` reading of dq, dk, dv; go on with the
+    kernels' gradients."""
+    def wrap(fn):
+        def call(*args, use_kernel=None, **kw):
+            out = fn(*args, use_kernel=True, **kw)
+            ref = fn(*args, use_kernel=False, **kw)
+            errs = [bf16_ulp_err(a, b) for a, b in zip(out, ref)]
+            readings.append((max(e[0] for e in errs),
+                             max(e[1] for e in errs)))
+            return out
+        return call
+    return wrap
+
+
+def _dq_rounded(n_layers: int, bits: int):
+    """The backward as asked, with layer 0's dQ (the last of each step's
+    ``n_layers`` calls: the backward runs from the last layer) rounded to
+    ``bits`` mantissa bits: the control of the gradient check."""
+    calls = [0]
+
+    def wrap(fn):
+        def call(*args, **kw):
+            dq, dk, dv = fn(*args, **kw)
+            calls[0] += 1
+            if calls[0] % n_layers == 0:
+                dq = _round_mantissa(dq, bits)
+            return dq, dk, dv
+        return call
+    return wrap
+
+
+def _grads_of(model, cfg, batch, use_kernel) -> dict:
+    """``{name: gradient}`` of the loss (a copy), and the loss."""
+    from repro_torch.models import transformer as T
+
+    for p in model.parameters():
+        p.grad = None
+    loss = T.loss_fn(model, cfg, batch, use_kernel)
+    loss.backward()
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _leaf_err(a: dict, b: dict) -> tuple[float, str]:
+    """The worst leaf's max abs difference over its largest |value|."""
+    errs = {n: float((a[n] - b[n]).abs().max()
+                     / b[n].abs().max().clamp_min(1e-30)) for n in b}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def _train_batch(pipe, step: int, dev) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in pipe.batch_at(step).items()}
+
+
+def _resume_check(dev) -> dict:
+    """At full width and RESUME_LAYERS layers, with deterministic
+    algorithms: 4 straight steps against 2 steps, a CheckpointManager save,
+    a restore into a differently seeded state, and 2 more steps."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step)
+
+    cfg = get_config("smollm_360m").with_(n_layers=RESUME_LAYERS, remat=True)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    pipe = TokenPipeline(cfg, global_batch=TRAIN_B, seq_len=TRAIN_S,
+                         seed=SEED)
+    step_fn = make_train_step(cfg, opt)
+
+    def fresh(seed):
+        return init_train_state(cfg, opt, torch.Generator(device=dev)
+                                .manual_seed(seed))
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight = fresh(SEED)
+        for s in range(4):
+            straight, _ = step_fn(straight, _train_batch(pipe, s, dev))
+        state = fresh(SEED)
+        for s in range(2):
+            state, _ = step_fn(state, _train_batch(pipe, s, dev))
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            mgr = CheckpointManager(d, keep=3, every=2)
+            t0 = time.perf_counter()
+            check(mgr.maybe_save(2, state), "checkpoint at step 2")
+            copy_s = time.perf_counter() - t0
+            mgr.wait()
+            save_s = time.perf_counter() - t0
+            del state
+            start, state = mgr.restore_latest(fresh(SEED + 1))
+        check(start == 2, f"resumed from step {start}")
+        for s in range(2, 4):
+            state, _ = step_fn(state, _train_batch(pipe, s, dev))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a = dict(straight.params.named_parameters())
+    b = dict(state.params.named_parameters())
+    differ = [f"param {n}" for n in a if not torch.equal(a[n], b[n])]
+    for which in ("m", "v"):
+        ta, tb = getattr(straight.opt, which), getattr(state.opt, which)
+        differ += [f"{which} {n}" for n in ta if not torch.equal(ta[n],
+                                                                tb[n])]
+    check(int(straight.opt.step) == int(state.opt.step) == 4, "Adam step")
+    check(not differ, f"resume not bitwise: {differ[:5]}")
+    log(f"  resume at {RESUME_LAYERS} layers: 4 straight steps bitwise "
+        f"equal to 2 + save + restore + 2 on all {len(a)} parameters and "
+        f"their Adam moments (host copy {copy_s:.2f} s, save "
+        f"{save_s:.2f} s)")
+    return dict(resume_leaves=3 * len(a) + 1)
+
+
+def phase_training(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import transformer as T
+    from repro_torch.training import AdamWConfig, make_train_step
+
+    cfg = get_config("smollm_360m").with_(remat=True)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    for mod in (fa, gd, ss):
+        mod.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    run = run_training(arch="smollm_360m", preset="full", steps=TRAIN_STEPS,
+                       global_batch=TRAIN_B, seq_len=TRAIN_S, seed=SEED,
+                       lr=TRAIN_LR, verbose=False, device=dev)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches = {**fa.LAUNCHES, **gd.LAUNCHES, **ss.LAUNCHES}
+    per_step = {"flash_attention": 2 * cfg.n_layers,     # forward + remat
+                "flash_attention_dq": cfg.n_layers,
+                "flash_attention_dkv": cfg.n_layers,
+                "gqa_decode": 0, "ssd_scan": 0}
+    expect = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    log(f"  run_training launches over {TRAIN_STEPS} steps: {launches} "
+        f"(expected {expect})")
+    check(launches == expect, f"training launches {launches} != {expect}")
+    losses = run["losses"]
+    check(len(losses) == TRAIN_STEPS and bool(np.isfinite(losses).all()),
+          f"training losses finite: {losses}")
+    log("  losses " + ", ".join(f"{x:.4f}" for x in losses))
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    model = run["state"].params
+    n_params = sum(p.numel() for p in model.parameters())
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(p.grad.any())]
+    check(not bad, f"parameters without a gradient: {bad[:5]}")
+    step_ms = 1e3 * statistics.median(run["step_s"][1:])
+    tok_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{n_params} parameters, remat, lr {TRAIN_LR}")
+    log(f"  step ms {', '.join(f'{1e3 * s:.1f}' for s in run['step_s'])} "
+        f"(first is warm-up); median {step_ms:.2f} ms, {tok_s:.0f} "
+        f"tokens/s; peak device memory {peak_gb:.2f} GB; run_training "
+        f"{total_s:.1f} s with init; every parameter has a nonzero "
+        "gradient")
+
+    # every B5/B6 call of one step held against the plain version
+    pipe = TokenPipeline(cfg, global_batch=TRAIN_B, seq_len=TRAIN_S,
+                         seed=SEED)
+    batch = _train_batch(pipe, TRAIN_STEPS, dev)
+    held = []
+    with _patched_backward(_bwd_held(held)):
+        _grads_of(model, cfg, batch, None)
+    check(len(held) == cfg.n_layers, f"held {len(held)} backward calls")
+    call_err, call_ulps = max(h[0] for h in held), max(h[1] for h in held)
+    log(f"  bf16, every B5/B6 call of one step ({len(held)} calls) vs the "
+        f"plain version on its inputs: max abs {call_err:.3g}, max "
+        f"{call_ulps:.3g} ulps beyond {BF16_ATOL}")
+    check(call_ulps <= BF16_ULPS, f"training backward calls beyond "
+          f"{BF16_ULPS} bf16 ulps + {BF16_ATOL} ({call_ulps:.3g})")
+
+    # where one step's device time goes
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=10)
+    step_fn = make_train_step(cfg, opt)
+    state = run["state"]
+    batch = _train_batch(pipe, TRAIN_STEPS + 1, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    by_kernel = device_ms_by_kernel(lambda: step_fn(state, batch))
+    prof_wall = 1e3 * (time.perf_counter() - t0)
+    busy = sum(by_kernel.values())
+    ours = {name: sum(t for k, t in by_kernel.items() if kern in k)
+            for name, kern in (("B4", "flash_attention_fwd_kernel"),
+                               ("B5", "flash_attention_dq_kernel"),
+                               ("B6", "flash_attention_dkv_kernel"))}
+    log(f"  one step under the profiler: device busy {busy:.2f} ms, "
+        f"{100 * busy / step_ms:.1f} % of the median step {step_ms:.2f} ms "
+        f"(the profiled step took {prof_wall:.0f} ms with the profiler's "
+        "own cost); "
+        + ", ".join(f"{k} {t:.2f} ms ({100 * t / busy:.1f} %)"
+                    for k, t in ours.items()))
+    gemm = sum(t for k, t in by_kernel.items()
+               if any(g in k.lower() for g in ("nvjet", "gemm", "xmma",
+                                               "cutlass")))
+    log(f"  of the device time: B4-B6 {sum(ours.values()):.2f} ms, GEMMs "
+        f"{gemm:.2f} ms, everything else (elementwise, casts, reductions, "
+        f"the optimizer) {busy - sum(ours.values()) - gemm:.2f} ms, over "
+        f"{len(by_kernel)} kernel names")
+    for name, t in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"    {t:9.3f} ms  {name[:90]}")
+    del run, state, model, batch
+    torch.cuda.empty_cache()
+
+    # float32 gradients: kernels vs plain, and the control
+    cfg32 = cfg.with_(dtype="float32")
+    model = T.init_params(cfg32, torch.Generator(device=dev)
+                          .manual_seed(SEED))
+    batch = _train_batch(TokenPipeline(cfg32, global_batch=GRAD_B,
+                                       seq_len=GRAD_S, seed=SEED), 0, dev)
+    g_kern = _grads_of(model, cfg32, batch, None)
+    g_plain = _grads_of(model, cfg32, batch, False)
+    err, worst = _leaf_err(g_kern, g_plain)
+    del g_kern
+    with _patched_backward(_dq_rounded(cfg.n_layers, GRAD_CONTROL_BITS)):
+        g_ctrl = _grads_of(model, cfg32, batch, False)
+    ctrl, ctrl_worst = _leaf_err(g_ctrl, g_plain)
+    log(f"  float32 gradients of a {GRAD_B}x{GRAD_S}-token step, kernels "
+        f"vs plain: worst leaf {err:.3g} of its largest value ({worst}); "
+        f"control (layer 0's dQ at {GRAD_CONTROL_BITS} mantissa bits) "
+        f"{ctrl:.3g} ({ctrl_worst}); limit {GRAD_TOL}")
+    check(err <= GRAD_TOL, f"float32 gradients kernels vs plain {err}")
+    check(ctrl > GRAD_TOL, f"gradient control {ctrl} within {GRAD_TOL}")
+    del model, g_plain, g_ctrl, batch
+    torch.cuda.empty_cache()
+
+    out = dict(step_ms=step_ms, tokens_per_s=tok_s, peak_gb=peak_gb,
+               busy_share=busy / step_ms, launches=launches,
+               call_ulps=call_ulps, grad_err=err, grad_control=ctrl,
+               losses=losses)
+    out.update(_resume_check(dev))
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    # cuBLAS reads this when its first handle is made: deterministic
+    # products for the bitwise resume check of phase 12
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.core import max_impls_of, synthetic_instance
     from repro_torch.kernels._build import load_library
 
@@ -1120,11 +1557,18 @@ def main() -> int:
     kern.update(phase_ssd_kernel(dev))
     served.update(mamba2_2p7b=serve(9, "mamba2_2p7b"),
                   zamba2_2p7b=serve(10, "zamba2_2p7b"))
+    log("phase 11: flash-attention backward kernels vs plain versions")
+    kern.update(phase_backward_kernels(dev))
+    log(f"phase 12: training smollm_360m, {TRAIN_STEPS} steps of "
+        f"{TRAIN_B} x {TRAIN_S} tokens")
+    trained = phase_training(dev)
     # each kernel's launches on its slice's main path: B4/B7 serving
-    # smollm-360m, B8 serving mamba2-2.7b
+    # smollm-360m, B8 serving mamba2-2.7b, B5/B6 training smollm-360m
     launches = {**main_path["launches"],
                 **served["smollm_360m"]["launches"],
-                **served["mamba2_2p7b"]["launches"]}
+                **served["mamba2_2p7b"]["launches"],
+                **{k: trained["launches"][k]
+                   for k in ("flash_attention_dq", "flash_attention_dkv")}}
 
     log(card)
     rows = [dict(name=name, route="cuda", source=SOURCE[name],
@@ -1132,7 +1576,8 @@ def main() -> int:
                  max_abs_err=r["max_abs_err"], ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                  bound_by=r["bound_by"], library_ms=r["library_ms"],
-                 shape=r["shape"])
+                 shape=r["shape"], **({"note": r["note"]} if "note" in r
+                                      else {}))
             for name, r in kern.items()]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

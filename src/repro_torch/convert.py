@@ -9,7 +9,10 @@ NumPy arrays (the two packages never import each other).
 * :func:`model_params_from_jax` — the reference's model parameter tree
   (``init_params`` output of the dense, ssm or hybrid family, stacked
   ``[L, ...]`` leaves, as NumPy) as the port's
-  :class:`~repro_torch.models.LM`.
+  :class:`~repro_torch.models.LM` (any tree shaped like it, such as its
+  gradients, converts the same way);
+* :func:`train_state_from_jax` — a reference ``TrainState`` (params, AdamW
+  step, m, v) as the port's :class:`~repro_torch.training.TrainState`.
 """
 from __future__ import annotations
 
@@ -23,9 +26,10 @@ from repro_torch.core.instance import TorchInstance
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import LM, DenseLayer, MambaLayer
+from repro_torch.training import AdamWState, TrainState, param_tree
 
 __all__ = ["from_jax_instance", "to_numpy", "placement_to_numpy",
-           "model_params_from_jax"]
+           "model_params_from_jax", "train_state_from_jax"]
 
 _INT_FIELDS = ("u_service", "u_edge", "sm_service")
 #: Mamba leaves the reference keeps in float32 whatever the param dtype.
@@ -114,3 +118,25 @@ def model_params_from_jax(cfg: ModelConfig, tree: Dict,
     head = t(tree["head"]) if "head" in tree else None
     return LM(t(tree["embed"]["tok"]), t(tree["final_norm"]["scale"]), head,
               **parts)
+
+
+def train_state_from_jax(cfg: ModelConfig, state,
+                         device: Union[str, torch.device] = "cpu"
+                         ) -> TrainState:
+    """A reference ``TrainState(params, AdamWState(step, m, v))`` (leaves
+    as arrays) as the port's :class:`TrainState` on ``device``: the
+    parameters through :func:`model_params_from_jax`, the moments as
+    ``{name: tensor}`` in their own dtype, the step as an int32 scalar."""
+    model = model_params_from_jax(cfg, state.params, device)
+
+    def moments(tree) -> Dict[str, torch.Tensor]:
+        dt = np.asarray(tree["embed"]["tok"]).dtype
+        sdt = torch.bfloat16 if dt.name == "bfloat16" else torch.float32
+        return {n: p.detach().to(sdt) for n, p in param_tree(
+            model_params_from_jax(cfg.with_(param_dtype="float32"), tree,
+                                  device)).items()}
+
+    step = torch.tensor(int(np.asarray(state.opt.step)), dtype=torch.int32,
+                        device=device)
+    return TrainState(model, AdamWState(step, moments(state.opt.m),
+                                        moments(state.opt.v)))

@@ -1,0 +1,447 @@
+// B5 and B6: the flash-attention backward, hand-written for Hopper (sm_90a).
+//
+// Replaces flash_attention_bwd of the JAX reference
+// (src/repro/kernels/flash_attention/backward.py): _dq_kernel (B5) and
+// _dkv_kernel (B6), the FlashAttention-2 split. From the forward's saved
+// float32 logsumexp lse [B, Hq, Sq] and D = rowsum(dO * O) [B, Hq, Sq]
+// (computed in PyTorch before the launch, as the reference computes it in
+// jnp), for q, dO [B, Sq, Hq, hd] and k, v [B, Skv, Hkv, hd]:
+//
+//   P  = exp(scale * q k^T - lse)   only where the mask lets a key be seen
+//   dV = P^T dO,  dS = P * (dO v^T - D),  dQ = scale * dS k,
+//   dK = scale * dS^T q,  the G = Hq / Hkv query heads of a group summed
+//   into their KV head.
+//
+// Visible means kpos < Skv, kpos <= qpos when causal and kpos > qpos -
+// window when a window is set (positions from 0). The mask is applied to P
+// itself: a query row that sees no key has a finite lse (kSafe +
+// log(1e-30)) from the forward, so exp() would not underflow there.
+//
+// What bounds it: at the training shape (Sq = Skv = 1024, hd = 64) B5 does
+// three and B6 four products per visible (query, key) pair, about 100
+// operations per byte they must move, so tensor cores would be the limit.
+// This first version runs the products on the CUDA cores in float32, as B4
+// does, so its floating-point rate bounds it.
+//
+// Design. B5: one block of 256 threads per (64-query tile, query head, batch
+// row) walks the 64-key tiles its masks leave visible, holding its dQ tile
+// in registers. B6: one block per (64-key tile, KV head, batch row) loops
+// over the G query heads of the group and the visible 64-query tiles and
+// holds dK and dV in registers; each block writes its own rows once, so
+// there are no atomics and the result does not depend on scheduling. Tiles
+// are staged in shared memory as float32, rows padded to hd + 1 floats so
+// the row-parallel reads hit distinct banks. Thread (ty, tx) of the 16 x 16
+// layout owns rows 4ty..4ty+3 of the output tile and columns tx + 16c; it
+// computes the 4 x 4 scores of its rows against columns tx + 16j and hands
+// P and dS to the products through shared memory rows that only its 16
+// lanes write and read.
+//
+// Interface: plain C entry points loaded with ctypes. They launch on the
+// stream they are given, do not synchronise, allocate nothing and return
+// cudaGetLastError() (0 on success).
+
+#include "attention_common.cuh"
+
+namespace {
+
+constexpr int kBlockQ = 64;
+constexpr int kBlockKV = 64;
+constexpr int kThreads = 256;
+constexpr int kPLD = 65;  // padded row of a [64, 64] score tile
+
+template <int HD>
+constexpr size_t dq_shared_bytes() {
+  // q, dO, k, v tiles padded to hd + 1; dS
+  return sizeof(float) * (4 * 64 * (HD + 1) + kBlockQ * kPLD);
+}
+
+template <int HD>
+constexpr size_t dkv_shared_bytes() {
+  // k, v, q, dO tiles padded to hd + 1; P and dS; lse and D of the q tile
+  return sizeof(float) * (4 * 64 * (HD + 1) + 2 * kBlockKV * kPLD +
+                          2 * kBlockQ);
+}
+
+__device__ __forceinline__ bool visible(int qpos, int kpos, int Sq, int Skv,
+                                        int causal, int window) {
+  bool ok = qpos < Sq && kpos < Skv;
+  if (causal) ok = ok && kpos <= qpos;
+  if (window > 0) ok = ok && kpos > qpos - window;
+  return ok;
+}
+
+// ---------------------------------------------------------------------------
+// B5: dQ
+// ---------------------------------------------------------------------------
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_dq_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const T* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ dsum,
+                              T* __restrict__ dq, int Sq, int Skv, int Hq,
+                              int Hkv, int causal, int window, float scale) {
+  static_assert(HD % 16 == 0, "hd must be a multiple of 16");
+  constexpr int LD = HD + 1;
+  constexpr int OC = HD / 16;  // output columns per thread
+  extern __shared__ float smem[];
+  float* sq = smem;                  // [kBlockQ][LD]
+  float* sdo = sq + kBlockQ * LD;    // [kBlockQ][LD]
+  float* sk = sdo + kBlockQ * LD;    // [kBlockKV][LD]
+  float* sv = sk + kBlockKV * LD;    // [kBlockKV][LD]
+  float* sds = sv + kBlockKV * LD;   // [kBlockQ][kPLD]
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int q0 = blockIdx.x * kBlockQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (Hq / Hkv);
+
+  const int64_t qoff = ((static_cast<int64_t>(b) * Sq + q0) * Hq + h) * HD;
+  attn::load_tiles<T, HD, kBlockQ, kThreads>(
+      sq, LD, q + qoff, sdo, LD, dout + qoff, static_cast<int64_t>(Hq) * HD,
+      min(kBlockQ, Sq - q0));
+
+  const int64_t row0 = (static_cast<int64_t>(b) * Hq + h) * Sq;
+  float rl[4], rd[4], acc[4][OC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty * 4 + i;
+    rl[i] = qi < Sq ? lse[row0 + qi] : 0.f;
+    rd[i] = qi < Sq ? dsum[row0 + qi] : 0.f;
+#pragma unroll
+    for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
+  }
+
+  // The key tiles this query tile sees: up to its last row when causal,
+  // from its first row's window start when windowed.
+  const int kv_end = causal ? min(Skv, q0 + kBlockQ) : Skv;
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int j_end = (kv_end + kBlockKV - 1) / kBlockKV;
+  const int64_t kv_stride = static_cast<int64_t>(Hkv) * HD;
+
+  for (int j = kv_begin / kBlockKV; j < j_end; ++j) {
+    const int k0 = j * kBlockKV;
+    __syncthreads();  // the previous tile's k/v and dS reads are done
+    const int64_t off =
+        ((static_cast<int64_t>(b) * Skv + k0) * Hkv + kvh) * HD;
+    attn::load_tiles<T, HD, kBlockKV, kThreads>(
+        sk, LD, k + off, sv, LD, v + off, kv_stride, min(kBlockKV, Skv - k0));
+    __syncthreads();
+
+    // S = q k^T and dP = dO v^T for rows 4ty.., keys tx + 16jj
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) s[i][jj] = dp[i][jj] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; ++d) {
+      float qa[4], oa[4], ka[4], va[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qa[i] = sq[(ty * 4 + i) * LD + d];
+        oa[i] = sdo[(ty * 4 + i) * LD + d];
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        ka[jj] = sk[(tx + 16 * jj) * LD + d];
+        va[jj] = sv[(tx + 16 * jj) * LD + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          s[i][jj] = fmaf(qa[i], ka[jj], s[i][jj]);
+          dp[i][jj] = fmaf(oa[i], va[jj], dp[i][jj]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + ty * 4 + i;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int kpos = k0 + tx + 16 * jj;
+        const float p = visible(qpos, kpos, Sq, Skv, causal, window)
+                            ? expf(s[i][jj] * scale - rl[i])
+                            : 0.f;
+        sds[(ty * 4 + i) * kPLD + tx + 16 * jj] = p * (dp[i][jj] - rd[i]);
+      }
+    }
+    // A row's dS was written by the 16 lanes that read it.
+    __syncwarp();
+
+    // dQ += dS k
+#pragma unroll 4
+    for (int kk = 0; kk < kBlockKV; ++kk) {
+      float da[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) da[i] = sds[(ty * 4 + i) * kPLD + kk];
+#pragma unroll
+      for (int c = 0; c < OC; ++c) {
+        const float kb = sk[kk * LD + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(da[i], kb, acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty * 4 + i;
+    if (qi >= Sq) continue;
+    T* row = dq + ((static_cast<int64_t>(b) * Sq + qi) * Hq + h) * HD;
+#pragma unroll
+    for (int c = 0; c < OC; ++c)
+      row[tx + 16 * c] = attn::Pack<T>::from_f32(acc[i][c] * scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B6: dK and dV
+// ---------------------------------------------------------------------------
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_dkv_kernel(const T* __restrict__ q,
+                               const T* __restrict__ k,
+                               const T* __restrict__ v,
+                               const T* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ dsum,
+                               T* __restrict__ dk, T* __restrict__ dv, int Sq,
+                               int Skv, int Hq, int Hkv, int causal,
+                               int window, float scale) {
+  static_assert(HD % 16 == 0, "hd must be a multiple of 16");
+  constexpr int LD = HD + 1;
+  constexpr int OC = HD / 16;
+  extern __shared__ float smem[];
+  float* sk = smem;                  // [kBlockKV][LD]
+  float* sv = sk + kBlockKV * LD;    // [kBlockKV][LD]
+  float* sq = sv + kBlockKV * LD;    // [kBlockQ][LD]
+  float* sdo = sq + kBlockQ * LD;    // [kBlockQ][LD]
+  float* sp = sdo + kBlockQ * LD;    // [kBlockKV][kPLD]  P^T
+  float* sds = sp + kBlockKV * kPLD; // [kBlockKV][kPLD]  dS^T
+  float* slse = sds + kBlockKV * kPLD;  // [kBlockQ]
+  float* sd = slse + kBlockQ;           // [kBlockQ]
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int k0 = blockIdx.x * kBlockKV;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv;
+  const int n_k = min(kBlockKV, Skv - k0);
+
+  const int64_t kvoff =
+      ((static_cast<int64_t>(b) * Skv + k0) * Hkv + kvh) * HD;
+  attn::load_tiles<T, HD, kBlockKV, kThreads>(
+      sk, LD, k + kvoff, sv, LD, v + kvoff, static_cast<int64_t>(Hkv) * HD,
+      n_k);
+
+  float acc_k[4][OC], acc_v[4][OC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < OC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+
+  // The query tiles that see any key of this tile: from its first key on
+  // when causal, up to its last key + window - 1 when windowed.
+  const int last_k = k0 + n_k - 1;
+  const int q_begin = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(Sq, last_k + window) : Sq;
+  const int i_begin = q_begin / kBlockQ;
+  const int i_end = (q_end + kBlockQ - 1) / kBlockQ;
+  const int64_t q_stride = static_cast<int64_t>(Hq) * HD;
+
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const int64_t row0 = (static_cast<int64_t>(b) * Hq + h) * Sq;
+    for (int i = i_begin; i < i_end; ++i) {
+      const int q0 = i * kBlockQ;
+      __syncthreads();  // the previous q tile's reads are done
+      const int64_t qoff =
+          ((static_cast<int64_t>(b) * Sq + q0) * Hq + h) * HD;
+      attn::load_tiles<T, HD, kBlockQ, kThreads>(
+          sq, LD, q + qoff, sdo, LD, dout + qoff, q_stride,
+          min(kBlockQ, Sq - q0));
+      if (tid < kBlockQ) {
+        const int qi = q0 + tid;
+        slse[tid] = qi < Sq ? lse[row0 + qi] : 0.f;
+        sd[tid] = qi < Sq ? dsum[row0 + qi] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T = k q^T and dP^T = v dO^T for key rows 4ty.., queries tx + 16jj
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) s[r][jj] = dp[r][jj] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < HD; ++d) {
+        float ka[4], va[4], qa[4], oa[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          ka[r] = sk[(ty * 4 + r) * LD + d];
+          va[r] = sv[(ty * 4 + r) * LD + d];
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          qa[jj] = sq[(tx + 16 * jj) * LD + d];
+          oa[jj] = sdo[(tx + 16 * jj) * LD + d];
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            s[r][jj] = fmaf(ka[r], qa[jj], s[r][jj]);
+            dp[r][jj] = fmaf(va[r], oa[jj], dp[r][jj]);
+          }
+      }
+
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int kpos = k0 + ty * 4 + r;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int c = tx + 16 * jj;
+          const float p = visible(q0 + c, kpos, Sq, Skv, causal, window)
+                              ? expf(s[r][jj] * scale - slse[c])
+                              : 0.f;
+          sp[(ty * 4 + r) * kPLD + c] = p;
+          sds[(ty * 4 + r) * kPLD + c] = p * (dp[r][jj] - sd[c]);
+        }
+      }
+      // A key row's P and dS were written by the 16 lanes that read them.
+      __syncwarp();
+
+      // dV += P^T dO, dK += dS^T q
+#pragma unroll 4
+      for (int qq = 0; qq < kBlockQ; ++qq) {
+        float pa[4], da[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          pa[r] = sp[(ty * 4 + r) * kPLD + qq];
+          da[r] = sds[(ty * 4 + r) * kPLD + qq];
+        }
+#pragma unroll
+        for (int c = 0; c < OC; ++c) {
+          const float ob = sdo[qq * LD + tx + 16 * c];
+          const float qb = sq[qq * LD + tx + 16 * c];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            acc_v[r][c] = fmaf(pa[r], ob, acc_v[r][c]);
+            acc_k[r][c] = fmaf(da[r], qb, acc_k[r][c]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int kr = k0 + ty * 4 + r;
+    if (kr >= Skv) continue;
+    const int64_t off = ((static_cast<int64_t>(b) * Skv + kr) * Hkv + kvh) * HD;
+#pragma unroll
+    for (int c = 0; c < OC; ++c) {
+      dk[off + tx + 16 * c] = attn::Pack<T>::from_f32(acc_k[r][c] * scale);
+      dv[off + tx + 16 * c] = attn::Pack<T>::from_f32(acc_v[r][c]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *dsum;
+  void *dq, *dk, *dv;
+  int B, Sq, Skv, Hq, Hkv, causal, window;
+};
+
+template <typename T, int HD>
+int launch_dq(const Args& a, cudaStream_t stream) {
+  auto kernel = flash_attention_dq_kernel<T, HD>;
+  constexpr size_t bytes = dq_shared_bytes<HD>();
+  cudaError_t err = attn::allow_shared_bytes(kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.Sq + kBlockQ - 1) / kBlockQ, a.Hq, a.B);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
+      static_cast<T*>(a.dq), a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window,
+      1.0f / sqrtf(static_cast<float>(HD)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int launch_dkv(const Args& a, cudaStream_t stream) {
+  auto kernel = flash_attention_dkv_kernel<T, HD>;
+  constexpr size_t bytes = dkv_shared_bytes<HD>();
+  cudaError_t err = attn::allow_shared_bytes(kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.Skv + kBlockKV - 1) / kBlockKV, a.Hkv, a.B);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
+      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Sq, a.Skv, a.Hq, a.Hkv,
+      a.causal, a.window, 1.0f / sqrtf(static_cast<float>(HD)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Dispatch on (dtype, head dim): which = 0 launches B5, 1 launches B6.
+template <typename T>
+int launch_hd(int which, int hd, const Args& a, cudaStream_t s) {
+  switch (hd) {
+    case 32:
+      return which ? launch_dkv<T, 32>(a, s) : launch_dq<T, 32>(a, s);
+    case 64:
+      return which ? launch_dkv<T, 64>(a, s) : launch_dq<T, 64>(a, s);
+    case 80:
+      return which ? launch_dkv<T, 80>(a, s) : launch_dq<T, 80>(a, s);
+    case 128:
+      return which ? launch_dkv<T, 128>(a, s) : launch_dq<T, 128>(a, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int launch_any(int which, const Args& a, int hd, int is_bf16, int device,
+               void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (a.B <= 0 || a.Sq <= 0 || a.Skv <= 0 || a.Hq <= 0 || a.Hkv <= 0 ||
+      a.Hq % a.Hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_hd<__nv_bfloat16>(which, hd, a, s)
+                 : launch_hd<float>(which, hd, a, s);
+}
+
+}  // namespace
+
+extern "C" int flash_attention_dq_launch(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* dsum, void* dq, int B, int Sq, int Skv,
+    int Hq, int Hkv, int hd, int is_bf16, int causal, int window, int device,
+    void* stream) {
+  const Args a{q,  k,  v,  dout, lse, dsum, dq,     nullptr, nullptr,
+               B,  Sq, Skv, Hq,  Hkv, causal, window};
+  return launch_any(0, a, hd, is_bf16, device, stream);
+}
+
+extern "C" int flash_attention_dkv_launch(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* dsum, void* dk, void* dv, int B, int Sq,
+    int Skv, int Hq, int Hkv, int hd, int is_bf16, int causal, int window,
+    int device, void* stream) {
+  const Args a{q,  k,  v,  dout, lse, dsum, nullptr, dk,     dv,
+               B,  Sq, Skv, Hq,  Hkv, causal, window};
+  return launch_any(1, a, hd, is_bf16, device, stream);
+}

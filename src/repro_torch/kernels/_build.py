@@ -50,6 +50,13 @@ _SIGNATURES = {
     #  softcap, device, stream)
     "flash_attention_launch": ([_VOID_P] * 5 + [_I32] * 9 + [_F32, _I32,
                                                             _VOID_P], _I32),
+    # (q, k, v, do, lse, dsum, dq, B, Sq, Skv, Hq, Hkv, hd, is_bf16, causal,
+    #  window, device, stream)
+    "flash_attention_dq_launch": ([_VOID_P] * 7 + [_I32] * 10 + [_VOID_P],
+                                  _I32),
+    # (q, k, v, do, lse, dsum, dk, dv, B, ..., window, device, stream)
+    "flash_attention_dkv_launch": ([_VOID_P] * 8 + [_I32] * 10 + [_VOID_P],
+                                   _I32),
     # (q, k_cache, v_cache, kv_len, out, B, Sc, Hkv, G, hd, is_bf16, window,
     #  ring, softcap, device, stream)
     "gqa_decode_launch": ([_VOID_P] * 5 + [_I32] * 8 + [_F32, _I32, _VOID_P],

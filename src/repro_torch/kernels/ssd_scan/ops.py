@@ -74,7 +74,9 @@ def ssd(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,
     """SSD scan of a sequence of any length: pads ``L`` with zeros to a
     multiple of ``chunk`` (a padded position has dtA = 0 and x = b = c = 0,
     so it leaves the state unchanged), scans, and cuts ``y`` back to
-    ``L``. Returns ``(y [B, L, H, P], final_state [B, H, P, N])``."""
+    ``L``. Returns ``(y [B, L, H, P], final_state [B, H, P, N])``. The
+    kernel's output has no autograd history, so where it would run under
+    grad this raises :class:`RuntimeError`."""
     L = x.shape[1]
     pad = (-L) % chunk
     if pad:
@@ -83,6 +85,13 @@ def ssd(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,
         b = F.pad(b, (0, 0, 0, pad))
         c = F.pad(c, (0, 0, 0, pad))
     if x.is_cuda if use_kernel is None else use_kernel:
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad
+                for t in (x, dtA, b, c, initial_state)):
+            raise RuntimeError(
+                "ssd: the SSD scan kernel has no backward (the reference has "
+                "none in Pallas either; ROADMAP A12); differentiate the "
+                "plain ssd_chunked with use_kernel=False")
         y, state = ssd_scan_cuda(
             x.contiguous(), dtA.contiguous(), b.contiguous(), c.contiguous(),
             chunk=chunk, initial_state=None if initial_state is None

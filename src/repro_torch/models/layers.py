@@ -50,7 +50,9 @@ def _normal(shape, generator: torch.Generator, dtype, std: float = 0.02):
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+    """A trainable parameter (serving runs under ``torch.inference_mode``,
+    so it records no graph)."""
+    return nn.Parameter(t)
 
 
 # ===========================================================================

@@ -16,6 +16,9 @@ loops:
 
 The MoE family and the audio/vision frontends raise
 :class:`NotImplementedError` naming the ROADMAP item that ports them.
+Training: :func:`loss_fn` (the chunked cross-entropy
+:func:`softmax_xent`), with ``cfg.remat`` rematerialising each dense layer
+under grad.
 """
 from __future__ import annotations
 
@@ -25,15 +28,18 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from .config import ATTN_SWA, MAMBA, ModelConfig
 
 __all__ = ["Cache", "DenseLayer", "LM", "MambaLayer", "cache_spec",
            "decode_step", "embed_tokens", "forward", "init_cache",
-           "init_params", "logits_fn", "prefill", "run_attention_stack",
-           "run_hybrid_stack", "run_mamba_stack"]
+           "init_params", "logits_fn", "loss_fn", "prefill",
+           "run_attention_stack", "run_hybrid_stack", "run_mamba_stack",
+           "softmax_xent"]
 
 _PORTED = ("dense", "ssm", "hybrid")
 #: Where each unported family is queued (ROADMAP.md, section A).
@@ -158,8 +164,9 @@ def logits_fn(model: LM, cfg: ModelConfig, x: torch.Tensor
     logits = (x @ w.to(dt)).float()
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    if cfg.vocab_pad != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] += -1e30
+    if cfg.vocab_pad != cfg.vocab_size:      # out of place: autograd-safe
+        V = cfg.vocab_size
+        logits = torch.cat([logits[..., :V], logits[..., V:] + -1e30], -1)
     return logits
 
 
@@ -174,6 +181,37 @@ def _window_array(cfg: ModelConfig) -> np.ndarray:
     return np.asarray(wins, np.int32)
 
 
+def _dense_layer(lp: DenseLayer, cfg: ModelConfig, x: torch.Tensor,
+                 start: int, window: int, kv, kv_len, ring: bool,
+                 use_kernel: Optional[bool]) -> torch.Tensor:
+    """One [attention → MLP] layer with its residuals."""
+    h = L.rms_norm(x, lp.ln1, cfg.norm_eps)
+    a, _ = L.attention_block(lp.attn, cfg, h, start, window=window,
+                             kv_cache=kv, kv_len=kv_len, ring=ring,
+                             use_kernel=use_kernel)
+    if lp.ln_pa is not None:
+        a = L.rms_norm(a, lp.ln_pa, cfg.norm_eps)
+    x = x + a
+    h = L.rms_norm(x, lp.ln2, cfg.norm_eps)
+    f = L.mlp_block(lp.mlp, cfg, h)
+    if lp.ln_pf is not None:
+        f = L.rms_norm(f, lp.ln_pf, cfg.norm_eps)
+    return x + f
+
+
+def _remat(cfg: ModelConfig) -> bool:
+    """Whether to rematerialise each layer: ``cfg.remat`` under grad, with
+    the reference's "nothing" policy (only the residual stream between
+    layers is kept; the layer is recomputed in the backward)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return False
+    if cfg.remat_policy != "nothing":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported (ROADMAP A12); "
+            "only 'nothing'")
+    return True
+
+
 def run_attention_stack(model: LM, cfg: ModelConfig, x: torch.Tensor,
                         start: int, cache: Optional["Cache"] = None,
                         kv_len: Optional[torch.Tensor] = None,
@@ -181,21 +219,15 @@ def run_attention_stack(model: LM, cfg: ModelConfig, x: torch.Tensor,
                         use_kernel: Optional[bool] = None) -> torch.Tensor:
     """The layers in order (the reference's ``lax.scan``). With a cache,
     layer ``i`` reads and writes ``cache.kv_k[i]``/``cache.kv_v[i]`` in
-    place. Returns the final hidden state."""
+    place. Without one, under grad and with ``cfg.remat``, each layer runs
+    under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
+    with ``nothing_saveable``). Returns the final hidden state."""
+    remat = cache is None and _remat(cfg)
     for i, (lp, window) in enumerate(zip(model.layers, _window_array(cfg))):
-        h = L.rms_norm(x, lp.ln1, cfg.norm_eps)
         kv = None if cache is None else (cache.kv_k[i], cache.kv_v[i])
-        a, _ = L.attention_block(lp.attn, cfg, h, start, window=int(window),
-                                 kv_cache=kv, kv_len=kv_len, ring=ring,
-                                 use_kernel=use_kernel)
-        if lp.ln_pa is not None:
-            a = L.rms_norm(a, lp.ln_pa, cfg.norm_eps)
-        x = x + a
-        h = L.rms_norm(x, lp.ln2, cfg.norm_eps)
-        f = L.mlp_block(lp.mlp, cfg, h)
-        if lp.ln_pf is not None:
-            f = L.rms_norm(f, lp.ln_pf, cfg.norm_eps)
-        x = x + f
+        args = (lp, cfg, x, start, int(window), kv, kv_len, ring, use_kernel)
+        x = checkpoint(_dense_layer, *args, use_reentrant=False) if remat \
+            else _dense_layer(*args)
     return x
 
 
@@ -332,12 +364,14 @@ def forward(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     return _run_stack(model, cfg, x, 0, None, None, False, use_kernel)
 
 
+@torch.no_grad()
 def prefill(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
             cache: Cache, ring: bool, use_kernel: Optional[bool] = None
             ) -> Tuple[torch.Tensor, Cache]:
     """Run the ``[B, S]`` prompt through the model from position 0, filling
     the cache in place. Returns ``(last-position logits [B, V_pad], cache)``
-    with ``cache.pos`` advanced to S."""
+    with ``cache.pos`` advanced to S. Inference only: no autograd graph
+    (the parameters are trainable)."""
     _check_family(cfg)
     x = embed_tokens(model, cfg, tokens)
     B, S = tokens.shape
@@ -347,6 +381,7 @@ def prefill(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     return logits_fn(model, cfg, x[:, -1:])[:, 0], cache
 
 
+@torch.no_grad()
 def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor,
                 cache: Cache, ring: bool, use_kernel: Optional[bool] = None
                 ) -> Tuple[torch.Tensor, Cache]:
@@ -366,3 +401,69 @@ def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor,
                    use_kernel)
     cache.pos += 1
     return logits_fn(model, cfg, x)[:, 0], cache
+
+
+# ===========================================================================
+# Training loss
+# ===========================================================================
+
+def _xent_from_logits(logits: torch.Tensor, targets: torch.Tensor,
+                      mask: torch.Tensor, reduce: bool = True):
+    """Masked next-token cross-entropy: ``logsumexp − logit[target]``.
+    ``reduce`` gives the mean over the mask's mass (at least 1); else
+    ``(sum, mass)``."""
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = (logz - tgt) * mask
+    if reduce:
+        return nll.sum() / mask.sum().clamp_min(1.0)
+    return nll.sum(), mask.sum()
+
+
+def _chunk_xent(model: LM, cfg: ModelConfig, x: torch.Tensor,
+                targets: torch.Tensor, mask: torch.Tensor):
+    return _xent_from_logits(logits_fn(model, cfg, x), targets, mask,
+                             reduce=False)
+
+
+def softmax_xent(model: LM, cfg: ModelConfig, x: torch.Tensor,
+                 targets: torch.Tensor, mask: torch.Tensor,
+                 chunk: int = 512) -> torch.Tensor:
+    """Cross-entropy over the (padded) vocabulary. Above 16,384 vocabulary
+    slots and ``chunk`` positions it runs chunk by chunk over the sequence,
+    each chunk's logits recomputed in the backward (checkpointed), so the
+    ``[B, S, V]`` float32 logits never exist at once — the reference's
+    ``lax.map`` over ``jax.checkpoint``-ed chunks."""
+    B, S, _ = x.shape
+    if cfg.vocab_pad <= 16384 or S <= chunk:
+        return _xent_from_logits(logits_fn(model, cfg, x), targets, mask)
+    nch = -(-S // chunk)
+    pad = nch * chunk - S
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    grad = torch.is_grad_enabled()
+    losses, masses = [], []
+    for c in range(nch):
+        args = (model, cfg, x[:, c * chunk:(c + 1) * chunk],
+                targets[:, c * chunk:(c + 1) * chunk],
+                mask[:, c * chunk:(c + 1) * chunk])
+        loss, mass = checkpoint(_chunk_xent, *args, use_reentrant=False) \
+            if grad else _chunk_xent(*args)
+        losses.append(loss)
+        masses.append(mass)
+    return torch.stack(losses).sum() / torch.stack(masses).sum().clamp_min(1.0)
+
+
+def loss_fn(model: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``targets``
+    ``[B, S]`` and an optional float ``mask``)."""
+    x = forward(model, cfg, batch["tokens"], use_kernel)
+    targets = batch["targets"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+    return softmax_xent(model, cfg, x, targets, mask.float())

@@ -1,0 +1,320 @@
+"""The flash-attention backward of the port (B5 dQ, B6 dK/dV): its plain
+version ``flash_attention_bwd_ref`` and the autograd Function
+``FlashAttention`` (plain on the CPU) against the reference's trainable
+attention (``make_trainable_attention``, the Pallas forward and backward in
+interpret mode) and against JAX's and torch's autograd through the plain
+attention, on the same seeded inputs; the dispatchers' rules under grad;
+and — on a CUDA card only — B5/B6 against the plain version.
+
+JAX is imported by a fixture, so the kernel tests also run where only the
+port is installed."""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from hypothesis_compat import given, settings, st
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as ss
+
+#: The reference's backward tolerances (tests/test_kernels.py): 3e-4 for
+#: the trainable kernel, 5e-4 for its property sweep.
+TOL_TRAINABLE, TOL_SWEEP = 3e-4, 5e-4
+#: Port against torch's autograd through its own plain forward: the same
+#: float32 formulas summed in another order.
+TOL_AUTOGRAD = 1e-5
+#: B5/B6 against the plain version on the card: float32 within 3e-4 of the
+#: plain output's largest value, or of 1 where that is smaller (the
+#: reference's absolute 3e-4: a query that sees one key has dQ = 0 up to
+#: rounding); bfloat16 within 2 bf16 ulps + 1e-5 (both compute the same
+#: float32 values, then round once).
+KERNEL_F32, BF16_ULPS, BF16_ATOL = 3e-4, 2, 1e-5
+
+
+@pytest.fixture
+def jref():
+    """The reference's trainable attention and plain attention."""
+    jax = pytest.importorskip("jax")
+    from repro.kernels.flash_attention.ops import make_trainable_attention
+    from repro.kernels.flash_attention.ref import attention_ref
+
+    return types.SimpleNamespace(
+        jax=jax, jnp=jax.numpy, attention_ref=attention_ref,
+        make_trainable_attention=make_trainable_attention)
+
+
+@pytest.fixture
+def cuda():
+    """A CUDA device, or a skip where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _inputs(rng, B, Sq, Skv, Hq, Hkv, hd, dtype=torch.float32,
+            device="cpu"):
+    """q, k, v and an upstream gradient w, seeded, as torch tensors."""
+    shapes = ((B, Sq, Hq, hd), (B, Skv, Hkv, hd), (B, Skv, Hkv, hd),
+              (B, Sq, Hq, hd))
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            .to(dtype).to(device) for s in shapes]
+
+
+def _port_grads(q, k, v, w, *, causal, window):
+    """``(plain backward, Function)`` gradients of ``sum(attn(q,k,v)·w)``."""
+    o, lse = fa.attention_ref(q, k, v, causal=causal, window=window,
+                              return_lse=True)
+    plain = fa.flash_attention_bwd_ref(q, k, v, o, w, lse, causal=causal,
+                                       window=window)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.attention(*leaves, causal=causal, window=window)
+    assert out.grad_fn is not None and \
+        type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    func = torch.autograd.grad((out * w).sum(), leaves)
+    return plain, func
+
+
+def _close(port, ref, tol):
+    for a, b in zip(port, ref):
+        np.testing.assert_allclose(a.detach().float().numpy(),
+                                   np.asarray(b, np.float32), atol=tol,
+                                   rtol=tol)
+
+
+# ===========================================================================
+# the plain backward and the Function vs the reference
+# ===========================================================================
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 16),
+                                           (False, 0)])
+def test_backward_matches_jax_trainable_attention(jref, causal, window):
+    """The reference test's shapes (tests/test_kernels.py): B=2, S=64,
+    Hq=4, Hkv=2, hd=32, Pallas blocks of 16 in interpret mode."""
+    B, S, Hq, Hkv, hd = 2, 64, 4, 2, 32
+    q, k, v, w = _inputs(np.random.default_rng(0), B, S, S, Hq, Hkv, hd)
+    jnp, jax = jref.jnp, jref.jax
+    attn = jref.make_trainable_attention(causal=causal, window=window,
+                                         block_q=16, block_kv=16,
+                                         interpret=True)
+    jw = jnp.asarray(w.numpy())
+    ref = jax.grad(lambda *a: (attn(*a) * jw).sum(), argnums=(0, 1, 2))(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    plain, func = _port_grads(q, k, v, w, causal=causal, window=window)
+    _close(plain, ref, TOL_TRAINABLE)
+    _close(func, ref, TOL_TRAINABLE)
+
+
+def _sweep_case(jref, B, Sq, G, seed):
+    """The reference's property sweep (tests/test_kernels.py): causal,
+    Hkv=2, hd=16, against JAX's autograd through its plain attention."""
+    Hkv, hd = 2, 16
+    q, k, v, w = _inputs(np.random.default_rng(seed), B, Sq, Sq, Hkv * G,
+                         Hkv, hd)
+    jax, jnp = jref.jax, jref.jnp
+    ref = jax.grad(lambda *a: jref.attention_ref(*a, causal=True).sum(),
+                   argnums=(0, 1, 2))(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    plain, func = _port_grads(q, k, v, torch.ones_like(w), causal=True,
+                              window=0)
+    _close(plain, ref, TOL_SWEEP)
+    _close(func, ref, TOL_SWEEP)
+
+
+@pytest.mark.parametrize("B,Sq,G,seed", [(1, 20, 1, 0), (2, 45, 2, 1),
+                                         (1, 70, 4, 2), (2, 33, 1, 3)])
+def test_backward_sweep_cases(jref, B, Sq, G, seed):
+    _sweep_case(jref, B, Sq, G, seed)
+
+
+@settings(deadline=None, max_examples=5)
+@given(st.integers(1, 2), st.integers(20, 70), st.sampled_from([1, 2, 4]),
+       st.integers(0, 99))
+def test_backward_property_sweep(B, Sq, G, seed):
+    pytest.importorskip("jax")
+    from repro.kernels.flash_attention.ref import attention_ref
+    import jax
+
+    _sweep_case(types.SimpleNamespace(jax=jax, jnp=jax.numpy,
+                                      attention_ref=attention_ref),
+                B, Sq, G, seed)
+
+
+BWD_CASES = [  # (B, Sq, Skv, Hq, Hkv, hd, causal, window)
+    (2, 37, 37, 6, 2, 16, True, 0),
+    (1, 40, 40, 4, 2, 32, True, 8),
+    (2, 20, 33, 4, 4, 16, False, 0),     # ragged, non-causal
+    (1, 30, 50, 3, 1, 16, True, 0),      # Skv > Sq, G = 3
+    (1, 45, 30, 2, 1, 16, True, 5),      # rows 34..44 see no key
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_backward_matches_torch_autograd(case):
+    B, Sq, Skv, Hq, Hkv, hd, causal, window = case
+    q, k, v, w = _inputs(np.random.default_rng(1), B, Sq, Skv, Hq, Hkv, hd)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.attention_ref(*leaves, causal=causal, window=window)
+    ref = torch.autograd.grad((out * w).sum(), leaves)
+    plain, func = _port_grads(q, k, v, w, causal=causal, window=window)
+    for port in (plain, func):
+        for a, b in zip(port, ref):
+            torch.testing.assert_close(a, b, atol=TOL_AUTOGRAD,
+                                       rtol=TOL_AUTOGRAD)
+    if window == 5:       # the unseeing rows get no gradient at all
+        assert float(plain[0][:, Skv + window - 1:].abs().max()) == 0.0
+
+
+def test_backward_ref_keeps_dtypes():
+    q, k, v, w = _inputs(np.random.default_rng(2), 1, 9, 9, 2, 1, 16,
+                         dtype=torch.bfloat16)
+    o, lse = fa.attention_ref(q, k, v, return_lse=True)
+    dq, dk, dv = fa.flash_attention_bwd_ref(q, k, v, o, w, lse)
+    assert (dq.dtype, dk.dtype, dv.dtype) == (torch.bfloat16,) * 3
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+# ===========================================================================
+# dispatchers under grad
+# ===========================================================================
+
+def test_make_trainable_attention_is_the_function():
+    q, k, v, w = _inputs(np.random.default_rng(3), 1, 24, 24, 4, 2, 16)
+    attn = fa.make_trainable_attention(causal=True, window=8)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = attn(*leaves)
+    assert torch.equal(out.detach(), fa.attention_ref(q, k, v, window=8))
+    got = torch.autograd.grad((out * w).sum(), leaves)
+    _, func = _port_grads(q, k, v, w, causal=True, window=8)
+    for a, b in zip(got, func):
+        assert torch.equal(a, b)
+
+
+def test_softcap_under_grad_raises_and_serves_without_grad():
+    q, k, v, _ = _inputs(np.random.default_rng(4), 1, 12, 12, 2, 1, 16)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        fa.attention(q.clone().requires_grad_(), k, v, softcap=50.0)
+    out = fa.attention(q, k, v, softcap=50.0)       # no grad: as before
+    assert torch.equal(out, fa.attention_ref(q, k, v, softcap=50.0))
+    with torch.no_grad():
+        out = fa.attention(q.clone().requires_grad_(), k, v, softcap=50.0)
+    assert out.grad_fn is None
+
+
+def test_kernel_paths_never_hand_back_a_detached_tensor():
+    """Under grad, ``attention`` insisting on the kernel reaches the
+    kernel's guard (no CPU fallback), and ``ssd`` refuses: the SSD kernel
+    has no backward."""
+    q, k, v, _ = _inputs(np.random.default_rng(5), 1, 8, 8, 2, 1, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.attention(q.requires_grad_(), k, v, use_kernel=True)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(1, 8, 1, 64)).astype(np.float32))
+    dtA = -torch.rand(1, 8, 1)
+    b = torch.randn(1, 8, 64)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ss.ssd(x.requires_grad_(), dtA, b, b, chunk=8, use_kernel=True)
+    y, _ = ss.ssd(x, dtA, b, b, chunk=8)           # plain: differentiable
+    assert y.grad_fn is not None
+
+
+@pytest.mark.parametrize("bad", ["hd", "dtype", "groups", "lse"])
+def test_backward_wrappers_reject_what_the_kernels_do_not_take(bad):
+    q = torch.zeros(1, 4, 4, 32)
+    k = torch.zeros(1, 4, 2, 32)
+    lse = torch.zeros(1, 4, 4)
+    if bad == "hd":
+        q, k = q[..., :16].contiguous(), k[..., :16].contiguous()
+    elif bad == "dtype":
+        q, k = q.half(), k.half()
+    elif bad == "groups":
+        k = torch.zeros(1, 4, 3, 32)
+    else:
+        lse = lse.double()
+    n0 = dict(fa.LAUNCHES)
+    with pytest.raises((TypeError, ValueError)):
+        fa.flash_attention_dq_cuda(q, k, k, q, lse, lse)
+    with pytest.raises((TypeError, ValueError)):
+        fa.flash_attention_dkv_cuda(q, k, k, q, lse, lse)
+    assert fa.LAUNCHES == n0
+
+
+# ===========================================================================
+# B5/B6 vs the plain version (card only)
+# ===========================================================================
+
+def _bf16_ulps(out, ref) -> float:
+    """Largest ``(|out - ref| - BF16_ATOL)`` in bf16 ulps of ``ref``."""
+    d = (out.float() - ref.float()).abs()
+    _, e = torch.frexp(ref.float())
+    ulp = torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
+    excess = (d - BF16_ATOL) / torch.where(ref != 0, ulp, 0.0)
+    return float(excess.nan_to_num(nan=0.0).max().clamp(min=0))
+
+
+KERNEL_CASES = [  # (B, Sq, Skv, Hq, Hkv, hd, causal, window)
+    (2, 300, 300, 15, 5, 64, True, 0),     # smollm's heads, ragged tiles
+    (1, 200, 200, 4, 4, 80, True, 0),      # hd = 80, G = 1
+    (1, 260, 260, 6, 2, 128, True, 100),   # sliding window
+    (2, 130, 77, 6, 2, 32, False, 0),      # non-causal, Skv < Sq
+    (1, 100, 40, 3, 1, 64, True, 16),      # rows that see no key
+    (1, 1, 65, 2, 1, 32, True, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", KERNEL_CASES, ids=str)
+def test_backward_kernels_match_plain(cuda, dtype, case):
+    B, Sq, Skv, Hq, Hkv, hd, causal, window = case
+    dt = getattr(torch, dtype)
+    q, k, v, do = _inputs(np.random.default_rng(7), B, Sq, Skv, Hq, Hkv, hd,
+                          dtype=dt, device=cuda)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    n0 = dict(fa.LAUNCHES)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
+                                      window=window)
+    ref = fa.flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_dq"] == n0["flash_attention_dq"] + 1
+    assert fa.LAUNCHES["flash_attention_dkv"] == \
+        n0["flash_attention_dkv"] + 1
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == b.dtype == dt, name
+        assert bool(torch.isfinite(a).all()), name
+        if dtype == "float32":
+            err = float((a - b).abs().max() / b.abs().max().clamp_min(1.0))
+            assert err <= KERNEL_F32, (name, err)
+        else:
+            assert _bf16_ulps(a, b) <= BF16_ULPS, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", KERNEL_CASES[:3], ids=str)
+def test_function_on_the_card_matches_torch_autograd(cuda, case):
+    """B4 → B5/B6 through the Function against torch's autograd through
+    the plain forward, float32."""
+    B, Sq, Skv, Hq, Hkv, hd, causal, window = case
+    q, k, v, w = _inputs(np.random.default_rng(8), B, Sq, Skv, Hq, Hkv, hd,
+                         device=cuda)
+    kl = [t.clone().requires_grad_() for t in (q, k, v)]
+    rl = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(
+        (fa.attention(*kl, causal=causal, window=window) * w).sum(), kl)
+    ref = torch.autograd.grad(
+        (fa.attention_ref(*rl, causal=causal, window=window) * w).sum(), rl)
+    for a, b in zip(got, ref):
+        err = float((a - b).abs().max() / b.abs().max())
+        assert err <= KERNEL_F32, err
+
+
+@pytest.mark.cuda
+def test_backward_kernels_are_deterministic(cuda):
+    q, k, v, do = _inputs(np.random.default_rng(9), 2, 300, 300, 15, 5, 64,
+                          dtype=torch.bfloat16, device=cuda)
+    o, lse = fa.flash_attention_cuda(q, k, v)
+    first = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+    again = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)

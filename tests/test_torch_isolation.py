@@ -65,6 +65,20 @@ def test_serving_path_runs_without_loading_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_training_path_runs_without_loading_jax(tmp_path):
+    code = ("import sys; from repro_torch.launch.train import run_training; "
+            f"out = run_training(steps=2, seq_len=16, global_batch=2, "
+            f"checkpoint_dir={str(tmp_path)!r}, ckpt_every=1, "
+            "verbose=False, device='cpu'); "
+            "assert len(out['losses']) == 2; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')]; assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch import resolve_device
     from repro_torch.core import synthetic_instance

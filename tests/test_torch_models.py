@@ -28,6 +28,14 @@ TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 RING = dict(block_pattern=("swa",), window=16)
 
 
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """The port's parameters are trainable; these tests compare forward
+    values, so they run without autograd, as serving does."""
+    with torch.no_grad():
+        yield
+
+
 def _close(port, ref, dtype):
     np.testing.assert_allclose(port.float().numpy(),
                                np.asarray(ref, np.float32),

@@ -25,6 +25,14 @@ from repro_torch.models import layers as TL
 TOL = {"float32": 3e-4, "bfloat16": 5e-2}
 
 
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """The port's parameters are trainable; these tests compare forward
+    values, so they run without autograd, as serving does."""
+    with torch.no_grad():
+        yield
+
+
 @pytest.fixture
 def jref():
     """The JAX reference's SSD kernel, oracle and model layer."""
