@@ -6,7 +6,10 @@
 Phases, each of which must pass (any failure exits nonzero, no result):
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
-   build of the kernel library from src/repro_torch/csrc;
+   build of the kernel library from src/repro_torch/csrc, with ptxas's
+   registers and spills and each attention kernel's tensor-core
+   instructions in the library's SASS (the bf16 B4 and B6 must have some,
+   their float32 versions none);
 2. every CUDA kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged small shapes, with its time, the plain
    version's time, its bound and, where one exists, a PyTorch call's time;
@@ -20,8 +23,9 @@ Phases, each of which must pass (any failure exits nonzero, no result):
 6. the attention kernels (flash-attention forward B4, GQA decode B7)
    against their plain versions in float32 and bfloat16: at the serving
    path's shapes, at gemma2's head width with a window and a softcap, with
-   ragged lengths, and in ring mode, with their times, bounds and the
-   time of torch's scaled_dot_product_attention on the same inputs;
+   ragged lengths, and in ring mode, with their times, bounds, achieved
+   TFLOP/s and the time of torch's scaled_dot_product_attention on the
+   same inputs;
 7. serving at full width: smollm-360m (32 layers, d=960, 15/5 heads,
    49,152-token vocabulary, random weights from a seed) generates 32
    tokens for 8 prompts of 1,024 tokens through ModelServer, with launch
@@ -53,8 +57,9 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    plain version in float32 and bfloat16 at the training shape, at hd=80
    with G=1, with a sliding window, at a ragged length and non-causal,
    and in float32 also against torch's autograd through the plain
-   attention, with their times, bounds, the plain version's time and the
-   backward of torch's scaled_dot_product_attention;
+   attention, with their times, bounds, achieved TFLOP/s, the plain
+   version's time and the backward of torch's
+   scaled_dot_product_attention;
 12. training smollm-360m at full width and depth (32 layers, random
    weights from a seed) through run_training: 6 AdamW steps on
    TokenPipeline batches of 8 x 1,024 tokens, bf16 compute, f32 master
@@ -65,7 +70,8 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    plain versions' (a control with layer 0's dQ at 6 mantissa bits must
    exceed that), and at 4 layers 4 straight steps bitwise equal to 2
    steps + checkpoint save + restore + 2 steps; step time, tokens/s, peak
-   memory and the device time of one step by kernel.
+   memory and the device time of one step by kernel (B4, B5 and B6
+   each).
 
 It prints a JSON line of per-kernel numbers and, last, the device line
 ``{"ok": true, "device": {...}}``. It needs the repository around it and
@@ -76,6 +82,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -253,6 +260,72 @@ def bound_ms(n_bytes: float, n_ops: float, ops_s: float = F32_OPS_S
     t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / ops_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ===========================================================================
+# phase 1: the build, and the tensor-core instructions of the attention
+# kernels
+# ===========================================================================
+
+#: Attention kernels in the library, by function name (the bf16 B4 and B6
+#: are the ``_mma`` ones).
+ATTN_KERNELS = re.compile(r"(flash_attention_(?:fwd|dq|dkv)(?:_mma)?_kernel"
+                          r"|gqa_decode_kernel)")
+#: Kernels whose bf16 instantiation must run its products on the tensor
+#: cores, and whose float32 one must not.
+TENSOR_CORE_KERNELS = ("flash_attention_fwd", "flash_attention_dkv")
+
+
+def tensor_core_counts(lib_path: str) -> dict:
+    """``{(kernel, dtype, hd): n}``: tensor-core instructions (``HMMA``,
+    ``HGMMA``) in the SASS of each attention kernel instantiation of the
+    library, from the toolkit's ``cuobjdump -sass``."""
+    from repro_torch.kernels._build import find_nvcc
+
+    cuobjdump = str(Path(find_nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            m = ATTN_KERNELS.search(name)
+            hd = re.search(r"Li(\d+)E", name)
+            current = None
+            if m and hd:
+                base = m.group(1)
+                dtype = ("bf16" if "_mma_" in base or "bfloat16" in name
+                         else "f32")
+                current = (base.replace("_mma", ""), dtype, int(hd.group(1)))
+                counts[current] = 0
+        elif current is not None and re.search(r"\bH(?:G)?MMA\b", line):
+            counts[current] += 1
+    return counts
+
+
+def phase_build() -> None:
+    """Build the library; print ptxas's register, shared-memory and spill
+    lines and each attention kernel's tensor-core instruction count; check
+    that the bf16 B4 and B6 have some and their float32 versions none."""
+    from repro_torch.kernels._build import load_library
+
+    _, info = load_library()
+    log(f"  library {info['path']} built={info['built']} in "
+        f"{info['build_s']:.2f} s")
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log("  " + line.strip())
+    counts = tensor_core_counts(info["path"])
+    for (base, dtype, hd), n in sorted(counts.items()):
+        log(f"  SASS {base} {dtype} hd={hd}: {n} HMMA/HGMMA")
+    for base in TENSOR_CORE_KERNELS:
+        for dtype in ("bf16", "f32"):
+            got = {hd: n for (b, d, hd), n in counts.items()
+                   if b == base + "_kernel" and d == dtype}
+            want_some = dtype == "bf16"
+            check(sorted(got) == [32, 64, 80, 128]
+                  and all((n > 0) == want_some for n in got.values()),
+                  f"{base} {dtype} tensor-core instructions {got}")
 
 
 # ===========================================================================
@@ -595,6 +668,14 @@ def _held_in_ulps(out, ref, what: str) -> str:
     return f" ({ulps:.3g} ulps beyond {BF16_ATOL})"
 
 
+def _rates(n_ops: float, ms: float, bound: float, lib: float,
+           lib_name: str = "sdpa") -> str:
+    """A kernel's achieved TFLOP/s (the algorithm's operations over its
+    time) and its time as a multiple of its bound and of a library call's."""
+    return (f"{n_ops / ms / 1e9:.1f} TFLOP/s, {ms / bound:.2f}x its bound, "
+            f"{ms / lib:.2f}x {lib_name}")
+
+
 def phase_attention_kernels(dev) -> dict:
     """B4 and B7 against their plain versions; numbers at the serving
     path's shapes (bfloat16)."""
@@ -653,7 +734,9 @@ def phase_attention_kernels(dev) -> dict:
     b, by = bound_ms(n_bytes, n_ops, BF16_OPS_S)
     out["flash_attention"] = dict(
         shape=[B, Sq, Hq, Hkv, hd], max_abs_err=err, ms=ms, plain_ms=plain,
-        bound_ms=b, bound_by=by, library_ms=lib)
+        bound_ms=b, bound_by=by, library_ms=lib, ops=n_ops,
+        note="bf16: tensor-core products (mma.sync), P split into two bf16 "
+             "terms; float32: CUDA-core products")
     del q, k, v
 
     # --- B7 GQA decode ----------------------------------------------------
@@ -701,14 +784,16 @@ def phase_attention_kernels(dev) -> dict:
     lib = time_ms(lambda: _sdpa(q[:, None], kc, vc, attn_mask=mask))
     slots = sum(min(n, Sc) for n in lens)   # valid cache slots read
     n_bytes = 2 * (2 * B * Hkv * G * hd + 2 * slots * Hkv * hd) + 4 * B
-    b, by = bound_ms(n_bytes, 4 * hd * G * Hkv * slots, BF16_OPS_S)
+    n_ops = 4 * hd * G * Hkv * slots
+    b, by = bound_ms(n_bytes, n_ops, BF16_OPS_S)
     out["gqa_decode"] = dict(
         shape=[B, Sc, Hkv, G, hd], max_abs_err=err, ms=ms, plain_ms=plain,
-        bound_ms=b, bound_by=by, library_ms=lib)
+        bound_ms=b, bound_by=by, library_ms=lib, ops=n_ops)
     for name, r in out.items():
         log(f"  {name} {r['shape']} bf16: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), sdpa {r['library_ms']:.4f} ms")
+            f"({r['bound_by']}), sdpa {r['library_ms']:.4f} ms; "
+            f"{_rates(r['ops'], r['ms'], r['bound_ms'], r['library_ms'])}")
     torch.cuda.empty_cache()
     return out
 
@@ -1212,16 +1297,24 @@ def phase_backward_kernels(dev) -> dict:
     for name, (n_bytes, n_ops) in _bwd_work(B, Sq, Skv, Hq, Hkv, hd, causal,
                                             window, 2).items():
         b, by = bound_ms(n_bytes, n_ops, BF16_OPS_S)
+        products = ("bf16: tensor-core products (mma.sync), Pᵀ split "
+                    "into two bf16 terms and dSᵀ into three; float32: "
+                    "CUDA-core products; " if name == "flash_attention_dkv"
+                    else "CUDA-core products; ")
         out[name] = dict(shape=[B, Sq, Hq, Hkv, hd], max_abs_err=err[name],
                          ms=ms[name], plain_ms=plain, bound_ms=b,
                          bound_by=by, library_ms=lib,
-                         note="plain_ms and library_ms time dQ, dK and dV "
-                              "together (flash_attention_bwd_ref; the "
-                              "backward of scaled_dot_product_attention)")
+                         note=products + "plain_ms and library_ms time dQ, "
+                              "dK and dV together (flash_attention_bwd_ref; "
+                              "the backward of "
+                              "scaled_dot_product_attention)")
         log(f"  {name} {out[name]['shape']} bf16: kernel {ms[name]:.4f} ms,"
             f" bound {b:.4f} ms ({by}, {n_ops / 1e9:.2f} GFLOP); plain "
             f"backward {plain:.4f} ms, sdpa backward {lib:.4f} ms (both "
-            "for dQ, dK and dV)")
+            f"for dQ, dK and dV); "
+            f"{_rates(n_ops, ms[name], b, lib, 'sdpa backward')}")
+    both = sum(ms.values())
+    log(f"  B5 + B6 {both:.4f} ms, {both / lib:.2f}x sdpa backward")
     del q, k, v, do, o, lse, dsum, qs, ks, vs, sdpa
     torch.cuda.empty_cache()
     return out
@@ -1446,14 +1539,18 @@ def phase_training(dev) -> dict:
     prof_wall = 1e3 * (time.perf_counter() - t0)
     busy = sum(by_kernel.values())
     ours = {name: sum(t for k, t in by_kernel.items() if kern in k)
-            for name, kern in (("B4", "flash_attention_fwd_kernel"),
-                               ("B5", "flash_attention_dq_kernel"),
-                               ("B6", "flash_attention_dkv_kernel"))}
+            for name, kern in (("B4", "flash_attention_fwd_"),
+                               ("B5", "flash_attention_dq_"),
+                               ("B6", "flash_attention_dkv_"))}
+    n_calls = dict(zip(ours, (per_step["flash_attention"],
+                              per_step["flash_attention_dq"],
+                              per_step["flash_attention_dkv"])))
     log(f"  one step under the profiler: device busy {busy:.2f} ms, "
         f"{100 * busy / step_ms:.1f} % of the median step {step_ms:.2f} ms "
         f"(the profiled step took {prof_wall:.0f} ms with the profiler's "
-        "own cost); "
-        + ", ".join(f"{k} {t:.2f} ms ({100 * t / busy:.1f} %)"
+        "own cost); device ms per step "
+        + ", ".join(f"{k} {t:.2f} ms ({100 * t / busy:.1f} %, "
+                    f"{n_calls[k]} x {t / n_calls[k]:.3f} ms)"
                     for k, t in ours.items()))
     gemm = sum(t for k, t in by_kernel.items()
                if any(g in k.lower() for g in ("nvjet", "gemm", "xmma",
@@ -1508,7 +1605,6 @@ def main() -> int:
     # products for the bitwise resume check of phase 12
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.core import max_impls_of, synthetic_instance
-    from repro_torch.kernels._build import load_library
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1522,12 +1618,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
 
     log("phase 1: build")
-    _, info = load_library()
-    log(f"  library {info['path']} built={info['built']} in "
-        f"{info['build_s']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("  " + line.strip())
+    phase_build()
 
     t0 = time.perf_counter()
     inst = synthetic_instance(U_MAIN, n_edges=E_MAIN, seed=SEED)

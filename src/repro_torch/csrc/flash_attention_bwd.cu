@@ -19,28 +19,69 @@
 //
 // What bounds it: at the training shape (Sq = Skv = 1024, hd = 64) B5 does
 // three and B6 four products per visible (query, key) pair, about 100
-// operations per byte they must move, so tensor cores would be the limit.
-// This first version runs the products on the CUDA cores in float32, as B4
-// does, so its floating-point rate bounds it.
+// operations per byte they must move, so the tensor cores are the limit.
 //
-// Design. B5: one block of 256 threads per (64-query tile, query head, batch
-// row) walks the 64-key tiles its masks leave visible, holding its dQ tile
-// in registers. B6: one block per (64-key tile, KV head, batch row) loops
-// over the G query heads of the group and the visible 64-query tiles and
-// holds dK and dV in registers; each block writes its own rows once, so
-// there are no atomics and the result does not depend on scheduling. Tiles
-// are staged in shared memory as float32, rows padded to hd + 1 floats so
-// the row-parallel reads hit distinct banks. Thread (ty, tx) of the 16 x 16
+// B5 (both dtypes) and the float32 B6 run their products on the CUDA cores
+// in float32 (TF32 would not hold the float32 tolerance). B5: one block of
+// 256 threads per (64-query tile, query head, batch row) walks the 64-key
+// tiles its masks leave visible, holding its dQ tile in registers. The
+// float32 B6 (flash_attention_dkv_kernel): one block per (64-key tile, KV
+// head, batch row) loops over the G query heads of the group and the
+// visible 64-query tiles and holds dK and dV in registers. Tiles are staged
+// in shared memory as float32, rows padded to hd + 1 floats so the
+// row-parallel reads hit distinct banks. Thread (ty, tx) of the 16 x 16
 // layout owns rows 4ty..4ty+3 of the output tile and columns tx + 16c; it
 // computes the 4 x 4 scores of its rows against columns tx + 16j and hands
 // P and dS to the products through shared memory rows that only its 16
 // lanes write and read.
 //
+// The bf16 B6 (flash_attention_dkv_mma_kernel) runs its products on the
+// tensor cores: mma.sync m16n8k16 bf16 x bf16 -> f32 with ldmatrix
+// fragment loads (attention_mma.cuh; wgmma is the faster Hopper-only
+// instruction, and this version keeps to mma.sync, whose register
+// fragments carry P^T and dS^T from one product into the next). The same
+// owner, one block per (64-key tile, KV head, batch row), four warps of 16
+// key rows each; at hd = 128 a second group of four warps takes the upper
+// half of the dK/dV columns, so that no thread holds two 64 x 128 float32
+// accumulators. The K and V tiles stay in shared memory; the (q, dO) tiles
+// and their lse and D rows come through a two-stage cp.async ring, so the
+// next query tile loads while this one computes. Per query tile, in two
+// halves of 32 queries (a thread holds 32 queries' scores at a time, which
+// keeps the registers from spilling):
+// S^T = k q^T and dP^T = v dO^T from bf16 operands (exact products in the
+// float32 accumulator); P^T = exp(scale S^T - lse) where the masks let a
+// key be seen, else 0; dS^T = P^T (dP^T - D); then dV += P^T dO and
+// dK += dS^T q, where the float32 P^T and dS^T enter as bf16 terms, hi =
+// bf16(x), lo = bf16(x - hi) and so on, each multiplied into the same
+// float32 accumulator: one bf16 term alone would move dK and dV by
+// thousands of bf16 ulps. P^T takes two terms. dS^T takes three: it has
+// both signs, and where the scores are large (q scaled by 8) the sum over
+// the queries in dK cancels so far that two terms left dK 4.5-18.5 bf16
+// ulps from the float32 formulas in a CPU emulation, three within 1. That
+// makes seven products per tile instead of four. The tensor cores'
+// float32 accumulation truncates where a float32 add rounds: chained over
+// the hundreds of chunks that one dV or dK element sums at the training
+// length (up to 48 query tiles x 4 chunks x 2 terms), it moved bf16 dV 11.5
+// ulps from the plain version on the card. So each 16-query chunk's
+// products go into a zeroed fragment, and that joins the running float32
+// dK and dV with ordinary adds. The masks are applied at each element's
+// (query, key) position from the fragment layout, on the tiles that
+// straddle an edge only.
+//
+// Both B6 kernels write each block's own rows once: no atomics, and the
+// result does not depend on scheduling (the checkpoint resume check and
+// the determinism tests ask for bit equality). The bf16 grid's slowest
+// axis runs over the key tiles from the first, so that under a causal mask
+// the blocks with the most query tiles start first.
+//
 // Interface: plain C entry points loaded with ctypes. They launch on the
 // stream they are given, do not synchronise, allocate nothing and return
 // cudaGetLastError() (0 on success).
 
+#include <type_traits>
+
 #include "attention_common.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -201,19 +242,19 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// B6: dK and dV
+// B6 in float32: dK and dV on the CUDA cores
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_dkv_kernel(const T* __restrict__ q,
-                               const T* __restrict__ k,
-                               const T* __restrict__ v,
-                               const T* __restrict__ dout,
+    flash_attention_dkv_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const float* __restrict__ dout,
                                const float* __restrict__ lse,
                                const float* __restrict__ dsum,
-                               T* __restrict__ dk, T* __restrict__ dv, int Sq,
-                               int Skv, int Hq, int Hkv, int causal,
+                               float* __restrict__ dk, float* __restrict__ dv,
+                               int Sq, int Skv, int Hq, int Hkv, int causal,
                                int window, float scale) {
   static_assert(HD % 16 == 0, "hd must be a multiple of 16");
   constexpr int LD = HD + 1;
@@ -236,7 +277,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int64_t kvoff =
       ((static_cast<int64_t>(b) * Skv + k0) * Hkv + kvh) * HD;
-  attn::load_tiles<T, HD, kBlockKV, kThreads>(
+  attn::load_tiles<float, HD, kBlockKV, kThreads>(
       sk, LD, k + kvoff, sv, LD, v + kvoff, static_cast<int64_t>(Hkv) * HD,
       n_k);
 
@@ -263,7 +304,7 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();  // the previous q tile's reads are done
       const int64_t qoff =
           ((static_cast<int64_t>(b) * Sq + q0) * Hq + h) * HD;
-      attn::load_tiles<T, HD, kBlockQ, kThreads>(
+      attn::load_tiles<float, HD, kBlockQ, kThreads>(
           sq, LD, q + qoff, sdo, LD, dout + qoff, q_stride,
           min(kBlockQ, Sq - q0));
       if (tid < kBlockQ) {
@@ -347,8 +388,232 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t off = ((static_cast<int64_t>(b) * Skv + kr) * Hkv + kvh) * HD;
 #pragma unroll
     for (int c = 0; c < OC; ++c) {
-      dk[off + tx + 16 * c] = attn::Pack<T>::from_f32(acc_k[r][c] * scale);
-      dv[off + tx + 16 * c] = attn::Pack<T>::from_f32(acc_v[r][c]);
+      dk[off + tx + 16 * c] = acc_k[r][c] * scale;
+      dv[off + tx + 16 * c] = acc_v[r][c];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B6 in bf16: dK and dV on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaWarpRows = 4;  // warps of 16 key rows each
+
+// Groups of four warps that share the dK/dV columns: two at hd = 128.
+template <int HD>
+__host__ __device__ constexpr int dkv_col_groups() {
+  return HD == 128 ? 2 : 1;
+}
+
+template <int HD>
+__host__ __device__ constexpr int dkv_mma_threads() {
+  return 32 * kMmaWarpRows * dkv_col_groups<HD>();
+}
+
+template <int HD>
+constexpr size_t dkv_mma_shared_bytes() {
+  // k and v tiles and a two-stage ring of (q, dO) tiles, bf16; the lse and
+  // D rows of each stage's 64 queries, float32
+  return sizeof(__nv_bfloat16) * 6 * 64 * mma::row_elems<HD>() +
+         sizeof(float) * 2 * 2 * kBlockQ;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(dkv_mma_threads<HD>())
+    flash_attention_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                                   const __nv_bfloat16* __restrict__ k,
+                                   const __nv_bfloat16* __restrict__ v,
+                                   const __nv_bfloat16* __restrict__ dout,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ dsum,
+                                   __nv_bfloat16* __restrict__ dk,
+                                   __nv_bfloat16* __restrict__ dv, int Sq,
+                                   int Skv, int Hq, int Hkv, int causal,
+                                   int window, float scale) {
+  static_assert(HD % 16 == 0, "hd must be a multiple of 16");
+  constexpr int NT = dkv_mma_threads<HD>();
+  constexpr int LD = mma::row_elems<HD>();
+  constexpr int TILE = 64 * LD;
+  constexpr int KC = HD / 16;                      // k-chunks of k q^T
+  constexpr int CW = HD / dkv_col_groups<HD>();    // dK/dV columns a warp
+  constexpr int NO = CW / 8;                       // of them, in n-tiles
+  static_assert(NO % 2 == 0, "columns come in pairs of n-tiles");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sv = sk + TILE;
+  __nv_bfloat16* sqd = sv + TILE;  // stage s: q at sqd + 2s TILE, then dO
+  // stage s: the lse row at srow + 128 s, the D row 64 floats after it
+  float* srow = reinterpret_cast<float*>(sqd + 4 * TILE);
+
+  const int k0 = blockIdx.z * kBlockKV;
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int G = Hq / Hkv;
+  const int n_k = min(kBlockKV, Skv - k0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wr = warp % kMmaWarpRows, c0 = (warp / kMmaWarpRows) * CW;
+  const int g = lane >> 2, t = lane & 3;
+
+  // The query tiles that see any key of this tile: from its first key on
+  // when causal, up to its last key + window - 1 when windowed; walked for
+  // each of the G query heads in turn.
+  const int last_k = k0 + n_k - 1;
+  const int q_begin = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(Sq, last_k + window) : Sq;
+  const int i_begin = q_begin / kBlockQ;
+  const int n_i = max(0, (q_end + kBlockQ - 1) / kBlockQ - i_begin);
+  const int n_iter = G * n_i;
+  const int64_t q_stride = static_cast<int64_t>(Hq) * HD;
+  const int64_t kv_stride = static_cast<int64_t>(Hkv) * HD;
+
+  auto load_q = [&](int it, int stage) {
+    const int h = kvh * G + it / n_i;
+    const int q0 = (i_begin + it % n_i) * kBlockQ;
+    const int64_t off = (static_cast<int64_t>(b) * Sq + q0) * q_stride +
+                        h * HD;
+    __nv_bfloat16* dst = sqd + 2 * stage * TILE;
+    mma::load_tile_async<HD, NT>(dst, q + off, q_stride,
+                                 min(kBlockQ, Sq - q0));
+    mma::load_tile_async<HD, NT>(dst + TILE, dout + off, q_stride,
+                                 min(kBlockQ, Sq - q0));
+    if (threadIdx.x < 2 * kBlockQ) {  // lse by threads 0..63, D by 64..127
+      const int r = threadIdx.x % kBlockQ;
+      const float* src = threadIdx.x < kBlockQ ? lse : dsum;
+      const int64_t row = (static_cast<int64_t>(b) * Hq + h) * Sq + q0 + r;
+      const bool in = q0 + r < Sq;
+      mma::cp_async4(srow + 2 * kBlockQ * stage + threadIdx.x,
+                     in ? src + row : src, in ? 4 : 0);
+    }
+  };
+
+  if (n_iter > 0) {
+    const int64_t off = (static_cast<int64_t>(b) * Skv + k0) * kv_stride +
+                        kvh * HD;
+    mma::load_tile_async<HD, NT>(sk, k + off, kv_stride, n_k);
+    mma::load_tile_async<HD, NT>(sv, v + off, kv_stride, n_k);
+    load_q(0, 0);
+    mma::cp_async_commit();
+  }
+
+  // dK and dV of the warp's 16 key rows and CW columns, in the C layout
+  float acc_k[NO][4], acc_v[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_iter) {
+      load_q(it + 1, stage ^ 1);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile it (and, the first time, k and v) landed
+    const int q0 = (i_begin + it % n_i) * kBlockQ;
+    const __nv_bfloat16* sq = sqd + 2 * stage * TILE;
+    const __nv_bfloat16* sdo = sq + TILE;
+    const float* slse = srow + 2 * kBlockQ * stage;
+    const float* sd = slse + kBlockQ;
+
+    const bool edge = q0 + kBlockQ > Sq || k0 + kBlockKV > Skv ||
+                      (causal && q0 < k0 + kBlockKV - 1) ||
+                      (window > 0 && q0 + kBlockQ - 1 - window >= k0);
+    // The tile's queries in two halves of 32, one after the other, so that
+    // a thread holds the scores of 32 queries at a time.
+#pragma unroll 1
+    for (int qh = 0; qh < kBlockQ; qh += kBlockQ / 2) {
+      // S^T = k q^T and dP^T = v dO^T: the warp's 16 keys x 32 queries
+      float st[4][4], dpt[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t ak[4], av[4];
+        mma::load_a(ak, sk, LD, wr * 16, kc * 16);
+        mma::load_a(av, sv, LD, wr * 16, kc * 16);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t bq[4], bo[4];
+          mma::load_b_nk(bq, sq, LD, qh + np * 16, kc * 16);
+          mma::load_b_nk(bo, sdo, LD, qh + np * 16, kc * 16);
+          mma::mma_bf16(st[2 * np], ak, bq[0], bq[1]);
+          mma::mma_bf16(st[2 * np + 1], ak, bq[2], bq[3]);
+          mma::mma_bf16(dpt[2 * np], av, bo[0], bo[1]);
+          mma::mma_bf16(dpt[2 * np + 1], av, bo[2], bo[3]);
+        }
+      }
+
+      // P^T and dS^T in place; element e of n-tile n is (key row wr * 16
+      // + g + 8(e / 2), query qh + 8n + 2t + e % 2)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = qh + 8 * n + 2 * t + (e & 1);
+          const bool ok =
+              !edge || visible(q0 + qc, k0 + wr * 16 + g + 8 * (e >> 1), Sq,
+                               Skv, causal, window);
+          const float p = ok ? expf(st[n][e] * scale - slse[qc]) : 0.f;
+          st[n][e] = p;
+          dpt[n][e] = p * (dpt[n][e] - sd[qc]);
+        }
+
+      // dV += P^T dO with P^T as two bf16 terms, dK += dS^T q with dS^T
+      // as three; 16 queries per k-chunk
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc) {
+        uint32_t pa[2][4], da[3][4];
+        mma::split_a<2>(st[2 * kc], st[2 * kc + 1], pa);
+        mma::split_a<3>(dpt[2 * kc], dpt[2 * kc + 1], da);
+#pragma unroll
+        for (int np = 0; np < NO / 2; ++np) {
+          uint32_t bo[4], bq[4];
+          mma::load_b_kn(bo, sdo, LD, qh + kc * 16, c0 + np * 16);
+          mma::load_b_kn(bq, sq, LD, qh + kc * 16, c0 + np * 16);
+          // the chunk's terms go into zeroed fragments, which join the
+          // running sums by float32 adds (see the note at the top)
+          float tv[2][4] = {}, tk[2][4] = {};
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            mma::mma_bf16(tv[0], pa[x], bo[0], bo[1]);
+            mma::mma_bf16(tv[1], pa[x], bo[2], bo[3]);
+          }
+#pragma unroll
+          for (int x = 0; x < 3; ++x) {
+            mma::mma_bf16(tk[0], da[x], bq[0], bq[1]);
+            mma::mma_bf16(tk[1], da[x], bq[2], bq[3]);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc_v[2 * np + h][e] += tv[h][e];
+              acc_k[2 * np + h][e] += tk[h][e];
+            }
+        }
+      }
+    }
+    __syncthreads();  // this stage's reads are done before it is refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kr = k0 + wr * 16 + g + 8 * r;
+    if (kr >= Skv) continue;
+    const int64_t off = (static_cast<int64_t>(b) * Skv + kr) * kv_stride +
+                        kvh * HD + c0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * n) =
+          __floats2bfloat162_rn(acc_k[n][2 * r] * scale,
+                                acc_k[n][2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * n) =
+          __floats2bfloat162_rn(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
     }
   }
 }
@@ -379,19 +644,37 @@ int launch_dq(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// B6 at head dim HD: the tensor-core kernel for bf16, the CUDA-core kernel
+// for float32.
 template <typename T, int HD>
 int launch_dkv(const Args& a, cudaStream_t stream) {
-  auto kernel = flash_attention_dkv_kernel<T, HD>;
-  constexpr size_t bytes = dkv_shared_bytes<HD>();
-  cudaError_t err = attn::allow_shared_bytes(kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.Skv + kBlockKV - 1) / kBlockKV, a.Hkv, a.B);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Sq, a.Skv, a.Hq, a.Hkv,
-      a.causal, a.window, 1.0f / sqrtf(static_cast<float>(HD)));
+  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  const int n_k = (a.Skv + kBlockKV - 1) / kBlockKV;
+  cudaError_t err;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    auto kernel = flash_attention_dkv_mma_kernel<HD>;
+    constexpr size_t bytes = dkv_mma_shared_bytes<HD>();
+    constexpr int threads = dkv_mma_threads<HD>();
+    err = attn::allow_shared_bytes(kernel, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3(a.Hkv, a.B, n_k), threads, bytes, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
+        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Sq, a.Skv, a.Hq,
+        a.Hkv, a.causal, a.window, scale);
+  } else {
+    auto kernel = flash_attention_dkv_kernel<HD>;
+    constexpr size_t bytes = dkv_shared_bytes<HD>();
+    err = attn::allow_shared_bytes(kernel, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3(n_k, a.Hkv, a.B), kThreads, bytes, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
+        static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Sq, a.Skv, a.Hq,
+        a.Hkv, a.causal, a.window, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

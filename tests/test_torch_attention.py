@@ -16,6 +16,10 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gqa_decode as gd
+from repro_torch.kernels.flash_attention.ref import NEG, SAFE
+from test_torch_flash_bwd import (BF16_ULPS, FRAGMENT_EDGE_CASES,
+                                  REHEARSAL_CASES, _bf16_terms, _bf16_ulps,
+                                  _visible)
 
 #: The reference's own tolerances (tests/test_kernels.py).
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -126,6 +130,56 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(bad):
     assert fa.LAUNCHES["flash_attention"] == 0
 
 
+def _flash_bf16_emulated(q, k, v, *, causal, window, terms):
+    """The bf16 B4 kernel's arithmetic: float32 scores of the bf16 q and k
+    (exact products), the online softmax over 64-key tiles with the
+    kernel's sentinels and the row sum taken from the unrounded P, and
+    P·V with the float32 P split into ``terms`` bf16 terms, each
+    multiplied into one float32 accumulator."""
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Sq, Hkv, Hq // Hkv, hd).permute(0, 2, 3, 1, 4)
+    kf, vf = (t.float().permute(0, 2, 1, 3)[:, :, None] for t in (k, v))
+    ok = _visible(Sq, Skv, causal, window)
+    m = torch.full(qf.shape[:-1], NEG)
+    l = torch.zeros(qf.shape[:-1])
+    acc = torch.zeros(qf.shape)
+    for k0 in range(0, Skv, 64):
+        tile = slice(k0, k0 + 64)
+        s = qf @ kf[..., tile, :].transpose(-1, -2) * (1.0 / hd ** 0.5)
+        s = torch.where(ok[:, tile], s, NEG)
+        m_new = torch.maximum(m, s.amax(-1))
+        m_safe = m_new.clamp_min(SAFE)
+        corr = torch.where(m > 0.5 * NEG,
+                           torch.exp(m.clamp_min(SAFE) - m_safe), 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + sum(
+            t @ vf[..., tile, :] for t in _bf16_terms(p, terms))
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", REHEARSAL_CASES, ids=str)
+def test_bf16_split_of_p_holds_the_ulp_gate(case):
+    """B4 multiplies P, computed in float32, into a bf16 tensor-core product
+    as two bf16 terms (hi + lo): the output then lands within the card's
+    gate of the plain version, 2 bf16 ulps + 1e-5. The control, one bf16
+    term, lands far above it, so the gate tells the two apart."""
+    B, Sq, Skv, Hq, Hkv, hd, causal, window, q_scale = case
+    rng = np.random.default_rng(10)
+    q = _randn(rng, (B, Sq, Hq, hd), "bfloat16") * q_scale
+    k = _randn(rng, (B, Skv, Hkv, hd), "bfloat16")
+    v = _randn(rng, (B, Skv, Hkv, hd), "bfloat16")
+    kw = dict(causal=causal, window=window)
+    ref = fa.attention_ref(q, k, v, **kw)
+    assert _bf16_ulps(_flash_bf16_emulated(q, k, v, terms=2, **kw),
+                      ref) <= BF16_ULPS
+    assert _bf16_ulps(_flash_bf16_emulated(q, k, v, terms=1, **kw),
+                      ref) > BF16_ULPS
+
+
 # ===========================================================================
 # B7 GQA decode: plain version vs the reference
 # ===========================================================================
@@ -223,9 +277,46 @@ def test_flash_kernel_matches_plain(cuda, dtype, case):
                                     softcap=softcap, return_lse=True)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_attention"] == n0 + 1
+    _check_flash(out, lse, ref, ref_lse, dtype)
+
+
+def _check_flash(out, lse, ref, ref_lse, dtype):
+    """B4's output and lse against the plain version's: within the
+    reference's tolerance, and a bf16 output also within the ulp gate
+    (2 bf16 ulps + 1e-5)."""
     tol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=tol, rtol=0)
+    if dtype == "bfloat16":
+        assert _bf16_ulps(out, ref) <= BF16_ULPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FRAGMENT_EDGE_CASES, ids=str)
+def test_flash_kernel_at_fragment_edges(cuda, dtype, case):
+    B, Sq, Skv, Hq, Hkv, hd, causal, window, q_scale = case
+    rng = np.random.default_rng(12)
+    q = _randn(rng, (B, Sq, Hq, hd), dtype, cuda) * q_scale
+    k = _randn(rng, (B, Skv, Hkv, hd), dtype, cuda)
+    v = _randn(rng, (B, Skv, Hkv, hd), dtype, cuda)
+    kw = dict(causal=causal, window=window)
+    out, lse = fa.flash_attention_cuda(q, k, v, **kw)
+    ref, ref_lse = fa.attention_ref(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    _check_flash(out, lse, ref, ref_lse, dtype)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_is_deterministic(cuda):
+    rng = np.random.default_rng(13)
+    q = _randn(rng, (2, 300, 15, 64), "bfloat16", cuda)
+    k = _randn(rng, (2, 300, 5, 64), "bfloat16", cuda)
+    v = _randn(rng, (2, 300, 5, 64), "bfloat16", cuda)
+    first = fa.flash_attention_cuda(q, k, v)
+    again = fa.flash_attention_cuda(q, k, v)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -8,6 +8,7 @@ and — on a CUDA card only — B5/B6 against the plain version.
 
 JAX is imported by a fixture, so the kernel tests also run where only the
 port is installed."""
+import math
 import types
 
 import numpy as np
@@ -239,10 +240,6 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take(bad):
     assert fa.LAUNCHES == n0
 
 
-# ===========================================================================
-# B5/B6 vs the plain version (card only)
-# ===========================================================================
-
 def _bf16_ulps(out, ref) -> float:
     """Largest ``(|out - ref| - BF16_ATOL)`` in bf16 ulps of ``ref``."""
     d = (out.float() - ref.float()).abs()
@@ -252,6 +249,99 @@ def _bf16_ulps(out, ref) -> float:
     return float(excess.nan_to_num(nan=0.0).max().clamp(min=0))
 
 
+# ===========================================================================
+# the bf16 kernels' precision plan, rehearsed on the CPU
+# ===========================================================================
+
+#: (B, Sq, Skv, Hq, Hkv, hd, causal, window, q_scale): one head group of
+#: smollm's training shape, a windowed shape with ragged 64-row tiles, and
+#: the first with q scaled by 8 (exactly), so that the scores are large.
+REHEARSAL_CASES = [(1, 1024, 1024, 3, 1, 64, True, 0, 1.0),
+                   (1, 300, 300, 4, 2, 32, True, 100, 1.0),
+                   (1, 1024, 1024, 3, 1, 64, True, 0, 8.0)]
+
+
+def _bf16_terms(x: torch.Tensor, n: int) -> list:
+    """``x`` (float32) as ``n`` bf16 terms, each the bf16 rounding of what
+    the earlier ones leave: ``[bf16(x)]``, or ``[hi, bf16(x - hi)]``."""
+    terms, rest = [], x
+    for _ in range(n):
+        t = rest.to(torch.bfloat16).float()
+        terms.append(t)
+        rest = rest - t
+    return terms
+
+
+def _visible(Sq, Skv, causal, window) -> torch.Tensor:
+    iq, ik = torch.arange(Sq)[:, None], torch.arange(Skv)[None, :]
+    ok = torch.ones(Sq, Skv, dtype=torch.bool)
+    if causal:
+        ok &= ik <= iq
+    if window:
+        ok &= ik > iq - window
+    return ok
+
+
+def _dkv_bf16_emulated(q, k, v, o, do, lse, *, causal, window, p_terms,
+                       ds_terms):
+    """The bf16 B6 kernel's arithmetic: float32 Sᵀ and dPᵀ of the bf16
+    inputs (exact products), ``Pᵀ = exp(scale·Sᵀ − lse)`` where visible,
+    ``dSᵀ = Pᵀ∘(dPᵀ − D)``, and ``dV = Pᵀ dO``, ``dK = scale·dSᵀ q`` with
+    the float32 Pᵀ and dSᵀ split into ``p_terms`` and ``ds_terms`` bf16
+    terms, each multiplied into one float32 accumulator."""
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G, scale = Hq // Hkv, 1.0 / math.sqrt(hd)
+
+    def heads(t):   # [B, Sq, Hq, hd] -> [B, Hkv, G, Sq, hd] float32
+        return t.float().reshape(B, Sq, Hkv, G, hd).permute(0, 2, 3, 1, 4)
+
+    qf, of, dof = heads(q), heads(o), heads(do)
+    kf, vf = (t.float().permute(0, 2, 1, 3)[:, :, None] for t in (k, v))
+    s = qf @ kf.transpose(-1, -2)
+    p = torch.where(_visible(Sq, Skv, causal, window),
+                    torch.exp(s * scale - lse.reshape(B, Hkv, G, Sq, 1)),
+                    0.0)
+    ds = p * (dof @ vf.transpose(-1, -2)
+              - (of * dof).sum(-1, keepdim=True))
+    dv = sum(t.transpose(-1, -2) @ dof for t in _bf16_terms(p, p_terms))
+    dk = sum(t.transpose(-1, -2) @ qf for t in _bf16_terms(ds, ds_terms))
+    return ((dk.sum(2) * scale).transpose(1, 2).to(k.dtype),
+            dv.sum(2).transpose(1, 2).to(v.dtype))
+
+
+@pytest.mark.parametrize("case", REHEARSAL_CASES, ids=str)
+def test_bf16_split_of_p_and_ds_holds_the_ulp_gate(case):
+    """B6 multiplies Pᵀ and dSᵀ, computed in float32, into bf16 tensor-core
+    products as bf16 terms, Pᵀ as two (hi + lo) and dSᵀ as three: dK and dV
+    then land within the card's gate of the plain version, 2 bf16 ulps +
+    1e-5. The control, one bf16 term each, lands far above it, so the gate
+    tells them apart; with large scores, two terms of dSᵀ land above it too
+    (the sum over queries in dK cancels), which is why dSᵀ takes three."""
+    B, Sq, Skv, Hq, Hkv, hd, causal, window, q_scale = case
+    q, k, v, do = _inputs(np.random.default_rng(10), B, Sq, Skv, Hq, Hkv,
+                          hd, dtype=torch.bfloat16)
+    q = q * q_scale
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.attention_ref(q, k, v, return_lse=True, **kw)
+    _, dk, dv = fa.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+
+    def ulps(p_terms, ds_terms):
+        got = _dkv_bf16_emulated(q, k, v, o, do, lse, p_terms=p_terms,
+                                 ds_terms=ds_terms, **kw)
+        return _bf16_ulps(got[0], dk), _bf16_ulps(got[1], dv)
+
+    assert max(ulps(2, 3)) <= BF16_ULPS
+    assert min(ulps(1, 1)) > BF16_ULPS
+    if q_scale > 1:
+        assert ulps(2, 2)[0] > BF16_ULPS
+
+
+# ===========================================================================
+# B5/B6 vs the plain version (card only)
+# ===========================================================================
+
+
 KERNEL_CASES = [  # (B, Sq, Skv, Hq, Hkv, hd, causal, window)
     (2, 300, 300, 15, 5, 64, True, 0),     # smollm's heads, ragged tiles
     (1, 200, 200, 4, 4, 80, True, 0),      # hd = 80, G = 1
@@ -259,7 +349,37 @@ KERNEL_CASES = [  # (B, Sq, Skv, Hq, Hkv, hd, causal, window)
     (2, 130, 77, 6, 2, 32, False, 0),      # non-causal, Skv < Sq
     (1, 100, 40, 3, 1, 64, True, 16),      # rows that see no key
     (1, 1, 65, 2, 1, 32, True, 0),
+    (2, 1024, 1024, 15, 5, 64, True, 0),   # the training length
 ]
+
+
+#: Shapes at the edges of the tensor-core kernels' fragments and tiles:
+#: (B, Sq, Skv, Hq, Hkv, hd, causal, window, q_scale). q_scale multiplies
+#: q (exactly, a power of two) so that the scores reach large magnitudes,
+#: where exp's range and the lo term of the bf16 split are exercised.
+FRAGMENT_EDGE_CASES = [
+    (1, 17, 17, 3, 1, 64, True, 0, 1.0),
+    (2, 17, 17, 4, 2, 32, False, 0, 1.0),
+    (1, 40, 8, 2, 1, 64, False, 0, 1.0),      # Skv = 8
+    (1, 8, 8, 2, 1, 128, True, 0, 1.0),
+    (1, 130, 130, 4, 4, 80, True, 0, 1.0),    # hd = 80, ragged tiles
+    (1, 130, 130, 4, 2, 80, True, 48, 1.0),
+    (2, 200, 200, 6, 2, 64, True, 0, 8.0),    # large scores
+    (1, 130, 150, 4, 1, 128, False, 0, 8.0),
+]
+
+
+def _check_backward(got, ref, dt):
+    """B5/B6 outputs against the plain version's: float32 within
+    KERNEL_F32 of the largest value (or of 1), bf16 within the ulp gate."""
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == b.dtype == dt, name
+        assert bool(torch.isfinite(a).all()), name
+        if dt == torch.float32:
+            err = float((a - b).abs().max() / b.abs().max().clamp_min(1.0))
+            assert err <= KERNEL_F32, (name, err)
+        else:
+            assert _bf16_ulps(a, b) <= BF16_ULPS, name
 
 
 @pytest.mark.cuda
@@ -280,14 +400,24 @@ def test_backward_kernels_match_plain(cuda, dtype, case):
     assert fa.LAUNCHES["flash_attention_dq"] == n0["flash_attention_dq"] + 1
     assert fa.LAUNCHES["flash_attention_dkv"] == \
         n0["flash_attention_dkv"] + 1
-    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
-        assert a.dtype == b.dtype == dt, name
-        assert bool(torch.isfinite(a).all()), name
-        if dtype == "float32":
-            err = float((a - b).abs().max() / b.abs().max().clamp_min(1.0))
-            assert err <= KERNEL_F32, (name, err)
-        else:
-            assert _bf16_ulps(a, b) <= BF16_ULPS, name
+    _check_backward(got, ref, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FRAGMENT_EDGE_CASES, ids=str)
+def test_backward_kernels_at_fragment_edges(cuda, dtype, case):
+    B, Sq, Skv, Hq, Hkv, hd, causal, window, q_scale = case
+    dt = getattr(torch, dtype)
+    q, k, v, do = _inputs(np.random.default_rng(11), B, Sq, Skv, Hq, Hkv,
+                          hd, dtype=dt, device=cuda)
+    q = q * q_scale
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.flash_attention_cuda(q, k, v, **kw)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    ref = fa.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    _check_backward(got, ref, dt)
 
 
 @pytest.mark.cuda
