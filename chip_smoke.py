@@ -8,8 +8,8 @@ Phases, each of which must pass (any failure exits nonzero, no result):
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
    build of the kernel library from src/repro_torch/csrc, with ptxas's
    registers and spills and each attention kernel's tensor-core
-   instructions in the library's SASS (the bf16 B4 and B6 must have some,
-   their float32 versions none);
+   instructions in the library's SASS (the bf16 B4, B5 and B6 must have
+   some, their float32 versions none);
 2. every CUDA kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged small shapes, with its time, the plain
    version's time, its bound and, where one exists, a PyTorch call's time;
@@ -66,12 +66,14 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    weights and Adam state, remat: finite and falling loss, launch counts
    (B4 64, B5 32, B6 32, B7 and B8 0 per step), no parameter without a
    gradient, every B5/B6 call of a step within 2 bf16 ulps of its plain
-   version, float32 gradients of a 2 x 512-token step within 1e-4 of the
-   plain versions' (a control with layer 0's dQ at 6 mantissa bits must
-   exceed that), and at 4 layers 4 straight steps bitwise equal to 2
-   steps + checkpoint save + restore + 2 steps; step time, tokens/s, peak
-   memory and the device time of one step by kernel (B4, B5 and B6
-   each).
+   version as it comes and again with dO scaled by a power of two that
+   brings the largest gradient into [0.5, 1) (a control with one call's
+   dq at 4 mantissa bits must exceed that), float32 gradients of a 2 x
+   512-token step within 1e-4 of the plain versions' (a control with
+   layer 0's dQ at 6 mantissa bits must exceed that), and at 4 layers 4
+   straight steps bitwise equal to 2 steps + checkpoint save + restore +
+   2 steps; step time, tokens/s, peak memory and the device time of one
+   step by kernel (B4, B5 and B6 each).
 
 It prints a JSON line of per-kernel numbers and, last, the device line
 ``{"ok": true, "device": {...}}``. It needs the repository around it and
@@ -81,6 +83,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import statistics
@@ -158,6 +161,11 @@ GRAD_B, GRAD_S, RESUME_LAYERS = 2, 512, 4
 #: JAX package, tests/test_torch_training.py); the control rounds layer
 #: 0's dQ to GRAD_CONTROL_BITS mantissa bits and must exceed it.
 GRAD_TOL, GRAD_CONTROL_BITS = 1e-4, 6
+#: The control of phase 12's per-call B5/B6 reading at scaled dO rounds one
+#: call's dq to this many mantissa bits. bf16 keeps 7, so rounding to 6
+#: moves a value by at most one bf16 ulp (a tie rounds away), which a
+#: 2-ulp gate passes by design; at 4 bits a tie moves it by 4 ulps.
+CALL_CONTROL_BITS = 4
 #: B5/B6 in float32 against the plain version: max abs difference over the
 #: plain output's largest |value|, or over 1 where that is smaller (the
 #: reference's absolute 3e-4, tests/test_kernels.py).
@@ -267,13 +275,14 @@ def bound_ms(n_bytes: float, n_ops: float, ops_s: float = F32_OPS_S
 # kernels
 # ===========================================================================
 
-#: Attention kernels in the library, by function name (the bf16 B4 and B6
-#: are the ``_mma`` ones).
+#: Attention kernels in the library, by function name (the bf16 B4, B5 and
+#: B6 are the ``_mma`` ones).
 ATTN_KERNELS = re.compile(r"(flash_attention_(?:fwd|dq|dkv)(?:_mma)?_kernel"
                           r"|gqa_decode_kernel)")
 #: Kernels whose bf16 instantiation must run its products on the tensor
 #: cores, and whose float32 one must not.
-TENSOR_CORE_KERNELS = ("flash_attention_fwd", "flash_attention_dkv")
+TENSOR_CORE_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
+                       "flash_attention_dkv")
 
 
 def tensor_core_counts(lib_path: str) -> dict:
@@ -306,7 +315,8 @@ def tensor_core_counts(lib_path: str) -> dict:
 def phase_build() -> None:
     """Build the library; print ptxas's register, shared-memory and spill
     lines and each attention kernel's tensor-core instruction count; check
-    that the bf16 B4 and B6 have some and their float32 versions none."""
+    that the bf16 B4, B5 and B6 have some and their float32 versions
+    none."""
     from repro_torch.kernels._build import load_library
 
     _, info = load_library()
@@ -1300,7 +1310,8 @@ def phase_backward_kernels(dev) -> dict:
         products = ("bf16: tensor-core products (mma.sync), Pᵀ split "
                     "into two bf16 terms and dSᵀ into three; float32: "
                     "CUDA-core products; " if name == "flash_attention_dkv"
-                    else "CUDA-core products; ")
+                    else "bf16: tensor-core products (mma.sync), dS split "
+                    "into two bf16 terms; float32: CUDA-core products; ")
         out[name] = dict(shape=[B, Sq, Hq, Hkv, hd], max_abs_err=err[name],
                          ms=ms[name], plain_ms=plain, bound_ms=b,
                          bound_by=by, library_ms=lib,
@@ -1338,17 +1349,49 @@ def _patched_backward(wrap):
         ops.flash_attention_bwd = saved
 
 
-def _bwd_held(readings: list):
-    """Run B5/B6 and, on the same inputs, the plain version; append the
-    largest ``bf16_ulp_err`` reading of dq, dk, dv; go on with the
-    kernels' gradients."""
+def _dout_scale(grads) -> float:
+    """``2**s`` for the integer ``s`` that brings the largest |value| of
+    ``grads`` into [0.5, 1) (1 where they are all 0)."""
+    m = max(float(t.float().abs().max()) for t in grads)
+    return 2.0 ** -math.frexp(m)[1] if m > 0 else 1.0
+
+
+def _held_reading(fn, args, kw, fault=None):
+    """B5/B6 (``fn(*args, use_kernel=True)``, ``args`` = (q, k, v, o, do,
+    lse)) against the plain version on the same inputs. Returns the
+    kernels' ``(dq, dk, dv)`` and ``(max abs, ulps, scaled ulps)``: the
+    largest ``bf16_ulp_err`` over the three, as they come and again with
+    dO scaled by the power of two that brings the plain version's largest
+    |value| into [0.5, 1). The backward is linear in dO (o and lse are
+    fixed, D = rowsum(dO∘O) is linear too), so the scaled outputs are the
+    unscaled ones times that power, exactly, and the BF16_ATOL floor no
+    longer hides their ulps where the gradients are small. ``fault``, if
+    given, is applied to the kernels' dq before it is read: the control."""
+    def pair(a):
+        out = list(fn(*a, use_kernel=True, **kw))
+        if fault is not None:
+            out[0] = fault(out[0])
+        return out, fn(*a, use_kernel=False, **kw)
+
+    out, ref = pair(args)
+    errs = [bf16_ulp_err(a, b) for a, b in zip(out, ref)]
+    q, k, v, o, do, lse = args
+    out_s, ref_s = pair((q, k, v, o, do * _dout_scale(ref), lse))
+    scaled = max(bf16_ulp_err(a, b)[1] for a, b in zip(out_s, ref_s))
+    return tuple(out), (max(e[0] for e in errs), max(e[1] for e in errs),
+                        scaled)
+
+
+def _bwd_held(readings: list, first: list):
+    """Run B5/B6 and the plain version on the same inputs; append each
+    call's ``_held_reading``; keep the first call's ``(fn, args, kw)`` in
+    ``first`` (for the control); go on with the kernels' gradients."""
     def wrap(fn):
         def call(*args, use_kernel=None, **kw):
-            out = fn(*args, use_kernel=True, **kw)
-            ref = fn(*args, use_kernel=False, **kw)
-            errs = [bf16_ulp_err(a, b) for a, b in zip(out, ref)]
-            readings.append((max(e[0] for e in errs),
-                             max(e[1] for e in errs)))
+            if not first:
+                first.append((fn, args, kw))
+            out, reading = _held_reading(fn, args, kw)
+            readings.append(reading)
             return out
         return call
     return wrap
@@ -1517,16 +1560,29 @@ def phase_training(dev) -> dict:
     pipe = TokenPipeline(cfg, global_batch=TRAIN_B, seq_len=TRAIN_S,
                          seed=SEED)
     batch = _train_batch(pipe, TRAIN_STEPS, dev)
-    held = []
-    with _patched_backward(_bwd_held(held)):
+    held, first = [], []
+    with _patched_backward(_bwd_held(held, first)):
         _grads_of(model, cfg, batch, None)
     check(len(held) == cfg.n_layers, f"held {len(held)} backward calls")
-    call_err, call_ulps = max(h[0] for h in held), max(h[1] for h in held)
+    call_err, call_ulps, call_scaled = (max(h[i] for h in held)
+                                        for i in range(3))
+    with torch.no_grad():
+        _, ctrl_call = _held_reading(*first[0], fault=lambda dq:
+                                     _round_mantissa(dq, CALL_CONTROL_BITS))
+    del first
     log(f"  bf16, every B5/B6 call of one step ({len(held)} calls) vs the "
         f"plain version on its inputs: max abs {call_err:.3g}, max "
-        f"{call_ulps:.3g} ulps beyond {BF16_ATOL}")
+        f"{call_ulps:.3g} ulps beyond {BF16_ATOL}; with dO scaled so that "
+        f"the largest gradient is in [0.5, 1): max {call_scaled:.3g} ulps "
+        f"(per call: {', '.join(f'{h[2]:.3g}' for h in held)}); control "
+        f"(the first call's dq at {CALL_CONTROL_BITS} mantissa bits): "
+        f"{ctrl_call[1]:.3g} ulps, scaled {ctrl_call[2]:.3g}")
     check(call_ulps <= BF16_ULPS, f"training backward calls beyond "
           f"{BF16_ULPS} bf16 ulps + {BF16_ATOL} ({call_ulps:.3g})")
+    check(call_scaled <= BF16_ULPS, f"training backward calls at scaled dO "
+          f"beyond {BF16_ULPS} bf16 ulps + {BF16_ATOL} ({call_scaled:.3g})")
+    check(ctrl_call[2] > BF16_ULPS, f"backward call control at scaled dO "
+          f"within {BF16_ULPS} bf16 ulps ({ctrl_call[2]:.3g})")
 
     # where one step's device time goes
     opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=10)
@@ -1588,7 +1644,9 @@ def phase_training(dev) -> dict:
 
     out = dict(step_ms=step_ms, tokens_per_s=tok_s, peak_gb=peak_gb,
                busy_share=busy / step_ms, launches=launches,
-               call_ulps=call_ulps, grad_err=err, grad_control=ctrl,
+               call_ulps=call_ulps, call_ulps_scaled=call_scaled,
+               call_control_scaled=ctrl_call[2], grad_err=err,
+               grad_control=ctrl,
                losses=losses)
     out.update(_resume_check(dev))
     torch.cuda.empty_cache()

@@ -1,5 +1,6 @@
 // Shared pieces of the bf16 attention kernels that run their tile products
-// on the tensor cores (flash_attention.cu B4, flash_attention_bwd.cu B6):
+// on the tensor cores (flash_attention.cu B4, flash_attention_bwd.cu B5
+// and B6):
 // bf16 tiles staged in shared memory with cp.async, fragment loads with
 // ldmatrix, the mma.sync m16n8k16 bf16 x bf16 -> f32 product, and the
 // split of a float32 operand into bf16 terms.

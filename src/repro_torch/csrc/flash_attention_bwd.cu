@@ -21,58 +21,77 @@
 // three and B6 four products per visible (query, key) pair, about 100
 // operations per byte they must move, so the tensor cores are the limit.
 //
-// B5 (both dtypes) and the float32 B6 run their products on the CUDA cores
-// in float32 (TF32 would not hold the float32 tolerance). B5: one block of
-// 256 threads per (64-query tile, query head, batch row) walks the 64-key
-// tiles its masks leave visible, holding its dQ tile in registers. The
-// float32 B6 (flash_attention_dkv_kernel): one block per (64-key tile, KV
-// head, batch row) loops over the G query heads of the group and the
-// visible 64-query tiles and holds dK and dV in registers. Tiles are staged
-// in shared memory as float32, rows padded to hd + 1 floats so the
-// row-parallel reads hit distinct banks. Thread (ty, tx) of the 16 x 16
-// layout owns rows 4ty..4ty+3 of the output tile and columns tx + 16c; it
-// computes the 4 x 4 scores of its rows against columns tx + 16j and hands
-// P and dS to the products through shared memory rows that only its 16
-// lanes write and read.
+// The float32 kernels run their products on the CUDA cores in float32
+// (TF32 would not hold the float32 tolerance). B5
+// (flash_attention_dq_kernel): one block of 256 threads per (64-query
+// tile, query head, batch row) walks the 64-key tiles its masks leave
+// visible, holding its dQ tile in registers. B6
+// (flash_attention_dkv_kernel): one block per (64-key tile, KV head, batch
+// row) loops over the G query heads of the group and the visible 64-query
+// tiles and holds dK and dV in registers. Tiles are staged in shared
+// memory as float32, rows padded to hd + 1 floats so the row-parallel
+// reads hit distinct banks. Thread (ty, tx) of the 16 x 16 layout owns
+// rows 4ty..4ty+3 of the output tile and columns tx + 16c; it computes the
+// 4 x 4 scores of its rows against columns tx + 16j and hands P and dS to
+// the products through shared memory rows that only its 16 lanes write
+// and read.
 //
-// The bf16 B6 (flash_attention_dkv_mma_kernel) runs its products on the
-// tensor cores: mma.sync m16n8k16 bf16 x bf16 -> f32 with ldmatrix
-// fragment loads (attention_mma.cuh; wgmma is the faster Hopper-only
-// instruction, and this version keeps to mma.sync, whose register
-// fragments carry P^T and dS^T from one product into the next). The same
-// owner, one block per (64-key tile, KV head, batch row), four warps of 16
-// key rows each; at hd = 128 a second group of four warps takes the upper
-// half of the dK/dV columns, so that no thread holds two 64 x 128 float32
-// accumulators. The K and V tiles stay in shared memory; the (q, dO) tiles
-// and their lse and D rows come through a two-stage cp.async ring, so the
-// next query tile loads while this one computes. Per query tile, in two
-// halves of 32 queries (a thread holds 32 queries' scores at a time, which
-// keeps the registers from spilling):
-// S^T = k q^T and dP^T = v dO^T from bf16 operands (exact products in the
-// float32 accumulator); P^T = exp(scale S^T - lse) where the masks let a
-// key be seen, else 0; dS^T = P^T (dP^T - D); then dV += P^T dO and
-// dK += dS^T q, where the float32 P^T and dS^T enter as bf16 terms, hi =
-// bf16(x), lo = bf16(x - hi) and so on, each multiplied into the same
-// float32 accumulator: one bf16 term alone would move dK and dV by
-// thousands of bf16 ulps. P^T takes two terms. dS^T takes three: it has
-// both signs, and where the scores are large (q scaled by 8) the sum over
-// the queries in dK cancels so far that two terms left dK 4.5-18.5 bf16
-// ulps from the float32 formulas in a CPU emulation, three within 1. That
-// makes seven products per tile instead of four. The tensor cores'
-// float32 accumulation truncates where a float32 add rounds: chained over
-// the hundreds of chunks that one dV or dK element sums at the training
-// length (up to 48 query tiles x 4 chunks x 2 terms), it moved bf16 dV 11.5
-// ulps from the plain version on the card. So each 16-query chunk's
-// products go into a zeroed fragment, and that joins the running float32
-// dK and dV with ordinary adds. The masks are applied at each element's
-// (query, key) position from the fragment layout, on the tiles that
-// straddle an edge only.
+// The bf16 kernels run their products on the tensor cores: mma.sync
+// m16n8k16 bf16 x bf16 -> f32 with ldmatrix fragment loads
+// (attention_mma.cuh; wgmma is the faster Hopper-only instruction, and
+// these versions keep to mma.sync, whose register fragments carry P, dS
+// and their transposes from one product into the next). The float32 P and
+// dS enter the second product as bf16 terms, hi = bf16(x), lo = bf16(x -
+// hi) and so on, each multiplied into the same float32 accumulator: one
+// bf16 term alone would move dQ, dK and dV by thousands of bf16 ulps. The
+// tensor cores' float32 accumulation truncates where a float32 add
+// rounds: chained over the hundreds of chunks that one output element
+// sums at the training length, it moved bf16 dV 11.5 ulps from the plain
+// version on the card. So each 16-row chunk's products go into a zeroed
+// fragment, and that joins the running float32 output with ordinary adds.
+// The masks are applied at each element's (query, key) position from the
+// fragment layout, on the tiles that straddle an edge only.
 //
-// Both B6 kernels write each block's own rows once: no atomics, and the
+// The bf16 B5 (flash_attention_dq_mma_kernel): the same owner as the
+// float32 one, one block per (64-query tile, query head, batch row), four
+// warps of 16 query rows each. The q and dO tiles load once; the K and V
+// tiles come through a two-stage cp.async ring, so key tile j + 1 loads
+// while j computes. lse and D of a thread's two rows sit in registers. Per
+// key tile: S = q k^T and dP = dO v^T from bf16 operands (exact products
+// in the float32 accumulator); P = exp(scale S - lse) where the masks let
+// a key be seen, else 0; dS = P (dP - D) in place of S; then dQ += dS k,
+// the two C tiles of 16 keys forming one A fragment (the forward's P v
+// with dS for P and K for V). dS takes two terms: a CPU emulation of this
+// arithmetic held dQ within 1 bf16 ulp of the float32 formulas with two,
+// also with q scaled by 8, since dQ's sum over keys does not cancel the
+// way dK's sum over queries does. That makes four products per tile
+// instead of three. A key tile is taken in two passes of 32 keys (one at
+// hd = 32), and the q and dO fragments are loaded from shared memory for
+// each pass, so that the float32 dQ accumulator, S and dP fit in the
+// registers.
+//
+// The bf16 B6 (flash_attention_dkv_mma_kernel): the same owner as the
+// float32 one, one block per (64-key tile, KV head, batch row), four warps
+// of 16 key rows each; at hd = 128 a second group of four warps takes the
+// upper half of the dK/dV columns, so that no thread holds two 64 x 128
+// float32 accumulators. The K and V tiles stay in shared memory; the (q,
+// dO) tiles and their lse and D rows come through a two-stage cp.async
+// ring, so the next query tile loads while this one computes. Per query
+// tile, in two halves of 32 queries (a thread holds 32 queries' scores at
+// a time, which keeps the registers from spilling): S^T = k q^T and dP^T =
+// v dO^T; P^T and dS^T = P^T (dP^T - D) in place; then dV += P^T dO and
+// dK += dS^T q. P^T takes two terms. dS^T takes three: it has both signs,
+// and where the scores are large (q scaled by 8) the sum over the queries
+// in dK cancels so far that two terms left dK 4.5-18.5 bf16 ulps from the
+// float32 formulas in a CPU emulation, three within 1. That makes seven
+// products per tile instead of four.
+//
+// Every kernel writes each block's own rows once: no atomics, and the
 // result does not depend on scheduling (the checkpoint resume check and
-// the determinism tests ask for bit equality). The bf16 grid's slowest
-// axis runs over the key tiles from the first, so that under a causal mask
-// the blocks with the most query tiles start first.
+// the determinism tests ask for bit equality). The bf16 grids run the
+// heaviest blocks first under a causal mask: B5's last query tile, which
+// walks the most key tiles, and B6's first key tile, which the most query
+// tiles see.
 //
 // Interface: plain C entry points loaded with ctypes. They launch on the
 // stream they are given, do not synchronise, allocate nothing and return
@@ -112,19 +131,20 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int Sq, int Skv,
 }
 
 // ---------------------------------------------------------------------------
-// B5: dQ
+// B5 in float32: dQ on the CUDA cores
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_dq_kernel(const T* __restrict__ q,
-                              const T* __restrict__ k,
-                              const T* __restrict__ v,
-                              const T* __restrict__ dout,
+    flash_attention_dq_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ dout,
                               const float* __restrict__ lse,
                               const float* __restrict__ dsum,
-                              T* __restrict__ dq, int Sq, int Skv, int Hq,
-                              int Hkv, int causal, int window, float scale) {
+                              float* __restrict__ dq, int Sq, int Skv,
+                              int Hq, int Hkv, int causal, int window,
+                              float scale) {
   static_assert(HD % 16 == 0, "hd must be a multiple of 16");
   constexpr int LD = HD + 1;
   constexpr int OC = HD / 16;  // output columns per thread
@@ -141,7 +161,7 @@ __global__ void __launch_bounds__(kThreads)
   const int kvh = h / (Hq / Hkv);
 
   const int64_t qoff = ((static_cast<int64_t>(b) * Sq + q0) * Hq + h) * HD;
-  attn::load_tiles<T, HD, kBlockQ, kThreads>(
+  attn::load_tiles<float, HD, kBlockQ, kThreads>(
       sq, LD, q + qoff, sdo, LD, dout + qoff, static_cast<int64_t>(Hq) * HD,
       min(kBlockQ, Sq - q0));
 
@@ -168,7 +188,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the previous tile's k/v and dS reads are done
     const int64_t off =
         ((static_cast<int64_t>(b) * Skv + k0) * Hkv + kvh) * HD;
-    attn::load_tiles<T, HD, kBlockKV, kThreads>(
+    attn::load_tiles<float, HD, kBlockKV, kThreads>(
         sk, LD, k + off, sv, LD, v + off, kv_stride, min(kBlockKV, Skv - k0));
     __syncthreads();
 
@@ -234,10 +254,208 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty * 4 + i;
     if (qi >= Sq) continue;
-    T* row = dq + ((static_cast<int64_t>(b) * Sq + qi) * Hq + h) * HD;
+    float* row = dq + ((static_cast<int64_t>(b) * Sq + qi) * Hq + h) * HD;
 #pragma unroll
-    for (int c = 0; c < OC; ++c)
-      row[tx + 16 * c] = attn::Pack<T>::from_f32(acc[i][c] * scale);
+    for (int c = 0; c < OC; ++c) row[tx + 16 * c] = acc[i][c] * scale;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B5 in bf16: dQ on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaWarpRows = 4;  // warps of 16 rows each (query or key)
+constexpr int kDqMmaThreads = 32 * kMmaWarpRows;
+
+// Keys of a 64-key tile that one pass takes: from hd = 64 on two halves of
+// 32, so that the dQ accumulator (32 floats a thread at hd = 64, 64 at
+// hd = 128) and the pass's S and dP fit in the registers together; the
+// whole tile at hd = 32. ptxas -v on the card: a whole tile spilled at
+// hd = 128, halves spilled 16 bytes at hd = 32, and holding the q and dO
+// fragments in registers spilled at hd = 64, so they are loaded from
+// shared memory for each product instead.
+template <int HD>
+__host__ __device__ constexpr int dq_keys_per_pass() {
+  return HD == 32 ? 64 : 32;
+}
+
+template <int HD>
+constexpr size_t dq_mma_shared_bytes() {
+  // the q and dO tiles and a two-stage ring of (K, V) tiles, bf16
+  return sizeof(__nv_bfloat16) * 6 * 64 * mma::row_elems<HD>();
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kDqMmaThreads)
+    flash_attention_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                                  const __nv_bfloat16* __restrict__ k,
+                                  const __nv_bfloat16* __restrict__ v,
+                                  const __nv_bfloat16* __restrict__ dout,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ dsum,
+                                  __nv_bfloat16* __restrict__ dq, int Sq,
+                                  int Skv, int Hq, int Hkv, int causal,
+                                  int window, float scale) {
+  static_assert(HD % 16 == 0, "hd must be a multiple of 16");
+  constexpr int LD = mma::row_elems<HD>();
+  constexpr int TILE = 64 * LD;
+  constexpr int KC = HD / 16;   // k-chunks of q k^T and dO v^T
+  constexpr int NO = HD / 8;    // n-tiles of dQ
+  constexpr int KP = dq_keys_per_pass<HD>();
+  constexpr int NS = KP / 8;    // n-tiles of a pass's S and dP
+  static_assert(NO % 2 == 0, "columns come in pairs of n-tiles");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sdo = sq + TILE;
+  __nv_bfloat16* skv = sdo + TILE;  // stage s: K at skv + 2s TILE, then V
+
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockQ;  // last tile first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / (Hq / Hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  // The key tiles this query tile sees: up to its last row when causal,
+  // from its first row's window start when windowed.
+  const int kv_end = causal ? min(Skv, q0 + kBlockQ) : Skv;
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int j_begin = kv_begin / kBlockKV;
+  const int j_end = (kv_end + kBlockKV - 1) / kBlockKV;
+  const int64_t q_stride = static_cast<int64_t>(Hq) * HD;
+  const int64_t kv_stride = static_cast<int64_t>(Hkv) * HD;
+  const int64_t kv_base = static_cast<int64_t>(b) * Skv * kv_stride + kvh * HD;
+  auto load_kv = [&](int j, int stage) {
+    const int k0 = j * kBlockKV;
+    __nv_bfloat16* dst = skv + 2 * stage * TILE;
+    mma::load_tile_async<HD, kDqMmaThreads>(dst, k + kv_base + k0 * kv_stride,
+                                            kv_stride,
+                                            min(kBlockKV, Skv - k0));
+    mma::load_tile_async<HD, kDqMmaThreads>(dst + TILE,
+                                            v + kv_base + k0 * kv_stride,
+                                            kv_stride,
+                                            min(kBlockKV, Skv - k0));
+  };
+
+  const int64_t qoff = (static_cast<int64_t>(b) * Sq + q0) * q_stride + h * HD;
+  mma::load_tile_async<HD, kDqMmaThreads>(sq, q + qoff, q_stride,
+                                          min(kBlockQ, Sq - q0));
+  mma::load_tile_async<HD, kDqMmaThreads>(sdo, dout + qoff, q_stride,
+                                          min(kBlockQ, Sq - q0));
+  if (j_begin < j_end) load_kv(j_begin, 0);
+  mma::cp_async_commit();
+
+  // lse and D of rows g and g + 8 of the warp's 16, and dQ's n-tiles in
+  // the C layout
+  float rl[2], rd[2];
+  const int64_t row0 = (static_cast<int64_t>(b) * Hq + h) * Sq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + warp * 16 + g + 8 * r;
+    rl[r] = qi < Sq ? lse[row0 + qi] : 0.f;
+    rd[r] = qi < Sq ? dsum[row0 + qi] : 0.f;
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = j_begin; j < j_end; ++j) {
+    const int stage = (j - j_begin) & 1;
+    if (j + 1 < j_end) {
+      load_kv(j + 1, stage ^ 1);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile j (and, the first time, q and dO) landed
+    const __nv_bfloat16* sk = skv + 2 * stage * TILE;
+    const __nv_bfloat16* sv = sk + TILE;
+    const int k0 = j * kBlockKV;
+    const bool edge = q0 + kBlockQ > Sq || k0 + kBlockKV > Skv ||
+                      (causal && k0 + kBlockKV - 1 > q0) ||
+                      (window > 0 && q0 + kBlockQ - 1 - window >= k0);
+
+#pragma unroll 1
+    for (int kp = 0; kp < kBlockKV; kp += KP) {
+      // S = q k^T and dP = dO v^T: the warp's 16 rows x KP keys
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t aq[4], ao[4];
+        mma::load_a(aq, sq, LD, warp * 16, kc * 16);
+        mma::load_a(ao, sdo, LD, warp * 16, kc * 16);
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t bk[4], bv[4];
+          mma::load_b_nk(bk, sk, LD, kp + np * 16, kc * 16);
+          mma::load_b_nk(bv, sv, LD, kp + np * 16, kc * 16);
+          mma::mma_bf16(s[2 * np], aq, bk[0], bk[1]);
+          mma::mma_bf16(s[2 * np + 1], aq, bk[2], bk[3]);
+          mma::mma_bf16(dp[2 * np], ao, bv[0], bv[1]);
+          mma::mma_bf16(dp[2 * np + 1], ao, bv[2], bv[3]);
+        }
+      }
+
+      // P, then dS in place of S; element e of n-tile n is (row warp * 16
+      // + g + 8(e / 2), key kp + 8n + 2t + e % 2)
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const bool ok =
+              !edge || visible(q0 + warp * 16 + g + 8 * r,
+                               k0 + kp + 8 * n + 2 * t + (e & 1), Sq, Skv,
+                               causal, window);
+          const float p = ok ? expf(s[n][e] * scale - rl[r]) : 0.f;
+          s[n][e] = p * (dp[n][e] - rd[r]);
+        }
+
+      // dQ += dS k with dS as two bf16 terms, 16 keys per k-chunk; the
+      // chunk's terms go into zeroed fragments, which join the running
+      // sums by float32 adds (see the note at the top)
+#pragma unroll
+      for (int kc = 0; kc < KP / 16; ++kc) {
+        uint32_t da[2][4];
+        mma::split_a<2>(s[2 * kc], s[2 * kc + 1], da);
+#pragma unroll
+        for (int np = 0; np < NO / 2; ++np) {
+          uint32_t bk[4];
+          mma::load_b_kn(bk, sk, LD, kp + kc * 16, np * 16);
+          float tq[2][4] = {};
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            mma::mma_bf16(tq[0], da[x], bk[0], bk[1]);
+            mma::mma_bf16(tq[1], da[x], bk[2], bk[3]);
+          }
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[2 * np + hh][e] += tq[hh][e];
+        }
+      }
+    }
+    __syncthreads();  // this stage's reads are done before it is refilled
+  }
+  mma::cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + warp * 16 + g + 8 * r;
+    if (qi >= Sq) continue;
+    __nv_bfloat16* row =
+        dq + (static_cast<int64_t>(b) * Sq + qi) * q_stride + h * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) =
+          __floats2bfloat162_rn(acc[n][2 * r] * scale,
+                                acc[n][2 * r + 1] * scale);
   }
 }
 
@@ -397,8 +615,6 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // B6 in bf16: dK and dV on the tensor cores
 // ---------------------------------------------------------------------------
-
-constexpr int kMmaWarpRows = 4;  // warps of 16 key rows each
 
 // Groups of four warps that share the dK/dV columns: two at hd = 128.
 template <int HD>
@@ -628,19 +844,36 @@ struct Args {
   int B, Sq, Skv, Hq, Hkv, causal, window;
 };
 
+// B5 at head dim HD: the tensor-core kernel for bf16, the CUDA-core kernel
+// for float32.
 template <typename T, int HD>
 int launch_dq(const Args& a, cudaStream_t stream) {
-  auto kernel = flash_attention_dq_kernel<T, HD>;
-  constexpr size_t bytes = dq_shared_bytes<HD>();
-  cudaError_t err = attn::allow_shared_bytes(kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.Sq + kBlockQ - 1) / kBlockQ, a.Hq, a.B);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
-      static_cast<T*>(a.dq), a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window,
-      1.0f / sqrtf(static_cast<float>(HD)));
+  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  const int n_q = (a.Sq + kBlockQ - 1) / kBlockQ;
+  cudaError_t err;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    auto kernel = flash_attention_dq_mma_kernel<HD>;
+    constexpr size_t bytes = dq_mma_shared_bytes<HD>();
+    err = attn::allow_shared_bytes(kernel, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3(a.Hq, a.B, n_q), kDqMmaThreads, bytes, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
+        static_cast<T*>(a.dq), a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window,
+        scale);
+  } else {
+    auto kernel = flash_attention_dq_kernel<HD>;
+    constexpr size_t bytes = dq_shared_bytes<HD>();
+    err = attn::allow_shared_bytes(kernel, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<dim3(n_q, a.Hq, a.B), kThreads, bytes, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
+        static_cast<T*>(a.dq), a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window,
+        scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -282,6 +282,31 @@ def _visible(Sq, Skv, causal, window) -> torch.Tensor:
     return ok
 
 
+def _p_and_ds(q, k, v, o, do, lse, *, causal, window, dtype):
+    """The backward's first half in ``dtype`` (float32 as the kernels and
+    the plain version compute it, or float64): ``(q, k, dO, P, dS)`` with
+    q and dO as ``[B, Hkv, G, Sq, hd]``, k as ``[B, Hkv, 1, Skv, hd]``,
+    ``P = exp(scale·q kᵀ − lse)`` where visible and ``dS = P∘(dO vᵀ −
+    D)``."""
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G, scale = Hq // Hkv, 1.0 / math.sqrt(hd)
+
+    def heads(t):   # [B, Sq, Hq, hd] -> [B, Hkv, G, Sq, hd]
+        return t.to(dtype).reshape(B, Sq, Hkv, G, hd).permute(0, 2, 3, 1, 4)
+
+    qf, of, dof = heads(q), heads(o), heads(do)
+    kf, vf = (t.to(dtype).permute(0, 2, 1, 3)[:, :, None] for t in (k, v))
+    s = qf @ kf.transpose(-1, -2)
+    p = torch.where(_visible(Sq, Skv, causal, window),
+                    torch.exp(s * scale
+                              - lse.to(dtype).reshape(B, Hkv, G, Sq, 1)),
+                    0.0)
+    ds = p * (dof @ vf.transpose(-1, -2)
+              - (of * dof).sum(-1, keepdim=True))
+    return qf, kf, dof, p, ds
+
+
 def _dkv_bf16_emulated(q, k, v, o, do, lse, *, causal, window, p_terms,
                        ds_terms):
     """The bf16 B6 kernel's arithmetic: float32 Sᵀ and dPᵀ of the bf16
@@ -289,21 +314,9 @@ def _dkv_bf16_emulated(q, k, v, o, do, lse, *, causal, window, p_terms,
     ``dSᵀ = Pᵀ∘(dPᵀ − D)``, and ``dV = Pᵀ dO``, ``dK = scale·dSᵀ q`` with
     the float32 Pᵀ and dSᵀ split into ``p_terms`` and ``ds_terms`` bf16
     terms, each multiplied into one float32 accumulator."""
-    B, Sq, Hq, hd = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    G, scale = Hq // Hkv, 1.0 / math.sqrt(hd)
-
-    def heads(t):   # [B, Sq, Hq, hd] -> [B, Hkv, G, Sq, hd] float32
-        return t.float().reshape(B, Sq, Hkv, G, hd).permute(0, 2, 3, 1, 4)
-
-    qf, of, dof = heads(q), heads(o), heads(do)
-    kf, vf = (t.float().permute(0, 2, 1, 3)[:, :, None] for t in (k, v))
-    s = qf @ kf.transpose(-1, -2)
-    p = torch.where(_visible(Sq, Skv, causal, window),
-                    torch.exp(s * scale - lse.reshape(B, Hkv, G, Sq, 1)),
-                    0.0)
-    ds = p * (dof @ vf.transpose(-1, -2)
-              - (of * dof).sum(-1, keepdim=True))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, _, dof, p, ds = _p_and_ds(q, k, v, o, do, lse, causal=causal,
+                                  window=window, dtype=torch.float32)
     dv = sum(t.transpose(-1, -2) @ dof for t in _bf16_terms(p, p_terms))
     dk = sum(t.transpose(-1, -2) @ qf for t in _bf16_terms(ds, ds_terms))
     return ((dk.sum(2) * scale).transpose(1, 2).to(k.dtype),
@@ -337,6 +350,142 @@ def test_bf16_split_of_p_and_ds_holds_the_ulp_gate(case):
         assert ulps(2, 2)[0] > BF16_ULPS
 
 
+#: The bf16 terms into which B5 splits dS for dQ += dS·k
+#: (flash_attention_bwd.cu, flash_attention_dq_mma_kernel).
+DQ_DS_TERMS = 2
+
+
+def _dq_bf16_emulated(q, k, v, o, do, lse, *, causal, window, ds_terms):
+    """The bf16 B5 kernel's arithmetic: float32 S and dP of the bf16 inputs
+    (exact products), ``P = exp(scale·S − lse)`` where visible, ``dS =
+    P∘(dP − D)``, and ``dQ = scale·dS k`` with the float32 dS split into
+    ``ds_terms`` bf16 terms, each multiplied into one float32 sum."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    _, kf, _, _, ds = _p_and_ds(q, k, v, o, do, lse, causal=causal,
+                                window=window, dtype=torch.float32)
+    dq = sum(t @ kf for t in _bf16_terms(ds, ds_terms)) * scale
+    return dq.permute(0, 3, 1, 2, 4).reshape(q.shape).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", REHEARSAL_CASES, ids=str)
+def test_bf16_split_of_ds_in_dq_holds_the_ulp_gate(case):
+    """B5 multiplies dS, computed in float32, into the bf16 tensor-core
+    product dS·k as DQ_DS_TERMS bf16 terms (hi + lo): dQ then lands within
+    the card's gate of the plain version, 2 bf16 ulps + 1e-5, also with
+    large scores (dQ sums over keys without the cancellation that makes
+    B6's dK take three terms). The control, one bf16 term, lands far above
+    it, so the gate tells them apart."""
+    B, Sq, Skv, Hq, Hkv, hd, causal, window, q_scale = case
+    q, k, v, do = _inputs(np.random.default_rng(10), B, Sq, Skv, Hq, Hkv,
+                          hd, dtype=torch.bfloat16)
+    q = q * q_scale
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.attention_ref(q, k, v, return_lse=True, **kw)
+    dq = fa.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)[0]
+
+    def ulps(ds_terms):
+        return _bf16_ulps(_dq_bf16_emulated(q, k, v, o, do, lse,
+                                            ds_terms=ds_terms, **kw), dq)
+
+    assert ulps(DQ_DS_TERMS) <= BF16_ULPS
+    assert ulps(1) > BF16_ULPS
+
+
+def _bwd_float64(q, k, v, o, do, lse, *, causal, window):
+    """dQ and dK of the plain version's formulas evaluated in float64 on
+    the same inputs (o and lse as given)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, _, _, ds = _p_and_ds(q, k, v, o, do, lse, causal=causal,
+                                 window=window, dtype=torch.float64)
+    dq = (ds @ kf * scale).permute(0, 3, 1, 2, 4).reshape(q.shape)
+    dk = (ds.transpose(-1, -2) @ qf).sum(2).transpose(1, 2) * scale
+    return dq, dk
+
+
+def test_plain_dk_at_large_scores_is_float32_limited():
+    """Where the scores are large (q scaled by 8) over 1,024 positions, the
+    plain version's own float32 dK lies more than 2 bf16 ulps + 1e-5 from
+    the same formulas in float64: P = exp(scale·S − lse) carries the
+    float32 rounding of arguments up to ~47, and a dK element that cancels
+    to ~3e-4 from much larger terms keeps that error (~1.6e-5). So a bf16
+    kernel whose S differs from the plain version's in the last float32
+    bit cannot be held at the ulp gate there for dK (the card case of this
+    shape with B = 2, Hq = 15 reads B6's dK 3.4 ulps from the plain
+    version), while dQ, which does not cancel so, stays within it."""
+    B, Sq, Skv, Hq, Hkv, hd, causal, window, q_scale = REHEARSAL_CASES[2]
+    q, k, v, do = _inputs(np.random.default_rng(10), B, Sq, Skv, Hq, Hkv,
+                          hd, dtype=torch.bfloat16)
+    q = q * q_scale
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.attention_ref(q, k, v, return_lse=True, **kw)
+    dq, dk, _ = fa.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    dq64, dk64 = _bwd_float64(q, k, v, o, do, lse, **kw)
+    assert _bf16_ulps(dk, dk64.float()) > BF16_ULPS
+    assert _bf16_ulps(dq, dq64.float()) <= BF16_ULPS
+
+
+# ===========================================================================
+# phase 12's per-call reading of B5/B6 (chip_smoke.py), on the CPU
+# ===========================================================================
+
+def _chip_smoke():
+    """chip_smoke.py at the root of the checkout, imported by path."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("fault", ["none", "dq moved 4 ulps",
+                                   "dq at 4 mantissa bits"])
+def test_scaled_call_reading_sees_what_the_floor_hides(fault):
+    """Phase 12 holds each B5/B6 call of a training step at 2 bf16 ulps +
+    1e-5, and a step's gradients are below 1e-5, so that reading is 0 for
+    any fault of a few ulps. Its second reading runs the call again with dO
+    scaled by a power of two (exact: the backward is linear in dO) and sees
+    the fault. Here the "kernel" is the plain version, moved where a fault
+    is asked for: by 4 bf16 ulps inside the stand-in backward, or by the
+    control's rounding of dq to 4 mantissa bits."""
+    cs = _chip_smoke()
+    q, k, v, do = _inputs(np.random.default_rng(12), 1, 64, 64, 4, 2, 32,
+                          dtype=torch.bfloat16)
+    do = do * 2.0 ** -20                   # gradients below the 1e-5 floor
+    o, lse = fa.attention_ref(q, k, v, return_lse=True)
+
+    def backward(*args, use_kernel=None, **kw):
+        dq, dk, dv = fa.flash_attention_bwd_ref(*args, **kw)
+        if use_kernel and fault == "dq moved 4 ulps":
+            dq = (dq.float() + 4 * cs.bf16_ulp(dq)).to(dq.dtype)
+        return dq, dk, dv
+
+    args = (q, k, v, o, do, lse)
+    ref = fa.flash_attention_bwd_ref(*args)
+    assert max(float(t.float().abs().max()) for t in ref) < cs.BF16_ATOL
+    if fault == "dq at 4 mantissa bits":
+        _, reading = cs._held_reading(
+            backward, args, dict(causal=True, window=0),
+            fault=lambda dq: cs._round_mantissa(dq, cs.CALL_CONTROL_BITS))
+    else:
+        held, first = [], []
+        out = cs._bwd_held(held, first)(backward)(*args, causal=True,
+                                                  window=0, use_kernel=None)
+        assert len(held) == 1
+        assert all(a is b for a, b in zip(first[0][1], args))
+        assert all(torch.equal(a, b) for a, b in zip(out, backward(
+            *args, causal=True, use_kernel=True)))
+        reading = held[0]
+    _, unscaled, scaled = reading
+    assert unscaled == 0.0
+    if fault == "none":
+        assert scaled == 0.0
+    else:
+        assert scaled > cs.BF16_ULPS
+
+
 # ===========================================================================
 # B5/B6 vs the plain version (card only)
 # ===========================================================================
@@ -366,6 +515,11 @@ FRAGMENT_EDGE_CASES = [
     (1, 130, 130, 4, 2, 80, True, 48, 1.0),
     (2, 200, 200, 6, 2, 64, True, 0, 8.0),    # large scores
     (1, 130, 150, 4, 1, 128, False, 0, 8.0),
+    # the training length with large scores; B6's dK reads 3.4 ulps here,
+    # beyond what float32 itself holds (see
+    # test_plain_dk_at_large_scores_is_float32_limited)
+    (2, 1024, 1024, 15, 5, 64, True, 0, 8.0),
+    (1, 1024, 1024, 4, 2, 128, True, 0, 1.0),  # hd = 128 over 16 key tiles
 ]
 
 
