@@ -7,17 +7,20 @@ Phases, each of which must pass (any failure exits nonzero, no result):
 
 1. the card (nvidia-smi name and power limit), torch/CUDA versions, and the
    build of the kernel library from src/repro_torch/csrc, with ptxas's
-   registers and spills and each attention kernel's tensor-core
+   registers and spills and each attention and SSD kernel's tensor-core
    instructions in the library's SASS (the bf16 B4, B5 and B6 must have
-   some, their float32 versions none);
+   some, their float32 versions none; B8's three product kernels some at
+   N = 64 and 128);
 2. every CUDA kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged small shapes, with its time, the plain
    version's time, its bound and, where one exists, a PyTorch call's time;
+   for B3 also its device time alone and torch.max's (torch.profiler);
 3. the main path at full size: a 1,000,000-user, 1,000-edge instance
    through evaluate_sparse (kernels) and Router.route (dense QoS kernel +
    OMS), with launch counts; then the same tick with the plain versions
-   (same x), a second kernel tick (bit-identical), and σ against a float64
-   host evaluation;
+   (same x), a second kernel tick (bit-identical), σ against a float64
+   host evaluation, and the greedy loop's device time by kernel (B3's
+   share);
 4. the routed value against the sparse σ;
 5. paper-scale instances against the host oracle (egp_np + sigma_np);
 6. the attention kernels (flash-attention forward B4, GQA decode B7)
@@ -40,8 +43,11 @@ Phases, each of which must pass (any failure exits nonzero, no result):
 8. the SSD scan kernel (B8) against both plain versions (the sequential
    recurrence and the chunked scan) in float32 at the mamba2 and zamba2
    serving shapes and at a ragged shape with an initial state, within
-   3e-4 of the reference's largest value, with its time, the plain
-   versions' times and its bound;
+   3e-4 of the reference's largest value, each launch's scratch (C·Bᵀ,
+   chunk states, entering states) against the plain chunked scan's
+   intermediates, two calls bit-equal, with its time, the plain versions'
+   times, its float32 bound and the bound of the work its tensor-core
+   plan runs;
 9. serving mamba2-2.7b at its published widths and full depth (64 Mamba2
    layers, d=2560, 80 heads x 64, N=128, 50,280-token vocabulary) as
    phase 7 does: B8 once per layer per prefill and never in a decode step,
@@ -195,6 +201,12 @@ REPLACES = {
 }
 
 
+#: Keys a kernel's row of the JSON line carries where its phase gives them:
+#: B3's device times, B8's bound of the work its plan runs, notes.
+EXTRA_KEYS = ("device_ms", "library_device_ms", "plan_bound_ms",
+              "plan_bound_by", "note")
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {what}")
@@ -244,6 +256,28 @@ def device_ms_by_kernel(fn) -> dict:
     return out
 
 
+def device_ms_per_call(fn, name_part: str, reps: int = REPS):
+    """Median device milliseconds of the kernels whose name holds
+    ``name_part``, one per ``fn()`` call over ``reps`` calls after two
+    warm-up calls, from ``torch.profiler``; None if the profiler records
+    no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and name_part in e.name]
+    return statistics.median(us) / 1e3 if us else None
+
+
 def bf16_ulp(x):
     """One bf16 ulp at each element of ``x`` (0 where ``x`` is 0)."""
     import torch
@@ -283,12 +317,16 @@ ATTN_KERNELS = re.compile(r"(flash_attention_(?:fwd|dq|dkv)(?:_mma)?_kernel"
 #: cores, and whose float32 one must not.
 TENSOR_CORE_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
                        "flash_attention_dkv")
+#: B8's launches that run products, each compiled for N = 64 and 128: every
+#: instantiation must run them on the tensor cores.
+SSD_PRODUCT_KERNELS = ("ssd_cb_kernel", "ssd_states_kernel",
+                       "ssd_output_kernel")
 
 
-def tensor_core_counts(lib_path: str) -> dict:
-    """``{(kernel, dtype, hd): n}``: tensor-core instructions (``HMMA``,
-    ``HGMMA``) in the SASS of each attention kernel instantiation of the
-    library, from the toolkit's ``cuobjdump -sass``."""
+def hmma_by_function(lib_path: str) -> dict:
+    """``{mangled function name: n}``: tensor-core instructions (``HMMA``,
+    ``HGMMA``) in the SASS of each kernel of the library, from the
+    toolkit's ``cuobjdump -sass``."""
     from repro_torch.kernels._build import find_nvcc
 
     cuobjdump = str(Path(find_nvcc()).parent / "cuobjdump")
@@ -297,26 +335,34 @@ def tensor_core_counts(lib_path: str) -> dict:
     counts, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            name = line.split("Function :", 1)[1].strip()
-            m = ATTN_KERNELS.search(name)
-            hd = re.search(r"Li(\d+)E", name)
-            current = None
-            if m and hd:
-                base = m.group(1)
-                dtype = ("bf16" if "_mma_" in base or "bfloat16" in name
-                         else "f32")
-                current = (base.replace("_mma", ""), dtype, int(hd.group(1)))
-                counts[current] = 0
+            current = line.split("Function :", 1)[1].strip()
+            counts[current] = 0
         elif current is not None and re.search(r"\bH(?:G)?MMA\b", line):
             counts[current] += 1
     return counts
 
 
+def tensor_core_counts(by_function: dict) -> dict:
+    """``{(kernel, dtype, hd): n}`` for each attention kernel instantiation
+    of :func:`hmma_by_function`'s counts."""
+    counts = {}
+    for name, n in by_function.items():
+        m = ATTN_KERNELS.search(name)
+        hd = re.search(r"Li(\d+)E", name)
+        if m and hd:
+            base = m.group(1)
+            dtype = ("bf16" if "_mma_" in base or "bfloat16" in name
+                     else "f32")
+            counts[(base.replace("_mma", ""), dtype, int(hd.group(1)))] = n
+    return counts
+
+
 def phase_build() -> None:
     """Build the library; print ptxas's register, shared-memory and spill
-    lines and each attention kernel's tensor-core instruction count; check
-    that the bf16 B4, B5 and B6 have some and their float32 versions
-    none."""
+    lines and each attention and SSD kernel's tensor-core instruction
+    count; check that the bf16 B4, B5 and B6 have some and their float32
+    versions none, and that B8's product kernels have some at N = 64 and
+    128."""
     from repro_torch.kernels._build import load_library
 
     _, info = load_library()
@@ -325,7 +371,8 @@ def phase_build() -> None:
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  " + line.strip())
-    counts = tensor_core_counts(info["path"])
+    by_function = hmma_by_function(info["path"])
+    counts = tensor_core_counts(by_function)
     for (base, dtype, hd), n in sorted(counts.items()):
         log(f"  SASS {base} {dtype} hd={hd}: {n} HMMA/HGMMA")
     for base in TENSOR_CORE_KERNELS:
@@ -336,6 +383,13 @@ def phase_build() -> None:
             check(sorted(got) == [32, 64, 80, 128]
                   and all((n > 0) == want_some for n in got.values()),
                   f"{base} {dtype} tensor-core instructions {got}")
+    for base in SSD_PRODUCT_KERNELS:
+        got = {int(m.group(1)): n for name, n in by_function.items()
+               if base in name and (m := re.search(r"Li(\d+)E", name))}
+        log(f"  SASS {base} N={sorted(got)}: {list(got.values())} "
+            "HMMA/HGMMA")
+        check(sorted(got) == [64, 128] and all(got.values()),
+              f"{base} tensor-core instructions {got}")
 
 
 # ===========================================================================
@@ -475,14 +529,23 @@ def phase_kernels(dev, main_P: int, main_K: int) -> dict:
     plain = time_ms(lambda: ref.greedy_argmax_ref(v, m))
     premasked = torch.where(m, v, -1e30)
     lib = time_ms(lambda: torch.max(premasked, dim=1))
+    # the event times above hold the host's dispatch as much as the kernel:
+    # the kernels' own device time, median per call
+    dev_ms = device_ms_per_call(lambda: ops.greedy_argmax_cuda(v, m),
+                                "greedy_argmax_kernel")
+    lib_dev_ms = device_ms_per_call(lambda: torch.max(premasked, dim=1),
+                                    "reduce")
     b, by = bound_ms(E * P * 4 + E * P + E * 8, 2 * E * P)
     out["greedy_argmax"] = dict(shape=[E, P], max_abs_err=err, ms=ms,
                                 plain_ms=plain, bound_ms=b, bound_by=by,
-                                library_ms=lib)
+                                library_ms=lib, device_ms=dev_ms,
+                                library_device_ms=lib_dev_ms)
     for name, r in out.items():
         log(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), library {r['library_ms']}")
+    log(f"  greedy_argmax device time (torch.profiler, median per call): "
+        f"kernel {dev_ms} ms, torch.max's reduction {lib_dev_ms} ms")
     return out
 
 
@@ -580,8 +643,12 @@ def phase_main_path(dev, inst) -> dict:
         cand_idx, cand_q, ti.u_edge, ti.sm_service, ti.sm_r, ti.R,
         max_iters=inst.P + 1))
     busy = sum(by_kernel.values())
+    b3_ms = sum(t for k, t in by_kernel.items() if "greedy_argmax" in k)
     log(f"  egp loop device busy {busy:.1f} ms of {egp_ms:.1f} ms wall "
-        f"({100 * busy / egp_ms:.1f} %, {len(by_kernel)} kernel names)")
+        f"({100 * busy / egp_ms:.1f} %, {len(by_kernel)} kernel names); "
+        f"B3 greedy_argmax {b3_ms:.3f} ms of it "
+        f"({100 * b3_ms / max(busy, 1e-9):.2f} %, "
+        f"{1e3 * b3_ms / max(iters, 1):.2f} us per iteration)")
     for name, t in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {t:9.3f} ms  {name[:90]}")
     del ti, cand_idx, cand_q, x3
@@ -606,7 +673,8 @@ def phase_main_path(dev, inst) -> dict:
     return dict(launches=launches, iterations=iters, sigma=sigma,
                 warm_tick_ms=warm_tick, plain_tick_ms=plain_tick,
                 egp_ms=egp_ms, cand_ms=cand_ms, upload_ms=upload_ms,
-                route_warm_ms=route_warm)
+                route_warm_ms=route_warm, loop_busy_ms=busy,
+                loop_b3_ms=b3_ms)
 
 
 def phase_paper_scale(dev) -> None:
@@ -852,6 +920,30 @@ def _ssd_work(B, L, H, P, N, chunk, with_init
     return n_bytes, ops[algo], algo
 
 
+def _ssd_plan_work(B, L, H, P, N, chunk, with_init
+                   ) -> tuple[float, float]:
+    """``(bytes, operations)`` of the work B8's four launches run: bf16
+    tensor-core operations, 2 per multiply-add of every product over its
+    64-row tiles (C·Bᵀ on and below the diagonal once per row and chunk;
+    per head the chunk states, the scores times x and C times the entering
+    state), times the 3 products of the hi/lo split; and the bytes moved,
+    the scratch counted (x read twice, b and c twice, dtA twice, y and the
+    final state written, C·Bᵀ, the chunk states and the entering states
+    written once and read once, the initial state read)."""
+    nc, n_sub = L // chunk, -(-chunk // 64)
+    qp = 64 * n_sub
+    tiles = n_sub * (n_sub + 1) // 2
+    with_prev = nc - (0 if with_init else 1)
+    macs = B * nc * (tiles * 64 * 64 * N
+                     + H * (qp * P * N + tiles * 64 * 64 * P)) \
+        + B * with_prev * H * qp * N * P
+    n_bytes = 4 * (2 * B * L * H * P + 2 * 2 * B * L * N + 2 * B * L * H
+                   + B * L * H * P + (2 if with_init else 1) * B * H * P * N
+                   + 2 * B * nc * qp * qp + 2 * 2 * B * nc * H * P * N
+                   + 2 * B * nc * H)
+    return n_bytes, 3 * 2 * macs
+
+
 def phase_ssd_kernel(dev) -> dict:
     """B8 against ssd_scan_ref and ssd_chunked; numbers at the mamba2
     serving shape."""
@@ -894,21 +986,56 @@ def phase_ssd_kernel(dev) -> dict:
         del kern, plain
         if L % chunk:
             continue
+        # each launch's scratch against ssd_chunked's intermediates, and
+        # two calls bit for bit (no atomics)
+        got = ss.ssd_scan_cuda_steps(x, dtA, b, c, chunk=chunk,
+                                     initial_state=s0)
+        want = ss.ssd_chunked_steps(x, dtA, b, c, chunk, initial_state=s0)
+        low = torch.ones(chunk, chunk, dtype=torch.bool, device=dev).tril()
+        steps = {"cb": _ssd_err(
+            (got["cb"][:, :, :chunk, :chunk][:, :, low],),
+            (want["cb"][:, :, low],))}
+        steps.update({k: _ssd_err((got[k],), (want[k],)) for k in
+                      ("chunk_states", "entering_states")})
+        again = ss.ssd_scan_cuda(x, dtA, b, c, chunk=chunk, initial_state=s0)
+        same = all(torch.equal(got[k], a) for k, a in
+                   zip(("y", "final_state"), again))
+        log("    launches' scratch vs ssd_chunked's intermediates, scale-"
+            "free: " + ", ".join(f"{k} {e:.3g}" for k, e in steps.items())
+            + f"; two calls bit-equal: {same}")
+        check(all(e <= SSD_TOL for e in steps.values()),
+              f"ssd_scan {label} intermediates {steps}")
+        check(same, f"ssd_scan {label}: two calls differ")
+        del got, want, again
         ms = time_ms(lambda: ss.ssd_scan_cuda(x, dtA, b, c, chunk=chunk,
                                               initial_state=s0))
         chunked = time_ms(lambda: ss.ssd_chunked(x, dtA, b, c, chunk, s0))
         seq = time_ms(lambda: ss.ssd_scan_ref(x, dtA, b, c, s0))
         n_bytes, n_ops, algo = _ssd_work(B, L, H, P, N, chunk, with_init)
         bnd, by = bound_ms(n_bytes, n_ops)
+        p_bytes, p_ops = _ssd_plan_work(B, L, H, P, N, chunk, with_init)
+        p_bnd, p_by = bound_ms(p_bytes, p_ops, BF16_OPS_S)
         log(f"    kernel {ms:.4f} ms, ssd_chunked {chunked:.4f} ms, "
             f"ssd_scan_ref {seq:.4f} ms, bound {bnd:.4f} ms ({by}: "
-            f"{n_ops / 1e9:.2f} GFLOP {algo}, {n_bytes / 1e9:.3f} GB)")
+            f"{n_ops / 1e9:.2f} GFLOP {algo} at the float32 peak, "
+            f"{n_bytes / 1e9:.3f} GB); the plan's bound {p_bnd:.4f} ms "
+            f"({p_by}: {p_ops / 1e9:.2f} GFLOP of bf16 products at the "
+            f"tensor-core peak, {p_bytes / 1e9:.3f} GB with the scratch); "
+            f"kernel at {bnd / ms:.3f} of the float32 bound and "
+            f"{p_bnd / ms:.3f} of the plan's")
         rows[label] = dict(shape=[B, L, H, P, N], ms=ms, plain_ms=chunked,
                            sequential_ms=seq, bound_ms=bnd, bound_by=by,
+                           plan_bound_ms=p_bnd, plan_bound_by=p_by,
                            library_ms=None)
         del x, dtA, b, c
     torch.cuda.empty_cache()
-    return {"ssd_scan": dict(rows["mamba2 serving"], max_abs_err=err)}
+    z = rows["zamba2 serving"]
+    note = (f"zamba2 shape {z['shape']}: {z['ms']:.4f} ms, bound "
+            f"{z['bound_ms']:.4f} ({z['bound_by']}), plan bound "
+            f"{z['plan_bound_ms']:.4f} ({z['plan_bound_by']}), "
+            f"ssd_chunked {z['plain_ms']:.4f}")
+    return {"ssd_scan": dict(rows["mamba2 serving"], max_abs_err=err,
+                             note=note)}
 
 
 # ===========================================================================
@@ -1725,8 +1852,7 @@ def main() -> int:
                  max_abs_err=r["max_abs_err"], ms=r["ms"],
                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                  bound_by=r["bound_by"], library_ms=r["library_ms"],
-                 shape=r["shape"], **({"note": r["note"]} if "note" in r
-                                      else {}))
+                 shape=r["shape"], **{k: r[k] for k in EXTRA_KEYS if k in r})
             for name, r in kern.items()]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -61,9 +61,9 @@ _SIGNATURES = {
     #  ring, softcap, device, stream)
     "gqa_decode_launch": ([_VOID_P] * 5 + [_I32] * 8 + [_F32, _I32, _VOID_P],
                           _I32),
-    # (x, dtA, b, c, initial_state, y, state, B, L, H, P, N, chunk, device,
-    #  stream)
-    "ssd_scan_launch": ([_VOID_P] * 7 + [_I32] * 7 + [_VOID_P], _I32),
+    # (x, dtA, b, c, initial_state, y, state, cb, chunk_states, entering,
+    #  decay, B, L, H, P, N, chunk, device, stream)
+    "ssd_scan_launch": ([_VOID_P] * 11 + [_I32] * 7 + [_VOID_P], _I32),
     "cuda_error_string": ([_I32], ctypes.c_char_p),
 }
 

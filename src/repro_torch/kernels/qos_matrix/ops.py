@@ -179,8 +179,11 @@ def greedy_argmax(v, mask, *, use_kernel: Optional[bool] = None
     """Masked per-edge argmax over the benefit map (Alg. 3 line 11)."""
     if not _use_kernel(use_kernel, v):
         return greedy_argmax_ref(v, mask)
+    # a bool mask (the greedy loop's) goes through as it is: no elementwise
+    # launch per call
+    m = mask if mask.dtype == torch.bool else mask > 0
     return greedy_argmax_cuda(v.to(torch.float32).contiguous(),
-                              (mask > 0).contiguous())
+                              m.contiguous())
 
 
 def qos_matrix_from_instance(ti, use_kernel: Optional[bool] = None

@@ -5,9 +5,11 @@
 ``use_kernel=None`` follows the tensors' device, ``False`` runs the plain
 version wherever the tensors are, ``True`` insists on the kernel and raises
 for CPU tensors. :func:`ssd_scan_cuda` checks device, dtype, shape,
-alignment and contiguity, allocates its outputs with ``torch.empty``,
-launches on the current stream, raises on a CUDA error and adds one to
-``LAUNCHES["ssd_scan"]``. It never falls back to the plain version.
+alignment and contiguity, allocates its outputs and the kernels' scratch
+with ``torch.empty``, launches on the current stream (four kernels: C·Bᵀ,
+chunk states, the recurrence over chunks, the output), raises on a CUDA
+error and adds one to ``LAUNCHES["ssd_scan"]``, which so counts scans, not
+kernels. It never falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -21,9 +23,10 @@ from repro_torch.kernels._build import check_cuda_tensor, launch
 from .ref import ssd_chunked
 
 __all__ = ["LAUNCHES", "MAX_CHUNK", "SHAPES", "reset_launch_counts", "ssd",
-           "ssd_scan_cuda"]
+           "ssd_scan_cuda", "ssd_scan_cuda_steps"]
 
-#: Kernel launches since the last :func:`reset_launch_counts`.
+#: Scans run on the card since the last :func:`reset_launch_counts` (one
+#: per :func:`ssd_scan_cuda` call, which launches four kernels).
 LAUNCHES = {"ssd_scan": 0}
 #: ``(head dim P, state width N)`` pairs the kernel is compiled for.
 SHAPES = ((64, 64), (64, 128))
@@ -43,6 +46,21 @@ def ssd_scan_cuda(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,
     contiguous, on one CUDA device; ``(P, N)`` in :data:`SHAPES`, ``L`` a
     multiple of ``chunk``, ``chunk <= MAX_CHUNK``. Returns ``(y [B, L, H,
     P], final_state [B, H, P, N])``, float32."""
+    steps = ssd_scan_cuda_steps(x, dtA, b, c, chunk=chunk,
+                                initial_state=initial_state)
+    return steps["y"], steps["final_state"]
+
+
+def ssd_scan_cuda_steps(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,
+                        c: torch.Tensor, *, chunk: int,
+                        initial_state: Optional[torch.Tensor] = None
+                        ) -> dict:
+    """:func:`ssd_scan_cuda` with the kernels' scratch, named as
+    :func:`.ref.ssd_chunked_steps` names its intermediates: ``cb`` ``[B,
+    nc, Qp, Qp]`` (C·Bᵀ of each chunk; ``Qp`` is the chunk rounded up to
+    64, and only ``s <= q < chunk`` is meant), ``chunk_states`` and
+    ``entering_states`` ``[B, nc, H, P, N]``, ``chunk_decay`` ``[B, nc,
+    H]`` (exp of each chunk's summed dtA), ``y`` and ``final_state``."""
     Bsz, L, H, P = x.shape
     N = b.shape[-1]
     dev, f32 = x.device, torch.float32
@@ -58,13 +76,24 @@ def ssd_scan_cuda(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,
             check_cuda_tensor("c", c, f32, (Bsz, L, N), dev, 16),
             None if initial_state is None else check_cuda_tensor(
                 "initial_state", initial_state, f32, (Bsz, H, P, N), dev)]
-    y = torch.empty_like(x)
-    state = torch.empty((Bsz, H, P, N), dtype=f32, device=dev)
+    nc, qp = L // chunk, -(-chunk // 64) * 64
+    out = dict(
+        cb=torch.empty((Bsz, nc, qp, qp), dtype=f32, device=dev),
+        chunk_states=torch.empty((Bsz, nc, H, P, N), dtype=f32, device=dev),
+        entering_states=torch.empty((Bsz, nc, H, P, N), dtype=f32,
+                                    device=dev),
+        chunk_decay=torch.empty((Bsz, nc, H), dtype=f32, device=dev),
+        y=torch.empty_like(x),
+        final_state=torch.empty((Bsz, H, P, N), dtype=f32, device=dev))
     if x.numel():
-        launch("ssd_scan_launch", *ptrs, y.data_ptr(), state.data_ptr(),
-               Bsz, L, H, P, N, chunk, device=dev)
+        launch("ssd_scan_launch", *ptrs, out["y"].data_ptr(),
+               out["final_state"].data_ptr(), out["cb"].data_ptr(),
+               out["chunk_states"].data_ptr(),
+               out["entering_states"].data_ptr(),
+               out["chunk_decay"].data_ptr(), Bsz, L, H, P, N, chunk,
+               device=dev)
         LAUNCHES["ssd_scan"] += 1
-    return y, state
+    return out
 
 
 def ssd(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,

@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["ssd_chunked", "ssd_scan_ref"]
+__all__ = ["ssd_chunked", "ssd_chunked_steps", "ssd_scan_ref"]
 
 
 def ssd_scan_ref(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,
@@ -55,6 +55,18 @@ def ssd_chunked(X: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor,
                 initial_state: Optional[torch.Tensor] = None):
     """Chunked SSD scan; ``L`` must be a multiple of ``chunk``. Computes in
     ``X``'s dtype, as the reference's ``ssd_chunked`` does."""
+    steps = ssd_chunked_steps(X, dtA, B, C, chunk, initial_state)
+    return steps["y"], steps["final_state"]
+
+
+def ssd_chunked_steps(X: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor,
+                      C: torch.Tensor, chunk: int,
+                      initial_state: Optional[torch.Tensor] = None) -> dict:
+    """:func:`ssd_chunked` with its intermediates, which the CUDA kernel's
+    launches write to their scratch: ``cb`` (C·Bᵀ per row and chunk, ``[B,
+    nc, Q, Q]``), ``chunk_states`` (each chunk's own final state, ``[B, nc,
+    H, P, N]``), ``entering_states`` (the state entering each chunk, the
+    same shape), ``y`` and ``final_state``."""
     b, l, h, p = X.shape
     n = B.shape[-1]
     nc = l // chunk
@@ -66,7 +78,8 @@ def ssd_chunked(X: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor,
 
     # 1. intra-chunk (diagonal blocks): (C Bᵀ ∘ L) X
     Lm = torch.exp(_segsum(Ac))                               # [b,h,c,q,s]
-    scores = torch.einsum("bcqn,bcsn->bcqs", Cc, Bc)[:, None] * Lm
+    cb = torch.einsum("bcqn,bcsn->bcqs", Cc, Bc)
+    scores = cb[:, None] * Lm
     Y_diag = torch.einsum("bhcqs,bcshp->bcqhp", scores, Xc)
 
     # 2. chunk-final states
@@ -88,4 +101,5 @@ def ssd_chunked(X: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor,
     state_decay = torch.exp(A_cum).permute(0, 2, 3, 1)        # [b,c,q,h]
     Y_off = torch.einsum("bcqn,bchpn->bcqhp", Cc, prev_states) \
         * state_decay[..., None]
-    return (Y_diag + Y_off).reshape(b, l, h, p), s
+    return dict(cb=cb, chunk_states=states, entering_states=prev_states,
+                y=(Y_diag + Y_off).reshape(b, l, h, p), final_state=s)

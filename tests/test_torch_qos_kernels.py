@@ -260,3 +260,79 @@ def test_greedy_argmax_kernel_matches_plain(cuda, E, P, seed):
     pbest, pidx = ops.greedy_argmax(vt, mt, use_kernel=False)
     assert torch.equal(idx, pidx)
     assert torch.equal(best, pbest)
+
+
+#: Columns on the boundaries of the kernel's per-row split: a row's warp
+#: takes 32 consecutive columns a stride, lane l owning l, l + 32, ..., so
+#: a tie across lanes is settled by the shuffle merge and one across
+#: strides by each lane's scan order.
+_SPLIT_EDGES = (0, 1, 30, 31, 32, 33, 63, 64, 65, 127, 128, 129, 255, 256,
+                511, 512, 1023, 1024, 2047, 2048, 4095)
+
+
+def _split_tie_case(P, seed):
+    """Rows of width P: for every pair of split-edge columns a < b below P,
+    a row with equal maxima at a and b (the first must win) and one with
+    a masked off (b must win); an empty row; a row whose only masked-on
+    value is -1e30 behind a masked-off column (the masked-off column, -1e30
+    too, must win, as in the reference); and random rows with ties."""
+    rng = np.random.default_rng(seed)
+    edges = [p for p in _SPLIT_EDGES if p < P] + [P - 1]
+    pairs = sorted({(a, b) for a in edges for b in edges if a < b})
+    rows_v, rows_m = [], []
+    for a, b in pairs:
+        for mask_a in (True, False):
+            v = rng.uniform(-3, 3, P).astype(np.float32)
+            m = rng.random(P) < 0.7
+            v[[a, b]] = 4.0
+            m[a], m[b] = mask_a, True
+            rows_v.append(v)
+            rows_m.append(m)
+    v = rng.normal(size=P).astype(np.float32)
+    rows_v.append(v)
+    rows_m.append(np.zeros(P, bool))                     # empty row
+    v = np.full(P, 7.0, np.float32)
+    m = np.zeros(P, bool)
+    v[P - 1], m[P - 1] = -1e30, True                     # -1e30 behind
+    rows_v.append(v)
+    rows_m.append(m)
+    v, m = _argmax_case(37, P, seed + 1)
+    return (np.concatenate([np.stack(rows_v), v]),
+            np.concatenate([np.stack(rows_m), m]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 31, 32, 33, 127, 128, 129, 537, 1025,
+                               4096])
+def test_greedy_argmax_kernel_at_split_boundaries(cuda, P):
+    """idx exact and best bit-equal against the plain version, with exact
+    ties on the boundaries of the kernel's per-row split."""
+    v, m = _split_tie_case(P, P)
+    vt, mt = torch.from_numpy(v).to(cuda), torch.from_numpy(m).to(cuda)
+    before = ops.LAUNCHES["greedy_argmax"]
+    best, idx = ops.greedy_argmax_cuda(vt, mt)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["greedy_argmax"] == before + 1
+    pbest, pidx = tref.greedy_argmax_ref(vt, mt)
+    assert torch.equal(idx, pidx)
+    assert torch.equal(best, pbest)
+    neg = float(np.float32(-1e30))
+    if P > 1:                      # the -1e30 row: column 0, masked off
+        assert int(idx[-38]) == 0 and float(best[-38]) == neg
+    assert int(idx[-39]) == -1 and float(best[-39]) == neg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bool, torch.uint8])
+def test_greedy_argmax_dispatcher_mask_types(cuda, dtype):
+    """The dispatcher takes a bool mask as it is and any other as mask > 0;
+    both give the plain version's result."""
+    v, m = _argmax_case(1000, 537, 5)
+    vt = torch.from_numpy(v).to(cuda)
+    mt = torch.from_numpy(m).to(cuda).to(dtype)
+    before = ops.LAUNCHES["greedy_argmax"]
+    best, idx = ops.greedy_argmax(vt, mt)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["greedy_argmax"] == before + 1
+    pbest, pidx = ops.greedy_argmax(vt, mt, use_kernel=False)
+    assert torch.equal(idx, pidx) and torch.equal(best, pbest)

@@ -12,6 +12,7 @@ the kernel tests run. Tolerances: the reference's own, 3e-4 in float32 and
 5e-2 for bf16 inputs (tests/test_kernels.py), 1e-4 for the resumed scan
 (tests/test_models.py), 1e-4 / 3e-2 for the block (the port's model
 tolerances)."""
+import functools
 import types
 
 import numpy as np
@@ -316,3 +317,212 @@ def test_ssd_wrapper_refuses_bad_tensors(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         ss.ssd_scan_cuda(x, dtA, torch.zeros(1, 64, 128, device=cuda)[..., :64],
                          c, chunk=16)
+
+
+# ===========================================================================
+# the kernel's precision plan, emulated on the CPU
+# ===========================================================================
+
+#: The kernel's scale-free gate against a plain version (chip_smoke.py
+#: SSD_TOL: the reference's 3e-4 kernel tolerance, tests/test_kernels.py).
+SSD_TOL = 3e-4
+#: Each plan: the terms a float32 operand enters a tensor-core product as,
+#: and the (A term, B term) products summed. "bf16x3" is the kernel's:
+#: hi = bf16(x), lo = bf16(x - hi), and lo·hi + hi·lo + hi·hi (lo·lo, about
+#: 2^-18 of the product, is dropped). The one-term plans are its controls.
+PLANS = {"bf16x3": ("bf16", 2, ((1, 0), (0, 1), (0, 0))),
+         "bf16x1": ("bf16", 1, ((0, 0),)),
+         "tf32x1": ("tf32", 1, ((0, 0),))}
+#: Products are summed over k in chunks of this depth (one mma.sync), each
+#: in a zeroed float32 fragment that is then added to the accumulator.
+K_CHUNK = 16
+
+
+def _round_tf32(t):
+    """``t`` rounded to TF32's 10 mantissa bits (to nearest, ties away)."""
+    i = t.view(torch.int32)
+    return ((i + (1 << 12)) & -(1 << 13)).view(torch.float32)
+
+
+def _terms(t, kind: str, n: int) -> list:
+    rnd = ((lambda u: u.to(torch.bfloat16).float()) if kind == "bf16"
+           else _round_tf32)
+    out, rest = [], t.float()
+    for _ in range(n):
+        out.append(rnd(rest))
+        rest = rest - out[-1]
+    return out
+
+
+def _plan_mm(a, b, plan: str):
+    """``a [..., M, K] @ b [..., K, N]`` as the kernel forms it: operands as
+    the plan's terms, each product in float32, each K_CHUNK-deep chunk of
+    k summed apart and added to the float32 result in order."""
+    kind, n, pairs = PLANS[plan]
+    at, bt = _terms(a, kind, n), _terms(b, kind, n)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], K_CHUNK):
+        d = torch.zeros_like(acc)
+        for i, j in pairs:
+            d = d + at[i][..., k0:k0 + K_CHUNK] @ bt[j][..., k0:k0 + K_CHUNK, :]
+        acc = acc + d
+    return acc
+
+
+def _plan_scan(x, dtA, b, c, chunk: int, plan: str):
+    """The four steps of the CUDA kernel's launches (kernels/ssd_scan/
+    ref.py::ssd_chunked's), every product through :func:`_plan_mm`:
+    C·Bᵀ once per chunk, the chunk states Xwᵀ·B, the recurrence over
+    chunks in float32, and y = (C·Bᵀ ∘ L)·X + (C·prevᵀ) exp(a_cum)."""
+    Bsz, L, H, P = x.shape
+    nc = L // chunk
+    xc = x.reshape(Bsz, nc, chunk, H, P).permute(0, 1, 3, 2, 4)  # b,c,h,s,p
+    ac = torch.cumsum(dtA.reshape(Bsz, nc, chunk, H), dim=2
+                      ).permute(0, 1, 3, 2)                       # b,c,h,q
+    bc = b.reshape(Bsz, nc, chunk, -1)
+    cc = c.reshape(Bsz, nc, chunk, -1)
+    cb = _plan_mm(cc, bc.transpose(-1, -2), plan)[:, :, None]     # b,c,1,q,s
+    seg = ac[..., :, None] - ac[..., None, :]
+    causal = torch.ones(chunk, chunk, dtype=torch.bool).tril()
+    scores = torch.where(causal, cb * torch.exp(
+        torch.where(causal, seg, 0.0)), 0.0)
+    y = _plan_mm(scores, xc, plan)
+    xw = xc * torch.exp(ac[..., -1:] - ac)[..., None]
+    states = _plan_mm(xw.transpose(-1, -2), bc[:, :, None], plan)  # b,c,h,p,n
+    s = torch.zeros_like(states[:, 0])
+    prev = []
+    for ci in range(nc):
+        prev.append(s)
+        s = s * torch.exp(ac[:, ci, :, -1])[..., None, None] + states[:, ci]
+    prev = torch.stack(prev, dim=1)
+    y = y + _plan_mm(cc[:, :, None], prev.transpose(-1, -2), plan) \
+        * torch.exp(ac)[..., None]
+    return y.permute(0, 1, 3, 2, 4).reshape(Bsz, L, H, P), s
+
+
+def _recurrence_f64(x, dtA, b, c):
+    """The sequential recurrence h ← h·exp(ΔA) + B ⊗ x, y = C·h, in
+    float64 from a zero state: the oracle of the plan's readings."""
+    x, dtA, b, c = (t.double() for t in (x, dtA, b, c))
+    Bsz, L, H, P = x.shape
+    state = torch.zeros((Bsz, H, P, b.shape[-1]), dtype=torch.float64)
+    ys = []
+    for t in range(L):
+        state = state * torch.exp(dtA[:, t])[..., None, None] \
+            + torch.einsum("bn,bhp->bhpn", b[:, t], x[:, t])
+        ys.append(torch.einsum("bn,bhpn->bhp", c[:, t], state))
+    return torch.stack(ys, dim=1), state
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_readings(N: int) -> dict:
+    """Scale-free error of each plan against the float64 sequential
+    recurrence at one row and two heads of a serving shape (L = 1024,
+    chunk 256, P = 64)."""
+    args = _inputs(21, 1, 1024, 2, 64, N)
+    ref = _recurrence_f64(*args)
+    out = {}
+    for plan in PLANS:
+        got = _plan_scan(*args, 256, plan)
+        out[plan] = max(float((g.double() - r).abs().max() / r.abs().max())
+                        for g, r in zip(got, ref))
+    print(f"N={N}: " + ", ".join(f"{k} {v:.3g}" for k, v in out.items()))
+    return out
+
+
+@pytest.mark.parametrize("N", [128, 64], ids=["mamba2", "zamba2"])
+def test_split_bf16_plan_holds_the_ssd_gate(N):
+    """The kernel's plan (two bf16 terms a float32 operand, three products)
+    stays within SSD_TOL of the float64 recurrence."""
+    assert _plan_readings(N)["bf16x3"] <= SSD_TOL
+
+
+@pytest.mark.parametrize("N", [128, 64], ids=["mamba2", "zamba2"])
+def test_one_term_bf16_plan_exceeds_the_ssd_gate(N):
+    """Control: operands rounded once to bf16 read above the gate, so the
+    gate sees the precision the second term buys."""
+    assert _plan_readings(N)["bf16x1"] > SSD_TOL
+
+
+@pytest.mark.parametrize("N", [128, 64], ids=["mamba2", "zamba2"])
+def test_one_term_tf32_reading_lies_between(N):
+    """One TF32 term reads between the split plan and one bf16 term (its
+    reading is printed, and PERF.md keeps it)."""
+    r = _plan_readings(N)
+    assert r["bf16x3"] < r["tf32x1"] < r["bf16x1"]
+
+
+def _scale_free(got, want) -> float:
+    """max |got - want| over max |want| (chip_smoke.py's reading)."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_init", [False, True], ids=["zeros", "init"])
+@pytest.mark.parametrize("case", [
+    # (B, L, H, N, chunk): 1, 4 and 5 chunks
+    (2, 256, 3, 128, 256),
+    (1, 1024, 2, 64, 256),
+    (2, 200, 3, 128, 40),
+], ids=["1-chunk", "4-chunks", "5-chunks"])
+def test_ssd_kernel_chunk_counts(cuda, case, with_init):
+    """y and the final state within SSD_TOL of both plain versions."""
+    B, L, H, N, chunk = case
+    x, dtA, b, c = _inputs(22, B, L, H, 64, N, device=cuda)
+    s0 = (torch.from_numpy(np.random.default_rng(23).normal(
+        size=(B, H, 64, N)).astype(np.float32)).to(cuda)
+        if with_init else None)
+    got = ss.ssd_scan_cuda(x, dtA, b, c, chunk=chunk, initial_state=s0)
+    torch.cuda.synchronize()
+    for ref in (ss.ssd_scan_ref(x, dtA, b, c, initial_state=s0),
+                ss.ssd_chunked(x, dtA, b, c, chunk, initial_state=s0)):
+        for g, r in zip(got, ref):
+            assert _scale_free(g, r) <= SSD_TOL
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_over_several_waves(cuda):
+    """Enough (row, chunk, head) units for several waves of every launch
+    (the output launch: 4 x 2 x 80 x 4 = 2,560 blocks)."""
+    x, dtA, b, c = _inputs(24, 4, 512, 80, 64, 128, device=cuda)
+    got = ss.ssd_scan_cuda(x, dtA, b, c, chunk=256)
+    ref = ss.ssd_chunked(x, dtA, b, c, 256)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert _scale_free(g, r) <= SSD_TOL
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_is_bitwise_reproducible(cuda):
+    """No atomics: two calls give the same bits."""
+    x, dtA, b, c = _inputs(25, 2, 768, 16, 64, 128, device=cuda)
+    s0 = torch.ones((2, 16, 64, 128), device=cuda)
+    one = ss.ssd_scan_cuda(x, dtA, b, c, chunk=256, initial_state=s0)
+    two = ss.ssd_scan_cuda(x, dtA, b, c, chunk=256, initial_state=s0)
+    assert all(torch.equal(p, q) for p, q in zip(one, two))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,chunk", [(128, 256), (64, 96)])
+def test_ssd_kernel_intermediates_match_chunked(cuda, N, chunk):
+    """Each launch's scratch against ssd_chunked's intermediate: C·Bᵀ (on
+    and below the diagonal), the chunk states, the states entering each
+    chunk and each chunk's decay."""
+    B, L, H = 2, 3 * chunk, 5
+    x, dtA, b, c = _inputs(26, B, L, H, 64, N, device=cuda)
+    s0 = torch.from_numpy(np.random.default_rng(27).normal(
+        size=(B, H, 64, N)).astype(np.float32)).to(cuda)
+    got = ss.ssd_scan_cuda_steps(x, dtA, b, c, chunk=chunk, initial_state=s0)
+    want = ss.ssd_chunked_steps(x, dtA, b, c, chunk, initial_state=s0)
+    torch.cuda.synchronize()
+    low = torch.ones(chunk, chunk, dtype=torch.bool, device=cuda).tril()
+    cb = got["cb"][:, :, :chunk, :chunk]
+    assert _scale_free(cb[:, :, low], want["cb"][:, :, low]) <= SSD_TOL
+    for name in ("chunk_states", "entering_states", "y", "final_state"):
+        assert _scale_free(got[name], want[name]) <= SSD_TOL, name
+    # each chunk's summed dtA (down to about -100 here), which the kernel
+    # adds in another order than torch.cumsum: within 1e-4 in the exponent
+    a_last = torch.cumsum(dtA.reshape(B, L // chunk, chunk, H),
+                          dim=2)[:, :, -1]
+    torch.testing.assert_close(torch.log(got["chunk_decay"]), a_last,
+                               rtol=0, atol=1e-4)
