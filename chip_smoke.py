@@ -14,7 +14,9 @@ Phases, each of which must pass (any failure exits nonzero, no result):
 2. every CUDA kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged small shapes, with its time, the plain
    version's time, its bound and, where one exists, a PyTorch call's time;
-   for B3 also its device time alone and torch.max's (torch.profiler);
+   B1 also bit-equal to its plain version (U * P not a multiple of 4, P
+   below 4, one user); for B3 also its device time alone and torch.max's
+   (torch.profiler);
 3. the main path at full size: a 1,000,000-user, 1,000-edge instance
    through evaluate_sparse (kernels) and Router.route (dense QoS kernel +
    OMS), with launch counts; then the same tick with the plain versions
@@ -28,7 +30,10 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    path's shapes, at gemma2's head width with a window and a softcap, with
    ragged lengths, and in ring mode, with their times, bounds, achieved
    TFLOP/s and the time of torch's scaled_dot_product_attention on the
-   same inputs;
+   same inputs; B7 also at the edges of its split-KV plan (empty and
+   one-slot splits, a narrow window, ring past an Sc that is no multiple
+   of 64, G = 5 and 8), two calls bit-equal, and its device time and
+   SDPA's (torch.profiler) at the smollm and zamba2 serving shapes;
 7. serving at full width: smollm-360m (32 layers, d=960, 15/5 heads,
    49,152-token vocabulary, random weights from a seed) generates 32
    tokens for 8 prompts of 1,024 tokens through ModelServer, with launch
@@ -278,6 +283,19 @@ def device_ms_per_call(fn, name_part: str, reps: int = REPS):
     return statistics.median(us) / 1e3 if us else None
 
 
+def device_ms_total(fn, reps: int = REPS):
+    """Device milliseconds of every kernel ``fn()`` launches, per call, over
+    ``reps`` calls (``torch.profiler``; None if it records none)."""
+    by_kernel = device_ms_by_kernel(lambda: [fn() for _ in range(reps)])
+    return sum(by_kernel.values()) / reps if by_kernel else None
+
+
+def _sm_count() -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def bf16_ulp(x):
     """One bf16 ulp at each element of ``x`` (0 where ``x`` is 0)."""
     import torch
@@ -462,16 +480,23 @@ def phase_kernels(dev, main_P: int, main_K: int) -> dict:
     out = {}
 
     # --- B1 qos_matrix -----------------------------------------------------
+    # ragged shapes: U * P not a multiple of the kernel's 4-element groups,
+    # P below 4, one user; the route's OMS argmax needs equal bits
     err = 0.0
-    for U, P, seed in ((1, 1, 0), (37, 5, 1), (513, 257, 3),
-                       (U_MAIN, main_P, 4)):
+    for U, P, seed in ((1, 1, 0), (37, 5, 1), (513, 257, 3), (1, 3, 5),
+                       (7, 1, 6), (5, 3, 7), (1, main_P, 8),
+                       (1001, main_P, 9), (U_MAIN, main_P, 4)):
         args = _qos_inputs(U, P, seed, dev)
         k = ops.qos_matrix_cuda(*args, delta_max=dm)
         p = ref.qos_matrix_ref(*args, delta_max=dm)
         torch.cuda.synchronize()
         e = float((k - p).abs().max())
-        log(f"  qos_matrix [{U}, {P}]: max_abs_err={e:.3g}")
+        same = torch.equal(k, p)
+        log(f"  qos_matrix [{U}, {P}]: max_abs_err={e:.3g}, "
+            f"{'equal bits' if same else 'bits differ'}")
         check(e <= QOS_TOL, f"qos_matrix [{U}, {P}] err {e}")
+        check(same, f"qos_matrix [{U}, {P}] not bit-equal to the plain "
+              "version")
         err = max(err, e)
         del k, p
     ms = time_ms(lambda: ops.qos_matrix_cuda(*args, delta_max=dm))
@@ -480,7 +505,9 @@ def phase_kernels(dev, main_P: int, main_K: int) -> dict:
     b, by = bound_ms(n_bytes, 18 * U * P)
     out["qos_matrix"] = dict(shape=[U, P], max_abs_err=err, ms=ms,
                              plain_ms=plain, bound_ms=b, bound_by=by,
-                             library_ms=None)
+                             library_ms=None,
+                             note="persistent grid, 16-byte streaming "
+                                  "stores; bit-equal to the plain version")
     del args
     torch.cuda.empty_cache()
 
@@ -818,7 +845,11 @@ def phase_attention_kernels(dev) -> dict:
     del q, k, v
 
     # --- B7 GQA decode ----------------------------------------------------
-    # (label, B, Sc, Hkv, G, hd, kv_len, window, ring, softcap)
+    # (label, B, Sc, Hkv, G, hd, kv_len, window, ring, softcap); besides the
+    # serving shapes, the split plan's edges: rows of 1, 7, 64 and 65 slots
+    # over 8 splits (empty and one-slot splits), a window narrower than 8
+    # splits x 64 slots, ring past an Sc that is no multiple of 64, kv_len
+    # 0 with G = 8 (two chunks of 4 heads), G = 5 at hd = 80
     main_len = (1, 7, 64, 129, 1000, 1024, 2047, 2048)[:SERVE_B]
     cases = [("serving", SERVE_B, SERVE_SEQ, 5, 3, 64, main_len, 0, False,
               0.0),
@@ -827,7 +858,16 @@ def phase_attention_kernels(dev) -> dict:
               50.0),
              ("past Sc", 2, 48, 5, 3, 32, (200, 7), 0, False, 0.0),
              ("zamba2 width", SERVE_B, SERVE_SEQ, 32, 1, 80, main_len, 0,
-              False, 0.0)]
+              False, 0.0),
+             ("short rows", 4, SERVE_SEQ, 5, 3, 64, (1, 7, 64, 65), 0, False,
+              0.0),
+             ("window 40 < splits x 64", 2, 1024, 2, 3, 64, (1000, 600), 40,
+              False, 0.0),
+             ("ring past Sc=300", 2, 300, 2, 3, 32, (1000, 299), 0, True,
+              0.0),
+             ("Sc=100, G=8", 3, 100, 1, 8, 128, (100, 37, 0), 0, False, 30.0),
+             ("G=5 hd=80", 2, SERVE_SEQ, 2, 5, 80, (1040, 65), 0, False,
+              0.0)]
     err = 0.0
     for dtype in ("float32", "bfloat16"):
         for label, B, Sc, Hkv, G, hd, lens, window, ring, cap in cases:
@@ -844,29 +884,58 @@ def phase_attention_kernels(dev) -> dict:
             ulps = _held_in_ulps(o, ro, f"gqa_decode {label}")
             log(f"  gqa_decode {label} {dtype} [{B},{Sc},{Hkv}x{G},{hd}] "
                 f"kv_len={list(lens)} window={window} ring={ring} "
-                f"softcap={cap}: max_abs_err {e:.3g}{ulps}")
+                f"softcap={cap} splits="
+                f"{gd.decode_splits(B, Hkv, Sc, _sm_count())}: max_abs_err "
+                f"{e:.3g}{ulps}")
             check(e <= ATTN_TOL[dtype], f"gqa_decode {label} {dtype} err {e}")
+            check(torch.equal(o, gd.gqa_decode_cuda(q, kc, vc, kv_len, **kw)),
+                  f"gqa_decode {label} {dtype}: two calls differ")
             err = max(err, e)
-    # timed where the serving path decodes: 8 rows at position 1040
-    B, Sc, Hkv, G, hd = SERVE_B, SERVE_SEQ, 5, 3, 64
-    dt = torch.bfloat16
-    lens = [SERVE_PROMPT + SERVE_STEPS // 2] * B
-    q = _randn((B, Hkv * G, hd), dt, gen)
-    kc = _randn((B, Sc, Hkv, hd), dt, gen)
-    vc = _randn((B, Sc, Hkv, hd), dt, gen)
-    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
-    ms = time_ms(lambda: gd.gqa_decode_cuda(q, kc, vc, kv_len))
-    plain = time_ms(lambda: gd.gqa_decode_ref(q, kc, vc, kv_len))
-    idx = torch.arange(Sc, device=dev)
-    mask = (idx[None, :] < kv_len[:, None])[:, None, None, :]
-    lib = time_ms(lambda: _sdpa(q[:, None], kc, vc, attn_mask=mask))
-    slots = sum(min(n, Sc) for n in lens)   # valid cache slots read
-    n_bytes = 2 * (2 * B * Hkv * G * hd + 2 * slots * Hkv * hd) + 4 * B
-    n_ops = 4 * hd * G * Hkv * slots
-    b, by = bound_ms(n_bytes, n_ops, BF16_OPS_S)
+    # timed where the serving paths decode: 8 rows at position 1040, at
+    # smollm's and zamba2's shapes (bf16); events, and the kernel's device
+    # time alone (torch.profiler), beside SDPA's
+    timed = {}
+    for label, Hkv, G, hd in (("smollm", 5, 3, 64), ("zamba2", 32, 1, 80)):
+        B, Sc, dt = SERVE_B, SERVE_SEQ, torch.bfloat16
+        lens = [SERVE_PROMPT + SERVE_STEPS // 2] * B
+        q = _randn((B, Hkv * G, hd), dt, gen)
+        kc = _randn((B, Sc, Hkv, hd), dt, gen)
+        vc = _randn((B, Sc, Hkv, hd), dt, gen)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        idx = torch.arange(Sc, device=dev)
+        mask = (idx[None, :] < kv_len[:, None])[:, None, None, :]
+
+        def kernel():
+            return gd.gqa_decode_cuda(q, kc, vc, kv_len)
+
+        def sdpa():
+            return _sdpa(q[:, None], kc, vc, attn_mask=mask)
+
+        slots = sum(min(n, Sc) for n in lens)   # valid cache slots read
+        n_bytes = 2 * (2 * B * Hkv * G * hd + 2 * slots * Hkv * hd) + 4 * B
+        n_ops = 4 * hd * G * Hkv * slots
+        b, by = bound_ms(n_bytes, n_ops, BF16_OPS_S)
+        timed[label] = dict(
+            shape=[B, Sc, Hkv, G, hd], ms=time_ms(kernel),
+            device_ms=device_ms_per_call(kernel, "gqa_decode_kernel"),
+            plain_ms=time_ms(lambda: gd.gqa_decode_ref(q, kc, vc, kv_len)),
+            library_ms=time_ms(sdpa), library_device_ms=device_ms_total(sdpa),
+            bound_ms=b, bound_by=by, ops=n_ops,
+            splits=gd.decode_splits(B, Hkv, Sc, _sm_count()))
+        r = timed[label]
+        log(f"  gqa_decode {label} {r['shape']} bf16 kv_len {lens[0]}, "
+            f"{r['splits']} splits: kernel {r['ms']:.4f} ms events, "
+            f"{r['device_ms']} ms device; plain {r['plain_ms']:.4f} ms; "
+            f"sdpa {r['library_ms']:.4f} ms events, "
+            f"{r['library_device_ms']} ms device; bound {b:.4f} ms ({by})")
+        del q, kc, vc
+    main, z = timed["smollm"], timed["zamba2"]
     out["gqa_decode"] = dict(
-        shape=[B, Sc, Hkv, G, hd], max_abs_err=err, ms=ms, plain_ms=plain,
-        bound_ms=b, bound_by=by, library_ms=lib, ops=n_ops)
+        main, max_abs_err=err,
+        note=f"{main['splits']} splits a cluster; zamba2 {z['shape']}: "
+             f"{z['ms']:.4f} ms events, {z['device_ms']} ms device, bound "
+             f"{z['bound_ms']:.4f}, sdpa {z['library_ms']:.4f} ms events, "
+             f"{z['library_device_ms']} ms device")
     for name, r in out.items():
         log(f"  {name} {r['shape']} bf16: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -1314,10 +1383,13 @@ def phase_serving(dev, arch: str) -> dict:
         for t in range(n_prof)])
     step_busy = sum(dec.values()) / n_prof
     step_wall = 1e3 * decode_s / SERVE_STEPS
+    step_b7 = sum(t for name, t in dec.items()
+                  if "gqa_decode_kernel" in name) / n_prof
     log(f"  prefill device busy {sum(pre.values()):.2f} ms of "
         f"{1e3 * prefill_s:.2f} ms wall; decode step device busy "
         f"{step_busy:.3f} ms of {step_wall:.3f} ms wall (device idle "
-        f"{100 * (1 - step_busy / step_wall):.1f} %)")
+        f"{100 * (1 - step_busy / step_wall):.1f} %), of which B7 "
+        f"{step_b7:.3f} ms")
     for label, by_kernel in (("prefill", pre), (f"{n_prof} decode steps",
                                                  dec)):
         log(f"  {label}, device ms by kernel:")
@@ -1325,7 +1397,8 @@ def phase_serving(dev, arch: str) -> dict:
             log(f"    {t:9.3f} ms  {name[:90]}")
     del server, cache
     torch.cuda.empty_cache()
-    out.update(decode_ms_per_step=step_wall)
+    out.update(decode_ms_per_step=step_wall, decode_busy_ms=step_busy,
+               decode_b7_ms=step_b7)
     return out
 
 

@@ -54,34 +54,127 @@ __device__ __forceinline__ float qos_pair(float alpha, float delta,
 //
 // Replaces _qos_kernel (qos_matrix.py), which tiles (users x models) into
 // (256, 256) VMEM blocks. Bound: the U*P*4 output bytes (2.15 GB at
-// U = 1e6, P = 537); the inputs are a few MB. Design: a block owns kRows
-// consecutive users and its threads walk the row with p fastest, so each
-// warp's stores are 128 contiguous bytes. The per-model rows (P floats) are
-// re-read by every block and stay in L1/L2; no division by P is needed.
+// U = 1e6, P = 537); the inputs are a few MB. Design: a persistent grid of
+// as many 256-thread blocks as fit on the card, each of which first stages
+// the P per-model attributes into shared memory as one 16-byte record a
+// model (acc, k, w, the service id's bits), then strides over the output
+// as the flat [U * P] array in groups of 4 consecutive elements. The
+// records are skewed by one slot every 8 (model_slot), so the 8 lanes of
+// a quarter warp, whose groups start 4 models apart, read 8 different
+// 16-byte bank groups instead of 2 (a 4-way conflict). A thread works out
+// its first group's (u, p) with one division and steps it by the grid's
+// stride with a wrap, loading the next group's user attributes while it
+// works on the current one; inside a group p steps by one and the user's
+// 5 attributes are read again only where a row ends. The arithmetic is
+// what bounds the kernel once the stores are vectors (a store-only
+// stream of the same bytes takes half its time), and only pairs of one
+// service need it: the others are exactly 0 (qos_entry). Each group is one
+// 16-byte streaming store (__stcs: the output does not fit in L2), so a
+// warp writes 512 contiguous bytes (the output must start on a 16-byte
+// boundary, as the wrapper's always does; the launch refuses any other),
+// and the elements after the last whole group take scalar stores. A pair
+// of one service is qos_pair
+// on the same operands as before, any other pair +0 as before, so the
+// output keeps equal bits.
 // ---------------------------------------------------------------------------
-constexpr int kRows = 4;
 constexpr int kMatrixThreads = 256;
 
-__global__ void qos_matrix_kernel(
+struct UserAttrs {
+  float alpha, delta, share_k, share_w;
+  int service;
+};
+
+__device__ __forceinline__ UserAttrs user_attrs(
+    const float* __restrict__ u_alpha, const float* __restrict__ u_delta,
+    const float* __restrict__ u_share_k, const float* __restrict__ u_share_w,
+    const int* __restrict__ u_service, int64_t u) {
+  return {__ldg(u_alpha + u), __ldg(u_delta + u), __ldg(u_share_k + u),
+          __ldg(u_share_w + u), __ldg(u_service + u)};
+}
+
+// Shared-memory slot of model p's record (see the skew above).
+__device__ __forceinline__ int model_slot(int p) { return p + (p >> 3); }
+
+// qos_pair times [the services match]. qos_pair is finite and >= 0 for any
+// operands (each fmaxf drops a NaN), so its product with 0 is +0 and with 1
+// is itself: a pair of different services skips the arithmetic and keeps
+// the same bits.
+__device__ __forceinline__ float qos_entry(const UserAttrs& a,
+                                           const float4& model,
+                                           float delta_max) {
+  if (a.service != __float_as_int(model.w)) return 0.0f;
+  return qos_pair(a.alpha, a.delta, a.share_k, a.share_w, model.x, model.y,
+                  model.z, delta_max);
+}
+
+__global__ void __launch_bounds__(kMatrixThreads) qos_matrix_kernel(
     const float* __restrict__ u_alpha, const float* __restrict__ u_delta,
     const float* __restrict__ u_share_k, const float* __restrict__ u_share_w,
     const int* __restrict__ u_service, const float* __restrict__ sm_acc,
     const float* __restrict__ sm_k, const float* __restrict__ sm_w,
     const int* __restrict__ sm_service, float* __restrict__ out, int64_t U,
-    int64_t P, float delta_max) {
-  const int64_t u0 = static_cast<int64_t>(blockIdx.x) * kRows;
-  for (int r = 0; r < kRows; ++r) {
-    const int64_t u = u0 + r;
-    if (u >= U) return;
-    const float alpha = u_alpha[u], delta = u_delta[u];
-    const float sk = u_share_k[u], sw = u_share_w[u];
-    const int svc = u_service[u];
-    float* row = out + u * P;
-    for (int64_t p = threadIdx.x; p < P; p += blockDim.x) {
-      const float q = qos_pair(alpha, delta, sk, sw, sm_acc[p], sm_k[p],
-                               sm_w[p], delta_max);
-      row[p] = q * (svc == sm_service[p] ? 1.0f : 0.0f);
+    int P, float delta_max) {
+  extern __shared__ float4 models[];  // acc, k, w, service bits; skewed
+  for (int p = threadIdx.x; p < P; p += blockDim.x)
+    models[model_slot(p)] = make_float4(sm_acc[p], sm_k[p], sm_w[p],
+                                        __int_as_float(sm_service[p]));
+  __syncthreads();
+
+  const int64_t n = U * P;
+  const int64_t groups = n / 4;
+  const int64_t gt = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+  const int64_t threads = static_cast<int64_t>(gridDim.x) * blockDim.x;
+
+  // the scalar tail after the last whole group, at most 3 elements
+  if (gt < n - 4 * groups) {
+    const int64_t e = 4 * groups + gt;
+    const int64_t u = e / P;
+    const UserAttrs a = user_attrs(u_alpha, u_delta, u_share_k, u_share_w,
+                                   u_service, u);
+    out[e] = qos_entry(a, models[model_slot(static_cast<int>(e - u * P))],
+                       delta_max);
+  }
+
+  if (gt >= groups) return;
+  int64_t u = 4 * gt / P;
+  int p = static_cast<int>(4 * gt - u * P);
+  const int64_t du = 4 * threads / P;
+  const int dp = static_cast<int>(4 * threads - du * P);
+  float4* out4 = reinterpret_cast<float4*>(out);
+  UserAttrs a = user_attrs(u_alpha, u_delta, u_share_k, u_share_w, u_service,
+                           u);
+  for (int64_t g = gt; g < groups; g += threads) {
+    // the next group's (u, p), and its user's attributes, requested now so
+    // that their latency hides behind this group's work
+    int64_t u_next = u + du;
+    int p_next = p + dp;
+    if (p_next >= P) {
+      p_next -= P;
+      ++u_next;
     }
+    const UserAttrs a_next =
+        g + threads < groups ? user_attrs(u_alpha, u_delta, u_share_k,
+                                          u_share_w, u_service, u_next)
+                             : a;
+    float v[4];
+    int pp = p;
+    int64_t uu = u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[i] = qos_entry(a, models[model_slot(pp)], delta_max);
+      if (++pp == P) {  // the row ends inside the group
+        pp = 0;
+        ++uu;
+        if (i < 3)
+          a = user_attrs(u_alpha, u_delta, u_share_k, u_share_w, u_service,
+                         uu);
+      }
+    }
+    __stcs(out4 + g, make_float4(v[0], v[1], v[2], v[3]));
+    u = u_next;
+    p = p_next;
+    a = a_next;
   }
 }
 
@@ -188,15 +281,44 @@ int qos_matrix_launch(const void* u_alpha, const void* u_delta,
                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  qos_matrix_kernel<<<blocks_for(U, kRows), kMatrixThreads, 0,
+  if (U <= 0 || P <= 0 || P > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const size_t smem = static_cast<size_t>(P + P / 8 + 1) * sizeof(float4);
+  int smem_max = 0, sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > static_cast<size_t>(smem_max))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(qos_matrix_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, qos_matrix_kernel, kMatrixThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t groups = static_cast<int64_t>(U) * P / 4;
+  const int64_t grid = blocks_for(groups > 0 ? groups : 1, kMatrixThreads);
+  const int64_t resident = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) *
+                           sms;
+  qos_matrix_kernel<<<static_cast<unsigned>(grid < resident ? grid
+                                                            : resident),
+                      kMatrixThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(u_alpha), static_cast<const float*>(u_delta),
       static_cast<const float*>(u_share_k),
       static_cast<const float*>(u_share_w),
       static_cast<const int*>(u_service), static_cast<const float*>(sm_acc),
       static_cast<const float*>(sm_k), static_cast<const float*>(sm_w),
-      static_cast<const int*>(sm_service), static_cast<float*>(out), U, P,
-      delta_max);
+      static_cast<const int*>(sm_service), static_cast<float*>(out), U,
+      static_cast<int>(P), delta_max);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -58,8 +58,8 @@ _SIGNATURES = {
     "flash_attention_dkv_launch": ([_VOID_P] * 8 + [_I32] * 10 + [_VOID_P],
                                    _I32),
     # (q, k_cache, v_cache, kv_len, out, B, Sc, Hkv, G, hd, is_bf16, window,
-    #  ring, softcap, device, stream)
-    "gqa_decode_launch": ([_VOID_P] * 5 + [_I32] * 8 + [_F32, _I32, _VOID_P],
+    #  ring, splits, softcap, device, stream)
+    "gqa_decode_launch": ([_VOID_P] * 5 + [_I32] * 9 + [_F32, _I32, _VOID_P],
                           _I32),
     # (x, dtA, b, c, initial_state, y, state, cb, chunk_states, entering,
     #  decay, B, L, H, P, N, chunk, device, stream)

@@ -6,11 +6,13 @@
 version wherever the tensors are, ``True`` insists on the kernel and raises
 for CPU tensors. :func:`gqa_decode_cuda` checks device, dtype, shape,
 alignment and contiguity, allocates its output with ``torch.empty``,
-launches on the current stream, raises on a CUDA error and adds one to
+picks the kernel's split count with :func:`decode_splits`, launches on the
+current stream, raises on a CUDA error and adds one to
 ``LAUNCHES["gqa_decode"]``. It never falls back to the plain version.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -19,18 +21,36 @@ from repro_torch.kernels._build import check_cuda_tensor, launch
 
 from .ref import gqa_decode_ref
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "decode_attention", "gqa_decode_cuda",
-           "reset_launch_counts"]
+__all__ = ["HEAD_DIMS", "LAUNCHES", "MAX_SPLITS", "decode_attention",
+           "decode_splits", "gqa_decode_cuda", "reset_launch_counts"]
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
 LAUNCHES = {"gqa_decode": 0}
 #: Head widths the kernel is compiled for.
 HEAD_DIMS = (32, 64, 80, 128)
+#: The most blocks over which the kernel splits one (KV head, row): the
+#: portable thread block cluster size.
+MAX_SPLITS = 8
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launch_counts() -> None:
     LAUNCHES["gqa_decode"] = 0
+
+
+def decode_splits(B: int, Hkv: int, Sc: int, sm_count: int) -> int:
+    """S, the blocks of one cluster over which the kernel splits each (KV
+    head, row)'s valid cache range: about two blocks an SM over the
+    ``B * Hkv`` pairs, at most :data:`MAX_SPLITS`, and no more than one
+    split per 64 cache slots. It reads host sizes only, never ``kv_len``,
+    which lives on the device, so it never waits on the card."""
+    return max(1, min(MAX_SPLITS, -(-Sc // 64),
+                      -(-2 * sm_count // max(1, B * Hkv))))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def gqa_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
@@ -61,9 +81,10 @@ def gqa_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             check_cuda_tensor("kv_len", kv_len, torch.int32, (B,), dev)]
     out = torch.empty_like(q)
     if q.numel():
+        splits = decode_splits(B, Hkv, Sc, _sm_count(dev.index))
         launch("gqa_decode_launch", *ptrs, out.data_ptr(), B, Sc, Hkv,
                Hq // Hkv, hd, int(q.dtype == torch.bfloat16), int(window),
-               int(ring), float(softcap), device=dev)
+               int(ring), splits, float(softcap), device=dev)
         LAUNCHES["gqa_decode"] += 1
     return out
 

@@ -319,6 +319,20 @@ def test_flash_kernel_is_deterministic(cuda):
         assert torch.equal(a, b)
 
 
+#: B7's split plan at its edges (B, Hq, Hkv, hd, Sc, kv_len, window, ring,
+#: softcap): rows of 1, 7, 64 and 65 slots over 8 splits (empty and one-slot
+#: splits), a window narrower than the 8 splits x 64 slots, ring past an Sc
+#: that is no multiple of 64, kv_len 0 with G = 8 (two chunks of 4 heads),
+#: and G = 5 at hd = 80.
+DECODE_SPLIT_EDGE_CASES = [
+    (4, 15, 5, 64, 2048, (1, 7, 64, 65), 0, False, 0.0),
+    (2, 6, 2, 64, 1024, (1000, 600), 40, False, 0.0),
+    (2, 6, 2, 32, 300, (1000, 299), 0, True, 0.0),
+    (3, 8, 1, 128, 100, (100, 37, 0), 0, False, 30.0),
+    (2, 10, 2, 80, 2048, (1040, 65), 0, False, 0.0),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", [
@@ -327,7 +341,7 @@ def test_flash_kernel_is_deterministic(cuda):
      False, 0.0),
     (2, 32, 16, 128, 300, (300, 170), 64, False, 50.0),
     (2, 32, 32, 80, 2048, (1040, 7), 0, False, 0.0),   # zamba2, G = 1
-], ids=str)
+] + DECODE_SPLIT_EDGE_CASES, ids=str)
 def test_decode_kernel_matches_plain(cuda, dtype, case):
     B, Hq, Hkv, hd, Sc, kv_len, window, ring, softcap = case
     rng = np.random.default_rng(5)
@@ -344,6 +358,21 @@ def test_decode_kernel_matches_plain(cuda, dtype, case):
     assert gd.LAUNCHES["gqa_decode"] == n0 + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
                                rtol=0)
+    if dtype == "bfloat16":
+        assert _bf16_ulps(out, ref) <= BF16_ULPS
+
+
+@pytest.mark.cuda
+def test_decode_kernel_is_deterministic(cuda):
+    """The splits merge in rank order: two calls give the same bits."""
+    rng = np.random.default_rng(14)
+    q = _randn(rng, (8, 15, 64), "bfloat16", cuda)
+    kc = _randn(rng, (8, 2048, 5, 64), "bfloat16", cuda)
+    vc = _randn(rng, (8, 2048, 5, 64), "bfloat16", cuda)
+    lens = torch.tensor([1040, 1, 7, 64, 65, 2047, 2048, 513],
+                        dtype=torch.int32, device=cuda)
+    assert torch.equal(gd.gqa_decode_cuda(q, kc, vc, lens),
+                       gd.gqa_decode_cuda(q, kc, vc, lens))
 
 
 @pytest.mark.cuda

@@ -221,8 +221,12 @@ def test_launch_counters_reset():
 # ===========================================================================
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("U,P,seed", [(1, 1, 0), (37, 5, 1), (513, 257, 3),
-                                      (4099, 537, 4)])
+@pytest.mark.parametrize("U,P,seed", [
+    (1, 1, 0), (37, 5, 1), (513, 257, 3), (4099, 537, 4),
+    # U * P not a multiple of 4 (the kernel's 16-byte groups cross rows and
+    # leave a scalar tail), P below 4, and one user
+    (1, 3, 5), (7, 1, 6), (5, 3, 7), (1, 537, 8), (1001, 537, 9),
+    (3, 2, 10)])
 def test_qos_matrix_kernel_matches_plain(cuda, U, P, seed):
     args = _torch(_qos_args(U, P, seed), cuda)
     before = ops.LAUNCHES["qos_matrix"]
@@ -231,6 +235,7 @@ def test_qos_matrix_kernel_matches_plain(cuda, U, P, seed):
     assert ops.LAUNCHES["qos_matrix"] == before + 1
     plain = ops.qos_matrix(*args.values(), delta_max=10.0, use_kernel=False)
     torch.testing.assert_close(out, plain, **QOS_TOL)
+    assert torch.equal(out, plain)   # the route's OMS argmax needs the bits
 
 
 @pytest.mark.cuda
