@@ -15,16 +15,28 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    main path's shapes and at ragged small shapes, with its time, the plain
    version's time, its bound and, where one exists, a PyTorch call's time;
    B1 also bit-equal to its plain version (U * P not a multiple of 4, P
-   below 4, one user); for B3 also its device time alone and torch.max's
-   (torch.profiler);
+   below 4, one user); B2's fused candidate build (topk_candidates_kernel)
+   with cand_idx equal and cand_q bit-equal to topk_candidates_ref and two
+   calls bit-equal at one user, k < M, k = M, -1 padding with a service
+   that has no implementation, QoS ties, a table larger than a block's
+   shared memory and the main path's [10^6, 10],
+   and its device time; the pre-gathered qos_candidates_kernel held too;
+   for B3 also its device time alone and torch.max's (torch.profiler);
 3. the main path at full size: a 1,000,000-user, 1,000-edge instance
    through evaluate_sparse (kernels) and Router.route (dense QoS kernel +
    OMS), with launch counts; then the same tick with the plain versions
    (same x), a second kernel tick (bit-identical), σ against a float64
-   host evaluation, and the greedy loop's device time by kernel (B3's
-   share);
+   host evaluation, the candidate build's host and device time (one
+   launch, no other device kernel), and the greedy loop's device time by
+   kernel (B3's share);
 4. the routed value against the sparse σ;
-5. paper-scale instances against the host oracle (egp_np + sigma_np);
+5. paper-scale instances against the host oracle: the sparse tick and
+   Router.place with EGP, AGP and OPT (within 1e-4 of egp_np, agp_np,
+   opt_np; EGP's ratio to OPT logged); then the dense batched path: the
+   reference benchmark's mixed-size batch at 10,000 users through
+   evaluate_batch, bucketed and padded, EGP and AGP, within 1e-4 of the
+   host, x identical with the plain versions and on a rerun, B1 and B3
+   launched;
 6. the attention kernels (flash-attention forward B4, GQA decode B7)
    against their plain versions in float32 and bfloat16: at the serving
    path's shapes, at gemma2's head width with a window and a softcap, with
@@ -116,6 +128,14 @@ SERVE_B, SERVE_PROMPT, SERVE_STEPS, SERVE_SEQ = 8, 1024, 32, 2048
 HBM_BYTES_S, F32_OPS_S, BF16_OPS_S = 3.35e12, 67e12, 989e12
 REPS = 25
 QOS_TOL = 1e-6
+#: The batched path: the reference benchmark's mixed-size batch at U0 =
+#: 10,000 users (benchmarks/placement_scale.py, under its dense_max_u of
+#: 20,000), values within the reference's batched-vs-host tolerance
+#: (tests/test_workloads.py).
+BATCH_U0, BATCH_ATOL = 10_000, 1e-4
+#: A paper-scale case whose host opt_np takes longer is left out of the
+#: OPT check (and says so).
+OPT_HOST_LIMIT_S = 60.0
 #: max abs error of an attention kernel against its plain version, by
 #: dtype (the JAX package's own kernel tolerances, tests/test_kernels.py).
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -259,6 +279,23 @@ def device_ms_by_kernel(fn) -> dict:
             us = evt.self_cuda_time_total
         out[evt.key] = out.get(evt.key, 0.0) + us / 1e3
     return out
+
+
+def device_events(fn) -> list:
+    """``[(name, device ms)]`` of every device activity (kernels, copies)
+    of one ``fn()`` call after one warm-up call, in order, from
+    ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def device_ms_per_call(fn, name_part: str, reps: int = REPS):
@@ -469,14 +506,67 @@ def _argmax_edge_case(dev):
     return v, m
 
 
-def phase_kernels(dev, main_P: int, main_K: int) -> dict:
-    """Each kernel vs its plain version; returns per-kernel numbers at the
-    main path's shapes."""
+def _topk_inputs(U, M, seed, dev, S=100, ties=False, empty_service=False):
+    """Users, an impl table [S, M] (each service 1..M implementations, -1
+    padded; with ``empty_service`` the last service has none) and the
+    models' attributes, in topk_candidates' argument order. With ``ties``
+    the model records repeat three values, so a user's QoS ties across
+    implementations."""
+    import numpy as np
     import torch
 
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    counts = rng.integers(1, M + 1, S)
+    counts[0] = M
+    if empty_service:
+        counts[-1] = 0
+    P = int(counts.sum())
+    table = np.full((S, M), -1, np.int32)
+    perm = rng.permutation(P).astype(np.int32)
+    start = 0
+    for s, c in enumerate(counts):
+        table[s, :c] = np.sort(perm[start:start + c])
+        start += c
+    if ties:
+        base = rng.integers(0, 3, P)
+        models = [np.array(v, f32)[base] for v in
+                  ((0.3, 0.6, 0.9), (5.0, 15.0, 25.0), (5.0, 15.0, 25.0))]
+    else:
+        models = [rng.uniform(0, 1, P).astype(f32),
+                  rng.uniform(1, 30, P).astype(f32),
+                  rng.uniform(1, 30, P).astype(f32)]
+    host = [rng.integers(0, S, U).astype(np.int32),
+            rng.uniform(0, 1, U).astype(f32), rng.uniform(0, 10, U).astype(f32),
+            rng.uniform(0.01, 1, U).astype(f32),
+            rng.uniform(0.01, 1, U).astype(f32), table] + models
+    return [torch.from_numpy(a).to(dev) for a in host]
+
+
+def _topk_main_inputs(inst, dev):
+    """The main path's candidate-build inputs for ``inst``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import TorchInstance, impl_table_np
+
+    ti = TorchInstance.from_pies(inst, dev)
+    table = torch.from_numpy(
+        impl_table_np(inst.sm_service, inst.S).astype(np.int32)).to(dev)
+    return [ti.u_service, ti.u_alpha, ti.u_delta, ti.u_share_k, ti.u_share_w,
+            table, ti.sm_acc, ti.sm_k, ti.sm_w]
+
+
+def phase_kernels(dev, main) -> dict:
+    """Each kernel vs its plain version; returns per-kernel numbers at the
+    main path's shapes (``main``: the main path's instance)."""
+    import torch
+
+    from repro_torch.core import max_impls_of
     from repro_torch.kernels.qos_matrix import ops, ref
 
     dm = 10.0
+    main_P, main_K = main.P, max_impls_of(main)
     out = {}
 
     # --- B1 qos_matrix -----------------------------------------------------
@@ -511,7 +601,7 @@ def phase_kernels(dev, main_P: int, main_K: int) -> dict:
     del args
     torch.cuda.empty_cache()
 
-    # --- B2 qos_candidates --------------------------------------------------
+    # --- B2, the pre-gathered kernel (held, off the main path) -------------
     err = 0.0
     for U, K, seed in ((1, 1, 0), (300, 7, 1), (257, 10, 2),
                        (U_MAIN, main_K, 4)):
@@ -520,16 +610,70 @@ def phase_kernels(dev, main_P: int, main_K: int) -> dict:
         p = ref.qos_candidates_ref(*args, delta_max=dm)
         torch.cuda.synchronize()
         e = float((k - p).abs().max())
-        log(f"  qos_candidates [{U}, {K}]: max_abs_err={e:.3g}")
+        log(f"  qos_candidates (pre-gathered) [{U}, {K}]: max_abs_err={e:.3g}")
         check(e <= QOS_TOL, f"qos_candidates [{U}, {K}] err {e}")
         check(not bool(k[args[7] == 0].any()), "invalid pairs must be 0")
         err = max(err, e)
-    ms = time_ms(lambda: ops.qos_candidates_cuda(*args, delta_max=dm))
-    plain = time_ms(lambda: ref.qos_candidates_ref(*args, delta_max=dm))
-    b, by = bound_ms(16 * U + 20 * U * K, 17 * U * K)
-    out["qos_candidates"] = dict(shape=[U, K], max_abs_err=err, ms=ms,
-                                 plain_ms=plain, bound_ms=b, bound_by=by,
-                                 library_ms=None)
+    gathered_ms = time_ms(lambda: ops.qos_candidates_cuda(*args, delta_max=dm))
+    log(f"  qos_candidates (pre-gathered) [{U}, {K}]: kernel "
+        f"{gathered_ms:.4f} ms")
+    del args
+
+    # --- B2 on the main path: the fused candidate build ---------------------
+    # cand_idx equal and cand_q bit-equal to the plain version, and two
+    # calls bit-equal, at: one user and one slot, k < M, k = M, -1 padding
+    # with a service that has no implementation, QoS ties at k < M, and the
+    # main path's instance
+    err = 0.0
+    cases = [(f"[{U}, {M}] k={k}{' ' + tag if tag else ''}", k,
+              _topk_inputs(U, M, seed, dev, **opts), dm)
+             for U, M, k, seed, opts, tag in (
+                 (1, 1, None, 0, {}, ""), (300, 7, 3, 1, {}, ""),
+                 (257, 10, 10, 2, {}, ""),
+                 (200, 10, 4, 3, dict(empty_service=True),
+                  "(a service without implementations)"),
+                 (300, 10, 4, 4, dict(ties=True), "(QoS ties)"),
+                 (5003, 16, 5, 5, dict(S=4000),
+                  "(table and models over shared memory: read through L2)"))]
+    cases.append((f"[{main.U}, {main_K}] k={main_K} (main path)", None,
+                  _topk_main_inputs(main, dev), float(main.delta_max)))
+    for name, kk, args, dmax in cases:
+        before = ops.LAUNCHES["qos_candidates"]
+        ki, kq = ops.topk_candidates_cuda(*args, kk, delta_max=dmax)
+        check(ops.LAUNCHES["qos_candidates"] == before + 1,
+              f"topk_candidates {name}: one launch a build")
+        pi, pq = ref.topk_candidates_ref(*args, kk, delta_max=dmax)
+        ki2, kq2 = ops.topk_candidates_cuda(*args, kk, delta_max=dmax)
+        torch.cuda.synchronize()
+        e = float((kq - pq).abs().max()) if kq.numel() else 0.0
+        same = torch.equal(ki, pi) and torch.equal(kq, pq)
+        log(f"  topk_candidates {name}: cand_idx "
+            f"{'equal' if torch.equal(ki, pi) else 'differs'}, cand_q "
+            f"{'equal bits' if torch.equal(kq, pq) else 'bits differ'} "
+            f"(max_abs_err={e:.3g}), rerun "
+            f"{'bit-equal' if torch.equal(ki2, ki) and torch.equal(kq2, kq) else 'differs'}")
+        check(same, f"topk_candidates {name} not equal to the plain version")
+        check(torch.equal(ki2, ki) and torch.equal(kq2, kq),
+              f"topk_candidates {name}: two calls differ")
+        err = max(err, e)
+        del ki, kq, pi, pq, ki2, kq2
+    U, kk = main.U, main_K
+    ms = time_ms(lambda: ops.topk_candidates_cuda(*args, delta_max=dmax))
+    plain = time_ms(lambda: ref.topk_candidates_ref(*args, delta_max=dmax))
+    dev_ms = device_ms_per_call(
+        lambda: ops.topk_candidates_cuda(*args, delta_max=dmax),
+        "topk_candidates_kernel")
+    # each user's service and four attributes read once, each kept slot's
+    # (index, QoS) written once; qos_pair is about 17 operations a pair
+    b, by = bound_ms(20 * U + 8 * U * kk, 17 * U * kk)
+    out["qos_candidates"] = dict(
+        shape=[U, kk], max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+        bound_by=by, library_ms=None, device_ms=dev_ms,
+        note=f"fused candidate build (topk_candidates_kernel), one launch; "
+             f"the pre-gathered qos_candidates_kernel {gathered_ms:.4f} ms "
+             f"at [{U_MAIN}, {main_K}] on gathered inputs")
+    log(f"  topk_candidates device time (torch.profiler, median per call): "
+        f"{dev_ms} ms")
     del args
 
     # --- B3 greedy_argmax ---------------------------------------------------
@@ -633,7 +777,8 @@ def phase_main_path(dev, inst) -> dict:
     # loop iterations == greedy_argmax launches; σ vs float64 host
     t0 = time.perf_counter()
     ti = TorchInstance.from_pies(inst, dev)
-    table = impl_table_np(inst.sm_service, inst.S)
+    table = torch.from_numpy(
+        impl_table_np(inst.sm_service, inst.S).astype(np.int32)).to(dev)
     torch.cuda.synchronize()
     upload_ms = 1e3 * (time.perf_counter() - t0)
     ops.reset_launch_counts()
@@ -664,6 +809,23 @@ def phase_main_path(dev, inst) -> dict:
         f"{egp_ms:.1f} ms = {egp_ms / max(iters, 1):.3f} ms/iteration; "
         f"instance upload + impl table {upload_ms:.1f} ms; candidate build "
         f"{cand_ms:.2f} ms; sigma vs float64 host rel {rel64:.3g}")
+    # the build's device work (torch.profiler): the one fused kernel and
+    # nothing else, the impl table being on the card already
+    before = ops.LAUNCHES["qos_candidates"]
+    ops.qos_candidates_from_instance(ti, table)
+    cand_launches = ops.LAUNCHES["qos_candidates"] - before
+    events = device_events(
+        lambda: ops.qos_candidates_from_instance(ti, table))
+    cand_kernels = [n for n, _ in events
+                    if not n.startswith(("Memcpy", "Memset"))]
+    cand_dev_ms = sum(t for _, t in events)
+    log(f"  candidate build: host {cand_ms:.3f} ms, device {cand_dev_ms:.4f} "
+        f"ms, {cand_launches} launch(es); device kernels {cand_kernels}, "
+        f"{len(events) - len(cand_kernels)} copies")
+    check(cand_launches == 1, f"candidate build launches {cand_launches}")
+    check(len(cand_kernels) == 1
+          and "topk_candidates_kernel" in cand_kernels[0],
+          f"candidate build device kernels {cand_kernels}")
 
     # where the greedy loop's device time goes (torch.profiler kernel times)
     by_kernel = device_ms_by_kernel(lambda: egp_place_sparse_torch(
@@ -699,22 +861,28 @@ def phase_main_path(dev, inst) -> dict:
     torch.cuda.empty_cache()
     return dict(launches=launches, iterations=iters, sigma=sigma,
                 warm_tick_ms=warm_tick, plain_tick_ms=plain_tick,
-                egp_ms=egp_ms, cand_ms=cand_ms, upload_ms=upload_ms,
+                egp_ms=egp_ms, cand_ms=cand_ms, cand_device_ms=cand_dev_ms,
+                cand_launches=cand_launches, cand_kernels=cand_kernels,
+                upload_ms=upload_ms,
                 route_warm_ms=route_warm, loop_busy_ms=busy,
                 loop_b3_ms=b3_ms)
 
 
-def phase_paper_scale(dev) -> None:
+def phase_paper_scale(dev) -> dict:
+    """Paper-scale instances: the sparse tick and Router.place (EGP, AGP,
+    OPT) against the host oracles; EGP's ratio to OPT is logged."""
     import numpy as np
 
-    from repro_torch.core import (egp_np, qos_matrix_np, realworld_instance,
-                                  sigma_np, synthetic_instance)
+    from repro_torch.core import (agp_np, egp_np, opt_np, qos_matrix_np,
+                                  realworld_instance, sigma_np,
+                                  synthetic_instance)
     from repro_torch.serving import Router
     from repro_torch.workloads import evaluate_host, evaluate_sparse
 
     cases = [(f"synthetic(2000, 10, seed={s})",
               synthetic_instance(2000, n_edges=10, seed=s)) for s in (0, 1, 2)]
     cases.append(("realworld(300)", realworld_instance(300)))
+    ratios = {}
     for name, inst in cases:
         vals, _ = evaluate_sparse([inst], device=dev)
         host = float(evaluate_host([inst])[0])
@@ -729,6 +897,101 @@ def phase_paper_scale(dev) -> None:
             f"(diff {diff:.3g}); Router.place x "
             f"{'equal to' if np.array_equal(x_card, x_host) else 'differs from'}"
             f" host egp_np, sigma diff {pdiff:.3g}")
+        s_agp = sigma_np(inst, agp_np(inst, Q), Q)
+        x_card = Router(placement_algo="agp", device=dev).place(inst)
+        adiff = abs(sigma_np(inst, x_card, Q) - s_agp)
+        check(adiff <= 1e-4, f"{name}: Router(agp).place sigma diff {adiff}")
+        t0 = time.perf_counter()
+        s_opt = sigma_np(inst, opt_np(inst, Q), Q)
+        opt_s = time.perf_counter() - t0
+        if opt_s > OPT_HOST_LIMIT_S:
+            log(f"  {name}: opt_np took {opt_s:.1f} s on the host, over "
+                f"{OPT_HOST_LIMIT_S} s: dropped from the OPT check")
+            continue
+        x_card = Router(placement_algo="opt", device=dev).place(inst)
+        odiff = abs(sigma_np(inst, x_card, Q) - s_opt)
+        check(odiff <= 1e-4, f"{name}: Router(opt).place sigma diff {odiff}")
+        ratios[name] = dict(egp=sigma_np(inst, x_host, Q) / s_opt,
+                            agp=s_agp / s_opt)
+        log(f"  {name}: Router agp sigma diff {adiff:.3g}, opt sigma diff "
+            f"{odiff:.3g} (opt_np {opt_s:.2f} s on the host); EGP/OPT "
+            f"{ratios[name]['egp']!r}, AGP/OPT {ratios[name]['agp']!r}")
+    mean = float(np.mean([r["egp"] for r in ratios.values()]))
+    log(f"  EGP/OPT over {len(ratios)} cases: mean {mean!r} (logged, not "
+        "gated; the paper reports 0.904 on average)")
+    return dict(opt_ratios=ratios, egp_opt_mean=mean)
+
+
+def _same_x(a, b) -> bool:
+    """Equal placements: tensors, or lists of them (a bucketed batch's)."""
+    import torch
+
+    if isinstance(a, list):
+        return len(a) == len(b) and all(torch.equal(p, q)
+                                        for p, q in zip(a, b))
+    return torch.equal(a, b)
+
+
+def phase_batched(dev) -> dict:
+    """The dense batched path: the reference benchmark's mixed-size batch
+    (benchmarks/placement_scale.py's bucket mix at U0 users) through
+    evaluate_batch, bucketed and globally padded, for EGP and AGP."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import synthetic_instance
+    from repro_torch.kernels.qos_matrix import ops
+    from repro_torch.workloads import (bucket_instances, evaluate_batch,
+                                       evaluate_host, pad_instances)
+
+    U0 = BATCH_U0
+    mix = [synthetic_instance(n_users=max(8, U0 // (2 ** i)),
+                              n_edges=max(4, (U0 // (2 ** i)) // 1000),
+                              seed=i) for i in range(4)]
+    mi = max(i.P for i in mix) + 1
+    log(f"  mix (U, P, E): {[(i.U, i.P, i.E) for i in mix]}, "
+        f"max_iters {mi}")
+    out = {}
+    for algo in ("egp", "agp"):
+        t0 = time.perf_counter()
+        host = evaluate_host(mix, algo)
+        host_s = time.perf_counter() - t0
+        for kind, make in (("bucketed", bucket_instances),
+                           ("padded", pad_instances)):
+            batch = make(mix, device=dev)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            vals, x = evaluate_batch(batch, algo, max_iters=mi)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            launches = dict(ops.LAUNCHES)
+            check(launches["qos_matrix"] > 0 and launches["greedy_argmax"] > 0,
+                  f"batched {algo} {kind}: B1/B3 launches {launches}")
+            diff = float(np.abs(vals - host).max())
+            check(diff <= BATCH_ATOL,
+                  f"batched {algo} {kind}: values vs host diff {diff}")
+            t0 = time.perf_counter()
+            pvals, px = evaluate_batch(batch, algo, max_iters=mi,
+                                       use_kernel=False)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            check(_same_x(px, x), f"batched {algo} {kind}: plain x differs")
+            vals2, x2 = evaluate_batch(batch, algo, max_iters=mi)
+            torch.cuda.synchronize()
+            check(_same_x(x2, x) and np.array_equal(vals2, vals),
+                  f"batched {algo} {kind}: rerun differs")
+            log(f"  evaluate_batch {algo} {kind}: {ms:.1f} ms (plain "
+                f"versions {plain_ms:.1f} ms; host {1e3 * host_s:.1f} ms), "
+                f"values {vals.tolist()}, max diff vs host {diff:.3g}; x "
+                f"identical with the plain versions and on a rerun; "
+                f"launches {launches}")
+            out[f"{algo}_{kind}"] = dict(ms=ms, plain_ms=plain_ms,
+                                         host_ms=1e3 * host_s, diff=diff,
+                                         launches=launches)
+            del batch, x, px, x2
+    torch.cuda.empty_cache()
+    return out
 
 
 # ===========================================================================
@@ -1885,13 +2148,14 @@ def main() -> int:
         f"M={K} ({time.perf_counter() - t0:.2f} s on the host)")
 
     log("phase 2: kernels vs plain versions")
-    kern = phase_kernels(dev, main_P=P, main_K=K)
+    kern = phase_kernels(dev, inst)
 
     log(f"phase 3/4: main path at U={U_MAIN}, E={E_MAIN}")
     main_path = phase_main_path(dev, inst)
 
-    log("phase 5: paper scale vs host oracle")
+    log("phase 5: paper scale vs host oracle; the dense batched path")
     phase_paper_scale(dev)
+    phase_batched(dev)
 
     log("phase 6: attention kernels vs plain versions")
     kern.update(phase_attention_kernels(dev))

@@ -15,7 +15,7 @@ service ``s_u`` — at most ``M = max_impls`` of them (10 in the paper's
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -107,44 +107,31 @@ def topk_candidates_np(inst: PIESInstance, k: Optional[int] = None,
                         k=k_eff, exact=k_eff >= M)
 
 
-def topk_candidates_torch(ti: TorchInstance, table: np.ndarray,
+def topk_candidates_torch(ti: TorchInstance,
+                          table: Union[np.ndarray, torch.Tensor],
                           k: Optional[int] = None, *,
                           use_kernel: Optional[bool] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k candidates on ``ti``'s device from a host-built
-    :func:`impl_table_np`: ``(cand_idx [U, k] int32, cand_q [U, k] f32)``.
+    """Top-k candidates on ``ti``'s device from an :func:`impl_table_np`
+    table: ``(cand_idx [U, k] int32, cand_q [U, k] f32)``.
 
-    QoS per pair comes from the segmented kernel dispatcher
-    (:func:`repro_torch.kernels.qos_matrix.ops.qos_candidates`); no
-    ``[U, P]`` matrix is built. At ``k = M`` the table order is kept, as
-    the reference does. For ``k < M`` a stable descending sort keeps the
-    lower index first among equal QoS, which is ``lax.top_k``'s order
-    (``torch.topk`` promises no order among ties).
+    The build goes through the
+    :func:`repro_torch.kernels.qos_matrix.ops.topk_candidates` dispatcher:
+    one kernel launch on a card, the plain version elsewhere; no ``[U, P]``
+    matrix is built. At ``k = M`` the table order is kept, as the
+    reference does; for ``k < M`` the selection is stable, so the lower
+    index comes first among equal QoS, which is ``lax.top_k``'s order
+    (``torch.topk`` promises no order among ties). A caller that builds
+    more than once uploads the table once and passes the int32 tensor on
+    ``ti``'s device, which is used as it is.
     """
-    from repro_torch.kernels.qos_matrix.ops import qos_candidates
+    from repro_torch.kernels.qos_matrix.ops import topk_candidates
 
-    dev = ti.device
-    table = torch.as_tensor(np.asarray(table), dtype=torch.int32, device=dev)
-    M = int(table.shape[1])
-    k_eff = M if k is None else min(int(k), M)
-    cand = table[ti.u_service.long()]                  # [U, M]
-    valid = cand >= 0
-    safe = cand.clamp_min(0).long()
-    q = qos_candidates(
-        ti.u_alpha, ti.u_delta, ti.u_share_k, ti.u_share_w,
-        ti.sm_acc[safe], ti.sm_k[safe], ti.sm_w[safe],
-        valid.to(torch.float32), delta_max=ti.delta_max,
-        use_kernel=use_kernel)
-    q = torch.where(valid, q, -1.0)                    # pad rows sort last
-    if k_eff < M:
-        vals, order = torch.sort(q, dim=1, descending=True, stable=True)
-        vals, order = vals[:, :k_eff], order[:, :k_eff]
-        idx = torch.gather(cand, 1, order)
-    else:
-        vals, idx = q, cand
-    kept = vals >= 0.0
-    return (torch.where(kept, idx, -1).to(torch.int32).contiguous(),
-            torch.where(kept, vals, 0.0).to(torch.float32).contiguous())
+    table = torch.as_tensor(table, dtype=torch.int32, device=ti.device)
+    return topk_candidates(ti.u_service, ti.u_alpha, ti.u_delta,
+                           ti.u_share_k, ti.u_share_w, table, ti.sm_acc,
+                           ti.sm_k, ti.sm_w, k, delta_max=ti.delta_max,
+                           use_kernel=use_kernel)
 
 
 def sigma_sparse_np(inst: PIESInstance, x: np.ndarray,

@@ -19,6 +19,7 @@ __all__ = [
     "oms_np",
     "sigma_np",
     "sigma_user_np",
+    "schedule_value_np",
     "oms_torch",
     "sigma_torch",
 ]
@@ -59,6 +60,16 @@ def sigma_np(inst: PIESInstance, x: np.ndarray,
              Q: Optional[np.ndarray] = None) -> float:
     """Eq. (9): σ(P) = Σ_u σ_u(P) — objective value under optimal OMS."""
     return float(sigma_user_np(inst, x, Q).sum())
+
+
+def schedule_value_np(inst: PIESInstance, y: np.ndarray,
+                      Q: Optional[np.ndarray] = None) -> float:
+    """Objective Eq. (7) of an explicit (possibly suboptimal) schedule."""
+    if Q is None:
+        Q = qos_matrix_np(inst)
+    served = y >= 0
+    return float(np.where(served, Q[np.arange(inst.U), np.maximum(y, 0)],
+                          0.0).sum())
 
 
 # ===========================================================================

@@ -1,13 +1,15 @@
 // Hand-written Hopper (sm_90a) kernels for the PIES placement hot path.
 //
-// Three kernels, each replacing one Pallas TPU kernel of the JAX reference
+// Four kernels for the three Pallas TPU kernels of the JAX reference
 // (src/repro/kernels/qos_matrix/qos_matrix.py):
 //
 //   qos_matrix_kernel      <- qos_matrix_pallas / _qos_kernel
 //   qos_candidates_kernel  <- qos_candidates_pallas / _qos_cand_kernel
+//   topk_candidates_kernel <- qos_candidates_pallas with the candidate
+//                             build around it (topk_candidates_jnp)
 //   greedy_argmax_kernel   <- greedy_argmax_pallas / _greedy_argmax_kernel
 //
-// All three do a few float32 compares, selects and multiply-adds per byte
+// All of them do a few float32 compares, selects and multiply-adds per byte
 // they move, far below the card's operations-per-byte balance, so device
 // memory bounds them; greedy_argmax is small enough ([E, P] = [1000, 537])
 // that its launch, not its bytes, is what it costs.
@@ -209,6 +211,153 @@ __global__ void qos_candidates_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// B2 on the main path, topk_candidates: the whole top-k candidate build of
+// topk_candidates_jnp (src/repro/core/candidates.py) in one launch.
+//
+// Per user u: the row table[u_service[u]] of the impl table [S, M] (model
+// indices, -1 padded), qos_pair for each model in it, and either the row
+// in table order (k == M) or its k best by a stable descending selection
+// (k < M): only a strictly greater value moves ahead, so among equal QoS
+// the lower table position, and so the lower model index, comes first,
+// which is lax.top_k's order. A padded slot, an entry outside [0, P) and
+// every slot of a service outside [0, S) count -1 and sort last; a kept
+// slot whose value is -1 is written as (-1, 0). A value is qos_pair's
+// bits, as in the plain version (topk_candidates_ref), whose QoS is
+// qos_pair times a valid flag of 1.
+//
+// Replaces, on the main path, the torch sequence around
+// qos_candidates_kernel (gathers, casts, the segmented QoS, the sort, the
+// selects: about 14 launches moving 1.26 GB at U = 1e6, M = 10). Bound:
+// 20 B read per user (service and four attributes) and 8 B written per
+// kept slot, 0.0299 ms at U = 1e6, k = 10. Design: a persistent grid;
+// each block stages the table and the P model records (acc, k, w) in
+// shared memory once (12.6 KB at S = 100, M = 10, P = 537) and walks tiles
+// of kTopkThreads users, one thread a user, so the attribute loads are
+// coalesced; the selection lives in registers (kTopkMax slots, unrolled);
+// a tile's [users, k] outputs, contiguous in both outputs, are staged in
+// shared memory and written as 16-byte streaming stores. A table and
+// records larger than a block's shared memory are read through L1/L2
+// instead (kStaged = false); the outputs are staged either way.
+// ---------------------------------------------------------------------------
+constexpr int kTopkThreads = 256;
+constexpr int kTopkMax = 16;  // the widest impl table the selection holds
+constexpr float kSlotEmpty = -2.0f;  // below every slot's value (>= -1)
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kTopkThreads) topk_candidates_kernel(
+    const int* __restrict__ u_service, const float* __restrict__ u_alpha,
+    const float* __restrict__ u_delta, const float* __restrict__ u_share_k,
+    const float* __restrict__ u_share_w, const int* __restrict__ table,
+    const float* __restrict__ sm_acc, const float* __restrict__ sm_k,
+    const float* __restrict__ sm_w, int* __restrict__ cand_idx,
+    float* __restrict__ cand_q, int64_t U, int S, int M, int P, int k,
+    float delta_max) {
+  // shared layout: the staged outputs (kTopkThreads * k ints, then as many
+  // floats), then, when kStaged, the model records and the table; every
+  // part starts on a 16-byte boundary
+  extern __shared__ float4 smem4[];
+  int* st_idx = reinterpret_cast<int*>(smem4);
+  float* st_q = reinterpret_cast<float*>(st_idx + kTopkThreads * k);
+  float4* models = reinterpret_cast<float4*>(st_q + kTopkThreads * k);
+  const int* tab = table;
+  if (kStaged) {
+    for (int p = threadIdx.x; p < P; p += blockDim.x)
+      models[p] = make_float4(sm_acc[p], sm_k[p], sm_w[p], 0.0f);
+    int* t = reinterpret_cast<int*>(models + P);
+    for (int i = threadIdx.x; i < S * M; i += blockDim.x) t[i] = table[i];
+    tab = t;
+    __syncthreads();
+  }
+
+  const int64_t n_tiles = (U + kTopkThreads - 1) / kTopkThreads;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int64_t u0 = tile * kTopkThreads;
+    const int64_t u = u0 + threadIdx.x;
+    if (u < U) {
+      const int s = u_service[u];
+      const float alpha = u_alpha[u], delta = u_delta[u];
+      const float share_k = u_share_k[u], share_w = u_share_w[u];
+      const bool has_row = s >= 0 && s < S;
+      const int* row = tab + static_cast<int64_t>(has_row ? s : 0) * M;
+      int* oi = st_idx + threadIdx.x * k;
+      float* oq = st_q + threadIdx.x * k;
+      // -1 for a slot without a model, else qos_pair (finite and >= 0)
+      auto slot = [&](int j, int& p) -> float {
+        p = has_row ? (kStaged ? row[j] : __ldg(row + j)) : -1;
+        if (p < 0 || p >= P) return -1.0f;
+        float acc, kc, wc;
+        if (kStaged) {
+          const float4 m = models[p];
+          acc = m.x, kc = m.y, wc = m.z;
+        } else {
+          acc = __ldg(sm_acc + p), kc = __ldg(sm_k + p),
+          wc = __ldg(sm_w + p);
+        }
+        return qos_pair(alpha, delta, share_k, share_w, acc, kc, wc,
+                        delta_max);
+      };
+      if (k == M) {  // every slot, in table order
+        for (int j = 0; j < M; ++j) {
+          int p;
+          const float q = slot(j, p);
+          oi[j] = q >= 0.0f ? p : -1;
+          oq[j] = q >= 0.0f ? q : 0.0f;
+        }
+      } else {  // stable descending insertion into k register slots
+        float val[kTopkMax];
+        int idx[kTopkMax];
+#pragma unroll
+        for (int i = 0; i < kTopkMax; ++i) {
+          val[i] = kSlotEmpty;
+          idx[i] = -1;
+        }
+        for (int j = 0; j < M; ++j) {
+          int cp;
+          float cv = slot(j, cp);
+          bool moved = false;  // once placed, the rest shift down by one
+#pragma unroll
+          for (int i = 0; i < kTopkMax; ++i) {
+            if (i < k && (moved || cv > val[i])) {
+              const float tv = val[i];
+              const int tp = idx[i];
+              val[i] = cv;
+              idx[i] = cp;
+              cv = tv;
+              cp = tp;
+              moved = true;
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kTopkMax; ++i) {
+          if (i < k) {
+            oi[i] = val[i] >= 0.0f ? idx[i] : -1;
+            oq[i] = val[i] >= 0.0f ? val[i] : 0.0f;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // the tile's rows are contiguous in both outputs and start on a
+    // 16-byte boundary (u0 * k * 4 is a multiple of 1024)
+    const int n = static_cast<int>(
+        (U - u0 < kTopkThreads ? U - u0 : kTopkThreads) * k);
+    const int n4 = n / 4;
+    int4* gi = reinterpret_cast<int4*>(cand_idx + u0 * k);
+    float4* gq = reinterpret_cast<float4*>(cand_q + u0 * k);
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) {
+      __stcs(gi + i, reinterpret_cast<const int4*>(st_idx)[i]);
+      __stcs(gq + i, reinterpret_cast<const float4*>(st_q)[i]);
+    }
+    for (int i = 4 * n4 + threadIdx.x; i < n; i += blockDim.x) {
+      cand_idx[u0 * k + i] = st_idx[i];
+      cand_q[u0 * k + i] = st_q[i];
+    }
+    __syncthreads();  // the staging is free again
+  }
+}
+
+// ---------------------------------------------------------------------------
 // B3 greedy_argmax: per row e of the benefit map v [E, P], the first column
 // holding max_p (mask[e, p] ? v[e, p] : -1e30); a row whose mask is empty
 // gives (-1e30, -1), decided from the mask and not from the value.
@@ -343,6 +492,59 @@ int qos_candidates_launch(const void* u_alpha, const void* u_delta,
       static_cast<const float*>(cand_w),
       static_cast<const float*>(cand_valid), static_cast<float*>(out),
       n_pairs, K, delta_max);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int topk_candidates_launch(const void* u_service, const void* u_alpha,
+                           const void* u_delta, const void* u_share_k,
+                           const void* u_share_w, const void* table,
+                           const void* sm_acc, const void* sm_k,
+                           const void* sm_w, void* cand_idx, void* cand_q,
+                           long long U, int S, int M, int P, int k,
+                           float delta_max, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (U <= 0 || S < 0 || P < 0 || M < 1 || M > kTopkMax || k < 1 || k > M ||
+      static_cast<long long>(S) * M > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(cand_idx) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(cand_q) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  int smem_max = 0, sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem_out = 2 * static_cast<size_t>(kTopkThreads) * k * 4;
+  const size_t smem_staged = smem_out + static_cast<size_t>(P) * 16 +
+                             static_cast<size_t>(S) * M * 4;
+  const bool staged = smem_staged <= static_cast<size_t>(smem_max);
+  const size_t smem = staged ? smem_staged : smem_out;
+  auto kernel = staged ? topk_candidates_kernel<true>
+                       : topk_candidates_kernel<false>;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kTopkThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t tiles = blocks_for(U, kTopkThreads);
+  const int64_t resident = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) *
+                           sms;
+  kernel<<<static_cast<unsigned>(tiles < resident ? tiles : resident),
+           kTopkThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(u_service), static_cast<const float*>(u_alpha),
+      static_cast<const float*>(u_delta),
+      static_cast<const float*>(u_share_k),
+      static_cast<const float*>(u_share_w), static_cast<const int*>(table),
+      static_cast<const float*>(sm_acc), static_cast<const float*>(sm_k),
+      static_cast<const float*>(sm_w), static_cast<int*>(cand_idx),
+      static_cast<float*>(cand_q), U, S, M, P, k, delta_max);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -44,6 +44,11 @@ _SIGNATURES = {
                           _I32),
     "qos_candidates_launch": ([_VOID_P] * 9 + [_I64, _I32, _F32, _I32,
                                               _VOID_P], _I32),
+    # (u_service, u_alpha, u_delta, u_share_k, u_share_w, table, sm_acc,
+    #  sm_k, sm_w, cand_idx, cand_q, U, S, M, P, k, delta_max, device,
+    #  stream)
+    "topk_candidates_launch": ([_VOID_P] * 11 + [_I64] + [_I32] * 4
+                               + [_F32, _I32, _VOID_P], _I32),
     "greedy_argmax_launch": ([_VOID_P] * 4 + [_I32, _I32, _I32, _VOID_P],
                              _I32),
     # (q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, hd, is_bf16, causal, window,

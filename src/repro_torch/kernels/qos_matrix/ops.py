@@ -19,19 +19,29 @@ import torch
 from repro_torch.kernels._build import check_cuda_tensor as _check
 from repro_torch.kernels._build import launch as _launch
 
-from .ref import greedy_argmax_ref, qos_candidates_ref, qos_matrix_ref
+from .ref import (greedy_argmax_ref, qos_candidates_ref, qos_matrix_ref,
+                  topk_candidates_ref)
 
 __all__ = [
     "LAUNCHES",
     "reset_launch_counts",
     "check_service_ids",
-    "qos_matrix", "qos_candidates", "greedy_argmax",
-    "qos_matrix_cuda", "qos_candidates_cuda", "greedy_argmax_cuda",
+    "TOPK_MAX_IMPLS",
+    "qos_matrix", "qos_candidates", "topk_candidates", "greedy_argmax",
+    "qos_matrix_cuda", "qos_candidates_cuda", "topk_candidates_cuda",
+    "greedy_argmax_cuda",
     "qos_matrix_from_instance", "qos_candidates_from_instance",
 ]
 
-#: Kernel launches since the last :func:`reset_launch_counts`.
+#: Kernel launches since the last :func:`reset_launch_counts`. Both B2
+#: kernels, the pre-gathered one and the fused candidate build, count under
+#: ``qos_candidates``.
 LAUNCHES = {"qos_matrix": 0, "qos_candidates": 0, "greedy_argmax": 0}
+
+#: The widest impl table (M, implementations a service) the fused
+#: candidate build's register selection holds (``kTopkMax`` in
+#: ``csrc/qos_kernels.cu``).
+TOPK_MAX_IMPLS = 16
 
 _I32 = np.iinfo(np.int32)
 
@@ -122,6 +132,41 @@ def qos_candidates_cuda(u_alpha, u_delta, u_share_k, u_share_w,
     return out
 
 
+def topk_candidates_cuda(u_service, u_alpha, u_delta, u_share_k, u_share_w,
+                         table, sm_acc, sm_k, sm_w, k: Optional[int] = None,
+                         *, delta_max: float
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B2 on the main path: the whole top-k candidate build in one launch,
+    ``(cand_idx [U, k] int32, cand_q [U, k] float32)``. ``u_service`` [U]
+    and ``table`` [S, M] int32, the user attributes [U] and the model
+    attributes [P] float32, all contiguous on one CUDA device. An impl
+    table wider than :data:`TOPK_MAX_IMPLS` raises."""
+    S, M = table.shape
+    if M > TOPK_MAX_IMPLS:
+        raise ValueError(
+            f"impl table has M = {M} implementations a service; the fused "
+            f"candidate kernel holds at most {TOPK_MAX_IMPLS}")
+    k_eff = M if k is None else min(int(k), M)
+    dev = u_alpha.device
+    U, P = u_service.shape[0], sm_acc.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    ptrs = [_check("u_service", u_service, i32, (U,), dev)]
+    ptrs += [_check(n, t, f32, (U,), dev) for n, t in (
+        ("u_alpha", u_alpha), ("u_delta", u_delta),
+        ("u_share_k", u_share_k), ("u_share_w", u_share_w))]
+    ptrs.append(_check("table", table, i32, (S, M), dev))
+    ptrs += [_check(n, t, f32, (P,), dev) for n, t in (
+        ("sm_acc", sm_acc), ("sm_k", sm_k), ("sm_w", sm_w))]
+    cand_idx = torch.empty((U, k_eff), dtype=i32, device=dev)
+    cand_q = torch.empty((U, k_eff), dtype=f32, device=dev)
+    if cand_idx.numel():
+        _launch("topk_candidates_launch", *ptrs, cand_idx.data_ptr(),
+                cand_q.data_ptr(), U, S, M, P, k_eff, float(delta_max),
+                device=dev)
+        LAUNCHES["qos_candidates"] += 1
+    return cand_idx, cand_q
+
+
 def greedy_argmax_cuda(v: torch.Tensor, mask: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B3 kernel: masked row argmax of ``v [E, P]`` f32 under a bool
@@ -174,6 +219,25 @@ def qos_candidates(u_alpha, u_delta, u_share_k, u_share_w,
                                f(cand_w), f(cand_valid), delta_max=delta_max)
 
 
+def topk_candidates(u_service, u_alpha, u_delta, u_share_k, u_share_w,
+                    table, sm_acc, sm_k, sm_w, k: Optional[int] = None, *,
+                    delta_max: float, use_kernel: Optional[bool] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k candidate build ``(cand_idx [U, k] int32, cand_q [U, k]
+    float32)`` from the users, the impl table [S, M] and the models."""
+    check_service_ids(u_service)
+    if not _use_kernel(use_kernel, u_alpha):
+        return topk_candidates_ref(u_service, u_alpha, u_delta, u_share_k,
+                                   u_share_w, table, sm_acc, sm_k, sm_w, k,
+                                   delta_max=delta_max)
+    f = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
+    i = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
+    return topk_candidates_cuda(i(u_service), f(u_alpha), f(u_delta),
+                                f(u_share_k), f(u_share_w), i(table),
+                                f(sm_acc), f(sm_k), f(sm_w), k,
+                                delta_max=delta_max)
+
+
 def greedy_argmax(v, mask, *, use_kernel: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked per-edge argmax over the benefit map (Alg. 3 line 11)."""
@@ -197,8 +261,9 @@ def qos_matrix_from_instance(ti, use_kernel: Optional[bool] = None
 
 def qos_candidates_from_instance(ti, table, k: Optional[int] = None, *,
                                  use_kernel: Optional[bool] = None):
-    """Top-k candidate build (gather + segmented QoS kernel + top-k) from a
-    TorchInstance and a host-built impl table; ``(cand_idx, cand_q)``."""
+    """Top-k candidate build (:func:`topk_candidates`, one kernel launch on
+    a card) from a TorchInstance and an impl table, host-built or already
+    on the instance's device; ``(cand_idx, cand_q)``."""
     from repro_torch.core.candidates import topk_candidates_torch
 
     return topk_candidates_torch(ti, table, k, use_kernel=use_kernel)

@@ -4,8 +4,8 @@ The router owns the current placement ``x`` and, per control tick,
 (1) computes the QoS matrix of the live request batch on the device (the
 ``qos_matrix`` CUDA kernel on a card), (2) schedules each request onto the
 best placed implementation of its service with ``oms_torch``, and (3)
-reports per-request expected QoS and drops. Placement (EGP) stays the host
-oracle ``egp_np`` over that matrix, as in the reference router.
+reports per-request expected QoS and drops. Placement (EGP, AGP or the
+exact OPT) runs on the host over that matrix, as in the reference router.
 """
 from __future__ import annotations
 
@@ -16,12 +16,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.instance import PIESInstance, TorchInstance
-from repro_torch.core.placement import egp_np
+from repro_torch.core.opt import opt_np
+from repro_torch.core.placement import agp_np, egp_np
 from repro_torch.core.qos import eligibility_torch
 from repro_torch.core.scheduling import oms_torch
 from repro_torch.device import resolve_device
 
 __all__ = ["Router", "RoutingDecision"]
+
+#: The host placement of each ``placement_algo``.
+_PLACERS = {"egp": egp_np, "agp": agp_np, "opt": opt_np}
 
 
 @dataclasses.dataclass
@@ -35,13 +39,19 @@ class RoutingDecision:
 class Router:
     """Stateful control plane: placement (slow path) + scheduling (fast).
 
-    ``device=None`` means CUDA (raises without it); ``use_kernel`` is
-    passed to the QoS dispatcher (``None``: the kernel exactly on CUDA).
-    Placement is EGP (the reference's ``agp``/``opt`` are not ported yet).
+    ``placement_algo`` is ``"egp"``, ``"agp"`` or ``"opt"``, as in the
+    reference; any other raises :class:`ValueError`. ``device=None`` means
+    CUDA (raises without it); ``use_kernel`` is passed to the QoS
+    dispatcher (``None``: the kernel exactly on CUDA).
     """
 
-    def __init__(self, use_kernel: Optional[bool] = None,
+    def __init__(self, placement_algo: str = "egp",
+                 use_kernel: Optional[bool] = None,
                  device: Union[str, torch.device, None] = None):
+        if placement_algo not in _PLACERS:
+            raise ValueError(f"unknown placement_algo {placement_algo!r}; "
+                             f"expected one of {sorted(_PLACERS)}")
+        self.placement_algo = placement_algo
         self.use_kernel = use_kernel
         self.device = resolve_device(device)
         self._x: Optional[np.ndarray] = None
@@ -49,7 +59,8 @@ class Router:
     # --- slow path -------------------------------------------------------
     def place(self, inst: PIESInstance) -> np.ndarray:
         _, Q = self._qos(inst)
-        self._x = egp_np(inst, Q.cpu().numpy().astype(np.float64))
+        self._x = _PLACERS[self.placement_algo](
+            inst, Q.cpu().numpy().astype(np.float64))
         return self._x
 
     # --- fast path ---------------------------------------------------------

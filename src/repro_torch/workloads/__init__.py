@@ -1,4 +1,10 @@
 """repro_torch.workloads — instance evaluation on the device."""
-from .batched import evaluate_host, evaluate_sparse
+from .batched import (BucketedBatch, PaddedBatch, bucket_envelope,
+                      bucket_indices, bucket_instances, evaluate_batch,
+                      evaluate_host, evaluate_sparse, pad_instances,
+                      single_evaluator)
 
-__all__ = ["evaluate_sparse", "evaluate_host"]
+__all__ = ["PaddedBatch", "BucketedBatch", "pad_instances",
+           "bucket_envelope", "bucket_indices", "bucket_instances",
+           "single_evaluator", "evaluate_batch", "evaluate_sparse",
+           "evaluate_host"]

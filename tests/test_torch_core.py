@@ -175,3 +175,39 @@ def test_topk_candidates_torch_matches_jnp_with_ties(k, seed):
     assert any(len(set(r[r > 0].tolist())) < (r > 0).sum() for r in q)
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
     np.testing.assert_allclose(qt.numpy(), q, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["unserved_service", "one_user",
+                                  "uploaded_table"])
+@pytest.mark.parametrize("k", [None, 3])
+def test_topk_candidates_torch_instance_edges_match_jnp(case, k):
+    """The instance-level build at its edges against the reference: users of
+    a service with no implementation (its table row all −1), a one-user
+    instance, and a table already uploaded as an int32 tensor (used as it
+    is) giving what the host table gives."""
+    if case == "one_user":
+        ri, pi = _pair(seed=4, n_users=1, n_edges=1)
+    else:
+        ri, pi = _pair(seed=3, n_users=120, n_edges=3)
+    n_services = ri.S
+    if case == "unserved_service":
+        n_services = ri.S + 1                        # row S: no model
+        for inst in (ri, pi):
+            inst.u_service = inst.u_service.copy()
+            inst.u_service[::7] = ri.S
+    table = R.impl_table_np(ri.sm_service, n_services)
+    assert (table[-1] == -1).any()                   # −1 padded rows
+    ij, qj = R.topk_candidates_jnp(ri.as_jax(), table, k)
+    ti = T.TorchInstance.from_pies(pi, "cpu")
+    host_table = T.impl_table_np(pi.sm_service, n_services)
+    it, qt = T.topk_candidates_torch(ti, host_table, k)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(qt.numpy(), np.asarray(qj), atol=1e-6,
+                               rtol=1e-6)
+    if case == "unserved_service":
+        none = pi.u_service == ri.S
+        assert (it.numpy()[none] == -1).all() and not qt.numpy()[none].any()
+    if case == "uploaded_table":
+        up = torch.from_numpy(host_table.astype(np.int32))
+        iu, qu = T.topk_candidates_torch(ti, up, k)
+        assert torch.equal(iu, it) and torch.equal(qu, qt)

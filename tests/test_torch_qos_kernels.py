@@ -1,4 +1,5 @@
-"""The port's QoS kernels (qos_matrix, qos_candidates, greedy_argmax):
+"""The port's QoS kernels (qos_matrix, qos_candidates and the fused
+candidate build topk_candidates, greedy_argmax):
 their plain PyTorch versions against the JAX reference's Pallas kernels
 (interpret mode) and jnp oracles on the same seeded inputs, the
 dispatchers' device rules, and — on a CUDA card only — each CUDA kernel
@@ -72,6 +73,51 @@ def _cand_args(U, K, seed, frac_valid=0.8):
         cand_w=rng.uniform(1, 30, (U, K)).astype(f32),
         cand_valid=(rng.random((U, K)) < frac_valid).astype(f32),
     )
+
+
+def _topk_args(U, M, seed, S=7, ties=False, empty_service=False):
+    """Users, an impl table [S, M] (each service 1..M implementations, −1
+    padded; with ``empty_service`` the last service has none) and the
+    models' attributes. With ``ties`` every model record is drawn from a
+    few duplicated ones, so a user's QoS ties across implementations."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    counts = rng.integers(1, M + 1, S)
+    counts[0] = M                                      # one full row
+    if empty_service:
+        counts[-1] = 0
+    P = int(counts.sum())
+    table = np.full((S, M), -1, np.int32)
+    order = rng.permutation(P).astype(np.int32)        # not in service order
+    start = 0
+    for s, c in enumerate(counts):
+        table[s, :c] = np.sort(order[start:start + c])
+        start += c
+    if ties:
+        base = rng.integers(0, 3, P)
+        sm_acc = np.array([0.3, 0.6, 0.9], f32)[base]
+        sm_k = np.array([5.0, 15.0, 25.0], f32)[base]
+        sm_w = np.array([5.0, 15.0, 25.0], f32)[base]
+    else:
+        sm_acc = rng.uniform(0, 1, P).astype(f32)
+        sm_k = rng.uniform(1, 30, P).astype(f32)
+        sm_w = rng.uniform(1, 30, P).astype(f32)
+    return dict(
+        u_service=rng.integers(0, S, U).astype(np.int32),
+        u_alpha=rng.uniform(0, 1, U).astype(f32),
+        u_delta=rng.uniform(0, 10, U).astype(f32),
+        u_share_k=rng.uniform(0.01, 1, U).astype(f32),
+        u_share_w=rng.uniform(0.01, 1, U).astype(f32),
+        table=table, sm_acc=sm_acc, sm_k=sm_k, sm_w=sm_w)
+
+
+#: (U, M, k, seed, options) of the candidate-build cases: one user and one
+#: slot, k < M, k = M, −1 padding with a service that has no
+#: implementation, and duplicated model records whose QoS ties at k < M.
+_TOPK_CASES = [(1, 1, None, 0, {}), (300, 7, 3, 1, {}), (257, 10, 10, 2, {}),
+               (200, 10, 4, 3, dict(empty_service=True)),
+               (300, 10, 4, 4, dict(ties=True)),
+               (1, 10, 4, 5, dict(ties=True))]
 
 
 def _torch(args, device="cpu"):
@@ -172,6 +218,102 @@ def test_greedy_argmax_ties_negatives_and_empty_rows(jref):
     np.testing.assert_array_equal(best.numpy(), np.asarray(bp))
 
 
+def _topk_composed(a, k):
+    """The build as the pre-gathered path composes it: the table gather,
+    the segmented QoS of ``qos_candidates``, a stable descending sort at
+    k < M."""
+    table = a["table"].long()
+    M = table.shape[1]
+    k_eff = M if k is None else min(k, M)
+    cand = table[a["u_service"].long()]
+    valid = cand >= 0
+    safe = cand.clamp_min(0)
+    q = ops.qos_candidates(a["u_alpha"], a["u_delta"], a["u_share_k"],
+                           a["u_share_w"], a["sm_acc"][safe],
+                           a["sm_k"][safe], a["sm_w"][safe],
+                           valid.float(), delta_max=10.0)
+    q = torch.where(valid, q, -1.0)
+    vals, idx = q, cand                                # k = M: table order
+    if k_eff < M:
+        vals, order = torch.sort(q, dim=1, descending=True, stable=True)
+        vals, idx = vals[:, :k_eff], torch.gather(cand, 1, order[:, :k_eff])
+    kept = vals >= 0
+    return (torch.where(kept, idx, -1).int(), torch.where(kept, vals, 0.0))
+
+
+@pytest.mark.parametrize("U,M,k,seed,opts", _TOPK_CASES)
+def test_topk_candidates_plain_matches_jnp_and_composition(jref, U, M, k,
+                                                           seed, opts):
+    """The plain candidate build (and the dispatcher on the CPU) against
+    the reference's topk_candidates_jnp on a JaxInstance of the same
+    arrays, and exactly against the pre-gathered composition."""
+    from repro.core.candidates import topk_candidates_jnp
+    from repro.core.instance import JaxInstance
+
+    args = _topk_args(U, M, seed, **opts)
+    a = _torch(args)
+    cols = ("u_service", "u_alpha", "u_delta", "u_share_k", "u_share_w",
+            "table", "sm_acc", "sm_k", "sm_w")
+    idx, q = tref.topk_candidates_ref(*(a[c] for c in cols), k,
+                                      delta_max=10.0)
+    k_eff = M if k is None else min(k, M)
+    assert idx.dtype == torch.int32 and q.dtype == torch.float32
+    assert idx.shape == q.shape == (U, k_eff)
+    di, dq = ops.topk_candidates(*(a[c] for c in cols), k, delta_max=10.0)
+    assert torch.equal(di, idx) and torch.equal(dq, q)
+    ci, cq = _topk_composed(a, k)
+    assert torch.equal(ci, idx) and torch.equal(cq, q)
+
+    jinst = JaxInstance(**{f: None for f in JaxInstance.__dataclass_fields__})
+    for f in ("u_service", "u_alpha", "u_delta", "u_share_k", "u_share_w",
+              "sm_acc", "sm_k", "sm_w"):
+        setattr(jinst, f, jref.jnp.asarray(args[f]))
+    jinst.delta_max = 10.0
+    ji, jq = topk_candidates_jnp(jinst, args["table"], k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(q.numpy(), np.asarray(jq), **QOS_TOL)
+    if opts.get("ties") and U > 1:       # the case really ties at k < M
+        qs = np.asarray(jq)
+        assert any(len(set(r[r > 0].tolist())) < (r > 0).sum() for r in qs)
+    if opts.get("empty_service"):        # its users get no candidate
+        none = args["u_service"] == args["table"].shape[0] - 1
+        assert none.any()
+        assert (idx.numpy()[none] == -1).all() and not q.numpy()[none].any()
+
+
+def test_topk_candidates_plain_treats_unknown_services_as_empty():
+    """A service id outside the table, and an entry outside [0, P), give no
+    candidate: the kernel reads nothing out of range, and neither does the
+    plain version."""
+    a = _torch(_topk_args(6, 4, 0))
+    a["u_service"][[1, 4]] = torch.tensor([-1, 7], dtype=torch.int32)
+    a["table"][0, 0] = a["sm_acc"].shape[0]              # one past P
+    cols = ("u_service", "u_alpha", "u_delta", "u_share_k", "u_share_w",
+            "table", "sm_acc", "sm_k", "sm_w")
+    idx, q = tref.topk_candidates_ref(*(a[c] for c in cols), 3,
+                                      delta_max=10.0)
+    assert (idx[[1, 4]] == -1).all() and not q[[1, 4]].any()
+    row0 = a["u_service"] == 0
+    assert not (idx[row0] == a["sm_acc"].shape[0]).any()
+
+
+def test_topk_candidates_kernel_limit_raises():
+    """An impl table wider than the kernel's register slots raises, naming
+    M and the limit, before anything else is looked at."""
+    M = ops.TOPK_MAX_IMPLS + 1
+    a = _torch(_topk_args(5, M, 0))
+    cols = ("u_service", "u_alpha", "u_delta", "u_share_k", "u_share_w",
+            "table", "sm_acc", "sm_k", "sm_w")
+    with pytest.raises(ValueError, match=f"M = {M}.*{ops.TOPK_MAX_IMPLS}"):
+        ops.topk_candidates_cuda(*(a[c] for c in cols), delta_max=10.0)
+    with pytest.raises(ValueError, match=f"M = {M}"):
+        ops.topk_candidates(*(a[c] for c in cols), 3, delta_max=10.0,
+                            use_kernel=True)
+    # on the CPU the plain version takes any width
+    idx, _ = ops.topk_candidates(*(a[c] for c in cols), 3, delta_max=10.0)
+    assert idx.shape == (5, 3)
+
+
 # ===========================================================================
 # guards and device rules
 # ===========================================================================
@@ -250,6 +392,32 @@ def test_qos_candidates_kernel_matches_plain(cuda, U, K, seed):
     plain = ops.qos_candidates(*args.values(), delta_max=10.0,
                                use_kernel=False)
     torch.testing.assert_close(out, plain, **QOS_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("U,M,k,seed,opts", _TOPK_CASES + [
+    (20011, 10, None, 6, {}), (20011, 10, 3, 7, dict(ties=True)),
+    (4099, 16, 16, 8, {}), (4099, 16, 15, 9, {}),
+    (5003, 16, 5, 10, dict(S=4000)), (5003, 16, None, 11, dict(S=4000))])
+def test_topk_candidates_kernel_matches_plain(cuda, U, M, k, seed, opts):
+    """The fused candidate build: cand_idx equal and cand_q bit-equal to
+    the plain version, one launch a build, two calls bit-equal. At S =
+    4000, M = 16 the table and model records exceed a block's shared
+    memory, so the kernel reads them through L2."""
+    a = _torch(_topk_args(U, M, seed, **opts), cuda)
+    cols = ("u_service", "u_alpha", "u_delta", "u_share_k", "u_share_w",
+            "table", "sm_acc", "sm_k", "sm_w")
+    before = ops.LAUNCHES["qos_candidates"]
+    idx, q = ops.topk_candidates(*(a[c] for c in cols), k, delta_max=10.0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["qos_candidates"] == before + 1
+    pidx, pq = tref.topk_candidates_ref(*(a[c] for c in cols), k,
+                                        delta_max=10.0)
+    assert torch.equal(idx, pidx)
+    assert torch.equal(q, pq)
+    idx2, q2 = ops.topk_candidates_cuda(*(a[c] for c in cols), k,
+                                        delta_max=10.0)
+    assert torch.equal(idx2, idx) and torch.equal(q2, q)
 
 
 @pytest.mark.cuda
