@@ -96,7 +96,23 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    layer 0's dQ at 6 mantissa bits must exceed that), and at 4 layers 4
    straight steps bitwise equal to 2 steps + checkpoint save + restore +
    2 steps; step time, tokens/s, peak memory and the device time of one
-   step by kernel (B4, B5 and B6 each).
+   step by kernel (B4, B5 and B6 each);
+13. the sweep engine (repro_torch.sweeps.run_sweep, tracing on, each part
+   into its own store): Fig. 3 at the §VI-B widths (synthetic, 2,000
+   users, seeds 0-7; EGP and AGP on the card through evaluate_batch, SCK,
+   RND and OPT on the host) with the accelerator values within 1e-4 of
+   egp_np/agp_np and the host columns bit-identical to a run on the CPU,
+   its table and the mean EGP/OPT ratio logged; the same generator at
+   10,000 users (seeds 0-3, one-item chunks) within 1e-4 of the host, one
+   item's launches (B1 once, B3 once a greedy iteration), its device time
+   by kernel, each executor's items/s and the obs span totals; every
+   registered scenario at its own configuration (seeds 0-3) within 1e-4
+   of the host, with edge_failure's dead edges placing nothing from their
+   failure tick on; flash_crowd and edge_failure killed after two one-item
+   chunks and resumed (a third call computes nothing), bit-identical to a
+   one-shot run, to a globally padded run and to a run with tracing off;
+   and Fig. 3's accelerator values bit-identical with B1's and B3's plain
+   versions.
 
 It prints a JSON line of per-kernel numbers and, last, the device line
 ``{"ok": true, "device": {...}}``. It needs the repository around it and
@@ -201,6 +217,20 @@ CALL_CONTROL_BITS = 4
 #: plain output's largest |value|, or over 1 where that is smaller (the
 #: reference's absolute 3e-4, tests/test_kernels.py).
 BWD_TOL = 3e-4
+#: Phase 13, the sweep engine: Fig. 3 at the §VI-B widths (the reference
+#: sweep spec's _SYNTH_DEFAULTS: 10 edges, 100 services, U{1..10}
+#: implementations) with 2,000 users and 8 seeds; the same generator at
+#: 10,000 users (600 MB an item by bytes_per_item, so one-item chunks at
+#: the default 512 MB budget) for 4 seeds; every registered scenario at its
+#: own configuration for 4 seeds. Accelerator values are held within the
+#: reference's host-parity tolerance of the host path
+#: (repro/sweeps/shard.py HOST_PARITY_ATOL).
+SWEEP_FIG3_USERS, SWEEP_FIG3_SEEDS = 2000, 8
+SWEEP_FULL_USERS, SWEEP_FULL_SEEDS = 10_000, 4
+SWEEP_SCENARIO_SEEDS, SWEEP_ATOL = 4, 1e-4
+SWEEP_SCENARIOS = ("diurnal", "edge_failure", "flash_crowd",
+                   "mobility_churn", "steady", "trace_replay",
+                   "trace_replay_azure", "trace_replay_bursty")
 SOURCE = {
     "qos_matrix": "src/repro_torch/csrc/qos_kernels.cu",
     "qos_candidates": "src/repro_torch/csrc/qos_kernels.cu",
@@ -227,9 +257,10 @@ REPLACES = {
 
 
 #: Keys a kernel's row of the JSON line carries where its phase gives them:
-#: B3's device times, B8's bound of the work its plan runs, notes.
+#: B3's device times, B8's bound of the work its plan runs, notes, and B1's
+#: and B3's launches on phase 13's sweep.
 EXTRA_KEYS = ("device_ms", "library_device_ms", "plan_bound_ms",
-              "plan_bound_by", "note")
+              "plan_bound_by", "note", "sweep_launches")
 
 
 def check(cond: bool, what: str) -> None:
@@ -990,6 +1021,267 @@ def phase_batched(dev) -> dict:
                                          host_ms=1e3 * host_s, diff=diff,
                                          launches=launches)
             del batch, x, px, x2
+    torch.cuda.empty_cache()
+    return out
+
+
+# ===========================================================================
+# phase 13: the sweep engine
+# ===========================================================================
+
+def _span_totals(tracer) -> dict:
+    """Seconds in each span name, and the items and seconds of the
+    sweep.chunk spans by executor, from a tracer's snapshot."""
+    doc = tracer.snapshot()
+    totals, by_exec = {}, {}
+    spans = doc["spans"]
+    for row, (nid, t0, t1) in enumerate(zip(spans["name"], spans["t0_ns"],
+                                            spans["t1_ns"])):
+        name = doc["names"][nid]
+        totals[name] = totals.get(name, 0.0) + (t1 - t0) / 1e9
+        args = doc["span_args"].get(str(row), {})
+        if name == "sweep.chunk":
+            items, secs = by_exec.get(args["executor"], (0, 0.0))
+            by_exec[args["executor"]] = (items + args["items"],
+                                         secs + (t1 - t0) / 1e9)
+    return dict(totals=totals, by_executor=by_exec)
+
+
+def _sweep_check(spec, result, host_of: dict, what: str) -> float:
+    """Every accelerator column of ``result`` within SWEEP_ATOL of the
+    host path (``host_of[(variant, algo)]``); returns the largest
+    difference."""
+    import numpy as np
+
+    worst = 0.0
+    for (variant, algo), host in host_of.items():
+        got = result.values[(variant, algo)].ravel()
+        check(not np.isnan(got).any(), f"{what}: {variant}/{algo} incomplete")
+        diff = float(np.abs(got - host).max())
+        check(diff <= SWEEP_ATOL,
+              f"{what}: {variant}/{algo} accel vs host diff {diff}")
+        worst = max(worst, diff)
+    return worst
+
+
+def _host_columns(spec) -> dict:
+    """egp_np/agp_np + sigma_np of every accelerator group's items."""
+    from repro_torch.sweeps import materialize, variant_key
+    from repro_torch.workloads import evaluate_host
+
+    out = {}
+    for (scenario, overrides, algo), items in spec.groups():
+        if spec.executor_of(algo) != "accel":
+            continue
+        insts = materialize(scenario, overrides,
+                            [(it.seed, it.tick) for it in items])
+        out[(variant_key(scenario, overrides), algo)] = evaluate_host(
+            insts, algo=algo)
+    return out
+
+
+def _same_values(a, b) -> bool:
+    return a.values.keys() == b.values.keys() and all(
+        a.values[k].tobytes() == b.values[k].tobytes() for k in a.values)
+
+
+def phase_sweeps(dev) -> dict:
+    """The port's run_sweep on the card: Fig. 3 at the paper's widths, the
+    10^4-user generator, every registered scenario, resume and chunking,
+    and the plain versions of B1 and B3."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.kernels.qos_matrix import ops
+    from repro_torch.sweeps import (SweepSpec, envelope_for, fig3_table,
+                                    materialize, run_sweep, table)
+    from repro_torch.workloads import (bucket_instances, evaluate_batch,
+                                       list_scenarios)
+
+    out = {}
+    accel = ("egp", "agp")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        store = Path(tmp)
+
+        # --- 1. Fig. 3 at the §VI-B widths: the main path, counted --------
+        fig3 = SweepSpec(scenarios=("synthetic",),
+                         override_grid=({"n_users": SWEEP_FIG3_USERS},),
+                         algos=("egp", "agp", "sck", "rnd", "opt"),
+                         seeds=range(SWEEP_FIG3_SEEDS))
+        tracer = obs.enable()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_sweep(fig3, store / "fig3", device=dev)
+        torch.cuda.synchronize()
+        fig3_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        log(f"  fig3 sweep: {fig3_s:.2f} s, execution {res.execution}, "
+            f"launches {launches}")
+        n_accel = 2 * SWEEP_FIG3_SEEDS
+        check(launches["qos_matrix"] >= n_accel
+              and launches["greedy_argmax"] >= n_accel,
+              f"fig3 sweep: B1/B3 launches {launches} for {n_accel} items")
+        check(res.complete and res.execution["backend"] == dev.type
+              and res.execution["path"] == "batched",
+              f"fig3 sweep execution {res.execution}")
+        host = _host_columns(fig3)
+        diff = _sweep_check(fig3, res, host, "fig3")
+        cpu = run_sweep(fig3, device="cpu")
+        for (variant, algo), vals in res.values.items():
+            if fig3.executor_of(algo) == "host":
+                check(vals.tobytes() == cpu.values[(variant,
+                                                    algo)].tobytes(),
+                      f"fig3: host column {algo} differs on a CPU run")
+        variant = f"synthetic[n_users={SWEEP_FIG3_USERS}]"
+        ratio = res.values[(variant, "egp")] / res.values[(variant, "opt")]
+        log("  fig3_table:\n" + fig3_table(res))
+        log(f"  accel vs host max diff {diff:.3g}; host columns "
+            f"bit-identical to a CPU run; EGP/OPT per seed "
+            f"{ratio.ravel().tolist()}, mean {float(ratio.mean())!r} "
+            "(logged, not gated; the paper reports 0.904)")
+        out["fig3"] = dict(s=fig3_s, launches=launches, diff=diff,
+                           egp_opt_mean=float(ratio.mean()),
+                           **_span_totals(tracer))
+
+        # --- 5. the plain versions of B1 and B3: bit-identical ------------
+        # the sweep's buckets (each instance's envelope, capped by the
+        # row's), evaluated at once: an item's value does not depend on
+        # its batch neighbours
+        (overrides,) = fig3.override_grid
+        insts = materialize("synthetic", overrides,
+                            [(s, 0) for s in fig3.seeds])
+        t0 = time.perf_counter()
+        batch = bucket_instances(
+            insts, cap=envelope_for("synthetic", overrides), device=dev)
+        for algo in accel:
+            plain, _ = evaluate_batch(batch, algo, max_iters=fig3.max_iters,
+                                      use_kernel=False)
+            check(plain.tobytes() == res.values[(variant, algo)].tobytes(),
+                  f"fig3 {algo}: plain versions of B1/B3 differ")
+        plain_s = time.perf_counter() - t0
+        log(f"  fig3 accel rows with the plain versions of B1/B3: "
+            f"bit-identical ({plain_s:.2f} s)")
+
+        # --- 2. full width: 10^4 users, one-item chunks -------------------
+        full = SweepSpec(scenarios=("synthetic",),
+                         override_grid=({"n_users": SWEEP_FULL_USERS},),
+                         algos=accel, seeds=range(SWEEP_FULL_SEEDS))
+        tracer = obs.enable()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_sweep(full, store / "full", device=dev)
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        check(res.execution["chunks_computed"] == 2 * SWEEP_FULL_SEEDS,
+              f"full width: chunks {res.execution}")
+        t0 = time.perf_counter()
+        host = _host_columns(full)
+        host_s = time.perf_counter() - t0
+        diff = _sweep_check(full, res, host, "full width")
+        spans = _span_totals(tracer)
+        rates = {ex: items / secs for ex, (items, secs)
+                 in spans["by_executor"].items()}
+        one = SweepSpec(scenarios=("synthetic",),
+                        override_grid=({"n_users": SWEEP_FULL_USERS},),
+                        algos=("egp",), seeds=(SWEEP_FULL_SEEDS,))
+        run_sweep(one, device=dev)             # warm: its re-run is done
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        item = run_sweep(one, device=dev)
+        torch.cuda.synchronize()
+        one_launches = dict(ops.LAUNCHES)
+        check(one_launches["qos_matrix"] == 1
+              and 1 <= one_launches["greedy_argmax"] <= one.max_iters,
+              f"one 10^4-user item: launches {one_launches}")
+        # device time by kernel, per item, over three warm items
+        reps = 3
+        by_kernel = {k: v / reps for k, v in device_ms_by_kernel(
+            lambda: [run_sweep(one, device=dev) for _ in range(reps)]
+        ).items()}
+        item_s = float(item.times[(f"synthetic[n_users="
+                                   f"{SWEEP_FULL_USERS}]", "egp")][0, 0])
+        b1 = sum(v for k, v in by_kernel.items() if "qos_matrix" in k)
+        b3 = sum(v for k, v in by_kernel.items() if "greedy_argmax" in k)
+        busy = sum(by_kernel.values())
+        log(f"  full width (U={SWEEP_FULL_USERS}): {full_s:.2f} s for "
+            f"{2 * SWEEP_FULL_SEEDS} items in one-item chunks, host path "
+            f"{host_s:.2f} s; accel vs host max diff {diff:.3g}; items/s "
+            f"by executor {rates}; span totals (s) {spans['totals']}")
+        log(f"  one item: launches {one_launches} (B3 = greedy "
+            f"iterations), {1e3 * item_s:.1f} ms; device busy "
+            f"{busy:.2f} ms (idle {100 * (1 - busy / (1e3 * item_s)):.1f} "
+            f"%; B1 {b1:.4f}, B3 {b3:.3f}); top kernels "
+            f"{sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]}")
+        out["full"] = dict(s=full_s, host_s=host_s, diff=diff, rates=rates,
+                           one_launches=one_launches, item_ms=1e3 * item_s,
+                           busy_ms=busy, b1_ms=b1, b3_ms=b3, **spans)
+
+        # --- 3. every registered scenario at its own configuration --------
+        names = tuple(list_scenarios())
+        check(names == SWEEP_SCENARIOS, f"scenario registry {names}")
+        scen = SweepSpec(scenarios=names, algos=accel,
+                         seeds=range(SWEEP_SCENARIO_SEEDS))
+        tracer = obs.enable()
+        t0 = time.perf_counter()
+        res = run_sweep(scen, store / "scenarios", device=dev)
+        torch.cuda.synchronize()
+        scen_s = time.perf_counter() - t0
+        n_items = len(scen.expand())
+        diff = _sweep_check(scen, res, _host_columns(scen), "scenarios")
+        log(f"  every scenario ({n_items} items): {scen_s:.2f} s, accel "
+            f"vs host max diff {diff:.3g}; span totals (s) "
+            f"{_span_totals(tracer)['totals']}")
+        log("  table:\n" + table(res))
+        pairs = [(s, t) for s in range(SWEEP_SCENARIO_SEEDS)
+                 for t in range(8)]
+        insts = materialize("edge_failure", (), pairs)
+        _, xs = evaluate_batch(bucket_instances(insts, device=dev), "egp")
+        for (seed, tick), inst, x in zip(pairs, insts, xs):
+            for when, edge in ((3, 1), (5, 4)):
+                if tick >= when:
+                    check(inst.R[edge] == 0.0
+                          and not bool(x[edge].any()),
+                          f"edge_failure seed {seed} tick {tick}: dead "
+                          f"edge {edge} places something")
+        log("  edge_failure: dead edges 1 (tick 3 on) and 4 (tick 5 on) "
+            "place nothing")
+        out["scenarios"] = dict(s=scen_s, items=n_items, diff=diff)
+
+        # --- 4. resume and chunking ---------------------------------------
+        rows = dataclasses.replace(scen, scenarios=("flash_crowd",
+                                                    "edge_failure"))
+        d = store / "resume"
+        part = run_sweep(rows, d, device=dev, chunk_size=1, max_chunks=2)
+        check(part.execution["chunks_computed"] == 2 and not part.complete,
+              f"killed run {part.execution}")
+        done = run_sweep(rows, d, device=dev)
+        again = run_sweep(rows, d, device=dev)
+        n_rows = len(rows.expand())
+        check(done.execution["items_skipped"] == 2
+              and again.execution["chunks_computed"] == 0
+              and again.execution["items_skipped"] == n_rows,
+              f"resume: {done.execution}, {again.execution}")
+        one_shot = run_sweep(rows, store / "one_shot", device=dev)
+        flat = run_sweep(rows, store / "flat", device=dev, bucketed=False)
+        obs.disable()
+        untraced = run_sweep(rows, store / "untraced", device=dev)
+        for other, what in ((again, "the resumed store's reload"),
+                            (one_shot, "a one-shot run"),
+                            (flat, "a globally padded run"),
+                            (untraced, "a run with tracing off")):
+            check(_same_values(done, other),
+                  f"resume: values differ from {what}")
+        for variant_algo, vals in done.values.items():
+            check(vals.tobytes() ==
+                  res.values[variant_algo].tobytes(),
+                  f"resume: {variant_algo} differs from part 3")
+        log(f"  flash_crowd + edge_failure ({n_rows} items): killed after "
+            "2 one-item chunks, resumed, a third call computed nothing; "
+            "bit-identical to a one-shot run, a globally padded run, a run "
+            "with tracing off and part 3")
     torch.cuda.empty_cache()
     return out
 
@@ -2128,6 +2420,7 @@ def main() -> int:
     from repro_torch.core import max_impls_of, synthetic_instance
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -2175,6 +2468,12 @@ def main() -> int:
     log(f"phase 12: training smollm_360m, {TRAIN_STEPS} steps of "
         f"{TRAIN_B} x {TRAIN_S} tokens")
     trained = phase_training(dev)
+    log("phase 13: the sweep engine (repro_torch.sweeps) at the paper's "
+        "widths")
+    t13 = time.perf_counter()
+    swept = phase_sweeps(dev)
+    log(f"  phase 13 took {time.perf_counter() - t13:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on its slice's main path: B4/B7 serving
     # smollm-360m, B8 serving mamba2-2.7b, B5/B6 training smollm-360m
     launches = {**main_path["launches"],
@@ -2191,6 +2490,9 @@ def main() -> int:
                  bound_by=r["bound_by"], library_ms=r["library_ms"],
                  shape=r["shape"], **{k: r[k] for k in EXTRA_KEYS if k in r})
             for name, r in kern.items()]
+    for row in rows:
+        if row["name"] in ("qos_matrix", "greedy_argmax"):
+            row["sweep_launches"] = swept["fig3"]["launches"][row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,6 +20,12 @@ the dense placement path, the sparse scale path, and the host oracle.
   (the default).
 * :func:`evaluate_host` — NumPy reference: ``egp_np``/``agp_np`` +
   ``sigma_np`` per instance.
+* :func:`sweep` — every (scenario, seed, tick) instance of the scenario
+  registry bucketed and evaluated in one :func:`evaluate_batch` call.
+
+With tracing on (:mod:`repro_torch.obs`), a bucketed batch's pad waste
+goes to the ``placement.bucket_pad_waste`` gauge and the sparse path's
+``k`` to ``placement.candidate_k``, as in the reference.
 
 Padding is inert, as in :mod:`repro.workloads.batched`: padded users
 request the dummy service ``S`` that no model implements and sit on a
@@ -35,6 +41,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.candidates import impl_table_np
 from repro_torch.core.instance import PIESInstance, TorchInstance
 from repro_torch.core.placement import (_agp_lockstep, _egp_lockstep,
@@ -56,6 +63,7 @@ __all__ = [
     "evaluate_batch",
     "evaluate_sparse",
     "evaluate_host",
+    "sweep",
 ]
 
 #: Storage cost assigned to padded model rows — larger than any edge budget.
@@ -308,7 +316,8 @@ def evaluate_batch(batch: Union[PaddedBatch, BucketedBatch],
     of instance ``b``'s EGP/AGP placement; padding contributes exactly
     zero, so values match the host path up to float32 accumulation.
     ``use_kernel`` goes to the kernel dispatchers (``None``: the kernels
-    exactly on CUDA).
+    exactly on CUDA). Pad waste is published on the
+    ``placement.bucket_pad_waste`` obs gauge.
     """
     if isinstance(batch, BucketedBatch):
         values = np.empty(batch.B, dtype=np.float64)
@@ -318,9 +327,10 @@ def evaluate_batch(batch: Union[PaddedBatch, BucketedBatch],
             values[idx] = v
             for j, i in enumerate(idx):
                 xs[int(i)] = x[j]
-        # The reference also sets the placement.bucket_pad_waste gauge here;
-        # the port has no obs sink yet (it comes with the serving tick's obs
-        # core), so batch.pad_waste is the reading.
+        tracer = obs.get_tracer()
+        if tracer is not None:
+            tracer.metrics.gauge("placement.bucket_pad_waste").set(
+                batch.pad_waste)
         return values, xs
     return _evaluate_padded(batch, algo, max_iters, use_kernel)
 
@@ -339,18 +349,23 @@ def evaluate_sparse(instances: Sequence[PIESInstance],
     means CUDA and raises without it; ``use_kernel`` is passed to the
     kernel dispatchers (``None``: kernels exactly when on CUDA). Each
     ``x`` is an ``[E, P]`` bool tensor on ``device``. The impl table goes
-    to the device once per instance, with the instance.
+    to the device once per instance, with the instance. The effective
+    ``k`` is published on the ``placement.candidate_k`` obs gauge.
     """
     from repro_torch.kernels.qos_matrix.ops import qos_candidates_from_instance
 
     dev = resolve_device(device)
     values, xs = [], []
+    tracer = obs.get_tracer()
     for inst in instances:
         ti = TorchInstance.from_pies(inst, dev)
         table = torch.from_numpy(
             impl_table_np(inst.sm_service, inst.S).astype(np.int32)).to(dev)
         cand_idx, cand_q = qos_candidates_from_instance(
             ti, table, k, use_kernel=use_kernel)
+        if tracer is not None:
+            tracer.metrics.gauge("placement.candidate_k").set(
+                int(cand_idx.shape[1]))
         mi = int(max_iters) if max_iters is not None else inst.P + 1
         x, _ = egp_place_sparse_torch(cand_idx, cand_q, ti.u_edge,
                                       ti.sm_service, ti.sm_r, ti.R,
@@ -370,3 +385,42 @@ def evaluate_host(instances: Sequence[PIESInstance],
         Q = qos_matrix_np(inst)
         out.append(sigma_np(inst, place(inst, Q), Q))
     return np.asarray(out)
+
+
+def sweep(scenario_names: Sequence[str], seeds: Sequence[int],
+          n_ticks: Optional[int] = None, algo: str = "egp", *,
+          device: Device = None, **overrides) -> Dict:
+    """Monte-Carlo sweep: every (scenario, seed, tick) instance bucketed
+    on ``device`` (``None``: CUDA, raising without it) and evaluated in
+    one :func:`evaluate_batch` call.
+
+    Returns ``{"values": {name: [n_seeds, n_ticks] np.ndarray},
+    "instances": [...], "labels": [(name, seed, tick)], "batch": batch}``.
+    """
+    from .scenarios import get_scenario
+
+    dev = resolve_device(device)
+    instances: List[PIESInstance] = []
+    labels: List[Tuple[str, int, int]] = []
+    ticks_of: Dict[str, int] = {}
+    for name in scenario_names:
+        scenario = get_scenario(name, **overrides)
+        T = int(n_ticks or scenario.n_ticks)
+        ticks_of[name] = T
+        for seed in seeds:
+            for tick, inst in enumerate(scenario.horizon(seed, T)):
+                instances.append(inst)
+                labels.append((name, int(seed), tick))
+
+    batch = bucket_instances(instances, device=dev)
+    values, _ = evaluate_batch(batch, algo=algo)
+
+    shaped: Dict[str, np.ndarray] = {}
+    off = 0
+    for name in scenario_names:
+        T = ticks_of[name]
+        n = len(seeds) * T
+        shaped[name] = values[off:off + n].reshape(len(seeds), T)
+        off += n
+    return {"values": shaped, "instances": instances, "labels": labels,
+            "batch": batch}

@@ -79,11 +79,41 @@ def test_training_path_runs_without_loading_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
 
 
+def test_sweep_path_runs_without_loading_jax(tmp_path):
+    code = ("import sys; "
+            "from repro_torch.sweeps import SweepSpec, run_sweep; "
+            "from repro_torch.workloads import sweep; "
+            "spec = SweepSpec(scenarios=('steady',), seeds=(0,), n_ticks=1, "
+            "algos=('egp', 'sck'), override_grid=({'n_user_slots': 24},)); "
+            "r = run_sweep(spec, device='cpu'); assert r.complete; "
+            "s = sweep(['steady'], [0], n_ticks=1, device='cpu', "
+            "n_user_slots=24); assert s['values']['steady'].shape == (1, 1); "
+            "from repro_torch.sweeps.cli import main; "
+            "assert main(['--scenario', 'steady', '--seeds', '0', '--ticks', "
+            "'1', '--override', 'n_user_slots=24', '--device', 'cpu', "
+            f"'--out', {str(tmp_path / 'store')!r}, '-q', '--validate']) "
+            "== 0; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')]; assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.sweeps",
+                           "--scenario", "synthetic", "--override",
+                           "n_users=30", "--algos", "egp,opt", "--device",
+                           "cpu", "--no-store", "-q"], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "synthetic[n_users=30]" in proc.stdout
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch import resolve_device
     from repro_torch.core import synthetic_instance
     from repro_torch.serving import Router
-    from repro_torch.workloads import evaluate_sparse
+    from repro_torch.sweeps import SweepSpec, run_sweep
+    from repro_torch.workloads import evaluate_sparse, sweep
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     inst = synthetic_instance(30, n_edges=2)
@@ -94,6 +124,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+    small = {"n_user_slots": 16}
+    accel = SweepSpec(scenarios=("steady",), n_ticks=1, algos=("egp", "sck"),
+                      override_grid=(small,))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_sweep(accel)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweep(["steady"], [0], n_ticks=1, **small)
+    host = SweepSpec(scenarios=("steady",), n_ticks=1, algos=("sck", "opt"),
+                     override_grid=(small,))
+    assert run_sweep(host).execution["backend"] == "host"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path, monkeypatch):
