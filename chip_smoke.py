@@ -112,7 +112,22 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    chunks and resumed (a third call computes nothing), bit-identical to a
    one-shot run, to a globally padded run and to a run with tracing off;
    and Fig. 3's accelerator values bit-identical with B1's and B3's plain
-   versions.
+   versions;
+14. the serving tick: phase 3's 10^6-user tick again through the
+   candidate build and egp_place_sparse_torch(with_trace=True), counted
+   (B2 once, B3 once an iteration, as many as phase 3's), with x and the
+   iterations bit-identical to phase 3's, the traced and untraced loop
+   times, the trace's bytes on the card, and its ledger record (ingested
+   on the host) with as many picks as the trace and its gains within
+   1e-3 relative of σ; every registered scenario's serving horizon
+   (host NumPy) at the serving-horizon benchmark's load under EDF, FCFS
+   and feedback, seeds 0-1: conservation, a rerun and a run with the
+   obs tracer, the decision ledger and the request tracer on
+   byte-identical, seed 0's result digests equal to the reference's
+   (TICK_DIGESTS), realized QoS, miss rates and the tick span totals
+   logged; and a kind="serving" sweep of flash_crowd and edge_failure,
+   seeds 0-3, killed after one chunk, resumed and reloaded, bit-identical
+   to a one-shot run.
 
 It prints a JSON line of per-kernel numbers and, last, the device line
 ``{"ok": true, "device": {...}}``. It needs the repository around it and
@@ -231,6 +246,72 @@ SWEEP_SCENARIO_SEEDS, SWEEP_ATOL = 4, 1e-4
 SWEEP_SCENARIOS = ("diurnal", "edge_failure", "flash_crowd",
                    "mobility_churn", "steady", "trace_replay",
                    "trace_replay_azure", "trace_replay_bursty")
+#: Phase 14, the serving tick: the serving-horizon benchmark's load point
+#: (benchmarks/serving_horizon.py LOAD: long prompts and small batches, so
+#: the executors congest), every registered scenario at its own n_ticks
+#: under the three policies, seeds 0-1; then a kind="serving" sweep of
+#: flash_crowd and edge_failure, seeds 0-3, killed and resumed.
+TICK_LOAD = dict(prompt_tokens=768, new_tokens=64, max_batch=4)
+TICK_POLICIES = ("edf", "fcfs", "feedback")
+TICK_SEEDS = (0, 1)
+TICK_SWEEP_SCENARIOS, TICK_SWEEP_SEEDS = ("flash_crowd", "edge_failure"), 4
+#: The traced sparse tick's ledger gains telescope to σ only to float32
+#: summation order (the reference's documented ~1e-3 relative,
+#: tests/test_obs_v3.py::test_sparse_trace_parity_and_gain_sum).
+TRACE_GAIN_RTOL = 1e-3
+#: result_digest of seed 0's horizon at TICK_LOAD per (scenario, policy),
+#: as the reference computes it (tests/test_torch_tick.py recomputes every
+#: one from the reference, so they cannot go stale).
+TICK_DIGESTS = {
+    ("diurnal", "edf"):
+        "1ba04c1ea1fb59f19220acf13dfdde0b1817a402be91dd3a07911342d8da3848",
+    ("diurnal", "fcfs"):
+        "b94da5325545c3c993b2908510552f36c43207d470af2759d2b1c9303ccbc630",
+    ("diurnal", "feedback"):
+        "49b1feb3d0f32d078b35c854f3503efa264d53539151832875bf17ed1b3c6008",
+    ("edge_failure", "edf"):
+        "b152f6bed039db0ee148d402db82a47d3ac4e647ee15bc0f9d2f565c6dc1f5aa",
+    ("edge_failure", "fcfs"):
+        "a63ff569f15352f4cd2532fa82fc48aa25969f360a245bbf92c0dfefa39ebfc3",
+    ("edge_failure", "feedback"):
+        "7eaf9ba493ab19667509bda66b8dd4edc80ede80b856b7dd9094e0168afc2e17",
+    ("flash_crowd", "edf"):
+        "9b0d6946e6c663e65a1cdba6b7efd165c7a929c6a0a7f8470dcbae209b1fac71",
+    ("flash_crowd", "fcfs"):
+        "345a33944c4f78b183e7ff681d17da4359a8da770b589d0feb179c1751fd6ecd",
+    ("flash_crowd", "feedback"):
+        "bf4b32c8cd7609c7a893f87c1bbb0e163b0be61caae5f554d19bdde081e0af43",
+    ("mobility_churn", "edf"):
+        "06ea50b638a22d6c5cfd549d435bf9b79af6184c116970cc1bb11754887e1a68",
+    ("mobility_churn", "fcfs"):
+        "3819c685f357012c63faabaf2a6533279bc46f7dcf3786a0d866f6780de6d3a5",
+    ("mobility_churn", "feedback"):
+        "e6bd56292460f93cf2f43bec94ae2f81029554931b19f045aff6260f6b8232fe",
+    ("steady", "edf"):
+        "97b490486d3d154bdc6872badd788f244713e19d5f0b5450e15959e7135e3c81",
+    ("steady", "fcfs"):
+        "0e0544ffbf3b4d9d5f14d7116e957bf7bbcda3ff8cbb75c1326b5dc9b6508008",
+    ("steady", "feedback"):
+        "98c9c62cae1ef94ad654fe1c19732427b863e6a38683bdf32c73e6c99b186379",
+    ("trace_replay", "edf"):
+        "2352ac638ca24a45e22906b361b05467fcef1cc5e6bfb8618f8b99ab0f0b8649",
+    ("trace_replay", "fcfs"):
+        "03ac9c9a174343f4e852b3a33ab1a5f3046c6a94d74463269944dd3f2d259b40",
+    ("trace_replay", "feedback"):
+        "e2adfea223b8632fcc8834686ba0d394251b3e241d403674f95f7236ec3925da",
+    ("trace_replay_azure", "edf"):
+        "f5b2280b8374f0da1eebaacf06ece95aa6ce20fe1104a15a85e686669dcb8b6e",
+    ("trace_replay_azure", "fcfs"):
+        "ed5f847a7838da0f43cd16f17f4031aada5a09112feaac37a545f73c652766dd",
+    ("trace_replay_azure", "feedback"):
+        "4b3c765fae697dce91877611d349aaa94b3c42e99d0bc61a034f8a7e1191c5ef",
+    ("trace_replay_bursty", "edf"):
+        "4b9f14aab3d0ca5822e0bc0f64263dac8559f99b728015bf1fc9a58c3c77e2ec",
+    ("trace_replay_bursty", "fcfs"):
+        "5f488703f0cec486d4ff7688f8c1381ce8cf0235471552d3f9bb7e93e1704e90",
+    ("trace_replay_bursty", "feedback"):
+        "584dbdf8ca2359cd0dc371c539d254e60b9332f1507b0a4db3775e01ae6d2c59",
+}
 SOURCE = {
     "qos_matrix": "src/repro_torch/csrc/qos_kernels.cu",
     "qos_candidates": "src/repro_torch/csrc/qos_kernels.cu",
@@ -257,10 +338,11 @@ REPLACES = {
 
 
 #: Keys a kernel's row of the JSON line carries where its phase gives them:
-#: B3's device times, B8's bound of the work its plan runs, notes, and B1's
-#: and B3's launches on phase 13's sweep.
+#: B3's device times, B8's bound of the work its plan runs, notes, B1's
+#: and B3's launches on phase 13's sweep, and B2's and B3's on phase 14's
+#: traced tick.
 EXTRA_KEYS = ("device_ms", "library_device_ms", "plan_bound_ms",
-              "plan_bound_by", "note", "sweep_launches")
+              "plan_bound_by", "note", "sweep_launches", "trace_launches")
 
 
 def check(cond: bool, what: str) -> None:
@@ -896,7 +978,7 @@ def phase_main_path(dev, inst) -> dict:
                 cand_launches=cand_launches, cand_kernels=cand_kernels,
                 upload_ms=upload_ms,
                 route_warm_ms=route_warm, loop_busy_ms=busy,
-                loop_b3_ms=b3_ms)
+                loop_b3_ms=b3_ms, x=x.cpu())
 
 
 def phase_paper_scale(dev) -> dict:
@@ -1283,6 +1365,239 @@ def phase_sweeps(dev) -> dict:
             "bit-identical to a one-shot run, a globally padded run, a run "
             "with tracing off and part 3")
     torch.cuda.empty_cache()
+    return out
+
+
+# ===========================================================================
+# phase 14: the serving tick
+# ===========================================================================
+
+def result_digest(result) -> str:
+    """SHA-256 over a horizon result, the reference's
+    ``repro/gateway/control.py::result_digest`` byte for byte: every
+    request's (uid, impl, arrival, finish) and every TickReport field."""
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    reqs = result.requests
+    h.update(np.array([r.uid for r in reqs], np.int64).tobytes())
+    h.update(np.array([r.impl for r in reqs], np.int64).tobytes())
+    h.update(np.array([r.arrival for r in reqs], np.float64).tobytes())
+    h.update(np.array([r.finish for r in reqs], np.float64).tobytes())
+    for rep in result.per_tick:
+        h.update(repr(dataclasses.astuple(rep)).encode())
+    return h.hexdigest()
+
+
+def _sigma_bound_sparse(inst, cand_idx, cand_q, dev) -> float:
+    """σ̄ of ``sigma_upper_bound_np`` over the candidate pairs, in float64:
+    each user's best candidate that fits its edge's whole budget. With
+    every eligible implementation kept (k = M) the pairs hold every
+    nonzero of the dense Q, whose [10^6, 537] float64 copy the host
+    version would build."""
+    import torch
+
+    from repro_torch.core import FEASIBILITY_TOL
+
+    sm_r = torch.from_numpy(inst.sm_r.astype("float64")).to(dev)
+    R = torch.from_numpy(inst.R.astype("float64")).to(dev)
+    u_edge = torch.from_numpy(inst.u_edge).to(dev).long()
+    valid = cand_idx >= 0
+    fits = valid & (sm_r[cand_idx.clamp_min(0).long()]
+                    <= (R[u_edge] + FEASIBILITY_TOL)[:, None])
+    q = torch.where(fits, cand_q.to(torch.float64), 0.0)
+    return float(q.amax(dim=1).sum())
+
+
+def phase_serving_tick(dev, inst, main_path) -> dict:
+    """The traced 10^6-user tick (B2 once, B3 once an iteration), the
+    serving horizons of every scenario and policy, and a serving sweep
+    killed and resumed."""
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import (TorchInstance, egp_place_sparse_torch,
+                                  impl_table_np, sigma_sparse_torch)
+    from repro_torch.kernels.qos_matrix import ops
+    from repro_torch.serving.horizon import HorizonConfig, run_horizon
+    from repro_torch.sweeps import SERVING_METRIC_NAMES, SweepSpec, run_sweep
+    from repro_torch.sweeps.store import SweepStore
+    from repro_torch.workloads import list_scenarios
+
+    out = {}
+    # --- 1. the traced main-path tick, counted ----------------------------
+    ti = TorchInstance.from_pies(inst, dev)
+    table = torch.from_numpy(
+        impl_table_np(inst.sm_service, inst.S).astype(np.int32)).to(dev)
+
+    def loop(ci, cq, traced):
+        return egp_place_sparse_torch(ci, cq, ti.u_edge, ti.sm_service,
+                                      ti.sm_r, ti.R, max_iters=inst.P + 1,
+                                      with_trace=traced)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    cand_idx, cand_q = ops.qos_candidates_from_instance(ti, table)
+    x, iters, trace = loop(cand_idx, cand_q, True)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    log(f"  traced tick launches {launches}, {iters} iterations")
+    check(launches["qos_candidates"] == 1
+          and launches["greedy_argmax"] == iters,
+          f"traced tick launches {launches} for {iters} iterations")
+    check(iters == main_path["iterations"]
+          and launches["greedy_argmax"]
+          == main_path["launches"]["greedy_argmax"],
+          f"traced tick: {iters} iterations, phase 3 "
+          f"{main_path['iterations']}")
+    check(torch.equal(x.cpu(), main_path["x"]),
+          "traced tick x differs from phase 3's untraced tick")
+    # the loop alone, untraced and traced, one after the other
+    walls = {False: [], True: []}
+    for _ in range(2):
+        for traced in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop(cand_idx, cand_q, traced)
+            torch.cuda.synchronize()
+            walls[traced].append(1e3 * (time.perf_counter() - t0))
+    fields = [k for k in trace if k != "n_iters"]
+    trace_bytes = sum(trace[k].numel() * trace[k].element_size()
+                      for k in fields)
+    sigma = float(sigma_sparse_torch(cand_idx, cand_q, ti.u_edge, x))
+    bound = _sigma_bound_sparse(inst, cand_idx, cand_q, dev)
+    led = obs.DecisionLedger()
+    t0 = time.perf_counter()
+    rec = obs.ingest_sparse_trace(led, trace, tick=0, seed=SEED,
+                                  sigma=sigma, sigma_bound=bound)
+    ingest_s = time.perf_counter() - t0
+    n_pick = int((trace["pick"] >= 0).sum())
+    n_x = int(x.sum())
+    check(rec["n_picks"] == n_pick and rec["n_placed"] == n_x
+          == int(trace["placed"].sum()),
+          f"ledger picks {rec['n_picks']}/{n_pick}, placed "
+          f"{rec['n_placed']}/{n_x}")
+    gain_rel = abs(rec["gain_sum"] - sigma) / sigma
+    check(gain_rel <= TRACE_GAIN_RTOL,
+          f"ledger gain_sum {rec['gain_sum']!r} vs sigma {sigma!r}")
+    check(0.0 < rec["ratio"] <= 1.0, f"certificate ratio {rec['ratio']}")
+    log(f"  traced tick: x and iterations equal phase 3's, B3 launches "
+        f"equal; loop untraced {walls[False]} ms, traced {walls[True]} ms; "
+        f"trace {trace_bytes / 2**20:.2f} MiB on the card "
+        f"([{inst.P + 1}, {inst.E}] x {len(fields)}); ingest "
+        f"{ingest_s:.2f} s on the host for {rec['n_picks']} picks "
+        f"({rec['n_placed']} placed); gain_sum {rec['gain_sum']!r} vs "
+        f"sigma {sigma!r} (rel {gain_rel:.3g}); sigma bound {bound!r}, "
+        f"ratio {rec['ratio']:.4f}, cert_ok {rec['cert_ok']}")
+    out["trace"] = dict(launches=launches, iterations=iters,
+                        untraced_ms=walls[False], traced_ms=walls[True],
+                        trace_bytes=trace_bytes, ingest_s=ingest_s,
+                        n_picks=rec["n_picks"], gain_rel=gain_rel,
+                        ratio=rec["ratio"])
+    del ti, cand_idx, cand_q, trace, x
+    torch.cuda.empty_cache()
+
+    # --- 2. the serving horizons of every scenario and policy -------------
+    names = tuple(list_scenarios())
+    check(names == SWEEP_SCENARIOS, f"scenario registry {names}")
+    log(f"  numpy {np.__version__}; load {TICK_LOAD}, seeds "
+        f"{list(TICK_SEEDS)}")
+    spans, host_s, n_ticks, rows = {}, 0.0, 0, {}
+    for sc in names:
+        for pol in TICK_POLICIES:
+            for seed in TICK_SEEDS:
+                cfg = HorizonConfig(scenario=sc, policy=pol, seed=seed,
+                                    **TICK_LOAD)
+                t0 = time.perf_counter()
+                res = run_horizon(cfg)
+                host_s += time.perf_counter() - t0
+                n_ticks += len(res.per_tick)
+                what = f"horizon {sc}/{pol}/seed {seed}"
+                check(res.served + res.dropped == res.submitted
+                      and res.served == len(res.requests)
+                      and all(t.served + t.dropped == t.submitted
+                              for t in res.per_tick),
+                      f"{what}: conservation")
+                digest = result_digest(res)
+                check(result_digest(run_horizon(cfg)) == digest,
+                      f"{what}: a rerun differs")
+                tracer = obs.enable()
+                obs.enable_ledger()
+                obs.enable_request_tracing()
+                try:
+                    on = run_horizon(cfg)
+                finally:
+                    obs.disable_request_tracing()
+                    led = obs.disable_ledger()
+                    obs.disable()
+                check(result_digest(on) == digest,
+                      f"{what}: differs with obs, ledger and reqtrace on")
+                recs = led.records()
+                check(len(recs) == len(res.per_tick) and all(
+                    abs(r["gain_sum"] - r["sigma"]) <= 1e-6 for r in recs),
+                      f"{what}: ledger records")
+                for name, s in _span_totals(tracer)["totals"].items():
+                    spans[name] = spans.get(name, 0.0) + s
+                if seed == 0:
+                    check(digest == TICK_DIGESTS[(sc, pol)],
+                          f"{what}: digest {digest} is not the "
+                          f"reference's {TICK_DIGESTS[(sc, pol)]}")
+                rows.setdefault((sc, pol), []).append(
+                    (res.mean_realized_qos, res.miss_rate))
+    for (sc, pol), vals in rows.items():
+        log(f"    {sc:20s} {pol:8s} realized QoS "
+            f"{[round(q, 6) for q, _ in vals]}, miss rate "
+            f"{[round(m, 6) for _, m in vals]}")
+    tick_spans = {k: round(v, 4) for k, v in sorted(spans.items())
+                  if k.startswith(("tick.", "horizon.", "kernel."))}
+    log(f"  {len(rows) * len(TICK_SEEDS)} horizons, {n_ticks} ticks: "
+        f"{host_s:.3f} s untraced on the host ({1e3 * host_s / n_ticks:.3f} "
+        f"ms a tick); conservation holds, reruns and runs with obs, ledger "
+        f"and reqtrace on are byte-identical, seed 0's digests are the "
+        f"reference's; traced span totals (s) {tick_spans}")
+    out["horizons"] = dict(host_s=host_s, ticks=n_ticks, spans=tick_spans,
+                           qos={f"{sc}/{pol}": v
+                                for (sc, pol), v in rows.items()})
+
+    # --- 3. a kind="serving" sweep, killed and resumed --------------------
+    spec = SweepSpec(kind="serving", scenarios=TICK_SWEEP_SCENARIOS,
+                     algos=TICK_POLICIES, seeds=range(TICK_SWEEP_SEEDS),
+                     override_grid=(TICK_LOAD,))
+    items = spec.expand()
+    first = items[0]
+    n_first = sum((it.scenario, it.algo, it.seed)
+                  == (first.scenario, first.algo, first.seed)
+                  for it in items)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        d = Path(tmp) / "serving"
+        t0 = time.perf_counter()
+        part = run_sweep(spec, d, max_chunks=1)
+        check(part.execution["chunks_computed"] == 1 and not part.complete,
+              f"killed serving sweep {part.execution}")
+        done = run_sweep(spec, d)
+        again = run_sweep(spec, d)
+        sweep_s = time.perf_counter() - t0
+        check(done.execution["items_skipped"] == n_first
+              and done.execution["path"] == "serving"
+              and again.execution["chunks_computed"] == 0
+              and again.execution["items_skipped"] == len(items),
+              f"serving resume: {done.execution}, {again.execution}")
+        one_shot = run_sweep(spec, Path(tmp) / "one_shot")
+        for other, what in ((again, "the resumed store's reload"),
+                            (one_shot, "a one-shot run")):
+            check(_same_values(done, other),
+                  f"serving sweep: values differ from {what}")
+        store = SweepStore(d)
+        check(all(set(store.metrics(k)) == set(SERVING_METRIC_NAMES)
+                  for k in store.keys()), "serving sweep: item metrics")
+    log(f"  serving sweep ({len(items)} items, {spec.store_key()}): "
+        f"killed after one chunk, resumed, a third call computed nothing; "
+        f"bit-identical to a one-shot run ({sweep_s:.2f} s)")
+    out["sweep"] = dict(items=len(items), s=sweep_s)
     return out
 
 
@@ -2474,6 +2789,12 @@ def main() -> int:
     swept = phase_sweeps(dev)
     log(f"  phase 13 took {time.perf_counter() - t13:.1f} s; chip_smoke so "
         f"far {time.perf_counter() - t_start:.1f} s")
+    log("phase 14: the serving tick (traced 10^6-user tick, every "
+        "scenario's horizon, a serving sweep)")
+    t14 = time.perf_counter()
+    ticked = phase_serving_tick(dev, inst, main_path)
+    log(f"  phase 14 took {time.perf_counter() - t14:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on its slice's main path: B4/B7 serving
     # smollm-360m, B8 serving mamba2-2.7b, B5/B6 training smollm-360m
     launches = {**main_path["launches"],
@@ -2493,6 +2814,8 @@ def main() -> int:
     for row in rows:
         if row["name"] in ("qos_matrix", "greedy_argmax"):
             row["sweep_launches"] = swept["fig3"]["launches"][row["name"]]
+        if row["name"] in ("qos_candidates", "greedy_argmax"):
+            row["trace_launches"] = ticked["trace"]["launches"][row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

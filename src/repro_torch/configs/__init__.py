@@ -3,7 +3,8 @@
 Every architecture is selected by its id (or an alias) in :func:`get_config`.
 ``full()`` returns the exact published config; ``smoke()`` returns a
 reduced same-family config for CPU tests. The port's own copy of the JAX
-package's config registry (the paper catalog is not ported yet).
+package's config registry; :mod:`~repro_torch.configs.paper_catalog` holds
+the paper's own experimental setups.
 """
 from __future__ import annotations
 

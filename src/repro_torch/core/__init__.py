@@ -41,6 +41,7 @@ from .placement import (
     sigma_upper_bound_np,
 )
 from .opt import brute_force_np, opt_edge_np, opt_np
+from .dynamic import DynamicPlacer, evaluate_horizon
 
 __all__ = [
     "PIESInstance", "TorchInstance", "synthetic_instance",
@@ -57,4 +58,5 @@ __all__ = [
     "egp_place_torch", "agp_place_torch", "egp_place_sparse_torch",
     "sigma_sparse_torch",
     "opt_np", "opt_edge_np", "brute_force_np",
+    "DynamicPlacer", "evaluate_horizon",
 ]

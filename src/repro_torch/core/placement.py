@@ -21,8 +21,9 @@ Device (torch) implementations, every edge advanced in lock-step:
   pick of each iteration is the ``greedy_argmax`` kernel.
 * :func:`egp_place_sparse_torch` — Algorithm 3 driven from a top-k
   ``(user, candidate)`` pair set; state is O(U·k + E·P), which is what
-  makes a 10⁶-user tick fit. :func:`sigma_sparse_torch` — σ (Eq. 9, OMS
-  folded in) over the pairs.
+  makes a 10⁶-user tick fit. ``with_trace=True`` also returns each
+  iteration's decisions for the decision ledger.
+  :func:`sigma_sparse_torch` — σ (Eq. 9, OMS folded in) over the pairs.
 """
 from __future__ import annotations
 
@@ -49,6 +50,14 @@ __all__ = [
 #: model is accepted or rejected alike by :func:`agp_np` and
 #: :func:`agp_place_torch`.
 FEASIBILITY_TOL = 1e-6
+
+#: Decision-ledger hook. ``repro_torch.obs.ledger.enable_ledger()`` installs
+#: a :class:`~repro_torch.obs.ledger.DecisionLedger` here (the core never
+#: imports obs); the host greedy pick loops book every consideration
+#: through it. The disabled path is one global load + ``is None`` per
+#: placement call, and the ledger is observational — picks are recorded,
+#: never influenced.
+_DECISION_SINK = None
 
 
 def sigma_upper_bound_np(inst: PIESInstance,
@@ -87,6 +96,7 @@ def egp_np(inst: PIESInstance, Q: Optional[np.ndarray] = None) -> np.ndarray:
     if Q is None:
         Q = qos_matrix_np(inst)
     x = np.zeros((inst.E, inst.P), dtype=bool)
+    sink = _DECISION_SINK
 
     for e in range(inst.E):
         users = inst.users_of_edge(e)
@@ -102,12 +112,15 @@ def egp_np(inst: PIESInstance, Q: Optional[np.ndarray] = None) -> np.ndarray:
         considered: set = set()           # A
         satisfied = np.zeros(users.size, dtype=bool)  # B (mask over users)
         remaining = float(inst.R[e])      # R̂
+        if sink is not None:
+            best = np.zeros(users.size)   # σ_u over placed impls at e
 
         while True:
             cand = [p for p in v if p not in considered]
             if not cand:
                 break
             p_star = max(cand, key=lambda p: (v[p], -p))
+            benefit = v[p_star]
             placed = inst.sm_r[p_star] <= remaining + FEASIBILITY_TOL
             if placed:
                 x[e, p_star] = True
@@ -125,6 +138,18 @@ def egp_np(inst: PIESInstance, Q: Optional[np.ndarray] = None) -> np.ndarray:
                 # lines 18–19: users fully satisfied by (s*, m*)
                 satisfied |= Qe[:, p_star] >= 1.0 - 1e-9
             considered.add(p_star)
+            if sink is not None:
+                gain = 0.0
+                if placed:
+                    # exact marginal: the gains over placed picks
+                    # telescope to the realized σ of the edge
+                    gain = float(np.maximum(Qe[:, p_star] - best,
+                                            0.0).sum())
+                    best = np.maximum(best, Qe[:, p_star])
+                # rank 0 by construction: p_star is the benefit argmax
+                sink.pick(edge=e, impl=p_star, benefit=benefit,
+                          gain=gain, remaining=remaining,
+                          n_candidates=len(cand), rank=0, placed=placed)
             if remaining <= FEASIBILITY_TOL or satisfied.all() or len(considered) == len(v):
                 break
     return x
@@ -294,6 +319,11 @@ def place_and_schedule(inst: PIESInstance, algo: str = "egp", seed: int = 0,
     else:
         raise ValueError(f"unknown algorithm {algo!r}")
     y, value = oms_np(inst, x, Q)
+    if _DECISION_SINK is not None and algo == "egp":
+        # close the ledger record with the Theorem-2 certificate:
+        # σ(greedy) vs (1 − 1/e) · σ̄ (relaxation upper bound)
+        _DECISION_SINK.end(sigma=value,
+                           sigma_bound=sigma_upper_bound_np(inst, Q))
     return x, y, value
 
 
@@ -501,8 +531,8 @@ def egp_place_sparse_torch(cand_idx: torch.Tensor, cand_q: torch.Tensor,
                            u_edge: torch.Tensor, sm_service: torch.Tensor,
                            sm_r: torch.Tensor, R: torch.Tensor, *,
                            max_iters: int = 512,
-                           use_kernel: Optional[bool] = None
-                           ) -> Tuple[torch.Tensor, int]:
+                           use_kernel: Optional[bool] = None,
+                           with_trace: bool = False):
     """Algorithm 3 over a top-k sparse candidate set, all edges in lock-step.
 
     Takes the ``(cand_idx, cand_q) [U, k]`` pairs of
@@ -517,8 +547,20 @@ def egp_place_sparse_torch(cand_idx: torch.Tensor, cand_q: torch.Tensor,
     The loop is a Python loop with two host syncs per iteration (the stop
     test and the "anything placed" test that skips the re-score).
 
-    Returns ``(x [E, P] bool, iterations)``; each iteration launches the
-    argmax once.
+    ``with_trace=True`` also records each iteration's decisions for the
+    decision ledger (:func:`repro_torch.obs.ledger.ingest_sparse_trace`):
+    ``[max_iters, E]`` tensors on the loop's device, allocated once and
+    written a row an iteration — the pick (``impl``, −1 where an edge was
+    done or had no candidate), ``placed``, its ``benefit``, its exact
+    marginal ``gain`` (booked in f32 against a per-user best; the gains
+    telescope to :func:`sigma_sparse_torch` of the result up to f32
+    summation, ~1e-3 relative), the post-pick ``remaining`` budget and
+    ``n_candidates``, plus ``n_iters``. The trace is write-only: it adds
+    no host sync and no argmax launch, and the decisions are the untraced
+    loop's.
+
+    Returns ``(x [E, P] bool, iterations)``, or ``(x, iterations, trace)``
+    with ``with_trace=True``; each iteration launches the argmax once.
     """
     from repro_torch.kernels.qos_matrix.ops import greedy_argmax
 
@@ -544,12 +586,25 @@ def egp_place_sparse_torch(cand_idx: torch.Tensor, cand_q: torch.Tensor,
     satisfied = torch.zeros(U, dtype=torch.bool, device=dev)
     remaining = R.to(torch.float32).clone()
     done = torch.zeros(E, dtype=torch.bool, device=dev)
+    if with_trace:
+        t_pick = torch.full((max_iters, E), -1, dtype=torch.int32,
+                            device=dev)
+        t_placed = torch.zeros((max_iters, E), dtype=torch.bool, device=dev)
+        t_benefit, t_gain, t_remaining = (
+            torch.zeros((max_iters, E), dtype=torch.float32, device=dev)
+            for _ in range(3))
+        t_ncand = torch.zeros((max_iters, E), dtype=torch.int32, device=dev)
+        best_u = torch.zeros(U, dtype=torch.float32, device=dev)
+        # the users by edge: each edge's gain is a fixed-order segmented
+        # sum over its users (the reference's .at[erow].add, in user order)
+        by_edge, edge_sum = _edge_rows(erow, E)
 
     it = 0
     while it < max_iters and not bool(done.all()):
         cand = relevant & ~considered
         any_cand = cand.any(dim=1)                      # [E]
-        _, idx = greedy_argmax(v, cand, use_kernel=use_kernel)   # line 11
+        # line 11; the max is v[e, p*] wherever the edge has a candidate
+        v_star, idx = greedy_argmax(v, cand, use_kernel=use_kernel)
         p_star = idx.clamp_min(0).long()
         fits = sm_r[p_star] <= remaining + FEASIBILITY_TOL
         place = fits & any_cand & ~done                 # lines 12–14
@@ -560,6 +615,20 @@ def egp_place_sparse_torch(cand_idx: torch.Tensor, cand_q: torch.Tensor,
         place_u = place[erow]
         # Q(u, s_u, m*) per user — 0 unless p* is one of u's candidates
         qstar_u = torch.where(col == pstar_u[:, None], qpair, 0.0).sum(dim=1)
+
+        if with_trace:
+            # exact marginal per placed pick, booked before best_u moves
+            active = any_cand & ~done   # edges actually picking this iter
+            imp_u = torch.where(place_u, torch.clamp_min(qstar_u - best_u,
+                                                         0.0), 0.0)
+            best_u = torch.where(place_u, torch.maximum(best_u, qstar_u),
+                                 best_u)
+            t_pick[it] = torch.where(active, p_star, -1)
+            t_placed[it] = place
+            t_benefit[it] = torch.where(active, v_star, 0.0)
+            t_gain[it] = edge_sum(imp_u[by_edge])
+            t_remaining[it] = remaining
+            t_ncand[it] = cand.sum(dim=1)
 
         if bool(place.any()):
             # lines 15–16: v[p] = Σ_unsat (Q[u,p] − Q[u,p*]) for siblings
@@ -580,6 +649,11 @@ def egp_place_sparse_torch(cand_idx: torch.Tensor, cand_q: torch.Tensor,
         # line 20 — the reference's stop conditions and tolerances
         done = done | ~any_cand | (remaining <= 1e-6) | all_sat | all_cons
         it += 1
+    if with_trace:
+        return x, it, {"pick": t_pick, "placed": t_placed,
+                       "benefit": t_benefit, "gain": t_gain,
+                       "remaining": t_remaining, "n_candidates": t_ncand,
+                       "n_iters": it}
     return x, it
 
 

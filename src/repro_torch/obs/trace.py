@@ -48,6 +48,8 @@ __all__ = [
     "enabled",
     "get_tracer",
     "span",
+    "kernel_span",
+    "get_publisher",
     "count",
     "sample",
     "save",
@@ -349,6 +351,22 @@ def span(name: str, **args: Any):
     if tr is None:
         return _NULL_SPAN
     return tr.span(name, args or None)
+
+
+def kernel_span(name: str, **args: Any):
+    """An obs span in the ``kernel`` category (``kernel.<name>``), the
+    reference's ``repro.obs.jaxprof.kernel_span``: recorded on the obs
+    timeline and, when the tracer runs with ``annotations=True``, on the
+    ``torch.profiler`` timeline as well. The shared null span when tracing
+    is off."""
+    full = name if name.startswith("kernel.") else "kernel." + name
+    return span(full, **args)
+
+
+def get_publisher():
+    """The live telemetry stream's publisher: ``None`` — the port has no
+    stream yet, so the serving tick's stream frames are never built."""
+    return None
 
 
 def count(name: str, n: float = 1) -> None:

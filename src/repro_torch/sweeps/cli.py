@@ -17,6 +17,12 @@ Examples::
     # the plain PyTorch versions on the CPU
     python -m repro_torch.sweeps --scenario steady --device cpu --validate
 
+    # realized QoS through the serving engine (host NumPy): EDF vs FCFS
+    # over a (switching_cost × stickiness) grid of the hysteresis placer
+    python -m repro_torch.sweeps --kind serving --scenario flash_crowd \\
+        --seeds 0:8 --override switching_cost=0 --override \\
+        switching_cost=2 --override stickiness=3
+
 Interrupting a stored run and re-invoking the same command resumes it:
 completed chunks are read back from the manifest, not recomputed. The
 flags are the reference's (``python -m repro.sweeps``) without ``--fleet``
@@ -84,15 +90,19 @@ def add_spec_arguments(ap: argparse.ArgumentParser) -> None:
                     help="scenario name(s); repeat or comma-separate "
                          "(registered scenarios or 'synthetic')")
     ap.add_argument("--kind", choices=list(KINDS), default="sigma",
-                    help="sigma: analytic objective (default); serving "
-                         "(realized QoS through the serving engine) is not "
-                         "in the port yet and exits with an error")
+                    help="sigma: analytic objective (default); serving: "
+                         "realized QoS through the full serving engine "
+                         "(algos become queue policies edf/fcfs, or "
+                         "'feedback' for the closed-loop repro_torch.tuning "
+                         "placer; --override also accepts switching_cost, "
+                         "stickiness, max_batch, ...)")
     ap.add_argument("--seeds", type=parse_seeds, default=(0,),
                     help="'a:b' range or comma list (default: 0)")
     ap.add_argument("--ticks", type=int, default=None,
                     help="horizon length (default: scenario's n_ticks)")
     ap.add_argument("--algos", action="append", default=None,
-                    help="algorithms to sweep (default: egp)")
+                    help="algorithms to sweep (default: egp; serving "
+                         "kind: edf,fcfs)")
     ap.add_argument("--override", action="append", metavar="K=V",
                     help="scenario/instance-size override; repeating the "
                          "same key forms a grid axis")
@@ -105,7 +115,9 @@ def add_spec_arguments(ap: argparse.ArgumentParser) -> None:
 
 def build_spec(args: argparse.Namespace) -> SweepSpec:
     if args.algos is None:
-        args.algos = ["egp"]
+        # serving kind sweeps queue policies, not placement algorithms
+        serving = getattr(args, "kind", "sigma") == "serving"
+        args.algos = ["edf", "fcfs"] if serving else ["egp"]
     overrides = [_parse_override(o) for o in (args.override or [])]
     # repeated overrides of the same key form a grid axis; distinct keys
     # combine into every grid point
@@ -162,8 +174,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--out", default=None,
                     help="store directory (default: "
                          "experiments/sweeps_torch/<store-key>, stable "
-                         "across --seeds/--ticks extensions); use "
-                         "--no-store to disable")
+                         "across --seeds/--ticks extensions — serving-kind "
+                         "values depend on the horizon, so there --ticks "
+                         "changes get a fresh store); use --no-store to "
+                         "disable")
     ap.add_argument("--no-store", action="store_true",
                     help="run fully in memory (no resume)")
     ap.add_argument("--chunk-size", type=int, default=None)
@@ -184,6 +198,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "artifact at PATH")
     ap.add_argument("-q", "--quiet", action="store_true")
     args = ap.parse_args(argv)
+    if args.kind == "serving" and args.validate:
+        ap.error("--validate compares the batched accelerator path against "
+                 "the NumPy host path; kind='serving' has neither")
 
     from repro_torch import obs
     if args.obs:
@@ -191,10 +208,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     else:
         obs.enable_from_env()  # REPRO_OBS=1
 
-    try:
-        spec = build_spec(args)
-    except NotImplementedError as exc:
-        ap.error(str(exc))
+    spec = build_spec(args)
     store_dir = None
     if not args.no_store:
         # keyed on the seed/tick-independent axes: extending --seeds or

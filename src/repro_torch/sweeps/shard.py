@@ -25,6 +25,9 @@ Host-only algorithms (``opt``, ``sck``, ``rnd``, ``agp_literal`` — and any
 algorithm listed in ``spec.force_host``) run through the NumPy reference
 implementations, one instance at a time, through the *same* chunk/store
 pipeline; their values are byte-identical to :mod:`repro.sweeps.shard`'s.
+So do ``kind="serving"`` items: one seed's horizon through
+:func:`repro_torch.serving.horizon.run_horizon` (host NumPy) is a chunk,
+stored per (seed, tick) item with its per-item serving metrics.
 """
 from __future__ import annotations
 
@@ -38,10 +41,12 @@ import torch
 from repro_torch import obs
 from repro_torch.device import resolve_device
 
-from .spec import SweepSpec, envelope_for, materialize, variant_key
+from .spec import (SweepSpec, WorkItem, envelope_for, materialize,
+                   variant_key)
 from .store import SweepStore
 
 __all__ = [
+    "SERVING_METRIC_NAMES",
     "SweepResult",
     "auto_chunk_size",
     "bytes_per_item",
@@ -229,6 +234,51 @@ def _host_value(inst, algo: str, seed: int, tick: int) -> Tuple[float, float]:
     return float(sigma_np(inst, x, Q)), dt
 
 
+# ===========================================================================
+# Serving path (kind="serving": realized QoS through the full engine)
+# ===========================================================================
+
+#: Per-item metric arrays persisted for ``kind="serving"`` chunks (store
+#: schema v3, the reference's): per-tick request counts plus mean
+#: latency/accuracy of the tick's served requests, so horizon-level
+#: miss-rate / latency / accuracy frontiers are a pure store read.
+SERVING_METRIC_NAMES = ("submitted", "served", "misses", "latency",
+                        "accuracy")
+
+
+def _serving_horizon(scenario: str, overrides, policy: str, seed: int,
+                     n_ticks: int):
+    """One seed's full :class:`~repro_torch.serving.horizon.HorizonResult`.
+
+    One call drives the whole placement → routing → continuous-batching
+    pipeline (:func:`repro_torch.serving.horizon.run_horizon`); the
+    scheduler is stateful across ticks, so a seed's horizon is the atomic
+    computation — the *store* stays item-granular per (seed, tick), and a
+    partially stored seed is replayed deterministically on resume
+    (byte-identical, so already-stored ticks are simply skipped, never
+    rewritten).
+    """
+    from repro_torch.serving.horizon import HorizonConfig, run_horizon
+
+    cfg = HorizonConfig.from_overrides(scenario, dict(overrides), policy,
+                                       seed, n_ticks=n_ticks)
+    return run_horizon(cfg)
+
+
+def _serving_metrics(per_tick, ticks: Sequence[int]
+                     ) -> Dict[str, np.ndarray]:
+    """The :data:`SERVING_METRIC_NAMES` rows for the given tick items."""
+    by_name = {
+        "submitted": [per_tick[t].submitted for t in ticks],
+        "served": [per_tick[t].served for t in ticks],
+        "misses": [per_tick[t].deadline_misses for t in ticks],
+        "latency": [per_tick[t].mean_latency_s for t in ticks],
+        "accuracy": [per_tick[t].mean_accuracy for t in ticks],
+    }
+    return {name: np.asarray(by_name[name], np.float64)
+            for name in SERVING_METRIC_NAMES}
+
+
 def _note_chunk(executor: str, n_items: int, wall_s: float) -> None:
     """Feed chunk throughput into the active tracer (a no-op when off)."""
     rate = n_items / wall_s if wall_s > 0 else None
@@ -301,7 +351,7 @@ def run_sweep(spec: SweepSpec, store_dir=None, *,
 
     Accelerator groups run on ``device`` (``None``: CUDA, raising without
     it) split over ``devices`` (default: every visible CUDA device). A
-    sweep whose groups are all host-executor needs no device.
+    sweep whose groups are all host or serving executors needs no device.
     """
     store = SweepStore(store_dir) if store_dir is not None else None
     if store is not None:
@@ -345,6 +395,52 @@ def run_sweep(spec: SweepSpec, store_dir=None, *,
                    k not in memory]
         skipped += len(items) - len(pending)
         if not pending:
+            continue
+
+        if executor == "serving":
+            # one seed's horizon = one chunk: ticks share scheduler state,
+            # so they are computed together; pending (seed, tick) items are
+            # still stored individually (resume granularity is unchanged)
+            T = spec.ticks_for(scenario, overrides)
+            by_seed: Dict[int, List[Tuple[WorkItem, str]]] = {}
+            for it, k in pending:
+                by_seed.setdefault(it.seed, []).append((it, k))
+            for seed, chunk in by_seed.items():
+                if max_chunks is not None and computed >= max_chunks:
+                    stopped = True
+                    break
+                t0 = time.perf_counter()
+                with obs.span("sweep.chunk", executor="serving",
+                              scenario=scenario, algo=algo, seed=int(seed),
+                              items=len(chunk)):
+                    res = _serving_horizon(scenario, overrides, algo,
+                                           seed, T)
+                wall = time.perf_counter() - t0
+                _note_chunk(executor, len(chunk), wall)
+                chunk_keys = [k for _, k in chunk]
+                chunk_ticks = [it.tick for it, _ in chunk]
+                vals = res.tick_values()[chunk_ticks]
+                times = np.full(len(chunk), wall / len(chunk))
+                paths.add("serving")
+                meta = {"scenario": scenario, "overrides": dict(overrides),
+                        "algo": algo, "executor": executor,
+                        "path": "serving", "seed": int(seed),
+                        "horizon": int(T),   # lets a fit replay runs
+                        "n_devices": 1, "wall_s": round(wall, 6),
+                        "B": len(chunk)}
+                if store is not None:
+                    store.add_chunk(chunk_keys, vals, times, meta,
+                                    metrics=_serving_metrics(res.per_tick,
+                                                             chunk_ticks))
+                for k, v, dt in zip(chunk_keys, vals, times):
+                    memory[k] = (float(v), float(dt))
+                computed += 1
+                if verbose:
+                    print(f"[sweeps] {variant_key(scenario, overrides)}/"
+                          f"{algo} seed {seed}: {len(chunk):4d} items via "
+                          f"serving ({wall:.3f}s)", flush=True)
+            if stopped:
+                break
             continue
 
         envelope = envelope_for(scenario, overrides)
@@ -423,6 +519,7 @@ def run_sweep(spec: SweepSpec, store_dir=None, *,
         "devices": [str(d) for d in devs],
         "path": ("per_device" if "per_device" in paths else
                  "batched" if "batched" in paths else
+                 "serving" if "serving" in paths else
                  "host" if "host" in paths else "cached"),
         "paths": sorted(paths),
         "chunks_computed": computed,

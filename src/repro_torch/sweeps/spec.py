@@ -12,8 +12,7 @@ an identical spec is a no-op.
 Two instance sources are supported per grid row:
 
 * any scenario registered in :mod:`repro_torch.workloads.scenarios`
-  (``steady``,
-  ``flash_crowd``, …), with arbitrary field overrides
+  (``steady``, ``flash_crowd``, …), with arbitrary field overrides
   (``n_user_slots=64``, ``mobility_p_move=0.5``, …);
 * the pseudo-scenario ``"synthetic"`` — the paper's §VI-B numerical setup
   via :func:`repro_torch.core.instance.synthetic_instance`, with overrides
@@ -26,9 +25,9 @@ instances — so chunk boundaries never affect results.
 
 Item keys, fingerprints and store keys are the reference's
 (:mod:`repro.sweeps.spec`) string for string, so a store either package
-wrote resumes in the other. ``kind="serving"`` (realized QoS through the
-serving engine) waits for the port's serving tick and raises
-:class:`NotImplementedError`.
+wrote resumes in the other; for ``kind="serving"`` that holds while both
+packages' tuning tables are byte-equal (their knobs are baked into every
+serving item, see :meth:`SweepSpec._resolve_serving_knobs`).
 """
 from __future__ import annotations
 
@@ -67,14 +66,16 @@ ACCEL_ALGOS = ("egp", "agp")
 #: repro_torch.core).
 HOST_ALGOS = ("egp", "agp", "agp_literal", "opt", "sck", "rnd")
 
-#: The ``algos`` axis of a serving-kind sweep in the reference: the
-#: continuous-batching queue policies plus ``"feedback"`` (closed-loop
-#: placement).
+#: The ``algos`` axis of a serving-kind sweep: the continuous-batching
+#: queue policies of :mod:`repro_torch.serving.scheduler`, plus
+#: ``"feedback"`` — EDF queueing under the closed-loop
+#: :class:`repro_torch.tuning.controller.FeedbackPlacer`, so open-loop vs
+#: closed-loop placement sweeps ride the same resumable engine.
 SERVING_POLICIES = ("edf", "fcfs", "feedback")
 
 #: Sweep kinds: ``"sigma"`` scores placements with the analytic objective
 #: σ; ``"serving"`` drives scenario traffic through the full serving
-#: engine and scores *realized* QoS (not in the port yet: it raises).
+#: engine (:mod:`repro_torch.serving.horizon`) and scores *realized* QoS.
 KINDS = ("sigma", "serving")
 
 #: The pseudo-scenario name backed by ``synthetic_instance`` (§VI-B setup).
@@ -112,19 +113,23 @@ def variant_key(scenario: str,
 
 @dataclasses.dataclass(frozen=True)
 class WorkItem:
-    """One evaluation: σ(algo placement) on instance(scenario, seed, tick).
+    """One evaluation: σ(algo placement) on instance(scenario, seed, tick),
+    or one serving-horizon tick for ``executor == "serving"``.
 
     ``max_iters`` is the accelerator greedy-loop cap (0 for host items,
     whose reference implementations always run to completion).
+    ``horizon`` is the total tick count of a serving item's horizon run
+    (0 for sigma items, whose per-tick values are horizon-independent).
     """
 
     scenario: str
     overrides: Tuple[Tuple[str, Any], ...]
     algo: str
-    executor: str          # "accel" | "host"
+    executor: str          # "accel" | "host" | "serving"
     seed: int
     tick: int
     max_iters: int = 0
+    horizon: int = 0
 
     def key(self) -> str:
         """Stable content hash — the resume/store key.
@@ -134,11 +139,19 @@ class WorkItem:
         ``n_ticks``, chunk boundaries, or the device count), so extending
         a sweep or re-sharding it reuses results, while a store written
         under a different ``max_iters`` is never silently reused.
+
+        Exception that proves the rule: a *serving* item's tick value IS a
+        function of the whole horizon length (earlier-tick backlog is
+        re-ordered by later arrivals under EDF), so serving keys append
+        ``horizon`` — extending ``--ticks`` recomputes rather than mixing
+        values from different horizons. Sigma payloads are unchanged, so
+        pre-existing sigma stores stay valid.
         """
         payload = json.dumps(
             [SCHEMA_VERSION, self.scenario, list(map(list, self.overrides)),
              self.algo, self.executor, self.seed, self.tick,
-             self.max_iters],
+             self.max_iters]
+            + ([self.horizon] if self.executor == "serving" else []),
             separators=(",", ":"))
         return hashlib.sha256(payload.encode()).hexdigest()[:24]
 
@@ -165,8 +178,9 @@ class SweepSpec:
     force_host: Tuple[str, ...] = ()
     #: accelerator greedy-loop iteration cap (part of every accel item key)
     max_iters: int = 512
-    #: "sigma" (analytic σ objective); "serving" raises until the port has
-    #: its serving tick
+    #: "sigma" (analytic σ objective) or "serving" (realized QoS through
+    #: the full serving engine; ``algos`` are then queue policies and
+    #: ``override_grid`` may carry serving knobs like ``switching_cost``)
     kind: str = "sigma"
 
     def __post_init__(self):
@@ -186,21 +200,64 @@ class SweepSpec:
             raise ValueError(f"unknown sweep kind {self.kind!r}; "
                              f"have {KINDS}")
         if self.kind == "serving":
-            raise NotImplementedError(
-                "kind='serving' (realized QoS through the serving engine) "
-                "needs the serving tick and the tuning table, ROADMAP "
-                "queue A items 3 and 8; the port runs kind='sigma'")
-        for algo in self.algos:
-            if algo not in set(ACCEL_ALGOS) | set(HOST_ALGOS):
+            if SYNTHETIC in self.scenarios:
                 raise ValueError(
-                    f"unknown algorithm {algo!r}; accelerator algos: "
-                    f"{ACCEL_ALGOS}, host algos: {HOST_ALGOS}")
+                    "kind='serving' needs a registered scenario (an arrival "
+                    "process drives the engine); 'synthetic' has none")
+            for algo in self.algos:
+                if algo not in SERVING_POLICIES:
+                    raise ValueError(
+                        f"kind='serving' sweeps queue policies "
+                        f"{SERVING_POLICIES}, got algo {algo!r}")
+        else:
+            for algo in self.algos:
+                if algo not in set(ACCEL_ALGOS) | set(HOST_ALGOS):
+                    raise ValueError(
+                        f"unknown algorithm {algo!r}; accelerator algos: "
+                        f"{ACCEL_ALGOS}, host algos: {HOST_ALGOS}")
 
     # ------------------------------------------------------------------
     def executor_of(self, algo: str) -> str:
+        if self.kind == "serving":
+            return "serving"
         if algo in ACCEL_ALGOS and algo not in self.force_host:
             return "accel"
         return "host"
+
+    def _resolve_serving_knobs(self, scenario: str,
+                               overrides: Tuple[Tuple[str, Any], ...]
+                               ) -> Tuple[Tuple[str, Any], ...]:
+        """Bake the fitted placer knobs into a serving grid row's
+        overrides at *expansion* time. A serving value genuinely depends
+        on the knobs the tuning table recommends for unset keys, so they
+        must be part of the item (key, stored meta): a later table
+        refresh (or ``$REPRO_TUNING_TABLE`` change) then yields new keys
+        — the store recomputes instead of silently mixing results from
+        two operating points — and fits can read the actual knobs back
+        from any store, pinned or not."""
+        have = dict(overrides)
+        missing = [k for k in ("switching_cost", "stickiness")
+                   if k not in have]
+        if not missing:
+            return overrides
+        from repro_torch.tuning.fit import recommend  # deferred: no cycle
+        rec = recommend(scenario)
+        if not rec:
+            return overrides
+        for k in missing:
+            have[k] = rec[k]
+        return _canon_overrides(have)
+
+    def scenario_overrides(self, overrides: Tuple[Tuple[str, Any], ...]
+                           ) -> Dict[str, Any]:
+        """Overrides that apply to the *scenario* (serving-kind grids may
+        also carry serving-engine knobs — see
+        repro_torch.serving.horizon)."""
+        if self.kind != "serving":
+            return dict(overrides)
+        from repro_torch.serving.horizon import split_serving_overrides
+        scen, _ = split_serving_overrides(overrides)
+        return scen
 
     def ticks_for(self, scenario: str,
                   overrides: Tuple[Tuple[str, Any], ...] = ()) -> int:
@@ -209,7 +266,8 @@ class SweepSpec:
         if scenario == SYNTHETIC:
             return 1
         from repro_torch.workloads import get_scenario
-        return int(get_scenario(scenario, **dict(overrides)).n_ticks)
+        return int(get_scenario(
+            scenario, **self.scenario_overrides(overrides)).n_ticks)
 
     def expand(self) -> List[WorkItem]:
         """The full, stably-ordered work list (the resume unit is one item)."""
@@ -217,13 +275,17 @@ class SweepSpec:
         for scenario in self.scenarios:
             for overrides in self.override_grid:
                 T = self.ticks_for(scenario, overrides)
+                if self.kind == "serving":
+                    overrides = self._resolve_serving_knobs(scenario,
+                                                            overrides)
                 for algo in self.algos:
                     ex = self.executor_of(algo)
                     mi = self.max_iters if ex == "accel" else 0
+                    hz = T if ex == "serving" else 0
                     for seed in self.seeds:
                         for tick in range(T):
                             items.append(WorkItem(scenario, overrides, algo,
-                                                  ex, seed, tick, mi))
+                                                  ex, seed, tick, mi, hz))
         return items
 
     def groups(self) -> "List[Tuple[Tuple[str, Tuple, str], List[WorkItem]]]":
@@ -241,7 +303,9 @@ class SweepSpec:
             [SCHEMA_VERSION, list(self.scenarios), list(self.seeds),
              self.n_ticks, list(self.algos),
              [list(map(list, ov)) for ov in self.override_grid],
-             sorted(self.force_host), self.max_iters],
+             sorted(self.force_host), self.max_iters]
+            # sigma payload unchanged: pre-`kind` fingerprints stay valid
+            + ([self.kind] if self.kind != "sigma" else []),
             separators=(",", ":"))
         return hashlib.sha256(payload.encode()).hexdigest()[:12]
 
@@ -249,11 +313,23 @@ class SweepSpec:
         """Hash over the *reuse-stable* axes only (no seeds, no ticks) —
         the default store-directory name, so extending a sweep to more
         seeds or a longer horizon lands in the same store and resumes
-        item-granularly instead of recomputing from scratch."""
+        item-granularly instead of recomputing from scratch.
+
+        Serving sweeps additionally pin the *resolved* horizon length per
+        grid row: their per-tick values depend on it (see
+        :meth:`WorkItem.key`), so a ``--ticks`` change lands in a fresh
+        store and recomputes — extending ``--seeds`` still reuses, and an
+        explicit ``--ticks`` equal to the scenario default keys the same
+        store as the default."""
+        extra = []
+        if self.kind != "sigma":
+            extra = [self.kind, [self.ticks_for(s, ov)
+                                 for s in self.scenarios
+                                 for ov in self.override_grid]]
         payload = json.dumps(
             [SCHEMA_VERSION, list(self.scenarios), list(self.algos),
              [list(map(list, ov)) for ov in self.override_grid],
-             sorted(self.force_host)],
+             sorted(self.force_host)] + extra,
             separators=(",", ":"))
         return hashlib.sha256(payload.encode()).hexdigest()[:12]
 

@@ -114,13 +114,24 @@ def test_spec_guards():
 
 
 def test_serving_kind_raises_and_never_runs_as_sigma():
-    with pytest.raises(NotImplementedError, match="item"):
-        TSW.SweepSpec(scenarios=("flash_crowd",), algos=("edf",),
-                      kind="serving")
+    """The serving kind raises where the reference's does (a scenario
+    without an arrival process, a placement algorithm as its policy) and
+    never runs as sigma: its items go to the serving executor, keyed as
+    the reference keys them and apart from sigma items."""
+    for mod in (RSW, TSW):
+        with pytest.raises(ValueError):
+            mod.SweepSpec(kind="serving", scenarios=("synthetic",),
+                          algos=("edf",))
+        with pytest.raises(ValueError):
+            mod.SweepSpec(kind="serving", algos=("egp",))
     doc = TSW.SweepSpec(scenarios=("flash_crowd",)).to_json()
     doc.update(kind="serving", algos=["edf"])
-    with pytest.raises(NotImplementedError):
-        TSW.SweepSpec.from_json(doc)
+    spec, rspec = TSW.SweepSpec.from_json(doc), RSW.SweepSpec.from_json(doc)
+    assert {it.executor for it in spec.expand()} == {"serving"}
+    keys = [it.key() for it in spec.expand()]
+    assert keys == [it.key() for it in rspec.expand()]
+    sigma = TSW.SweepSpec(scenarios=("flash_crowd",))
+    assert not {it.key() for it in sigma.expand()} & set(keys)
 
 
 @pytest.mark.parametrize("scenario,overrides", [
@@ -387,42 +398,154 @@ def test_aggregate_tables_byte_identical(host_parity_runs):
 
 
 # ===========================================================================
+# kind="serving": realized QoS through the serving tick
+# ===========================================================================
+
+#: The reference's serving grid (tests/test_horizon.py): the shrunk,
+#: congested scenario, two placer knob settings, both queue policies.
+SERVING_SMALL = {"n_user_slots": 32, "n_services": 8, "max_impls": 3,
+                 "n_edges": 4, "prompt_tokens": 768, "new_tokens": 64,
+                 "max_batch": 4}
+SERVING_GRID = dict(
+    kind="serving", scenarios=("steady", "flash_crowd"), seeds=(0, 1),
+    n_ticks=2, algos=("edf", "fcfs"),
+    override_grid=(tuple(SERVING_SMALL.items()) + (("switching_cost", 0.0),
+                                                   ("stickiness", 0.0)),
+                   tuple(SERVING_SMALL.items()) + (("switching_cost", 2.0),
+                                                   ("stickiness", 3.0))))
+
+
+@pytest.mark.parametrize("table", ["packaged", "none", "pinned"])
+def test_serving_spec_keys_equal_the_reference(table, tmp_path,
+                                               monkeypatch):
+    """Serving item keys, fingerprints and store keys string for string,
+    with the packaged table's knobs baked in, with no table, and with the
+    knobs pinned by the grid."""
+    kw = dict(kind="serving", scenarios=("flash_crowd", "trace_replay",
+                                         "steady"),
+              seeds=(0, 3), algos=("edf", "feedback"),
+              override_grid=({}, {"max_batch": 2}))
+    if table == "none":
+        monkeypatch.setenv("REPRO_TUNING_TABLE", str(tmp_path / "absent"))
+    if table == "pinned":
+        kw = SERVING_GRID
+    tspec, rspec = TSW.SweepSpec(**kw), RSW.SweepSpec(**kw)
+    t_items, r_items = tspec.expand(), rspec.expand()
+    assert [it.key() for it in t_items] == [it.key() for it in r_items]
+    assert [(it.overrides, it.horizon, it.executor) for it in t_items] == \
+        [(it.overrides, it.horizon, it.executor) for it in r_items]
+    assert (tspec.fingerprint(), tspec.store_key()) == \
+        (rspec.fingerprint(), rspec.store_key())
+    baked = [dict(it.overrides).get("switching_cost") for it in t_items]
+    if table == "none":
+        assert set(baked) == {None}
+    else:
+        assert None not in baked
+    assert TSW.SERVING_METRIC_NAMES == RSW.SERVING_METRIC_NAMES
+
+
+@pytest.mark.parametrize("writer", ["ref", "port"])
+def test_serving_store_resumes_across_packages(writer, tmp_path):
+    """A serving store killed in one package is finished by the other and
+    reloaded by both with nothing recomputed; values and per-item metrics
+    are the one-shot run's bytes."""
+    first, second = (RSW, TSW) if writer == "ref" else (TSW, RSW)
+    d = tmp_path / "store"
+    part = first.run_sweep(first.SweepSpec(**SERVING_GRID), store_dir=d,
+                           max_chunks=3)
+    assert part.execution["chunks_computed"] == 3 and not part.complete
+    done = second.run_sweep(second.SweepSpec(**SERVING_GRID), store_dir=d)
+    assert done.complete and done.execution["items_skipped"] == 3 * 2
+    assert done.execution["path"] == "serving"
+    for mod in (TSW, RSW):
+        again = mod.run_sweep(mod.SweepSpec(**SERVING_GRID), store_dir=d)
+        assert again.execution["chunks_computed"] == 0
+        for k, v in done.values.items():
+            assert again.values[k].tobytes() == v.tobytes()
+    fresh = TSW.run_sweep(TSW.SweepSpec(**SERVING_GRID))
+    for k, v in done.values.items():
+        assert fresh.values[k].tobytes() == v.tobytes()
+    t_store, r_store = TSTORE.SweepStore(d), RSTORE.SweepStore(d)
+    for key in t_store.keys():
+        assert t_store.metrics(key) == r_store.metrics(key)
+        assert set(t_store.metrics(key)) == set(TSW.SERVING_METRIC_NAMES)
+    assert TSW.summarize(done)["cells"] == RSW.summarize(done)["cells"]
+
+
+def test_serving_cli_summary_is_the_reference(tmp_path, capsys):
+    from repro.sweeps.cli import main as rmain
+    from repro_torch.sweeps.cli import main as tmain
+
+    small = [a for k, v in SERVING_SMALL.items()
+             for a in ("--override", f"{k}={v}")]
+    args = ["--kind", "serving", "--scenario", "flash_crowd", "--seeds",
+            "0:2", "--ticks", "2", "--no-store", "-q"] + small
+    assert tmain(args + ["--json", str(tmp_path / "t.json")]) == 0
+    t_out = capsys.readouterr().out
+    assert rmain(args + ["--json", str(tmp_path / "r.json")]) == 0
+    assert capsys.readouterr().out == t_out
+    t_doc = json.loads((tmp_path / "t.json").read_text())
+    r_doc = json.loads((tmp_path / "r.json").read_text())
+    assert t_doc["spec"] == r_doc["spec"] and t_doc["spec"]["kind"] == \
+        "serving"
+    # the realized-QoS statistics of every cell (its time ones are wall
+    # clock)
+    assert len(t_doc["cells"]) == 2
+    assert {k: c["sigma"] for k, c in t_doc["cells"].items()} == \
+        {k: c["sigma"] for k, c in r_doc["cells"].items()}
+    with pytest.raises(SystemExit):
+        tmain(["--kind", "serving", "--scenario", "steady", "--no-store",
+               "--validate", "-q"])
+    capsys.readouterr()
+
+
+# ===========================================================================
 # the CLI
 # ===========================================================================
 
 def test_cli_end_to_end_on_the_cpu(tmp_path, capsys):
+    from repro_torch import obs as tobs
     from repro_torch.sweeps.cli import main, parse_seeds
 
     assert parse_seeds("0:4") == (0, 1, 2, 3)
     assert parse_seeds("2,5, 9") == (2, 5, 9)
-    args = ["--scenario", "steady", "--seeds", "0:2", "--ticks", "1",
-            "--algos", "egp,sck", "--override", "n_user_slots=32",
-            "--device", "cpu", "--out", str(tmp_path / "store"), "-q"]
-    rc = main(args + ["--validate", "--json", str(tmp_path / "s.json"),
-                      "--obs", str(tmp_path / "obs.json")])
-    assert rc == 0
-    out = capsys.readouterr().out
-    assert "steady[n_user_slots=32]" in out and "validated" in out
-    summary = json.loads((tmp_path / "s.json").read_text())
-    assert summary["cells"]["steady[n_user_slots=32]/egp"]["sigma"]["n"] == 2
-    assert summary["validate_max_abs_diff"] <= ATOL
-    assert summary["execution"]["backend"] == "cpu"
-    from repro.obs import load_artifact
-    doc = load_artifact(tmp_path / "obs.json")
-    names = {doc["names"][i] for i in doc["spans"]["name"]}
-    assert {"sweep.materialize", "sweep.chunk", "store.add_chunk"} <= names
-    # resume through the CLI is a no-op: the same table, nothing added
-    lines = (tmp_path / "store" / "manifest.jsonl").read_text()
-    assert main(args) == 0
-    assert capsys.readouterr().out.splitlines() == \
-        [s for s in out.splitlines() if not s.startswith("validated")]
-    assert (tmp_path / "store" / "manifest.jsonl").read_text() == lines
-    # --max-chunks 0 computes nothing: validation fails, not vacuously
-    assert main(["--scenario", "steady", "--seeds", "0:2", "--ticks", "1",
-                 "--device", "cpu", "--no-store", "--max-chunks", "0",
-                 "--validate", "-q"]) == 1
-    with pytest.raises(SystemExit) as exc:
-        main(["--scenario", "flash_crowd", "--kind", "serving", "-q",
-              "--no-store"])
-    assert exc.value.code == 2
-    capsys.readouterr()
+    try:
+        args = ["--scenario", "steady", "--seeds", "0:2", "--ticks", "1",
+                "--algos", "egp,sck", "--override", "n_user_slots=32",
+                "--device", "cpu", "--out", str(tmp_path / "store"), "-q"]
+        rc = main(args + ["--validate", "--json", str(tmp_path / "s.json"),
+                          "--obs", str(tmp_path / "obs.json")])
+        assert rc == 0
+        out = capsys.readouterr().out
+        assert "steady[n_user_slots=32]" in out and "validated" in out
+        summary = json.loads((tmp_path / "s.json").read_text())
+        cell = summary["cells"]["steady[n_user_slots=32]/egp"]
+        assert cell["sigma"]["n"] == 2
+        assert summary["validate_max_abs_diff"] <= ATOL
+        assert summary["execution"]["backend"] == "cpu"
+        from repro.obs import load_artifact
+        doc = load_artifact(tmp_path / "obs.json")
+        names = {doc["names"][i] for i in doc["spans"]["name"]}
+        assert {"sweep.materialize", "sweep.chunk",
+                "store.add_chunk"} <= names
+        # resume through the CLI is a no-op: the same table, nothing added
+        lines = (tmp_path / "store" / "manifest.jsonl").read_text()
+        assert main(args) == 0
+        assert capsys.readouterr().out.splitlines() == \
+            [s for s in out.splitlines() if not s.startswith("validated")]
+        assert (tmp_path / "store" / "manifest.jsonl").read_text() == lines
+        # --max-chunks 0 computes nothing: validation fails, not vacuously
+        assert main(["--scenario", "steady", "--seeds", "0:2", "--ticks",
+                     "1", "--device", "cpu", "--no-store", "--max-chunks",
+                     "0", "--validate", "-q"]) == 1
+        # the serving kind runs: realized QoS through the serving tick
+        assert main(["--kind", "serving", "--scenario", "flash_crowd",
+                     "--seeds", "0:2", "--ticks", "2", "--no-store",
+                     "-q"]) == 0
+        out = capsys.readouterr().out
+        assert "flash_crowd" in out and "edf" in out and "fcfs" in out
+    finally:
+        # --obs turns the port's tracer on and the CLI, as the reference's,
+        # leaves it on; a test file run after this one on the same worker
+        # must find it off
+        tobs.disable()
