@@ -45,7 +45,10 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    same inputs; B7 also at the edges of its split-KV plan (empty and
    one-slot splits, a narrow window, ring past an Sc that is no multiple
    of 64, G = 5 and 8), two calls bit-equal, and its device time and
-   SDPA's (torch.profiler) at the smollm and zamba2 serving shapes;
+   SDPA's (torch.profiler) at the smollm and zamba2 serving shapes; both
+   also at the MoE family's serving shapes (hd 128, G = 4 and 16) and at
+   the smoke configs' hd = 16 (the edge cluster's), with their times,
+   bounds and SDPA's;
 7. serving at full width: smollm-360m (32 layers, d=960, 15/5 heads,
    49,152-token vocabulary, random weights from a seed) generates 32
    tokens for 8 prompts of 1,024 tokens through ModelServer, with launch
@@ -64,7 +67,8 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    chunk states, entering states) against the plain chunked scan's
    intermediates, two calls bit-equal, with its time, the plain versions'
    times, its float32 bound and the bound of the work its tensor-core
-   plan runs;
+   plan runs; the same at the smoke configs' P = N = 16 (chunk 8, the
+   float32 small-head launches);
 9. serving mamba2-2.7b at its published widths and full depth (64 Mamba2
    layers, d=2560, 80 heads x 64, N=128, 50,280-token vocabulary) as
    phase 7 does: B8 once per layer per prefill and never in a decode step,
@@ -127,7 +131,27 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    (TICK_DIGESTS), realized QoS, miss rates and the tick span totals
    logged; and a kind="serving" sweep of flash_crowd and edge_failure,
    seeds 0-3, killed after one chunk, resumed and reloaded, bit-identical
-   to a one-shot run.
+   to a one-shot run;
+15. serving the MoE family at its published widths, depth cut to fit one
+   card (MOE_DEPTH: mixtral-8x7b at 4 of 32 layers, 8 experts top-2,
+   d_ff 14,336, SWA 4096; qwen3-moe-235b-a22b at 2 of 94, 128 experts
+   top-8, d_ff 1,536, 64/4 heads) as phase 7 serves smollm: launch counts,
+   every B4/B7 call held, bf16 logits within limits that controls exceed,
+   float32 logits within 1e-4, and layer 0's top-k experts and dropped
+   assignments on the card equal to the CPU's on the same hidden state
+   (but at near ties);
+16. the frontends at full width and depth: hubert-xlarge's forward of 8 x
+   1,024 audio frames (non-causal B4 at hd 80, G = 1) and internvl2-1b's
+   prefill of 1,024 patch embeddings + 512 tokens and 32 decode steps,
+   with the same per-call and logit gates;
+17. the edge cluster: run_serving (the launcher's entry point) on the card
+   at 48 users / 2 edges / 60 GiB and at 24 / 2 / 1,000 GiB, each with
+   edge 0 failing: placement, routing, served/dropped/skipped and requests
+   per model equal to the reference's (CLUSTER_EXPECTED), expected QoS
+   within 1e-6, each resident smoke model's B4/B7/B8 launches per
+   generate, B1 once per placement or routing, realized QoS and the wall
+   time of each request batch; then every kernel call of the same runs
+   held against its plain version.
 
 It prints a JSON line of per-kernel numbers and, last, the device line
 ``{"ok": true, "device": {...}}``. It needs the repository around it and
@@ -178,6 +202,16 @@ BF16_ULPS, BF16_ATOL = 2, 1e-5
 #: max abs difference of float32 logits, the port's model tolerance against
 #: the JAX package (tests/test_torch_models.py).
 F32_LOGITS_TOL = 1e-4
+#: Attention shapes of the MoE family's serving path (label, B, S, Hq,
+#: Hkv, hd): mixtral-8x7b's 32/8 heads (G = 4) and qwen3-moe-235b's 64/4
+#: (G = 16), hd 128, at the serving batch and prompt; and the smoke configs'
+#: hd = 16 at the edge cluster's bucket (4 rows, 16-token prompts): mixtral
+#: and qwen3-moe 4/2, yi 8/2, command-r 8/1, zamba2's shared block 4/4.
+MOE_ATTN_SHAPES = [("mixtral width", SERVE_B, SERVE_PROMPT, 32, 8, 128),
+                   ("qwen3-moe width", SERVE_B, SERVE_PROMPT, 64, 4, 128)]
+SMOKE_ATTN_SHAPES = [("smoke hd=16 G=2", 4, 16, 4, 2, 16),
+                     ("smoke hd=16 G=4", 4, 16, 8, 2, 16),
+                     ("smoke hd=16 G=1", 4, 16, 4, 4, 16)]
 #: Controls of a served model's bf16 logits limit (SERVED): the plain model
 #: with layer 0's attention or SSD output rounded to b mantissa bits (bf16
 #: keeps 7), for each b of CONTROL_SWEEP; the one at CONTROL_BITS must land
@@ -200,7 +234,17 @@ SSD_TOL = 3e-4
 #: In the Mamba stacks the max abs limit tells only a gross fault from
 #: rounding (a control at b = 6 already reads 0.27-0.28 there); the rms
 #: limit resolves one layer at 6 mantissa bits, and the per-call checks
-#: are the fine gate.
+#: are the fine gate. The MoE models' and hubert's controls round every
+#: layer's attention output (control_every=1). H100 readings (kernels vs
+#: plain; control): mixtral (4 layers) max abs 2.527 and 8.969 at b = 2,
+#: rms 0.0619 and 0.184 at b = 6; qwen3-moe (2 layers) 1.586 and 2.869,
+#: rms 0.0604 and 0.103; hubert 0.148 and 0.184, rms 0.0244 and 0.0329 at
+#: b = 2; internvl2 0.108 and 0.536, rms 0.0160 and 0.0448 at b = 3. An
+#: MoE model's bf16 drift is large because a bf16 ulp in the hidden state
+#: can flip a token's top-k experts; in hubert's 48 non-causal layers
+#: rounding noise is as large as a control, so there the per-call and
+#: float32 checks are the gates and the logit limits catch gross faults
+#: only.
 SERVED = {
     "smollm_360m": dict(control=("attention", "decode_attention"),
                         bf16_tol=0.1, bf16_rms=(0.013, 3)),
@@ -208,7 +252,26 @@ SERVED = {
                         bf16_rms=(0.042, 6)),
     "zamba2_2p7b": dict(control=("ssd", "ssd_decode_step"), bf16_tol=0.25,
                         bf16_rms=(0.042, 6)),
+    "mixtral_8x7b": dict(control=("attention", "decode_attention"),
+                         control_every=1, bf16_tol=4.0, bf16_rms=(0.12, 6)),
+    "qwen3_moe_235b": dict(control=("attention", "decode_attention"),
+                           control_every=1, bf16_tol=2.2,
+                           bf16_rms=(0.08, 6)),
+    "hubert_xlarge": dict(control=("attention",), control_every=1,
+                          bf16_tol=0.165, bf16_rms=(0.03, 2)),
+    "internvl2_1b": dict(control=("attention", "decode_attention"),
+                         bf16_tol=0.2, bf16_rms=(0.03, 3)),
 }
+#: Phase 15 serves the MoE family at the serving load with its depth cut
+#: to fit one card in bfloat16 with float32 master weights (mixtral-8x7b's
+#: 32 layers hold 93 GB in bf16 alone; 4 hold about 24 GB in float32;
+#: qwen3-moe-235b's 2 of 94 about 25 GB). Layer 0's routing on the card
+#: may differ from the CPU's only where two of a token's top k + 1 router
+#: probabilities lie within MOE_TIE_GAP.
+MOE_DEPTH = {"mixtral_8x7b": 4, "qwen3_moe_235b": 2}
+MOE_TIE_GAP = 1e-6
+#: Phase 16: internvl2-1b's prompt, patch embeddings then tokens.
+FRONTEND_PATCHES, FRONTEND_TOKENS = 1024, 512
 #: The model-layer dispatchers that launch a kernel on the serving path.
 KERNEL_DISPATCHERS = ("attention", "decode_attention", "ssd")
 #: Training path: steps of the full-size run, batch, sequence length and
@@ -312,6 +375,56 @@ TICK_DIGESTS = {
     ("trace_replay_bursty", "feedback"):
         "584dbdf8ca2359cd0dc371c539d254e60b9332f1507b0a4db3775e01ae6d2c59",
 }
+#: Phase 17, the edge cluster: run_serving at (users, edges, storage GiB)
+#: with edge CLUSTER_FAIL_EDGE failing after the first serve. Storage 60
+#: (the launcher's default) places no MoE or 34-35B model; 1000 places all
+#: ten catalog models. Each case's decisions before and after the failure
+#: as the reference computes them on the CPU (tests/test_torch_cluster.py
+#: recomputes every one from the reference, so they cannot go stale):
+#: the implementations placed on each edge (catalog indices: 0 smollm, 1
+#: zamba2, 2 mamba2, 3 mixtral, 4 yi, 5 gemma2, 6 command-r, 7 qwen3-moe, 8
+#: hubert, 9 internvl2), each user's routed implementation, the served,
+#: dropped and skipped counts, requests per model and the mean expected
+#: QoS (held within QOS_TOL).
+CLUSTER_CASES = ((48, 2, 60.0), (24, 2, 1000.0))
+CLUSTER_FAIL_EDGE = 0
+CLUSTER_EXPECTED = {
+    (48, 2, 60.0): (
+        dict(placed=((0, 1, 5, 8, 9), (0, 1, 2, 8, 9)),
+             assignment=(8, 9, 9, 8, 9, 9, 9, 8, 9, 1, 8, 9, 9, 8, 8, 1, 8,
+                         8, 9, 9, 1, 9, 8, 8, 9, 8, 5, 1, 9, 8, 8, 8, 9, 8,
+                         5, 9, 1, 1, 9, 8, 5, 1, 8, 9, 8, 9, 1, 1),
+             served=48, dropped=0, skipped=0,
+             counts={"gemma2_27b": 3, "hubert_xlarge": 18,
+                     "internvl2_1b": 18, "zamba2_2p7b": 9},
+             expected_qos=0.9164674098681376),
+        dict(placed=((), (0, 1, 2, 8, 9)),
+             assignment=(8, 9, 9, 8, 9, 9, 9, 8, 9, 1, 8, 9, 9, 8, 8, 1, 8,
+                         8, 9, 9, 1, 9, 8, 8, 9, 8, 1, 1, 9, 8, 8, 8, 9, 8,
+                         1, 9, 1, 1, 9, 8, 1, 1, 8, 9, 8, 9, 1, 1),
+             served=48, dropped=0, skipped=0,
+             counts={"hubert_xlarge": 18, "internvl2_1b": 18,
+                     "zamba2_2p7b": 12},
+             expected_qos=0.9065084290665303)),
+    (24, 2, 1000.0): (
+        dict(placed=((0, 1, 2, 3, 4, 5, 6, 7, 8, 9),
+                     (0, 1, 2, 3, 4, 5, 6, 7, 8, 9)),
+             assignment=(7, 9, 3, 8, 7, 7, 8, 8, 8, 7, 1, 7, 7, 9, 8, 8, 7,
+                         8, 9, 8, 8, 9, 9, 9),
+             served=24, dropped=0, skipped=0,
+             counts={"hubert_xlarge": 9, "internvl2_1b": 6,
+                     "mixtral_8x7b": 1, "qwen3_moe_235b": 7,
+                     "zamba2_2p7b": 1},
+             expected_qos=0.9427205702375941),
+        dict(placed=((), (0, 1, 2, 3, 4, 5, 6, 7, 8, 9)),
+             assignment=(7, 9, 1, 8, 7, 3, 8, 8, 8, 3, 1, 7, 1, 9, 8, 8, 7,
+                         8, 9, 8, 8, 9, 9, 9),
+             served=24, dropped=0, skipped=0,
+             counts={"hubert_xlarge": 9, "internvl2_1b": 6,
+                     "mixtral_8x7b": 2, "qwen3_moe_235b": 4,
+                     "zamba2_2p7b": 3},
+             expected_qos=0.9245804250109003)),
+}
 SOURCE = {
     "qos_matrix": "src/repro_torch/csrc/qos_kernels.cu",
     "qos_candidates": "src/repro_torch/csrc/qos_kernels.cu",
@@ -342,7 +455,22 @@ REPLACES = {
 #: and B3's launches on phase 13's sweep, and B2's and B3's on phase 14's
 #: traced tick.
 EXTRA_KEYS = ("device_ms", "library_device_ms", "plan_bound_ms",
-              "plan_bound_by", "note", "sweep_launches", "trace_launches")
+              "plan_bound_by", "note", "sweep_launches", "trace_launches",
+              "shapes", "moe_launches", "frontend_launches",
+              "cluster_launches")
+
+
+def cluster_record(report, assignment) -> dict:
+    """The decisions of one ``EdgeCluster.serve`` (either package's
+    ``ServeReport``) and its router's assignment, in CLUSTER_EXPECTED's
+    form."""
+    return dict(placed=tuple(tuple(int(p) for p in row.nonzero()[0])
+                             for row in report.placement),
+                assignment=tuple(int(a) for a in assignment),
+                served=int(report.served), dropped=int(report.dropped),
+                skipped=int(report.skipped),
+                counts=dict(sorted(report.per_model_counts.items())),
+                expected_qos=float(report.mean_expected_qos))
 
 
 def check(cond: bool, what: str) -> None:
@@ -544,11 +672,14 @@ def phase_build() -> None:
     for (base, dtype, hd), n in sorted(counts.items()):
         log(f"  SASS {base} {dtype} hd={hd}: {n} HMMA/HGMMA")
     for base in TENSOR_CORE_KERNELS:
+        # the forward (B4) also at the smoke configs' hd = 16
+        dims = [16, 32, 64, 80, 128] if base.endswith("fwd") else \
+            [32, 64, 80, 128]
         for dtype in ("bf16", "f32"):
             got = {hd: n for (b, d, hd), n in counts.items()
                    if b == base + "_kernel" and d == dtype}
             want_some = dtype == "bf16"
-            check(sorted(got) == [32, 64, 80, 128]
+            check(sorted(got) == dims
                   and all((n > 0) == want_some for n in got.values()),
                   f"{base} {dtype} tensor-core instructions {got}")
     for base in SSD_PRODUCT_KERNELS:
@@ -558,6 +689,13 @@ def phase_build() -> None:
             "HMMA/HGMMA")
         check(sorted(got) == [64, 128] and all(got.values()),
               f"{base} tensor-core instructions {got}")
+        # the float32 small-head version, P = N = 16, runs no product on
+        # the tensor cores
+        small = base.replace("_kernel", "_small_kernel")
+        got = {name: n for name, n in by_function.items() if small in name}
+        log(f"  SASS {small}: {list(got.values())} HMMA/HGMMA")
+        check(len(got) == 1 and not any(got.values()),
+              f"{small} tensor-core instructions {got}")
 
 
 # ===========================================================================
@@ -1672,7 +1810,13 @@ def phase_attention_kernels(dev) -> dict:
               50.0),
              ("non-causal ragged", 2, 200, 333, 8, 2, 32, False, 0, 0.0),
              ("zamba2 width", SERVE_B, SERVE_PROMPT, SERVE_PROMPT, 32, 32,
-              80, True, 0, 0.0)]
+              80, True, 0, 0.0)] + [
+             (label, 2, SERVE_PROMPT, SERVE_PROMPT, Hq, Hkv, hd, True, 0,
+              0.0) for label, _, _, Hq, Hkv, hd in MOE_ATTN_SHAPES] + [
+             ("smoke hd=16, window", 4, 16, 16, 4, 2, 16, True, 16, 0.0),
+             ("smoke hd=16, G=8", 4, 16, 16, 8, 1, 16, True, 0, 0.0),
+             ("hd=16 non-causal ragged", 2, 100, 100, 4, 4, 16, False, 0,
+              30.0)]
     err = 0.0
     for dtype in ("float32", "bfloat16"):
         for label, B, Sq, Skv, Hq, Hkv, hd, causal, window, cap in cases:
@@ -1713,6 +1857,26 @@ def phase_attention_kernels(dev) -> dict:
         note="bf16: tensor-core products (mma.sync), P split into two bf16 "
              "terms; float32: CUDA-core products")
     del q, k, v
+    # the shapes the MoE family's and the cluster's prefills give it
+    shapes = []
+    for label, B, S, Hq, Hkv, hd in MOE_ATTN_SHAPES + SMOKE_ATTN_SHAPES:
+        q = _randn((B, S, Hq, hd), dt, gen)
+        k = _randn((B, S, Hkv, hd), dt, gen)
+        v = _randn((B, S, Hkv, hd), dt, gen)
+        n_bytes = 2 * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd) \
+            + 4 * B * Hq * S
+        n_ops = 4 * hd * B * Hq * _visible_pairs(S, S, True, 0)
+        b, by = bound_ms(n_bytes, n_ops, BF16_OPS_S)
+        shapes.append(dict(
+            label=label, shape=[B, S, Hq, Hkv, hd],
+            ms=time_ms(lambda: fa.flash_attention_cuda(q, k, v)),
+            plain_ms=time_ms(lambda: fa.attention_ref(q, k, v,
+                                                      return_lse=True)),
+            library_ms=time_ms(lambda: _sdpa(q, k, v, is_causal=True)),
+            bound_ms=b, bound_by=by))
+        log(f"  flash_attention {label} {shapes[-1]}")
+        del q, k, v
+    out["flash_attention"]["shapes"] = shapes
 
     # --- B7 GQA decode ----------------------------------------------------
     # (label, B, Sc, Hkv, G, hd, kv_len, window, ring, softcap); besides the
@@ -1737,7 +1901,15 @@ def phase_attention_kernels(dev) -> dict:
               0.0),
              ("Sc=100, G=8", 3, 100, 1, 8, 128, (100, 37, 0), 0, False, 30.0),
              ("G=5 hd=80", 2, SERVE_SEQ, 2, 5, 80, (1040, 65), 0, False,
-              0.0)]
+              0.0)] + [
+             (label, SERVE_B, SERVE_SEQ, Hkv, Hq // Hkv, hd, main_len, 0,
+              False, 0.0) for label, _, _, Hq, Hkv, hd in MOE_ATTN_SHAPES] + [
+             ("smoke hd=16", 4, 64, 2, 2, 16, (17, 18, 19, 20), 0, False,
+              0.0),
+             ("smoke hd=16 ring", 4, 16, 2, 2, 16, (17, 18, 19, 20), 16,
+              True, 0.0),
+             ("smoke hd=16, G=8", 4, 64, 1, 8, 16, (20, 1, 64, 0), 0, False,
+              30.0)]
     err = 0.0
     for dtype in ("float32", "bfloat16"):
         for label, B, Sc, Hkv, G, hd, lens, window, ring, cap in cases:
@@ -1765,9 +1937,14 @@ def phase_attention_kernels(dev) -> dict:
     # smollm's and zamba2's shapes (bf16); events, and the kernel's device
     # time alone (torch.profiler), beside SDPA's
     timed = {}
-    for label, Hkv, G, hd in (("smollm", 5, 3, 64), ("zamba2", 32, 1, 80)):
-        B, Sc, dt = SERVE_B, SERVE_SEQ, torch.bfloat16
-        lens = [SERVE_PROMPT + SERVE_STEPS // 2] * B
+    decode_shapes = [(label, SERVE_B, SERVE_SEQ, Hkv, G, hd)
+                     for label, Hkv, G, hd in (("smollm", 5, 3, 64),
+                                               ("zamba2", 32, 1, 80))] + [
+        (label, B, SERVE_SEQ if S > 16 else 64, Hkv, Hq // Hkv, hd)
+        for label, B, S, Hq, Hkv, hd in MOE_ATTN_SHAPES + SMOKE_ATTN_SHAPES]
+    for label, B, Sc, Hkv, G, hd in decode_shapes:
+        dt = torch.bfloat16
+        lens = [SERVE_PROMPT + SERVE_STEPS // 2 if Sc > 64 else 18] * B
         q = _randn((B, Hkv * G, hd), dt, gen)
         kc = _randn((B, Sc, Hkv, hd), dt, gen)
         vc = _randn((B, Sc, Hkv, hd), dt, gen)
@@ -1805,7 +1982,11 @@ def phase_attention_kernels(dev) -> dict:
         note=f"{main['splits']} splits a cluster; zamba2 {z['shape']}: "
              f"{z['ms']:.4f} ms events, {z['device_ms']} ms device, bound "
              f"{z['bound_ms']:.4f}, sdpa {z['library_ms']:.4f} ms events, "
-             f"{z['library_device_ms']} ms device")
+             f"{z['library_device_ms']} ms device",
+        shapes=[dict(label=label, **{k: v for k, v in r.items()
+                                     if k != "ops"})
+                for label, r in timed.items()
+                if label not in ("smollm", "zamba2")])
     for name, r in out.items():
         log(f"  {name} {r['shape']} bf16: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -1896,7 +2077,13 @@ def phase_ssd_kernel(dev) -> dict:
               False),
              ("zamba2 serving", SERVE_B, SERVE_PROMPT, 80, 64, 64, 256,
               False),
-             ("ragged, initial state", 1, 300, 1, 64, 128, 256, True)]
+             ("ragged, initial state", 1, 300, 1, 64, 128, 256, True),
+             # the smoke configs' P = N = 16 (chunk 8) at the edge
+             # cluster's bucket: 4 rows, 16-token prompts, 8 heads
+             ("smoke P=N=16", 4, 16, 8, 16, 16, 8, False),
+             ("smoke P=N=16, initial state", 4, 16, 8, 16, 16, 8, True),
+             ("P=N=16, 5 chunks", 2, 40, 8, 16, 16, 8, True),
+             ("P=N=16 ragged", 1, 300, 3, 16, 16, 64, False)]
     rows, err = {}, 0.0
     for label, B, L, H, P, N, chunk, with_init in cases:
         x, dtA, b, c = _ssd_inputs(B, L, H, P, N, gen)
@@ -1952,20 +2139,22 @@ def phase_ssd_kernel(dev) -> dict:
         seq = time_ms(lambda: ss.ssd_scan_ref(x, dtA, b, c, s0))
         n_bytes, n_ops, algo = _ssd_work(B, L, H, P, N, chunk, with_init)
         bnd, by = bound_ms(n_bytes, n_ops)
-        p_bytes, p_ops = _ssd_plan_work(B, L, H, P, N, chunk, with_init)
-        p_bnd, p_by = bound_ms(p_bytes, p_ops, BF16_OPS_S)
         log(f"    kernel {ms:.4f} ms, ssd_chunked {chunked:.4f} ms, "
             f"ssd_scan_ref {seq:.4f} ms, bound {bnd:.4f} ms ({by}: "
-            f"{n_ops / 1e9:.2f} GFLOP {algo} at the float32 peak, "
-            f"{n_bytes / 1e9:.3f} GB); the plan's bound {p_bnd:.4f} ms "
-            f"({p_by}: {p_ops / 1e9:.2f} GFLOP of bf16 products at the "
-            f"tensor-core peak, {p_bytes / 1e9:.3f} GB with the scratch); "
-            f"kernel at {bnd / ms:.3f} of the float32 bound and "
-            f"{p_bnd / ms:.3f} of the plan's")
+            f"{n_ops / 1e9:.4g} GFLOP {algo} at the float32 peak, "
+            f"{n_bytes / 1e9:.4g} GB); kernel at {bnd / ms:.3g} of the "
+            "float32 bound")
         rows[label] = dict(shape=[B, L, H, P, N], ms=ms, plain_ms=chunked,
                            sequential_ms=seq, bound_ms=bnd, bound_by=by,
-                           plan_bound_ms=p_bnd, plan_bound_by=p_by,
                            library_ms=None)
+        if P == 64:   # the tensor-core plan (P = 16 runs float32 loops)
+            p_bytes, p_ops = _ssd_plan_work(B, L, H, P, N, chunk, with_init)
+            p_bnd, p_by = bound_ms(p_bytes, p_ops, BF16_OPS_S)
+            log(f"    the plan's bound {p_bnd:.4f} ms ({p_by}: "
+                f"{p_ops / 1e9:.2f} GFLOP of bf16 products at the "
+                f"tensor-core peak, {p_bytes / 1e9:.3f} GB with the "
+                f"scratch); kernel at {p_bnd / ms:.3f} of the plan's")
+            rows[label].update(plan_bound_ms=p_bnd, plan_bound_by=p_by)
         del x, dtA, b, c
     torch.cuda.empty_cache()
     z = rows["zamba2 serving"]
@@ -1973,17 +2162,21 @@ def phase_ssd_kernel(dev) -> dict:
             f"{z['bound_ms']:.4f} ({z['bound_by']}), plan bound "
             f"{z['plan_bound_ms']:.4f} ({z['plan_bound_by']}), "
             f"ssd_chunked {z['plain_ms']:.4f}")
-    return {"ssd_scan": dict(rows["mamba2 serving"], max_abs_err=err,
-                             note=note)}
+    return {"ssd_scan": dict(
+        rows["mamba2 serving"], max_abs_err=err, note=note,
+        shapes=[dict(label=label, **r) for label, r in rows.items()
+                if label.startswith("smoke")])}
 
 
 # ===========================================================================
 # phases 7, 9, 10: serving a model at full width
 # ===========================================================================
 
-def _teacher_forced(server, toks, new_tokens, use_kernel, cfg=None):
+def _teacher_forced(server, toks, new_tokens, use_kernel, cfg=None,
+                    **front):
     """Prefill logits and every decode step's logits of ``server``'s model
-    (under ``cfg``, by default the server's) fed the prompt and then
+    (under ``cfg``, by default the server's) fed the prompt (after the
+    frontend's ``patches``, where ``front`` holds them) and then
     ``new_tokens`` (``[B, n]``)."""
     import torch
 
@@ -1994,7 +2187,7 @@ def _teacher_forced(server, toks, new_tokens, use_kernel, cfg=None):
                                toks.device)
     with torch.inference_mode():
         logits, cache = T.prefill(server.params, cfg, toks, cache, ring,
-                                  use_kernel)
+                                  use_kernel, **front)
         out = [logits[:, :cfg.vocab_size]]
         for t in range(new_tokens.shape[1]):
             logits, cache = T.decode_step(server.params, cfg,
@@ -2081,18 +2274,178 @@ def _layer0_rounded(n_layers: int, bits: int):
 
 def _kernel_calls(cfg, steps: int) -> dict:
     """Calls of each kernel dispatcher in one generate (prefill + ``steps``
-    decode steps): attention once per attention layer (dense) or shared-
-    block application (hybrid), the SSD scan once per Mamba layer in the
-    prefill and never in a decode step."""
-    n_attn = {"dense": cfg.n_layers, "ssm": 0,
-              "hybrid": cfg.n_layers // max(cfg.shared_attn_every, 1)
-              }[cfg.family]
-    n_mamba = 0 if cfg.family == "dense" else cfg.n_layers
+    decode steps): attention once per attention layer (dense, moe, audio,
+    vlm) or shared-block application (hybrid), the SSD scan once per Mamba
+    layer in the prefill and never in a decode step."""
+    n_attn = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.shared_attn_every,
+                                                       1)
+              }.get(cfg.family, cfg.n_layers)
+    n_mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     return {"attention": n_attn, "decode_attention": n_attn * steps,
             "ssd": n_mamba}
 
 
-def phase_serving(dev, arch: str) -> dict:
+def _moe_routing_gate(p, cfg, x) -> dict:
+    """Layer 0's routing of one prefill's hidden state ``x`` (its MoE
+    input) on the card against the CPU's on the same state: the top-k
+    experts equal except at near ties (two of a token's top k + 1
+    probabilities within MOE_TIE_GAP), and the dropped assignments equal
+    (where a near tie moved an assignment, outside the experts it
+    touches)."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    xs = x.reshape(-1, x.shape[-1])
+    cap = L.moe_capacity(xs.shape[0], cfg)
+    card = L.moe_route(xs, p.router, cfg, cap)
+    router = p.router.detach().cpu()
+    host = L.moe_route(xs.cpu(), router, cfg, cap)
+    probs = torch.softmax(xs.cpu().float() @ router.float(), dim=-1)
+    top = probs.sort(dim=-1, descending=True).values[:, :cfg.top_k + 1]
+    near = (top[:, :-1] - top[:, 1:]).min(dim=-1).values < MOE_TIE_GAP
+    idx, kept = card.idx.cpu(), card.kept.cpu()
+    differ = (idx != host.idx).any(dim=-1)
+    check(bool((near | ~differ).all()),
+          f"MoE layer 0: {int((differ & ~near).sum())} tokens route to "
+          "other experts on the card than on the CPU away from a near tie")
+    moved = torch.unique(torch.cat([idx[differ], host.idx[differ]]))
+    same = ~torch.isin(host.idx, moved) & ~differ[:, None]
+    check(torch.equal(kept[same], host.kept[same]),
+          "MoE layer 0: the card drops other assignments than the CPU")
+    r = dict(moe_tokens=xs.shape[0], moe_capacity=cap,
+             moe_dropped=int((~host.kept).sum()),
+             moe_dropped_card=int((~kept).sum()),
+             moe_idx_differ=int(differ.sum()), moe_near_ties=int(near.sum()))
+    log(f"  MoE layer 0 routing, card vs CPU on the same hidden state: "
+        f"{r['moe_tokens']} tokens x top-{cfg.top_k} of {cfg.n_experts} "
+        f"experts, capacity {cap}; tokens whose experts differ "
+        f"{r['moe_idx_differ']} (near ties below {MOE_TIE_GAP}: "
+        f"{r['moe_near_ties']}); dropped assignments {r['moe_dropped']} "
+        f"(card {r['moe_dropped_card']})")
+    return r
+
+
+def _gate_logits(run, cfg, spec: dict, calls: dict, picks=None) -> dict:
+    """The gates of a served model whose logits ``run(use_kernel, cfg)``
+    gives: every kernel call of a kernel run held against its plain
+    version on its own inputs (bf16 attention within BF16_ULPS, the SSD
+    scan within SSD_TOL of its largest value), as many calls as ``calls``
+    says; the kernel logits finite and, where ``picks`` is given, picking
+    those tokens (all but the last step); an MoE model's layer-0 routing
+    on the card against the CPU's; the bf16 logits within the model's max
+    abs and rms limits (``spec``), which the controls (layer 0's
+    ``spec["control"]`` output rounded to fewer mantissa bits) must
+    exceed; and the float32 logits within F32_LOGITS_TOL."""
+    import torch
+
+    held, first_moe = {}, []
+    held_wrap = _held_against_plain(held)
+
+    def wrap(name, fn):
+        if name != "moe_block":
+            return held_wrap(name, fn)
+
+        def call(p, c, x):
+            if not first_moe:
+                first_moe.append((p, c, x.clone()))
+            return fn(p, c, x)
+        return call
+
+    names = KERNEL_DISPATCHERS + (("moe_block",) if cfg.n_experts else ())
+    with _Patched(wrap, names):
+        kern = run(True, cfg)
+    plain = run(False, cfg)
+    check(bool(torch.isfinite(kern).all()), "kernel logits are finite")
+    if picks is not None:
+        check(torch.equal(kern[:, :-1].argmax(-1), picks),
+              "teacher-forced kernel logits pick the generated tokens")
+    n_held = {n: len(r) for n, r in held.items()}
+    check(n_held == {n: c for n, c in calls.items() if c},
+          f"kernel calls held {n_held}, expected {calls}")
+    out = dict(held=n_held)
+    attn = held.get("attention", []) + held.get("decode_attention", [])
+    if attn:
+        call_err = max(r[0] for r in attn)
+        call_ulps = max(r[1] for r in attn)
+        log(f"  bf16, every attention call of the teacher-forced run "
+            f"({len(attn)} calls) kernel vs plain on its inputs: max abs "
+            f"{call_err:.3g}, max {call_ulps:.3g} ulps beyond {BF16_ATOL} "
+            f"(prefill max abs "
+            f"{max(r[0] for r in held['attention']):.3g})")
+        check(call_ulps <= BF16_ULPS,
+              f"serving attention calls beyond {BF16_ULPS} bf16 ulps + "
+              f"{BF16_ATOL} ({call_ulps:.3g} ulps)")
+        check(call_err <= ATTN_TOL["bfloat16"],
+              f"serving attention calls kernel vs plain max abs {call_err}")
+        out.update(call_err=call_err, call_ulps=call_ulps)
+    if "ssd" in held:
+        ssd_err = max(held["ssd"])
+        log(f"  every SSD scan call of the teacher-forced run "
+            f"({len(held['ssd'])} calls, float32 inputs) kernel vs plain "
+            f"on its inputs: scale-free error max {ssd_err:.3g}, layer 0 "
+            f"{held['ssd'][0]:.3g}")
+        check(ssd_err <= SSD_TOL, f"serving ssd calls kernel vs plain "
+              f"scale-free error {ssd_err}")
+        out.update(ssd_call_err=ssd_err)
+    if first_moe:
+        out.update(_moe_routing_gate(*first_moe[0]))
+        del first_moe[:]
+    drift = _drift(kern, plain)
+    del kern
+    controls = {}
+    every = spec.get("control_every", cfg.n_layers)
+    for bits in CONTROL_SWEEP:
+        with _Patched(_layer0_rounded(every, bits), spec["control"]):
+            ctrl = run(False, cfg)
+        controls[bits] = _drift(ctrl, plain)
+        del ctrl
+    tol = spec["bf16_tol"]
+    rms_tol, rms_bits = spec["bf16_rms"]
+    log(f"  bf16 logits, kernels vs plain: max abs "
+        f"{drift[0]:.4g}, rms {drift[1]:.4g} (limits {tol} max abs and "
+        f"{rms_tol} rms, which the controls b={CONTROL_BITS} and "
+        f"b={rms_bits} must exceed; |logits| up to "
+        f"{float(plain.abs().max()):.3g}, rms "
+        f"{float(plain.float().pow(2).mean().sqrt()):.4g})")
+    which = "layer 0's" if every == cfg.n_layers else "every layer's"
+    log(f"  control, the plain model with {which} {spec['control'][0]} "
+        "output rounded to b mantissa bits, vs plain: " + ", ".join(
+            f"b={b} max abs {e[0]:.4g} rms {e[1]:.4g}"
+            for b, e in controls.items()))
+    check(drift[0] <= tol,
+          f"bf16 serving logits kernels vs plain max abs {drift[0]}")
+    check(controls[CONTROL_BITS][0] > tol,
+          f"control b={CONTROL_BITS} max abs {controls[CONTROL_BITS][0]} "
+          f"within the limit {tol}: it does not separate")
+    check(drift[1] <= rms_tol,
+          f"bf16 serving logits kernels vs plain rms {drift[1]}")
+    check(controls[rms_bits][1] > rms_tol,
+          f"control b={rms_bits} rms {controls[rms_bits][1]} within the "
+          f"limit {rms_tol}: it does not separate")
+    out.update(bf16_logits_err=drift[0], bf16_logits_rms=drift[1],
+               control_err=controls[CONTROL_BITS][0],
+               control_rms=controls[rms_bits][1])
+    del plain
+    cfg32 = cfg.with_(dtype="float32")
+    kern = run(True, cfg32)
+    plain = run(False, cfg32)
+    per_pos = (kern - plain).abs().amax(dim=(0, 2))
+    err = float(per_pos.max())
+    log(f"  float32 logits, kernels vs plain: max abs {err:.3g} (first "
+        f"position {float(per_pos[0]):.3g}, worst {int(per_pos.argmax())}); "
+        f"|logits| up to {float(kern.abs().max()):.3g}")
+    check(err <= F32_LOGITS_TOL,
+          f"float32 serving logits kernels vs plain max abs {err}")
+    out.update(f32_logits_err=err)
+    del kern, plain
+    return out
+
+
+def phase_serving(dev, arch: str, n_layers=None) -> dict:
+    """One generate of ``arch`` at its published widths (its depth cut to
+    ``n_layers`` where given), counted, then ``_gate_logits`` and the
+    device time by kernel."""
     import numpy as np
     import torch
 
@@ -2102,7 +2455,8 @@ def phase_serving(dev, arch: str) -> dict:
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.serving import ModelServer
 
-    cfg = get_config(arch)
+    full_depth = get_config(arch).n_layers
+    cfg = get_config(arch, **({"n_layers": n_layers} if n_layers else {}))
     spec = SERVED[arch]
     t0 = time.perf_counter()
     server = ModelServer(cfg, bucket_batch=SERVE_B, bucket_seq=SERVE_SEQ,
@@ -2110,11 +2464,16 @@ def phase_serving(dev, arch: str) -> dict:
     n_params = sum(p.numel() for p in server.params.parameters())
     server.warmup()
     torch.cuda.synchronize()
-    log(f"  {cfg.name} ({cfg.family}): {cfg.n_layers} layers, "
-        f"d={cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
-        f"hd={cfg.head_dim}, ssm {cfg.ssm_heads}x{cfg.ssm_head_dim} N="
-        f"{cfg.ssm_state}, vocab {cfg.vocab_size}, {n_params} parameters "
-        f"({cfg.param_dtype} master, {cfg.dtype} compute); init + warmup "
+    depth = (f"{cfg.n_layers} layers" if cfg.n_layers == full_depth else
+             f"{cfg.n_layers} of its {full_depth} layers (depth cut: the "
+             "full model does not fit one card)")
+    moe = (f", {cfg.n_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}, "
+           f"capacity factor {cfg.capacity_factor}" if cfg.n_experts else "")
+    log(f"  {cfg.name} ({cfg.family}): {depth}, d={cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd={cfg.head_dim}{moe}, "
+        f"ssm {cfg.ssm_heads}x{cfg.ssm_head_dim} N={cfg.ssm_state}, vocab "
+        f"{cfg.vocab_size}, {n_params} parameters ({cfg.param_dtype} "
+        f"master, {cfg.dtype} compute); init + warmup "
         f"{time.perf_counter() - t0:.1f} s")
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT))
@@ -2155,90 +2514,13 @@ def phase_serving(dev, arch: str) -> dict:
     # at the model's limit, which the control must exceed.
     toks = torch.from_numpy(prompts).to(dev)
     new = torch.from_numpy(tokens.astype(np.int64)).to(dev)
-    held = {}
-    with _Patched(_held_against_plain(held), KERNEL_DISPATCHERS):
-        kern = _teacher_forced(server, toks, new, True)
-    plain = _teacher_forced(server, toks, new, False)
-    check(bool(torch.isfinite(kern).all()), "kernel logits are finite")
-    check(torch.equal(kern[:, :-1].argmax(-1), new),
-          "teacher-forced kernel logits pick the generated tokens")
-    n_held = {n: len(r) for n, r in held.items()}
-    check(n_held == {n: c for n, c in calls.items() if c},
-          f"kernel calls held {n_held}, expected {calls}")
     out = dict(prefill_ms=1e3 * prefill_s, new_tokens_per_s=new_tok_s,
-               peak_gb=peak_gb, held=n_held,
+               peak_gb=peak_gb, n_layers=cfg.n_layers,
                launches={k: launches[k] for k, n in expect.items() if n})
-    attn = held.get("attention", []) + held.get("decode_attention", [])
-    if attn:
-        call_err = max(r[0] for r in attn)
-        call_ulps = max(r[1] for r in attn)
-        log(f"  bf16, every attention call of the teacher-forced run "
-            f"({len(attn)} calls) kernel vs plain on its inputs: max abs "
-            f"{call_err:.3g}, max {call_ulps:.3g} ulps beyond {BF16_ATOL} "
-            f"(prefill max abs "
-            f"{max(r[0] for r in held['attention']):.3g})")
-        check(call_ulps <= BF16_ULPS,
-              f"serving attention calls beyond {BF16_ULPS} bf16 ulps + "
-              f"{BF16_ATOL} ({call_ulps:.3g} ulps)")
-        check(call_err <= ATTN_TOL["bfloat16"],
-              f"serving attention calls kernel vs plain max abs {call_err}")
-        out.update(call_err=call_err, call_ulps=call_ulps)
-    if "ssd" in held:
-        ssd_err = max(held["ssd"])
-        log(f"  every SSD scan call of the teacher-forced run "
-            f"({len(held['ssd'])} calls, float32 inputs) kernel vs plain "
-            f"on its inputs: scale-free error max {ssd_err:.3g}, layer 0 "
-            f"{held['ssd'][0]:.3g}")
-        check(ssd_err <= SSD_TOL, f"serving ssd calls kernel vs plain "
-              f"scale-free error {ssd_err}")
-        out.update(ssd_call_err=ssd_err)
-    drift = _drift(kern, plain)
-    del kern
-    controls = {}
-    for bits in CONTROL_SWEEP:
-        with _Patched(_layer0_rounded(cfg.n_layers, bits), spec["control"]):
-            ctrl = _teacher_forced(server, toks, new, False)
-        controls[bits] = _drift(ctrl, plain)
-        del ctrl
-    tol = spec["bf16_tol"]
-    rms_tol, rms_bits = spec["bf16_rms"]
-    log(f"  bf16 teacher-forced logits, kernels vs plain: max abs "
-        f"{drift[0]:.4g}, rms {drift[1]:.4g} (limits {tol} max abs and "
-        f"{rms_tol} rms, which the controls b={CONTROL_BITS} and "
-        f"b={rms_bits} must exceed; |logits| up to "
-        f"{float(plain.abs().max()):.3g}, rms "
-        f"{float(plain.float().pow(2).mean().sqrt()):.4g})")
-    log(f"  control, the plain model with layer 0's {spec['control'][0]} "
-        "output rounded to b mantissa bits, vs plain: " + ", ".join(
-            f"b={b} max abs {e[0]:.4g} rms {e[1]:.4g}"
-            for b, e in controls.items()))
-    check(drift[0] <= tol,
-          f"bf16 serving logits kernels vs plain max abs {drift[0]}")
-    check(controls[CONTROL_BITS][0] > tol,
-          f"control b={CONTROL_BITS} max abs {controls[CONTROL_BITS][0]} "
-          f"within the limit {tol}: it does not separate")
-    check(drift[1] <= rms_tol,
-          f"bf16 serving logits kernels vs plain rms {drift[1]}")
-    check(controls[rms_bits][1] > rms_tol,
-          f"control b={rms_bits} rms {controls[rms_bits][1]} within the "
-          f"limit {rms_tol}: it does not separate")
-    out.update(bf16_logits_err=drift[0], bf16_logits_rms=drift[1],
-               control_err=controls[CONTROL_BITS][0],
-               control_rms=controls[rms_bits][1])
-    del plain
-    cfg32 = cfg.with_(dtype="float32")
-    kern = _teacher_forced(server, toks, new, True, cfg32)
-    plain = _teacher_forced(server, toks, new, False, cfg32)
-    per_step = (kern - plain).abs().amax(dim=(0, 2))
-    err = float(per_step.max())
-    log(f"  float32 teacher-forced logits, kernels vs plain: max abs "
-        f"{err:.3g} (prefill {float(per_step[0]):.3g}, worst step "
-        f"{int(per_step.argmax())}); |logits| up to "
-        f"{float(kern.abs().max()):.3g}")
-    check(err <= F32_LOGITS_TOL,
-          f"float32 serving logits kernels vs plain max abs {err}")
-    out.update(f32_logits_err=err)
-    del kern, plain
+    out.update(_gate_logits(
+        lambda use_kernel, c: _teacher_forced(server, toks, new, use_kernel,
+                                              c),
+        cfg, spec, calls, picks=new))
 
     # where the time goes: device time by kernel of the prefill and of four
     # decode steps after it, against generate's wall time per step
@@ -2269,6 +2551,275 @@ def phase_serving(dev, arch: str) -> dict:
     torch.cuda.empty_cache()
     out.update(decode_ms_per_step=step_wall, decode_busy_ms=step_busy,
                decode_b7_ms=step_b7)
+    return out
+
+
+
+# ===========================================================================
+# phase 16: the audio and vision frontends at full width and depth
+# ===========================================================================
+
+def phase_frontends(dev) -> dict:
+    """hubert-xlarge's forward of SERVE_B x SERVE_PROMPT audio frames
+    (non-causal B4 at hd 80, G = 1, once per layer) and internvl2-1b's
+    prefill of FRONTEND_PATCHES patch embeddings + FRONTEND_TOKENS tokens
+    followed by SERVE_STEPS greedy decode steps (B4 once per layer, B7 once
+    per layer per step), counted and timed, then ``_gate_logits``."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import transformer as T
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for mod in (fa, gd, ss):
+            mod.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, {
+            **fa.LAUNCHES, **gd.LAUNCHES, **ss.LAUNCHES}
+
+    def expected(cfg, steps):
+        calls = _kernel_calls(cfg, steps)
+        return calls, {"flash_attention": calls["attention"],
+                       "flash_attention_dq": 0, "flash_attention_dkv": 0,
+                       "gqa_decode": calls["decode_attention"],
+                       "ssd_scan": 0}
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    # --- hubert-xlarge: the encoder's forward over audio frames -------------
+    cfg = get_config("hubert_xlarge")
+    model = T.init_params(cfg, gen)
+    frames = torch.randn((SERVE_B, SERVE_PROMPT, cfg.d_model),
+                         generator=gen, device=dev)
+
+    def encode(use_kernel, c):
+        with torch.inference_mode():
+            h = T.forward(model, c, None, use_kernel, frames=frames)
+            return T.logits_fn(model, c, h)[..., :c.vocab_size]
+
+    log(f"  {cfg.name} (audio, encoder-only, causal={cfg.causal}): "
+        f"{cfg.n_layers} layers, d={cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads, hd={cfg.head_dim}, head {cfg.vocab_size}; "
+        f"{sum(p.numel() for p in model.parameters())} parameters")
+    encode(None, cfg)
+    logits, wall, launches = counted(lambda: encode(None, cfg))
+    calls, expect = expected(cfg, 0)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"  forward of {SERVE_B}x{SERVE_PROMPT} frames: {1e3 * wall:.2f} ms "
+        f"wall, {SERVE_B * SERVE_PROMPT / wall:.0f} frames/s, peak "
+        f"{peak:.2f} GB; launches {launches} (expected {expect})")
+    check(launches == expect, f"hubert launches {launches} != {expect}")
+    check(logits.shape == (SERVE_B, SERVE_PROMPT, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "hubert logits")
+    out["hubert_xlarge"] = dict(forward_ms=1e3 * wall, peak_gb=peak,
+                                launches={"flash_attention": cfg.n_layers})
+    out["hubert_xlarge"].update(
+        _gate_logits(encode, cfg, SERVED["hubert_xlarge"], calls))
+    del model, frames, logits
+    torch.cuda.empty_cache()
+
+    # --- internvl2-1b: patches + tokens, then greedy decode -----------------
+    cfg = get_config("internvl2_1b")
+    model = T.init_params(cfg, gen)
+    patches = torch.randn((SERVE_B, FRONTEND_PATCHES, cfg.d_model),
+                          generator=gen, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (SERVE_B, FRONTEND_TOKENS))).to(dev)
+    V = cfg.vocab_size
+
+    def generate(steps):
+        with torch.inference_mode():
+            cache, ring = T.init_cache(cfg, SERVE_B, SERVE_SEQ, dev)
+            logits, cache = T.prefill(model, cfg, toks, cache, ring,
+                                      patches=patches)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tok, new = logits[:, :V].argmax(-1), []
+            for _ in range(steps):
+                new.append(tok)
+                logits, cache = T.decode_step(model, cfg, tok, cache, ring)
+                tok = logits[:, :V].argmax(-1)
+            torch.cuda.synchronize()
+            return torch.stack(new, 1), time.perf_counter() - t1
+
+    log(f"  {cfg.name} (vision): {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd={cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}; {sum(p.numel() for p in model.parameters())} "
+        "parameters")
+    generate(1)
+    (new, decode_s), wall, launches = counted(lambda: generate(SERVE_STEPS))
+    calls, expect = expected(cfg, SERVE_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    prefill_s = wall - decode_s
+    log(f"  prefill of {SERVE_B} x ({FRONTEND_PATCHES} patches + "
+        f"{FRONTEND_TOKENS} tokens) {1e3 * prefill_s:.2f} ms, decode "
+        f"{1e3 * decode_s / SERVE_STEPS:.3f} ms/step ({SERVE_STEPS} steps), "
+        f"{SERVE_B * SERVE_STEPS / decode_s:.1f} new tokens/s, peak "
+        f"{peak:.2f} GB; launches {launches} (expected {expect})")
+    check(launches == expect, f"internvl2 launches {launches} != {expect}")
+    check(bool(((new >= 0) & (new < V)).all()), "internvl2 tokens")
+    out["internvl2_1b"] = dict(
+        prefill_ms=1e3 * prefill_s, decode_ms_per_step=1e3 * decode_s
+        / SERVE_STEPS, new_tokens_per_s=SERVE_B * SERVE_STEPS / decode_s,
+        peak_gb=peak, launches={k: v for k, v in launches.items() if v})
+    server = types.SimpleNamespace(params=model, cfg=cfg,
+                                   bucket_seq=SERVE_SEQ)
+    out["internvl2_1b"].update(_gate_logits(
+        lambda use_kernel, c: _teacher_forced(server, toks, new, use_kernel,
+                                              c, patches=patches),
+        cfg, SERVED["internvl2_1b"], calls, picks=new))
+    del model, patches, server
+    torch.cuda.empty_cache()
+    return out
+
+
+# ===========================================================================
+# phase 17: the edge cluster
+# ===========================================================================
+
+def phase_cluster(dev) -> dict:
+    """``run_serving`` (the launcher's entry point) on the card at each
+    CLUSTER_CASES point with edge CLUSTER_FAIL_EDGE failing: the
+    decisions equal CLUSTER_EXPECTED (the expected QoS within QOS_TOL);
+    B1 once per placement and routing; each generate of a resident
+    (smoke-config) model launches B4, B7 and B8 as its family calls them;
+    the realized QoS and each batch's wall time logged. Then the same runs
+    with every B4/B7/B8 call held against its plain version on its own
+    inputs."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.kernels import qos_matrix as qm
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.serving import engine, router
+
+    mods = (fa, gd, ss, qm)
+
+    def counts():
+        return {**fa.LAUNCHES, **gd.LAUNCHES, **ss.LAUNCHES, **qm.LAUNCHES}
+
+    route, generate = router.Router.route, engine.ModelServer.generate
+    out, total = {}, {}
+    for case in CLUSTER_CASES:
+        U, E, R = case
+        routes, batches = [], []
+
+        def routed(self, *args, **kw):
+            routes.append(route(self, *args, **kw))
+            return routes[-1]
+
+        def timed(self, prompts, n_steps=8):
+            before = counts()
+            t0 = time.perf_counter()
+            res = generate(self, prompts, n_steps)
+            wall = time.perf_counter() - t0
+            after = counts()
+            batches.append((self.cfg, len(prompts), n_steps, wall,
+                            {k: after[k] - before[k] for k in after}))
+            return res
+
+        router.Router.route, engine.ModelServer.generate = routed, timed
+        try:
+            torch.cuda.synchronize()
+            for mod in mods:
+                mod.reset_launch_counts()
+            t0 = time.perf_counter()
+            reports = run_serving(U, E, storage=R,
+                                  fail_edge=CLUSTER_FAIL_EDGE, device=dev)
+            wall = time.perf_counter() - t0
+            launches = counts()
+        finally:
+            router.Router.route, engine.ModelServer.generate = route, generate
+        check(len(routes) == 2, f"cluster {case}: {len(routes)} routings")
+        for i, (rep, dec, want) in enumerate(zip(reports, routes,
+                                                 CLUSTER_EXPECTED[case])):
+            got = cluster_record(rep, dec.assignment)
+            e_qos = abs(got["expected_qos"] - want["expected_qos"])
+            log(f"  cluster {case} serve {i}: placed {got['placed']}, "
+                f"served {rep.served} dropped {rep.dropped} skipped "
+                f"{rep.skipped}, expected QoS {rep.mean_expected_qos:.6f} "
+                f"({e_qos:.2g} from the reference), realized QoS "
+                f"{rep.mean_realized_qos:.6f}, {rep.total_wall_s:.3f} s")
+            check(e_qos <= QOS_TOL, f"cluster {case} serve {i} expected QoS "
+                  f"{got['expected_qos']} vs {want['expected_qos']}")
+            for key in ("placed", "assignment", "served", "dropped",
+                        "skipped", "counts"):
+                check(got[key] == want[key], f"cluster {case} serve {i} "
+                      f"{key}: {got[key]} != {want[key]}")
+        by_model = {}
+        for cfg, b, steps, t, d in batches:
+            calls = _kernel_calls(cfg, steps)
+            want = {"flash_attention": calls["attention"],
+                    "gqa_decode": calls["decode_attention"],
+                    "ssd_scan": calls["ssd"]}
+            got = {k: d[k] for k in want}
+            check(got == want, f"cluster {case} {cfg.name} generate "
+                  f"launches {got} != {want}")
+            check(d["qos_matrix"] == 0 and d["flash_attention_dq"] == 0,
+                  f"cluster {case} {cfg.name}: other launches {d}")
+            m = by_model.setdefault(cfg.name, dict(batches=0, requests=0,
+                                                   ms=[], launches={}))
+            m["batches"] += 1
+            m["requests"] += b
+            m["ms"].append(1e3 * t)
+            for k, v in got.items():
+                m["launches"][k] = m["launches"].get(k, 0) + v
+        # B1 once per placement and routing: two serves and the failure's
+        # re-placement
+        check(launches["qos_matrix"] == 5,
+              f"cluster {case}: {launches['qos_matrix']} B1 launches")
+        batch_ms = [1e3 * t for *_, t, _ in batches]
+        log(f"  cluster {case}: run_serving {wall:.3f} s wall; "
+            f"{len(batches)} request batches, wall per batch median "
+            f"{statistics.median(batch_ms):.2f} ms (min {min(batch_ms):.2f}, "
+            f"max {max(batch_ms):.2f}); launches {launches}")
+        for name, m in sorted(by_model.items()):
+            log(f"    {name}: {m['batches']} batches, {m['requests']} "
+                f"requests, ms per batch {statistics.median(m['ms']):.2f} "
+                f"median, launches {m['launches']}")
+        out[case] = dict(wall_s=wall, realized_qos=[
+            r.mean_realized_qos for r in reports], batch_ms=batch_ms,
+            by_model={n: dict(m, ms=statistics.median(m["ms"]))
+                      for n, m in by_model.items()})
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+        # every kernel call of the same run held against its plain version
+        held = {}
+        with _Patched(_held_against_plain(held), KERNEL_DISPATCHERS):
+            run_serving(U, E, storage=R, fail_edge=CLUSTER_FAIL_EDGE,
+                        verbose=False, device=dev)
+        n_held = {n: len(r) for n, r in held.items()}
+        want_held = {"attention": launches["flash_attention"],
+                     "decode_attention": launches["gqa_decode"],
+                     "ssd": launches["ssd_scan"]}
+        check(n_held == {k: v for k, v in want_held.items() if v},
+              f"cluster {case}: calls held {n_held} != {want_held}")
+        attn = held.get("attention", []) + held.get("decode_attention", [])
+        ulps = max(r[1] for r in attn)
+        ssd_err = max(held.get("ssd", [0.0]))
+        log(f"  cluster {case}: every kernel call held against its plain "
+            f"version on its inputs ({n_held}): attention max "
+            f"{max(r[0] for r in attn):.3g} abs, {ulps:.3g} ulps beyond "
+            f"{BF16_ATOL}; SSD scale-free {ssd_err:.3g}")
+        check(ulps <= BF16_ULPS, f"cluster {case} attention calls {ulps} "
+              "ulps")
+        check(ssd_err <= SSD_TOL, f"cluster {case} ssd calls {ssd_err}")
+        out[case].update(held=n_held, call_ulps=ulps, ssd_call_err=ssd_err)
+    out["launches"] = total
     return out
 
 
@@ -2795,6 +3346,27 @@ def main() -> int:
     ticked = phase_serving_tick(dev, inst, main_path)
     log(f"  phase 14 took {time.perf_counter() - t14:.1f} s; chip_smoke so "
         f"far {time.perf_counter() - t_start:.1f} s")
+    log("phase 15: serving the MoE family at full width, depth cut "
+        f"({MOE_DEPTH})")
+    t15 = time.perf_counter()
+    moe = {}
+    for arch, depth in MOE_DEPTH.items():
+        log(f"phase 15: serving {arch} ({depth} layers), {SERVE_B} prompts "
+            f"x {SERVE_PROMPT} tokens, {SERVE_STEPS} new tokens")
+        moe[arch] = phase_serving(dev, arch, depth)
+    log(f"  phase 15 took {time.perf_counter() - t15:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - t_start:.1f} s")
+    log("phase 16: the audio and vision frontends at full width and depth")
+    t16 = time.perf_counter()
+    fronts = phase_frontends(dev)
+    log(f"  phase 16 took {time.perf_counter() - t16:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - t_start:.1f} s")
+    log(f"phase 17: the edge cluster (run_serving at {CLUSTER_CASES}, edge "
+        f"{CLUSTER_FAIL_EDGE} failing)")
+    t17 = time.perf_counter()
+    cluster = phase_cluster(dev)
+    log(f"  phase 17 took {time.perf_counter() - t17:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on its slice's main path: B4/B7 serving
     # smollm-360m, B8 serving mamba2-2.7b, B5/B6 training smollm-360m
     launches = {**main_path["launches"],
@@ -2816,6 +3388,15 @@ def main() -> int:
             row["sweep_launches"] = swept["fig3"]["launches"][row["name"]]
         if row["name"] in ("qos_candidates", "greedy_argmax"):
             row["trace_launches"] = ticked["trace"]["launches"][row["name"]]
+        if row["name"] in ("flash_attention", "gqa_decode"):
+            row["moe_launches"] = {a: r["launches"][row["name"]]
+                                   for a, r in moe.items()}
+            row["frontend_launches"] = {
+                a: r["launches"].get(row["name"], 0)
+                for a, r in fronts.items()}
+        if row["name"] in ("qos_matrix", "flash_attention", "gqa_decode",
+                           "ssd_scan"):
+            row["cluster_launches"] = cluster["launches"][row["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,10 +17,10 @@ and the training of the dense family:
   (``csrc/ssd_scan.cu``) and their plain versions;
 * :mod:`repro_torch.workloads` — ``evaluate_sparse`` / ``evaluate_host``;
 * :mod:`repro_torch.configs`, :mod:`repro_torch.models` — the model
-  configs and the dense, ssm and hybrid families (prefill, decode, caches,
-  the training loss);
-* :mod:`repro_torch.serving` — the OMS request router and the model
-  server;
+  configs and every family (dense, MoE, ssm, hybrid, the audio and vision
+  frontends: prefill, decode, caches, the training loss);
+* :mod:`repro_torch.serving`, :mod:`repro_torch.launch.serve` — the OMS
+  request router, the model server, the edge cluster and its launcher;
 * :mod:`repro_torch.training`, :mod:`repro_torch.data`,
   :mod:`repro_torch.checkpoint`, :mod:`repro_torch.launch.train` — AdamW,
   the training step (attention's backward through the flash-attention

@@ -7,8 +7,8 @@ NumPy arrays (the two packages never import each other).
 * :func:`placement_to_numpy` — a port placement as an ``[E, P]`` bool
   array the reference's host oracles (``sigma_np``) can score;
 * :func:`model_params_from_jax` — the reference's model parameter tree
-  (``init_params`` output of the dense, ssm or hybrid family, stacked
-  ``[L, ...]`` leaves, as NumPy) as the port's
+  (``init_params`` output of any family, stacked ``[L, ...]`` leaves, as
+  NumPy) as the port's
   :class:`~repro_torch.models.LM` (any tree shaped like it, such as its
   gradients, converts the same way);
 * :func:`train_state_from_jax` — a reference ``TrainState`` (params, AdamW
@@ -73,14 +73,16 @@ def placement_to_numpy(x: Union[torch.Tensor, np.ndarray]) -> np.ndarray:
 
 def model_params_from_jax(cfg: ModelConfig, tree: Dict,
                           device: Union[str, torch.device] = "cpu") -> LM:
-    """The reference's parameter tree — ``{"embed": {"tok"}, "layers":
-    {"ln1": {"scale"}, "attn": {"wq", …}, "ln2", "mlp": {…}, ["ln_pa",
-    "ln_pf"]}}`` (dense), ``{"mamba": {"block": {"in_proj", …}, "ln":
-    {"scale"}}}`` (ssm), the same plus ``{"shared": {"ln1", "attn", "ln2",
-    "mlp"}}`` (hybrid), then ``"final_norm": {"scale"}, ["head"]`` — with
+    """The reference's parameter tree — ``{"embed": {"tok", ["frame_in"
+    | "patch_in"]}, "layers": {"ln1": {"scale"}, "attn": {"wq", …},
+    "ln2", "mlp" | "moe": {…}, ["ln_pa", "ln_pf"]}}`` (dense, moe, audio,
+    vlm), ``{"mamba": {"block": {"in_proj", …}, "ln": {"scale"}}}`` (ssm),
+    the same plus ``{"shared": {"ln1", "attn", "ln2", "mlp"}}`` (hybrid),
+    then ``"final_norm": {"scale"}, ["head"]`` — with
     stacked ``[L, ...]`` leaves, as NumPy arrays, as an :class:`LM` on
     ``device``, in ``cfg.param_dtype`` (the Mamba blocks' ``A_log``,
-    ``D_skip`` and ``dt_bias`` stay float32, as in the reference)."""
+    ``D_skip`` and ``dt_bias`` and the MoE router stay float32, as in the
+    reference)."""
     pdt = L.torch_dtype(cfg.param_dtype)
 
     def t(a, dtype=pdt) -> torch.Tensor:
@@ -88,13 +90,19 @@ def model_params_from_jax(cfg: ModelConfig, tree: Dict,
             device=device, dtype=dtype)
 
     def dense_layer(lt, i: int, post_norms: bool) -> DenseLayer:
-        at, mt = lt["attn"], lt["mlp"]
+        at = lt["attn"]
         attn = L.Attention(*(t(at[n][i]) for n in ("wq", "wk", "wv", "wo")))
-        mlp = L.MLP(*(t(mt[n][i]) for n in ("w_gate", "w_up", "w_down")))
+        if "moe" in lt:
+            mt = lt["moe"]
+            ffn = L.MoE(t(mt["router"][i], torch.float32),
+                        *(t(mt[n][i]) for n in ("w_gate", "w_up", "w_down")))
+        else:
+            ffn = L.MLP(*(t(lt["mlp"][n][i])
+                          for n in ("w_gate", "w_up", "w_down")))
         post = ((t(lt["ln_pa"]["scale"][i]), t(lt["ln_pf"]["scale"][i]))
                 if post_norms else (None, None))
         return DenseLayer(t(lt["ln1"]["scale"][i]), attn,
-                          t(lt["ln2"]["scale"][i]), mlp, *post)
+                          t(lt["ln2"]["scale"][i]), ffn, *post)
 
     def mamba_layer(mt, i: int) -> MambaLayer:
         bt = mt["block"]
@@ -115,6 +123,9 @@ def model_params_from_jax(cfg: ModelConfig, tree: Dict,
     if "shared" in tree:
         parts["shared"] = [dense_layer(tree["shared"], i, False)
                            for i in range(cfg.n_shared_blocks)]
+    for name in ("frame_in", "patch_in"):
+        if name in tree["embed"]:
+            parts[name] = t(tree["embed"][name])
     head = t(tree["head"]) if "head" in tree else None
     return LM(t(tree["embed"]["tok"]), t(tree["final_norm"]["scale"]), head,
               **parts)

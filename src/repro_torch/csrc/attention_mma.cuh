@@ -18,8 +18,8 @@
 // Tiles live in shared memory as rows of HD bf16 values padded by 8 (16
 // bytes): the 8 rows an ldmatrix phase reads then start 16 bytes apart
 // modulo 128 and hit distinct banks at every head dim the kernels take
-// (32, 64, 80, 128; an 80-wide row is 160 bytes, which no 128-byte swizzle
-// fits).
+// (16, 32, 64, 80, 128; an 80-wide row is 160 bytes, which no 128-byte
+// swizzle fits, a 16-wide one 48).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -13,7 +13,9 @@
 //
 // What bounds it: at the prefill shapes (Sq = Skv = 1024, hd = 64) it does
 // about 128 operations per byte it must move, so the tensor cores are the
-// limit.
+// limit. Head widths 16 (the smoke configs an edge cluster serves), 32,
+// 64, 80 and 128 are compiled; at 16 a query tile's q k^T is one k-chunk
+// and its output two n-tiles.
 //
 // bfloat16 (flash_attention_fwd_mma_kernel): the tile products run on the
 // tensor cores, mma.sync m16n8k16 bf16 x bf16 -> f32 with ldmatrix
@@ -444,6 +446,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 16:
+      return launch<16>(is_bf16, q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
+                        causal, window, softcap, s);
     case 32:
       return launch<32>(is_bf16, q, k, v, out, lse, B, Sq, Skv, Hq, Hkv,
                         causal, window, softcap, s);

@@ -70,7 +70,7 @@ constexpr int kUnroll = 4;     // slots per stream whose loads fly together
 constexpr int kMaxSplits = 8;  // the portable cluster size
 
 // Lanes per slot: the power of two whose lanes cover HD in kCols columns
-// (at HD = 80, 10 of 16 lanes hold columns).
+// (at HD = 80, 10 of 16 lanes hold columns; at HD = 16, 2 of 4).
 template <int HD>
 struct LanesPerSlot {
   static constexpr int value = HD <= 32 ? 4 : HD <= 64 ? 8 : 16;
@@ -358,6 +358,9 @@ cudaError_t launch_hd(int hd, const void* q, const void* kc, const void* vc,
                       int G, int window, int ring, int splits, float softcap,
                       cudaStream_t stream) {
   switch (hd) {
+    case 16:
+      return launch_gc<T, 16>(q, kc, vc, kv_len, out, B, Sc, Hkv, G, window,
+                              ring, splits, softcap, stream);
     case 32:
       return launch_gc<T, 32>(q, kc, vc, kv_len, out, B, Sc, Hkv, G, window,
                               ring, splits, softcap, stream);

@@ -55,6 +55,13 @@
 // and runs in 4 warps, warp w on rows 16w..16w+15 of a 64-row output tile.
 // The scratch is allocated by the wrapper; the kernels allocate nothing.
 //
+// Small heads, (P, N) = (16, 16) (the mamba2 and zamba2 smoke configs that
+// an edge cluster serves): the same four launches and the same scratch, as
+// plain float32 loops on the CUDA cores (ssd_*_small_kernel), one block per
+// (row, chunk) or (head, chunk and row), each thread on elements of the
+// output in turn. A 64-row tile would leave three of its four warps idle
+// at P = 16, and at these sizes launches, not arithmetic, set the time.
+//
 // Interface: a plain C entry point loaded with ctypes. It launches on the
 // stream it is given, does not synchronise, allocates nothing and returns
 // cudaGetLastError() (0 on success).
@@ -500,6 +507,106 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   store_frags<8>(y + row0 * xrow + h * kP, xrow, q0 + warp * 16, 0, Q, acc);
 }
 
+// ---------------------------------------------------------------------------
+// Small (P, N): plain float32 versions of the four launches.
+// ---------------------------------------------------------------------------
+
+// 1. cb[b, c, q, s] = C[q] . B[s] for s <= q < Q; grid (nc, B).
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+    ssd_cb_small_kernel(const float* __restrict__ bm,
+                        const float* __restrict__ cm, float* __restrict__ cb,
+                        int L, int Q) {
+  const int c = blockIdx.x, b = blockIdx.y, nc = gridDim.x, Qp = padded(Q);
+  const int64_t row0 = static_cast<int64_t>(b) * L + int64_t{c} * Q;
+  float* out = cb + (static_cast<int64_t>(b) * nc + c) * Qp * Qp;
+  for (int e = threadIdx.x; e < Q * Q; e += kThreads) {
+    const int q = e / Q, s = e % Q;
+    if (s > q) continue;
+    const float* cq = cm + (row0 + q) * N;
+    const float* bs = bm + (row0 + s) * N;
+    float acc = 0.f;
+#pragma unroll
+    for (int n = 0; n < N; ++n) acc = fmaf(__ldg(cq + n), __ldg(bs + n), acc);
+    out[static_cast<int64_t>(q) * Qp + s] = acc;
+  }
+}
+
+// 2. chunk_states[b, c, h] = sum_s (x[s] w[s])^T B[s], w[s] = exp(a_last -
+// a_cum[s]), and decay[b, c, h] = exp(a_last); grid (H, nc B).
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads)
+    ssd_states_small_kernel(const float* __restrict__ x,
+                            const float* __restrict__ dtA,
+                            const float* __restrict__ bm,
+                            float* __restrict__ states,
+                            float* __restrict__ decay, int L, int H, int Q,
+                            int nc) {
+  __shared__ float s_a[kMaxChunk], s_w[kMaxChunk];
+  const int h = blockIdx.x, c = blockIdx.y % nc, b = blockIdx.y / nc;
+  const int64_t row0 = static_cast<int64_t>(b) * L + int64_t{c} * Q;
+  const int64_t xrow = static_cast<int64_t>(H) * P;
+  chunk_cumsum(s_a, dtA + row0 * H + h, H, Q, Q);
+  __syncthreads();
+  const float a_last = s_a[Q - 1];
+  for (int s = threadIdx.x; s < Q; s += kThreads)
+    s_w[s] = expf(a_last - s_a[s]);
+  const int64_t bch = (static_cast<int64_t>(b) * nc + c) * H + h;
+  if (threadIdx.x == 0) decay[bch] = expf(a_last);
+  __syncthreads();
+  for (int e = threadIdx.x; e < P * N; e += kThreads) {
+    const int p = e / N, n = e % N;
+    const float* xs = x + row0 * xrow + h * P + p;
+    const float* bs = bm + row0 * N + n;
+    float acc = 0.f;
+    for (int s = 0; s < Q; ++s)
+      acc = fmaf(__ldg(xs + s * xrow) * s_w[s], __ldg(bs + s * N), acc);
+    states[bch * P * N + e] = acc;
+  }
+}
+
+// 4. y[q] for every row q of chunk c, head h, row b: (C[q] . entering^T)
+// exp(a_cum[q]) + sum_{s <= q} cb[q, s] exp(a_cum[q] - a_cum[s]) x[s];
+// grid (H, nc B).
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads)
+    ssd_output_small_kernel(const float* __restrict__ x,
+                            const float* __restrict__ dtA,
+                            const float* __restrict__ cm,
+                            const float* __restrict__ cb,
+                            const float* __restrict__ entering,
+                            float* __restrict__ y, int L, int H, int Q,
+                            int nc, int has_init) {
+  __shared__ float s_a[kMaxChunk];
+  const int h = blockIdx.x, c = blockIdx.y % nc, b = blockIdx.y / nc;
+  const int Qp = padded(Q);
+  const int64_t row0 = static_cast<int64_t>(b) * L + int64_t{c} * Q;
+  const int64_t xrow = static_cast<int64_t>(H) * P;
+  const int64_t bch = (static_cast<int64_t>(b) * nc + c) * H + h;
+  const float* cbc = cb + (static_cast<int64_t>(b) * nc + c) * Qp * Qp;
+  const float* ent = entering + bch * P * N;
+  chunk_cumsum(s_a, dtA + row0 * H + h, H, Q, Q);
+  __syncthreads();
+  for (int e = threadIdx.x; e < Q * P; e += kThreads) {
+    const int q = e / P, p = e % P;
+    const float aq = s_a[q];
+    float off = 0.f;
+    if (c > 0 || has_init) {
+      const float* crow = cm + (row0 + q) * N;
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        off = fmaf(__ldg(crow + n), __ldg(ent + p * N + n), off);
+      off *= expf(aq);
+    }
+    const float* xs = x + row0 * xrow + h * P + p;
+    const float* cq = cbc + static_cast<int64_t>(q) * Qp;
+    float acc = 0.f;
+    for (int s = 0; s <= q; ++s)
+      acc = fmaf(cq[s] * expf(aq - s_a[s]), __ldg(xs + s * xrow), acc);
+    y[(row0 + q) * xrow + h * P + p] = acc + off;
+  }
+}
+
 template <int N>
 int launch(const float* x, const float* dtA, const float* bm, const float* cm,
            const float* init, float* y, float* state, float* cb,
@@ -540,9 +647,36 @@ int launch(const float* x, const float* dtA, const float* bm, const float* cm,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The four small-(P, N) launches, with the scratch of launch<N>.
+template <int P, int N>
+int launch_small(const float* x, const float* dtA, const float* bm,
+                 const float* cm, const float* init, float* y, float* state,
+                 float* cb, float* states, float* entering, float* decay,
+                 int B, int L, int H, int Q, cudaStream_t stream) {
+  const int nc = L / Q;
+  if (static_cast<int64_t>(nc) * B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ssd_cb_small_kernel<N><<<dim3(nc, B), kThreads, 0, stream>>>(bm, cm, cb,
+                                                               L, Q);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_states_small_kernel<P, N><<<dim3(H, nc * B), kThreads, 0, stream>>>(
+      x, dtA, bm, states, decay, L, H, Q, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int PN = P * N;
+  ssd_recurrence_kernel<<<dim3((PN / 4 + kThreads - 1) / kThreads, H, B),
+                          kThreads, 0, stream>>>(states, decay, init,
+                                                 entering, state, nc, H, PN);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  ssd_output_small_kernel<P, N><<<dim3(H, nc * B), kThreads, 0, stream>>>(
+      x, dtA, cm, cb, entering, y, L, H, Q, nc, init != nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// (P, N) pairs compiled: zamba2's (64, 64) and mamba2's (64, 128). Keep in
+// (P, N) pairs compiled: zamba2's (64, 64) and mamba2's (64, 128) on the
+// tensor cores, and the smoke configs' (16, 16) on the CUDA cores. Keep in
 // step with SHAPES in kernels/ssd_scan/ops.py. The scratch (cb [B, nc, Qp,
 // Qp], chunk_states and entering [B, nc, H, P, N], decay [B, nc, H], all
 // float32, nc = L / chunk, Qp = chunk rounded up to 64) comes from the
@@ -556,11 +690,16 @@ extern "C" int ssd_scan_launch(const void* x, const void* dtA, const void* b,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || L <= 0 || H <= 0 || chunk <= 0 || chunk > kMaxChunk ||
-      L % chunk != 0 || P != kP)
+      L % chunk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto w = [](void* p) { return static_cast<float*>(p); };
+  if (P == 16 && N == 16)
+    return launch_small<16, 16>(f(x), f(dtA), f(b), f(c), f(init), w(y),
+                                w(state), w(cb), w(chunk_states),
+                                w(entering), w(decay), B, L, H, chunk, s);
+  if (P != kP) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 64)
     return launch<64>(f(x), f(dtA), f(b), f(c), f(init), w(y), w(state),
                       w(cb), w(chunk_states), w(entering), w(decay), B, L, H,

@@ -24,8 +24,8 @@ from repro_torch.kernels._build import check_cuda_tensor, launch
 
 from .ref import attention_ref, flash_attention_bwd_ref
 
-__all__ = ["FlashAttention", "HEAD_DIMS", "LAUNCHES", "attention",
-           "flash_attention_bwd", "flash_attention_bwd_cuda",
+__all__ = ["BWD_HEAD_DIMS", "FlashAttention", "HEAD_DIMS", "LAUNCHES",
+           "attention", "flash_attention_bwd", "flash_attention_bwd_cuda",
            "flash_attention_cuda", "flash_attention_dkv_cuda",
            "flash_attention_dq_cuda", "make_trainable_attention",
            "reset_launch_counts"]
@@ -33,8 +33,10 @@ __all__ = ["FlashAttention", "HEAD_DIMS", "LAUNCHES", "attention",
 #: Kernel launches since the last :func:`reset_launch_counts`.
 LAUNCHES = {"flash_attention": 0, "flash_attention_dq": 0,
             "flash_attention_dkv": 0}
-#: Head widths the kernel is compiled for.
-HEAD_DIMS = (32, 64, 80, 128)
+#: Head widths the forward kernel (B4) is compiled for.
+HEAD_DIMS = (16, 32, 64, 80, 128)
+#: Head widths the backward kernels (B5, B6) are compiled for.
+BWD_HEAD_DIMS = (32, 64, 80, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -43,15 +45,16 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def _check_shapes(what: str, q: torch.Tensor, k: torch.Tensor) -> None:
-    """Raise unless q/k have a dtype, head dim and grouping the kernels are
-    compiled for."""
+def _check_shapes(what: str, q: torch.Tensor, k: torch.Tensor,
+                  head_dims=HEAD_DIMS) -> None:
+    """Raise unless q/k have a dtype, head dim (one of ``head_dims``) and
+    grouping the kernel is compiled for."""
     hd, Hq, Hkv = q.shape[-1], q.shape[2], k.shape[2]
     if q.dtype not in _DTYPES:
         raise TypeError(f"{what}: dtype {q.dtype} is not one of {_DTYPES}")
-    if hd not in HEAD_DIMS:
+    if hd not in head_dims:
         raise ValueError(f"{what}: head dim {hd} is not one of "
-                         f"{HEAD_DIMS}")
+                         f"{head_dims}")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"{what}: {Hq} query heads do not group over "
                          f"{Hkv} KV heads")
@@ -87,7 +90,7 @@ def _bwd_pointers(what: str, q, k, v, do, lse, dsum) -> list:
     B, Sq, Hq, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     dev, f32 = q.device, torch.float32
-    _check_shapes(what, q, k)
+    _check_shapes(what, q, k, BWD_HEAD_DIMS)
     return [check_cuda_tensor("q", q, q.dtype, (B, Sq, Hq, hd), dev, 16),
             check_cuda_tensor("k", k, q.dtype, (B, Skv, Hkv, hd), dev, 16),
             check_cuda_tensor("v", v, q.dtype, (B, Skv, Hkv, hd), dev, 16),

@@ -27,7 +27,7 @@ __all__ = ["HEAD_DIMS", "LAUNCHES", "MAX_SPLITS", "decode_attention",
 #: Kernel launches since the last :func:`reset_launch_counts`.
 LAUNCHES = {"gqa_decode": 0}
 #: Head widths the kernel is compiled for.
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 #: The most blocks over which the kernel splits one (KV head, row): the
 #: portable thread block cluster size.
 MAX_SPLITS = 8

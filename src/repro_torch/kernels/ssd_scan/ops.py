@@ -28,8 +28,10 @@ __all__ = ["LAUNCHES", "MAX_CHUNK", "SHAPES", "reset_launch_counts", "ssd",
 #: Scans run on the card since the last :func:`reset_launch_counts` (one
 #: per :func:`ssd_scan_cuda` call, which launches four kernels).
 LAUNCHES = {"ssd_scan": 0}
-#: ``(head dim P, state width N)`` pairs the kernel is compiled for.
-SHAPES = ((64, 64), (64, 128))
+#: ``(head dim P, state width N)`` pairs the kernel is compiled for: the
+#: serving shapes on the tensor cores, and the smoke configs' (16, 16) as
+#: plain float32 loops.
+SHAPES = ((16, 16), (64, 64), (64, 128))
 #: Largest chunk the kernel takes.
 MAX_CHUNK = 1024
 

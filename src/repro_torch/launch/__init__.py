@@ -1,1 +1,1 @@
-"""repro_torch.launch — command-line entry points (training)."""
+"""repro_torch.launch — command-line entry points (training, serving)."""

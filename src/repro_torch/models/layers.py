@@ -1,8 +1,9 @@
 """Model layers in PyTorch: the single-device subset of the JAX package's
-``models/layers.py`` (attention, MLP and the Mamba2 block).
+``models/layers.py`` (attention, MLP, the capacity-based MoE and the
+Mamba2 block).
 
 Parameters live in small :class:`torch.nn.Module` holders
-(:class:`Attention`, :class:`MLP`, :class:`Mamba`); the math is plain
+(:class:`Attention`, :class:`MLP`, :class:`MoE`, :class:`Mamba`); the math is plain
 tensor functions with the reference's names and layouts (``[B, S, H, hd]``
 activations, ``[D, H, hd]`` projections), so the two packages compare like
 with like. Prefill attention goes through
@@ -11,13 +12,15 @@ attention through :func:`~repro_torch.kernels.gqa_decode.decode_attention`
 (B7) and a Mamba prefill's SSD scan through
 :func:`~repro_torch.kernels.ssd_scan.ssd` (B8); their ``use_kernel`` flag is
 passed through. The chunked scan :func:`ssd_chunked` (B8's plain version)
-lives beside its kernel and is re-exported here. Mesh sharding, sequence
-parallelism and MoE are not ported yet.
+lives beside its kernel and is re-exported here. The MoE's expert
+products are plain batched products (the reference leaves them to XLA
+too). Mesh sharding, sequence parallelism and the MoE's expert- and
+tensor-parallel paths are not ported yet.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,10 +33,11 @@ from repro_torch.kernels.ssd_scan import ssd, ssd_chunked
 
 from .config import ModelConfig
 
-__all__ = ["Attention", "MLP", "Mamba", "apply_rope", "attention_block",
-           "dense", "init_attention", "init_mamba", "init_mlp",
-           "mamba_block", "mlp_block", "rms_norm", "ssd_chunked",
-           "ssd_decode_step", "torch_dtype"]
+__all__ = ["Attention", "MLP", "Mamba", "MoE", "MoERouting", "apply_rope",
+           "attention_block", "dense", "init_attention", "init_mamba",
+           "init_mlp", "init_moe", "mamba_block", "mlp_block",
+           "moe_block", "moe_capacity", "moe_local", "moe_route",
+           "rms_norm", "ssd_chunked", "ssd_decode_step", "torch_dtype"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -243,6 +247,122 @@ def mlp_block(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     dt = torch_dtype(cfg.dtype)
     h = _act(cfg.act)(dense(x, p.w_gate, dt)) * dense(x, p.w_up, dt)
     return dense(h, p.w_down, dt)
+
+
+# ===========================================================================
+# MoE (capacity-based, sort dispatch)
+# ===========================================================================
+
+class MoE(nn.Module):
+    """The router ``[D, E]`` (float32) and the experts' ``w_gate``/``w_up
+    [E, D, F_pad]`` and ``w_down [E, F_pad, D]``."""
+
+    def __init__(self, router, w_gate, w_up, w_down):
+        super().__init__()
+        self.router, self.w_gate, self.w_up, self.w_down = map(
+            _param, (router, w_gate, w_up, w_down))
+
+
+def init_moe(cfg: ModelConfig, generator: torch.Generator,
+             dtype: torch.dtype) -> MoE:
+    D, F_, E = cfg.d_model, cfg.d_ff_pad, cfg.n_experts
+    return MoE(_normal((D, E), generator, torch.float32),
+               _normal((E, D, F_), generator, dtype),
+               _normal((E, D, F_), generator, dtype),
+               _normal((E, F_, D), generator, dtype))
+
+
+def moe_capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    """Per-expert capacity: lossless (``T·k``) for decode-sized batches of
+    at most 256 assignment slots, else ``T·k·capacity_factor // E`` (at
+    least 1), the reference's ``_moe_capacity``."""
+    if n_tokens * cfg.top_k <= 256:
+        return n_tokens * cfg.top_k
+    return max(1, int(n_tokens * cfg.top_k * cfg.capacity_factor
+                      // cfg.n_experts))
+
+
+class MoERouting(NamedTuple):
+    """The routing of ``T`` tokens: ``gate``/``idx [T, k]`` (the top-k
+    probabilities, normalised, and their experts, lower expert first on a
+    tie), ``slot [T, k]`` (each assignment's row of the expert batches,
+    ``n_slots = E · capacity`` where it is dropped) and ``kept [T, k]``
+    (bool: not dropped for capacity)."""
+    gate: torch.Tensor
+    idx: torch.Tensor
+    slot: torch.Tensor
+    kept: torch.Tensor
+
+
+def moe_route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
+              capacity: int) -> MoERouting:
+    """Route ``x [T, D]``: float32 router logits, softmax, top-k by a
+    stable descending sort (``lax.top_k``'s order: on a tie the lower
+    expert first; ``torch.topk`` promises no order), gates divided by
+    ``max(sum, 1e-9)``; then the assignments in token order, sorted stably
+    by expert, take positions ``0, 1, …`` in their expert's batch, and
+    those at or past ``capacity`` are dropped (the lower token index is
+    kept)."""
+    T = x.shape[0]
+    E, k = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = gate[:, :k], idx[:, :k]
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    counts = torch.bincount(se, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(T * k, device=x.device) - starts[se]
+    kept = pos < capacity
+    slot = torch.where(kept, se * capacity + pos,
+                       torch.full_like(pos, E * capacity))
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(T * k, device=x.device)
+    return MoERouting(gate, idx, slot[inv].reshape(T, k),
+                      kept[inv].reshape(T, k))
+
+
+def moe_local(x: torch.Tensor, p: MoE, cfg: ModelConfig, capacity: int
+              ) -> torch.Tensor:
+    """The reference's ``_moe_local`` over every expert (one device):
+    gather each expert's tokens into ``[E, capacity, D]`` batches through a
+    slot → token map (the dump slot ``n_slots`` is discarded), the expert
+    products as batched products in the compute dtype, and the combine
+    ``out = out + y[slot_j] · g_j`` for j = 0..k−1 in that dtype, in the
+    reference's order. x: ``[T, D]``."""
+    T, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    dt = x.dtype
+    r = moe_route(x, p.router, cfg, capacity)
+    n_slots = E * capacity
+    flat_slot = r.slot.reshape(-1)
+    slot_token = torch.zeros(n_slots + 1, dtype=torch.long, device=x.device)
+    slot_token[flat_slot] = torch.arange(T, device=x.device
+                                         ).repeat_interleave(k)
+    slot_valid = torch.zeros(n_slots + 1, dtype=torch.bool, device=x.device)
+    slot_valid[flat_slot] = r.kept.reshape(-1)
+    xb = (x[slot_token[:-1]] * slot_valid[:-1, None].to(dt)
+          ).reshape(E, capacity, D)
+    h = _act(cfg.act)(torch.bmm(xb, p.w_gate.to(dt))) \
+        * torch.bmm(xb, p.w_up.to(dt))
+    yb = torch.bmm(h, p.w_down.to(dt)).reshape(n_slots, D)
+    yb = torch.cat([yb, yb.new_zeros(1, D)])
+    weight = r.gate.to(dt) * r.kept.to(dt)
+    out = torch.zeros(T, D, dtype=dt, device=x.device)
+    for j in range(k):
+        out = out + yb[r.slot[:, j]] * weight[:, j:j + 1]
+    return out
+
+
+def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """MoE FFN of ``x [B, S, D]`` on one device, capacity from the
+    ``B·S`` tokens (the reference's ``moe_block`` with ``ctx=None``)."""
+    B, S, D = x.shape
+    out = moe_local(x.reshape(-1, D), p, cfg, moe_capacity(B * S, cfg))
+    return out.reshape(B, S, D)
 
 
 # ===========================================================================

@@ -1,21 +1,25 @@
 """The model families in PyTorch: parameters, cache, forward, prefill and
 decode — the single-device counterpart of the JAX package's
-``models/transformer.py`` for the ``dense``, ``ssm`` (Mamba2) and
-``hybrid`` (Zamba2) families.
+``models/transformer.py`` for every family of the zoo.
 
 The reference scans stacked ``[L, ...]`` parameters with ``lax.scan``; the
 port keeps one module per layer in an :class:`LM` and runs them in Python
 loops:
 
-* ``dense`` — [attention → MLP] × L (:class:`DenseLayer`); the per-layer
-  window array realises gemma2's alternating local/global attention;
+* ``dense`` / ``audio`` / ``vlm`` — [attention → MLP] × L
+  (:class:`DenseLayer`); the per-layer window array realises gemma2's
+  alternating local/global attention;
+* ``moe`` — [attention → MoE] × L (a :class:`DenseLayer` whose FFN is a
+  :class:`~.layers.MoE`);
 * ``ssm`` — [Mamba2] × L (:class:`MambaLayer`);
 * ``hybrid`` — the Mamba2 backbone in segments of ``shared_attn_every``
   layers, each followed by shared attention+MLP block ``segment %
   n_shared_blocks`` (a :class:`DenseLayer` without post-norms).
 
-The MoE family and the audio/vision frontends raise
-:class:`NotImplementedError` naming the ROADMAP item that ports them.
+The audio frontend projects ``frames [B, S, D]`` through ``frame_in``; the
+vision frontend projects ``patches [B, P, D]`` through ``patch_in`` and
+puts them before the token embeddings (:func:`embed_input`); an
+encoder-only backbone (hubert) attends non-causally and has its own head.
 Training: :func:`loss_fn` (the chunked cross-entropy
 :func:`softmax_xent`), with ``cfg.remat`` rematerialising each dense layer
 under grad.
@@ -36,43 +40,30 @@ from . import layers as L
 from .config import ATTN_SWA, MAMBA, ModelConfig
 
 __all__ = ["Cache", "DenseLayer", "LM", "MambaLayer", "cache_spec",
-           "decode_step", "embed_tokens", "forward", "init_cache",
+           "decode_step", "embed_input", "embed_tokens", "forward",
+           "init_cache",
            "init_params", "logits_fn", "loss_fn", "prefill",
            "run_attention_stack", "run_hybrid_stack", "run_mamba_stack",
            "softmax_xent"]
-
-_PORTED = ("dense", "ssm", "hybrid")
-#: Where each unported family is queued (ROADMAP.md, section A).
-_NOT_PORTED = {
-    "moe": "A10 (MoE family)",
-    "audio": "A10 (audio and vision frontends)",
-    "vlm": "A10 (audio and vision frontends)",
-}
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in _PORTED or cfg.n_experts \
-            or cfg.frontend != "none" or cfg.encoder_only:
-        where = _NOT_PORTED.get(cfg.family, "A10")
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-            f"yet (ROADMAP {where}); only {', '.join(_PORTED)} are")
-
 
 # ===========================================================================
 # Parameters
 # ===========================================================================
 
 class DenseLayer(nn.Module):
-    """One [attention → MLP] layer (or a hybrid's shared block): RMSNorm
+    """One [attention → FFN] layer (or a hybrid's shared block): RMSNorm
     scales ``ln1``/``ln2`` (and gemma2's post-norms ``ln_pa``/``ln_pf``),
-    :class:`~.layers.Attention` and :class:`~.layers.MLP`."""
+    :class:`~.layers.Attention`, and the FFN: an :class:`~.layers.MLP`
+    (held as ``mlp``) or, in the MoE family, an :class:`~.layers.MoE`
+    (held as ``moe``, the reference's names)."""
 
-    def __init__(self, ln1, attn: L.Attention, ln2, mlp: L.MLP,
-                 ln_pa=None, ln_pf=None):
+    def __init__(self, ln1, attn: L.Attention, ln2, ffn, ln_pa=None,
+                 ln_pf=None):
         super().__init__()
         self.ln1, self.ln2 = L._param(ln1), L._param(ln2)
-        self.attn, self.mlp = attn, mlp
+        self.attn = attn
+        self.mlp = ffn if isinstance(ffn, L.MLP) else None
+        self.moe = ffn if isinstance(ffn, L.MoE) else None
         self.ln_pa = None if ln_pa is None else L._param(ln_pa)
         self.ln_pf = None if ln_pf is None else L._param(ln_pf)
 
@@ -88,15 +79,19 @@ class MambaLayer(nn.Module):
 
 
 class LM(nn.Module):
-    """Token embedding ``tok [V_pad, D]``; the attention layers
-    (``layers``, dense), the Mamba2 layers (``mamba``, ssm and hybrid) and
-    the shared blocks (``shared``, hybrid); the final norm scale; an untied
-    ``head [D, V_pad]`` (``None`` when tied)."""
+    """Token embedding ``tok [V_pad, D]`` and the frontends' ``frame_in``
+    (audio) or ``patch_in`` (vision) ``[D, D]`` (``None`` without one);
+    the attention layers (``layers``: dense, moe, audio, vlm), the Mamba2
+    layers (``mamba``, ssm and hybrid) and the shared blocks (``shared``,
+    hybrid); the final norm scale; an untied ``head [D, V_pad]``
+    (``None`` when tied)."""
 
     def __init__(self, tok, final_norm, head=None, *, layers=(), mamba=(),
-                 shared=()):
+                 shared=(), frame_in=None, patch_in=None):
         super().__init__()
         self.tok = L._param(tok)
+        self.frame_in = None if frame_in is None else L._param(frame_in)
+        self.patch_in = None if patch_in is None else L._param(patch_in)
         self.layers = nn.ModuleList(layers)
         self.mamba = nn.ModuleList(mamba)
         self.shared = nn.ModuleList(shared)
@@ -109,7 +104,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
     Normal(0, 0.02) weights, zero norm scales (a gain of 1), zero padded
     heads, the Mamba blocks' ``A_log``/``dt_bias`` schedules. The
     reference's layout and distribution, not its numbers."""
-    _check_family(cfg)
     pdt = L.torch_dtype(cfg.param_dtype)
     D, Vp = cfg.d_model, cfg.vocab_pad
     dev = generator.device
@@ -117,16 +111,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
     def zeros():
         return torch.zeros(D, dtype=pdt, device=dev)
 
-    def dense_layer(post_norms: bool) -> DenseLayer:
+    def dense_layer(post_norms: bool, moe: bool = False) -> DenseLayer:
         attn = L.init_attention(cfg, generator, pdt)
-        mlp = L.init_mlp(cfg, generator, pdt)
+        ffn = (L.init_moe if moe else L.init_mlp)(cfg, generator, pdt)
         post = (zeros(), zeros()) if post_norms else (None, None)
-        return DenseLayer(zeros(), attn, zeros(), mlp, *post)
+        return DenseLayer(zeros(), attn, zeros(), ffn, *post)
 
     tok = L._normal((Vp, D), generator, pdt)
     parts = {}
-    if cfg.family == "dense":
-        parts["layers"] = [dense_layer(cfg.post_norms)
+    if cfg.frontend == "audio":
+        parts["frame_in"] = L._normal((D, D), generator, pdt)
+    if cfg.frontend == "vision":
+        parts["patch_in"] = L._normal((D, D), generator, pdt)
+    if cfg.family not in ("ssm", "hybrid"):
+        parts["layers"] = [dense_layer(cfg.post_norms, bool(cfg.n_experts))
                            for _ in range(cfg.n_layers)]
     else:
         parts["mamba"] = [MambaLayer(zeros(), L.init_mamba(cfg, generator,
@@ -135,7 +133,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
         if cfg.family == "hybrid":
             parts["shared"] = [dense_layer(False)
                                for _ in range(cfg.n_shared_blocks)]
-    head = None if cfg.tie_embeddings else L._normal((D, Vp), generator, pdt)
+    head = None if cfg.tie_embeddings and not cfg.encoder_only \
+        else L._normal((D, Vp), generator, pdt)
     return LM(tok, zeros(), head, **parts)
 
 
@@ -151,6 +150,29 @@ def embed_tokens(model: LM, cfg: ModelConfig, tokens: torch.Tensor
     x = model.tok[tokens].to(dt)
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
+    return x
+
+
+def embed_input(model: LM, cfg: ModelConfig,
+                tokens: Optional[torch.Tensor] = None, *,
+                frames: Optional[torch.Tensor] = None,
+                patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The model's input ``[B, S, D]`` in the compute dtype: ``frames [B,
+    S, D] @ frame_in`` (audio), ``patches [B, P, D] @ patch_in`` followed
+    by the embedded ``tokens [B, S_t]`` (vision: S = P + S_t), or the
+    embedded tokens (the reference's ``embed_input`` over its ``batch``
+    dict)."""
+    dt = L.torch_dtype(cfg.dtype)
+    if cfg.frontend == "audio":
+        if frames is None:
+            raise ValueError(f"{cfg.name} (audio) takes frames")
+        return L.dense(frames.to(dt), model.frame_in, dt)
+    if tokens is None or (cfg.frontend == "vision" and patches is None):
+        raise ValueError(f"{cfg.name} takes tokens" + (
+            " after its patches" if cfg.frontend == "vision" else ""))
+    x = embed_tokens(model, cfg, tokens)
+    if cfg.frontend == "vision":
+        x = torch.cat([L.dense(patches.to(dt), model.patch_in, dt), x], 1)
     return x
 
 
@@ -184,7 +206,7 @@ def _window_array(cfg: ModelConfig) -> np.ndarray:
 def _dense_layer(lp: DenseLayer, cfg: ModelConfig, x: torch.Tensor,
                  start: int, window: int, kv, kv_len, ring: bool,
                  use_kernel: Optional[bool]) -> torch.Tensor:
-    """One [attention → MLP] layer with its residuals."""
+    """One [attention → MLP or MoE] layer with its residuals."""
     h = L.rms_norm(x, lp.ln1, cfg.norm_eps)
     a, _ = L.attention_block(lp.attn, cfg, h, start, window=window,
                              kv_cache=kv, kv_len=kv_len, ring=ring,
@@ -193,7 +215,8 @@ def _dense_layer(lp: DenseLayer, cfg: ModelConfig, x: torch.Tensor,
         a = L.rms_norm(a, lp.ln_pa, cfg.norm_eps)
     x = x + a
     h = L.rms_norm(x, lp.ln2, cfg.norm_eps)
-    f = L.mlp_block(lp.mlp, cfg, h)
+    f = L.mlp_block(lp.mlp, cfg, h) if lp.moe is None \
+        else L.moe_block(lp.moe, cfg, h)
     if lp.ln_pf is not None:
         f = L.rms_norm(f, lp.ln_pf, cfg.norm_eps)
     return x + f
@@ -324,7 +347,6 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int
     window is shorter than ``max_seq`` (never in a hybrid); else it holds
     ``max_seq`` slots. A hybrid keeps one KV slot per shared-block
     application."""
-    _check_family(cfg)
     kinds = cfg.layer_kinds
     n_attn = sum(1 for k in kinds if k != MAMBA)
     n_mamba = sum(1 for k in kinds if k == MAMBA)
@@ -355,27 +377,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                     for k, (s, d) in spec.items()}), ring
 
 
-def forward(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
-            use_kernel: Optional[bool] = None) -> torch.Tensor:
-    """Full-sequence forward of ``[B, S]`` tokens; the final hidden
-    ``[B, S, D]`` (before the final norm)."""
-    _check_family(cfg)
-    x = embed_tokens(model, cfg, tokens)
+def forward(model: LM, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None,
+            use_kernel: Optional[bool] = None, *,
+            frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence forward of ``[B, S]`` tokens (and the frontend's
+    ``frames`` or ``patches``, as :func:`embed_input` takes them); the
+    final hidden ``[B, S, D]`` (before the final norm)."""
+    x = embed_input(model, cfg, tokens, frames=frames, patches=patches)
     return _run_stack(model, cfg, x, 0, None, None, False, use_kernel)
 
 
 @torch.no_grad()
-def prefill(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: Cache, ring: bool, use_kernel: Optional[bool] = None
+def prefill(model: LM, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+            cache: Cache, ring: bool, use_kernel: Optional[bool] = None, *,
+            frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Cache]:
-    """Run the ``[B, S]`` prompt through the model from position 0, filling
-    the cache in place. Returns ``(last-position logits [B, V_pad], cache)``
-    with ``cache.pos`` advanced to S. Inference only: no autograd graph
-    (the parameters are trainable)."""
-    _check_family(cfg)
-    x = embed_tokens(model, cfg, tokens)
-    B, S = tokens.shape
-    kv_len = torch.full((B,), S, dtype=torch.int32, device=tokens.device)
+    """Run the prompt (``[B, S]`` tokens, after the patches of a vision
+    model, or an audio model's frames) through the model from position 0,
+    filling the cache in place. Returns ``(last-position logits [B,
+    V_pad], cache)`` with ``cache.pos`` advanced to the sequence length S.
+    Inference only: no autograd graph (the parameters are trainable)."""
+    x = embed_input(model, cfg, tokens, frames=frames, patches=patches)
+    B, S = x.shape[:2]
+    kv_len = torch.full((B,), S, dtype=torch.int32, device=x.device)
     x = _run_stack(model, cfg, x, 0, cache, kv_len, ring, use_kernel)
     cache.pos = S
     return logits_fn(model, cfg, x[:, -1:])[:, 0], cache
@@ -389,7 +416,6 @@ def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor,
     Returns ``(logits [B, V_pad], cache)`` with ``cache.pos`` advanced by
     one. Raises :class:`ValueError` when a non-ring KV cache is full (an
     ssm model has none and decodes on)."""
-    _check_family(cfg)
     Sc = cache.kv_k.shape[2]
     if cache.has_kv and not ring and cache.pos >= Sc:
         raise ValueError(f"decode at position {cache.pos} overruns the "
@@ -458,9 +484,11 @@ def softmax_xent(model: LM, cfg: ModelConfig, x: torch.Tensor,
 
 def loss_fn(model: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             use_kernel: Optional[bool] = None) -> torch.Tensor:
-    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``targets``
-    ``[B, S]`` and an optional float ``mask``)."""
-    x = forward(model, cfg, batch["tokens"], use_kernel)
+    """Mean next-token cross-entropy of ``batch`` (``tokens`` or the
+    frontend's ``frames``/``patches``, ``targets`` ``[B, S]`` and an
+    optional float ``mask``)."""
+    x = forward(model, cfg, batch.get("tokens"), use_kernel,
+                frames=batch.get("frames"), patches=batch.get("patches"))
     targets = batch["targets"]
     mask = batch.get("mask")
     if mask is None:

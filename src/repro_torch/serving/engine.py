@@ -1,8 +1,8 @@
 """Serving data plane: batched prefill + decode of one resident model.
 
-A :class:`ModelServer` holds a model of any ported family
-(``repro_torch.models``: dense, ssm, hybrid) at a fixed batch/sequence
-bucket and generates greedily: pad the prompts to the bucket's batch,
+A :class:`ModelServer` holds a token model of any family
+(``repro_torch.models``: dense, moe, ssm, hybrid) at a fixed
+batch/sequence bucket and generates greedily: pad the prompts to the bucket's batch,
 prefill (flash attention, B4, once per attention layer or shared-block
 application; the SSD scan, B8, once per Mamba layer), then decode one token
 per step (GQA decode, B7, once per attention application per step; Mamba

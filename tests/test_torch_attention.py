@@ -120,7 +120,7 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(bad):
     q = torch.zeros(1, 4, 4, 32)
     k = torch.zeros(1, 4, 2, 32)
     if bad == "hd":
-        q, k = q[..., :16].contiguous(), k[..., :16].contiguous()
+        q, k = q[..., :8].contiguous(), k[..., :8].contiguous()
     elif bad == "dtype":
         q, k = q.half(), k.half()
     else:
@@ -245,9 +245,9 @@ def test_decode_dispatcher_device_rules():
     with pytest.raises(ValueError, match="CUDA"):
         gd.decode_attention(q, kc, kc, lens, use_kernel=True)
     with pytest.raises(ValueError, match="head dim"):
-        gd.gqa_decode_cuda(q[..., :16].contiguous(),
-                           kc[..., :16].contiguous(),
-                           kc[..., :16].contiguous(), lens)
+        gd.gqa_decode_cuda(q[..., :8].contiguous(),
+                           kc[..., :8].contiguous(),
+                           kc[..., :8].contiguous(), lens)
     assert gd.LAUNCHES["gqa_decode"] == 0
 
 
@@ -391,3 +391,65 @@ def test_attention_wrappers_refuse_misaligned_tensors(cuda):
     with pytest.raises(ValueError, match="aligned"):
         gd.gqa_decode_cuda(q[:, 0], misaligned((1, 8, 1, 32)),
                            torch.zeros(1, 8, 1, 32, device=cuda), lens)
+
+
+# ===========================================================================
+# the smoke configs' hd = 16, which the edge cluster serves (card only)
+# ===========================================================================
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    # (B, Sq, Skv, Hq, Hkv, hd, causal, window, softcap)
+    (4, 16, 16, 4, 2, 16, True, 0, 0.0),      # mixtral, qwen3-moe
+    (4, 16, 16, 4, 2, 16, True, 16, 0.0),     # mixtral's window
+    (4, 16, 16, 8, 2, 16, True, 0, 0.0),      # yi
+    (4, 16, 16, 8, 1, 16, True, 0, 0.0),      # command-r
+    (4, 16, 16, 4, 4, 16, True, 0, 0.0),      # zamba2's shared block
+    (2, 100, 100, 4, 4, 16, False, 0, 0.0),   # non-causal, ragged
+    (2, 70, 70, 8, 2, 16, True, 0, 30.0),
+], ids=str)
+def test_flash_kernel_at_hd16_matches_plain(cuda, dtype, case):
+    B, Sq, Skv, Hq, Hkv, hd, causal, window, softcap = case
+    rng = np.random.default_rng(30)
+    q = _randn(rng, (B, Sq, Hq, hd), dtype, cuda)
+    k = _randn(rng, (B, Skv, Hkv, hd), dtype, cuda)
+    v = _randn(rng, (B, Skv, Hkv, hd), dtype, cuda)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    n0 = fa.LAUNCHES["flash_attention"]
+    out, lse = fa.flash_attention_cuda(q, k, v, **kw)
+    ref, ref_lse = fa.attention_ref(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == n0 + 1
+    _check_flash(out, lse, ref, ref_lse, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    # (B, Hq, Hkv, hd, Sc, kv_len, window, ring, softcap)
+    (4, 4, 2, 16, 64, (17, 18, 19, 20), 0, False, 0.0),
+    (4, 4, 2, 16, 16, (17, 18, 19, 20), 16, True, 0.0),   # mixtral's ring
+    (4, 8, 2, 16, 64, (20, 1, 64, 33), 0, False, 0.0),
+    (4, 8, 1, 16, 64, (20, 20, 0, 7), 0, False, 30.0),
+    (4, 4, 4, 16, 64, (17, 17, 17, 17), 0, False, 0.0),
+    (2, 8, 2, 16, 2048, (1040, 2048), 0, False, 0.0),
+], ids=str)
+def test_decode_kernel_at_hd16_matches_plain(cuda, dtype, case):
+    B, Hq, Hkv, hd, Sc, kv_len, window, ring, softcap = case
+    rng = np.random.default_rng(31)
+    q = _randn(rng, (B, Hq, hd), dtype, cuda)
+    kc = _randn(rng, (B, Sc, Hkv, hd), dtype, cuda)
+    vc = _randn(rng, (B, Sc, Hkv, hd), dtype, cuda)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    n0 = gd.LAUNCHES["gqa_decode"]
+    kw = dict(window=window, ring=ring, softcap=softcap)
+    out = gd.gqa_decode_cuda(q, kc, vc, lens, **kw)
+    ref = gd.gqa_decode_ref(q, kc, vc, lens, **kw)
+    torch.cuda.synchronize()
+    assert gd.LAUNCHES["gqa_decode"] == n0 + 1
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=0)
+    if dtype == "bfloat16":
+        assert _bf16_ulps(out, ref) <= BF16_ULPS
+    assert torch.equal(out, gd.gqa_decode_cuda(q, kc, vc, lens, **kw))

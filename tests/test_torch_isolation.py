@@ -36,7 +36,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_port_runs_without_loading_jax():
     code = ("import sys; import repro_torch.workloads, repro_torch.serving, "
-            "repro_torch.convert, repro_torch.kernels._build; "
+            "repro_torch.convert, repro_torch.kernels._build, "
+            "repro_torch.serving.cluster, repro_torch.launch.serve; "
             "from repro_torch.core import synthetic_instance; "
             "from repro_torch.workloads import evaluate_sparse; "
             "evaluate_sparse([synthetic_instance(60, n_edges=2)], "
@@ -134,6 +135,39 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     host = SweepSpec(scenarios=("steady",), n_ticks=1, algos=("sck", "opt"),
                      override_grid=(small,))
     assert run_sweep(host).execution["backend"] == "host"
+
+
+def test_cluster_runs_without_loading_jax():
+    code = ("import sys; from repro_torch.launch.serve import run_serving; "
+            "r = run_serving(12, 2, storage=1000.0, max_new_tokens=1, "
+            "verbose=False, device='cpu'); assert r.served == 12, r; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')]; assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cluster_entry_points_default_to_cuda(monkeypatch):
+    """EdgeCluster and run_serving run on the card unless asked for the
+    CPU, and raise without one."""
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.serving import EdgeCluster, EdgeGroup, default_catalog
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EdgeCluster(default_catalog())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EdgeGroup(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_serving(8, 2, verbose=False)
+    cluster = EdgeCluster(default_catalog(), device="cpu")
+    assert cluster.router.device.type == "cpu"
+    assert all(g.device.type == "cpu" for g in cluster.groups)
+    report = run_serving(8, 2, max_new_tokens=1, verbose=False,
+                         device="cpu")
+    assert report.served + report.dropped + report.skipped == 8
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path, monkeypatch):

@@ -526,3 +526,44 @@ def test_ssd_kernel_intermediates_match_chunked(cuda, N, chunk):
                           dim=2)[:, :, -1]
     torch.testing.assert_close(torch.log(got["chunk_decay"]), a_last,
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # (B, L, H, chunk, initial state): the smoke configs' P = N = 16, which
+    # the edge cluster serves (mamba2, zamba2)
+    (4, 16, 8, 8, False),
+    (4, 16, 8, 8, True),
+    (2, 40, 8, 8, True),
+    (1, 300, 3, 64, False),
+    (2, 96, 2, 96, True),
+], ids=str)
+def test_ssd_kernel_at_p16_n16_matches_plain(cuda, case):
+    """y, the final state and each launch's scratch against
+    ``ssd_chunked_steps``'s intermediates, scale-free within SSD_TOL; two
+    calls bit-equal; a ragged length through the padding dispatcher."""
+    B, L, H, chunk, with_init = case
+    x, dtA, b, c = _inputs(32, B, L, H, 16, 16, device=cuda)
+    s0 = (torch.from_numpy(np.random.default_rng(33).normal(
+        size=(B, H, 16, 16)).astype(np.float32)).to(cuda)
+        if with_init else None)
+    if L % chunk:
+        got = ss.ssd(x, dtA, b, c, chunk=chunk, initial_state=s0,
+                     use_kernel=True)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ss.ssd_scan_ref(x, dtA, b, c,
+                                             initial_state=s0)):
+            assert _scale_free(g, r) <= SSD_TOL
+        return
+    got = ss.ssd_scan_cuda_steps(x, dtA, b, c, chunk=chunk,
+                                 initial_state=s0)
+    want = ss.ssd_chunked_steps(x, dtA, b, c, chunk, initial_state=s0)
+    torch.cuda.synchronize()
+    low = torch.ones(chunk, chunk, dtype=torch.bool, device=cuda).tril()
+    assert _scale_free(got["cb"][:, :, :chunk, :chunk][:, :, low],
+                       want["cb"][:, :, low]) <= SSD_TOL
+    for k in ("chunk_states", "entering_states", "y", "final_state"):
+        assert _scale_free(got[k], want[k]) <= SSD_TOL, k
+    again = ss.ssd_scan_cuda(x, dtA, b, c, chunk=chunk, initial_state=s0)
+    assert torch.equal(again[0], got["y"])
+    assert torch.equal(again[1], got["final_state"])
