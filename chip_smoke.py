@@ -151,7 +151,25 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    within 1e-6, each resident smoke model's B4/B7/B8 launches per
    generate, B1 once per placement or routing, realized QoS and the wall
    time of each request batch; then every kernel call of the same runs
-   held against its plain version.
+   held against its plain version;
+18. the live control plane: phase 3's 10^6-user tick (evaluate_sparse +
+   Router.route) and one 10^4-user sweep item of phase 13 under
+   torch.profiler with obs annotations on (profile_trace), where every
+   launch of B1, B2 and B3 must appear by name, as many times as LAUNCHES
+   counts, each inside its dispatcher's named scope, with their device
+   ms; every registered scenario x EDF/FCFS/feedback at seed 0 and the
+   serving benchmark's load replayed through the virtual-clock gateway
+   with the stream on to one file: each result digest equal to
+   TICK_DIGESTS, the file accepted whole by FrameValidator with one
+   gateway frame a tick, the default SLOs and one dashboard screen
+   printed; a wall-clock soak over TCP on 127.0.0.1 (SOAK), which must
+   run clean (no exception, no malformed frame, no request dropped at
+   ingress; its verdict and its late requests, which judge the host's
+   clock, printed, not gated); and pareto_mask_torch on
+   the card equal to pareto_mask_np on seeded grids up to 4,096 x 3 in
+   float32 and float64 and below float32 resolution, frontier_points over
+   phase 14's serving store the same through the device and the NumPy
+   mask, with the device mask's time (CUDA events) beside NumPy's.
 
 It prints a JSON line of per-kernel numbers and, last, the device line
 ``{"ok": true, "device": {...}}``. It needs the repository around it and
@@ -164,6 +182,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -425,6 +444,21 @@ CLUSTER_EXPECTED = {
                      "zamba2_2p7b": 3},
              expected_qos=0.9245804250109003)),
 }
+#: Phase 18, the control plane: the QoS kernels the profile must find by
+#: name (LAUNCHES key, device kernel name, the named scope of their
+#: dispatcher's CUDA branch); the wall-clock soak (TCP on 127.0.0.1,
+#: flash_crowd at its own size and the serving benchmark's load, 10x the
+#: trace's rate, one tick every 100 ms for 6 s); the Pareto grids (the
+#: reference's test shapes and 4,096 x 3, seeds 0-1, float32 and float64,
+#: quantized for ties).
+PROFILED = (("qos_matrix", "qos_matrix_kernel", "qos_matrix_cuda"),
+            ("qos_candidates", "topk_candidates_kernel",
+             "qos_candidates_cuda"),
+            ("greedy_argmax", "greedy_argmax_kernel", "greedy_argmax_cuda"))
+SOAK = dict(scenario="flash_crowd", policy="feedback", speed=10.0,
+            duration_s=6.0)
+PARETO_SHAPES = ((1, 2), (17, 2), (64, 3), (128, 4), (1024, 3), (4096, 3))
+PARETO_SEEDS = (0, 1)
 SOURCE = {
     "qos_matrix": "src/repro_torch/csrc/qos_kernels.cu",
     "qos_candidates": "src/repro_torch/csrc/qos_kernels.cu",
@@ -452,12 +486,13 @@ REPLACES = {
 
 #: Keys a kernel's row of the JSON line carries where its phase gives them:
 #: B3's device times, B8's bound of the work its plan runs, notes, B1's
-#: and B3's launches on phase 13's sweep, and B2's and B3's on phase 14's
-#: traced tick.
+#: and B3's launches on phase 13's sweep, B2's and B3's on phase 14's
+#: traced tick, and B1-B3's launches and device ms in phase 18's profile.
 EXTRA_KEYS = ("device_ms", "library_device_ms", "plan_bound_ms",
               "plan_bound_by", "note", "sweep_launches", "trace_launches",
               "shapes", "moe_launches", "frontend_launches",
-              "cluster_launches")
+              "cluster_launches", "profile_launches", "profile_device_ms",
+              "profile_ms_per_launch")
 
 
 def cluster_record(report, assignment) -> dict:
@@ -1550,10 +1585,10 @@ def _sigma_bound_sparse(inst, cand_idx, cand_q, dev) -> float:
     return float(q.amax(dim=1).sum())
 
 
-def phase_serving_tick(dev, inst, main_path) -> dict:
+def phase_serving_tick(dev, inst, main_path, keep_store=None) -> dict:
     """The traced 10^6-user tick (B2 once, B3 once an iteration), the
     serving horizons of every scenario and policy, and a serving sweep
-    killed and resumed."""
+    killed and resumed (its store copied to ``keep_store`` if given)."""
     import numpy as np
     import torch
 
@@ -1732,6 +1767,8 @@ def phase_serving_tick(dev, inst, main_path) -> dict:
         store = SweepStore(d)
         check(all(set(store.metrics(k)) == set(SERVING_METRIC_NAMES)
                   for k in store.keys()), "serving sweep: item metrics")
+        if keep_store is not None:
+            shutil.copytree(d, keep_store)
     log(f"  serving sweep ({len(items)} items, {spec.store_key()}): "
         f"killed after one chunk, resumed, a third call computed nothing; "
         f"bit-identical to a one-shot run ({sweep_s:.2f} s)")
@@ -3274,6 +3311,320 @@ def phase_training(dev) -> dict:
     return out
 
 
+# ===========================================================================
+# phase 18: the live control plane
+# ===========================================================================
+
+def _profiled_tick(tmp: Path) -> dict:
+    """:func:`profile_child` in a process of its own, its result read back.
+
+    In this script's own process, after phases 1-17 (about 460 s), the
+    profile twice lacked B2's one launch that LAUNCHES counted, while the
+    same profile after phases 1, 3 and 14 found every launch: a fresh
+    process gives the profiler the conditions it had there."""
+    sys.stdout.flush()
+    code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}]; import "
+            f"chip_smoke as c; c.profile_child({str(tmp)!r})")
+    proc = subprocess.run([sys.executable, "-c", code], timeout=600)
+    check(proc.returncode == 0,
+          f"the profiled tick's process exited {proc.returncode}")
+    return json.loads((tmp / "profile.json").read_text())
+
+
+def profile_child(tmp: str) -> None:
+    """Phase 3's tick and route and one 10^4-user sweep item, warmed once,
+    then under torch.profiler with obs annotations on: each QoS kernel's
+    launches in the profile against LAUNCHES, each inside its
+    dispatcher's scope, and their device milliseconds by stage; the
+    result as JSON in ``<tmp>/profile.json``."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core import synthetic_instance
+    from repro_torch.kernels.qos_matrix import ops
+    from repro_torch.obs.torchprof import kernel_launches, profile_trace
+    from repro_torch.serving import Router
+    from repro_torch.sweeps import SweepSpec, run_sweep
+    from repro_torch.workloads import evaluate_sparse
+
+    tmp = Path(tmp)
+    dev = torch.device("cuda")
+    inst = synthetic_instance(U_MAIN, n_edges=E_MAIN, seed=SEED)
+    router = Router(device=dev)
+    one = SweepSpec(scenarios=("synthetic",),
+                    override_grid=({"n_users": SWEEP_FULL_USERS},),
+                    algos=("egp",), seeds=(SWEEP_FULL_SEEDS,))
+    _, xs = evaluate_sparse([inst], device=dev)          # warm
+    router.route(inst, placement=xs[0])
+    run_sweep(one, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    tracer = obs.enable(annotations=True)
+    # the launches after each stage split a kernel's device times (a cold
+    # sweep chunk runs twice: once more for a warm timing)
+    counts = {}
+    t0 = time.perf_counter()
+    try:
+        with profile_trace(tmp / "profile") as path:
+            _, xs = evaluate_sparse([inst], device=dev)
+            counts["tick"] = dict(ops.LAUNCHES)
+            router.route(inst, placement=xs[0])
+            counts["route"] = dict(ops.LAUNCHES)
+            run_sweep(one, device=dev)
+            counts["sweep item"] = dict(ops.LAUNCHES)
+    finally:
+        obs.disable()
+    wall_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    spans = {tracer._names[i] for i in tracer.snapshot()["spans"]["name"]}
+    check({"kernel.qos_matrix", "kernel.qos_candidates"} <= spans,
+          f"profiled tick: obs kernel spans missing from {sorted(spans)}")
+    size_mb = os.path.getsize(path) / 2**20
+    doc = json.loads(Path(path).read_text())
+    log(f"  profiled tick + sweep item: {wall_s:.2f} s with the profiler; "
+        f"LAUNCHES {launches}; Chrome trace {size_mb:.1f} MiB, "
+        f"{len(doc['traceEvents'])} events")
+    names = {}
+    for e in doc["traceEvents"]:
+        if e.get("cat") == "kernel":
+            short = e["name"].split("(")[0].split("::")[-1][:48]
+            names[short] = names.get(short, 0) + 1
+    log(f"  device kernels in the profile: {names}")
+    out = {}
+    for name, kernel, scope in PROFILED:
+        got = kernel_launches(doc, kernel, scope)
+        span = kernel_launches(doc, kernel, "kernel." + name)
+        n, ms = got["launches"], got["device_ms"]
+        check(n == launches[name] > 0,
+              f"profile: {kernel} seen {n} times, LAUNCHES {launches[name]}")
+        check(got["in_scope"] == n,
+              f"profile: {got['in_scope']} of {n} {kernel} launches inside "
+              f"{scope}")
+        total = sum(ms)
+        queued = sorted(got["queued_ms"]) or [float("nan")]
+        by_stage, start = {}, 0
+        for stage, c in counts.items():
+            seg = ms[start:c[name]]
+            start = c[name]
+            if seg:
+                by_stage[stage] = dict(launches=len(seg), ms=sum(seg),
+                                       ms_per_launch=sum(seg) / len(seg))
+        log(f"  {kernel}: {n} launches in the profile = LAUNCHES, all "
+            f"inside {scope}, {span['in_scope']} inside the kernel.{name} "
+            f"span; device {total:.4f} ms summed, {total / n:.5f} ms a "
+            f"launch; by stage " + ", ".join(
+                f"{st} {v['launches']} x {v['ms_per_launch']:.5f} ms"
+                for st, v in by_stage.items())
+            + f"; device start - host launch min {queued[0]:.3f}, median "
+            f"{queued[len(queued) // 2]:.3f} ms")
+        out[name] = dict(launches=n, device_ms=total,
+                         ms_per_launch=total / n, by_stage=by_stage,
+                         in_kernel_span=span["in_scope"])
+    # B2 is only launched through qos_candidates_from_instance, B1 on the
+    # route through qos_matrix_from_instance (the sweep item calls the
+    # dispatcher itself, as the reference's batched path records no span)
+    check(out["qos_candidates"]["in_kernel_span"]
+          == out["qos_candidates"]["launches"],
+          "profile: B2 launched outside the kernel.qos_candidates span")
+    check(out["qos_matrix"]["in_kernel_span"] == 1,
+          "profile: the route's B1 outside the kernel.qos_matrix span")
+    (tmp / "profile.json").write_text(json.dumps(dict(
+        kernels=out, wall_s=wall_s, trace_mib=size_mb)))
+
+
+def _virtual_replay(cfg):
+    """A seeded trace through the virtual-clock gateway, in-process."""
+    import asyncio
+
+    from repro_torch.gateway import Gateway, GatewayConfig, run_loadgen
+
+    gw = Gateway(GatewayConfig(horizon=cfg, mode="virtual"))
+
+    async def run():
+        async def send(line: str) -> None:
+            gw.submit_line(line)
+
+        task = asyncio.ensure_future(gw.run())
+        await run_loadgen(send, cfg, wall=False)
+        return await task
+
+    return asyncio.run(run()), gw
+
+
+def _gateway_replays(tmp: Path) -> dict:
+    """Every scenario x policy at seed 0 through the virtual gateway, the
+    stream on to one file: the reference's digests, the file valid whole,
+    one gateway frame a tick; its SLOs and a dashboard screen."""
+    from repro_torch import obs
+    from repro_torch.gateway import result_digest
+    from repro_torch.obs.dash import DashState, render
+    from repro_torch.obs.slo import DEFAULT_SLOS, evaluate_slos
+    from repro_torch.obs.stream import FrameValidator
+    from repro_torch.serving.horizon import HorizonConfig
+    from repro_torch.workloads import list_scenarios
+
+    path = tmp / "gateway.jsonl"
+    n_ticks, n_runs = 0, 0
+    t0 = time.perf_counter()
+    obs.enable_stream(str(path), source="chip_smoke")
+    try:
+        for sc in list_scenarios():
+            for pol in TICK_POLICIES:
+                cfg = HorizonConfig(scenario=sc, policy=pol, seed=0,
+                                    **TICK_LOAD)
+                res, gw = _virtual_replay(cfg)
+                digest = result_digest(res)
+                check(digest == TICK_DIGESTS[(sc, pol)],
+                      f"gateway {sc}/{pol}: digest {digest} is not the "
+                      f"reference's {TICK_DIGESTS[(sc, pol)]}")
+                check(gw.counters["gateway.malformed"] == 0
+                      and gw.counters["gateway.admitted"] == res.submitted
+                      == gw.counters["gateway.requests"],
+                      f"gateway {sc}/{pol}: counters {gw.counters}")
+                n_ticks += len(res.per_tick)
+                n_runs += 1
+    finally:
+        obs.disable_stream()
+    replay_s = time.perf_counter() - t0
+    v = FrameValidator(contiguous=True)
+    frames = [v.feed_line(line) for line in path.read_text().splitlines()]
+    kinds = [f["type"] for f in frames]
+    check(kinds[0] == "hello" and kinds[-1] == "bye",
+          f"gateway stream ends {kinds[:1]} ... {kinds[-1:]}")
+    check(kinds.count("gateway") == n_ticks,
+          f"gateway frames {kinds.count('gateway')} for {n_ticks} ticks")
+    log(f"  {n_runs} virtual replays, {n_ticks} ticks in {replay_s:.2f} s "
+        f"on the host: every digest is TICK_DIGESTS'; stream "
+        f"{path.stat().st_size / 2**20:.2f} MiB, {len(frames)} frames "
+        f"valid, one gateway frame a tick")
+    for r in evaluate_slos(DEFAULT_SLOS, frames=frames):
+        log("    " + r.line())
+    state = DashState()
+    for f in frames:
+        state.update(f)
+    log(render(state))
+    return dict(runs=n_runs, ticks=n_ticks, s=replay_s, frames=len(frames))
+
+
+def _soak(tmp: Path) -> dict:
+    """The wall-clock soak over TCP on 127.0.0.1 with the stream on: it
+    must run without an exception, a malformed frame or a dropped
+    request; its verdict and its late requests are printed, not gated
+    (they judge the host's clock)."""
+    from repro_torch import obs
+    from repro_torch.gateway import run_soak
+    from repro_torch.obs.slo import DEFAULT_SLOS, evaluate_slos
+    from repro_torch.obs.stream import read_stream
+
+    path = tmp / "soak.jsonl"
+    obs.enable_stream(str(path), source="chip_smoke-soak")
+    try:
+        report = run_soak(SOAK["scenario"], seed=0, policy=SOAK["policy"],
+                          speed=SOAK["speed"],
+                          duration_s=SOAK["duration_s"], tcp=True,
+                          overrides=dict(TICK_LOAD))
+    finally:
+        obs.disable_stream()
+    log("  " + report.line())
+    log("  " + json.dumps(report.to_json()))
+    frames = list(read_stream(str(path)))      # raises on a bad frame
+    counters = [f for f in frames if f["type"] == "metrics"][-1][
+        "payload"]["counters"]
+    check(counters["gateway.malformed"] == 0,
+          f"soak: {counters['gateway.malformed']} malformed frame(s)")
+    # a request that reaches the gateway after its tick's wall deadline is
+    # counted late, not admitted (its tick has stepped): like the verdict,
+    # that judges the host's clock, so it is printed; what is gated is that
+    # nothing is dropped at ingress and nothing is admitted that was not
+    # sent
+    check(report.ticks > 0 and report.admitted > 0
+          and report.dropped_ingress == 0
+          and report.admitted + report.late <= report.sent,
+          f"soak: {report.admitted} admitted and {report.late} late of "
+          f"{report.sent} sent, {report.dropped_ingress} dropped")
+    log(f"  soak: {report.admitted} of {report.sent} sent admitted, "
+        f"{report.late} late, "
+        f"{report.sent - report.admitted - report.late} still queued at "
+        f"the last deadline; admitted == sent: "
+        f"{report.admitted == report.sent}")
+    check(sum(f["type"] == "gateway" for f in frames) == report.ticks,
+          "soak: one gateway frame a tick")
+    for r in evaluate_slos(DEFAULT_SLOS, frames=frames):
+        log("    " + r.line())
+    return report.to_json()
+
+
+def _pareto(dev, store: Path) -> dict:
+    """pareto_mask_torch on the card against pareto_mask_np, exactly, and
+    frontier_points through both masks over phase 14's serving store."""
+    import numpy as np
+    import torch
+
+    from repro_torch.tuning import (frontier_points, pareto_mask_np,
+                                    pareto_mask_torch)
+
+    n = 0
+    for shape in PARETO_SHAPES:
+        for seed in PARETO_SEEDS:
+            for dtype in (np.float32, np.float64):
+                rng = np.random.default_rng(seed)
+                pts = np.round(rng.normal(size=shape).astype(dtype), 1)
+                maximize = [bool(b) for b in
+                            rng.integers(0, 2, size=shape[1])]
+                got = pareto_mask_torch(pts, maximize, device=dev)
+                check(np.array_equal(got, pareto_mask_np(pts, maximize)),
+                      f"pareto {shape} {dtype.__name__} seed {seed}: the "
+                      "card's mask differs from NumPy's")
+                n += 1
+    sub = np.array([[0.5, 1.0], [0.5 + 1e-12, 1.0]])
+    check(pareto_mask_torch(sub, (True, False), device=dev).tolist()
+          == [False, True], "pareto: float64 below float32 resolution")
+    times = {}
+    rng = np.random.default_rng(0)
+    big = np.round(rng.normal(size=PARETO_SHAPES[-1]), 1)
+    for dtype in (np.float32, np.float64):
+        pts = big.astype(dtype)
+        on_card = torch.from_numpy(pts).to(dev)
+        dev_ms = time_ms(lambda: pareto_mask_torch(
+            on_card, (True, False, True), device=dev))
+        host = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pareto_mask_np(pts, (True, False, True))
+            host.append(1e3 * (time.perf_counter() - t0))
+        times[dtype.__name__] = dict(device_ms=dev_ms,
+                                     numpy_ms=statistics.median(host))
+    via_card = frontier_points(store, use_device=True, device=dev)
+    via_np = frontier_points(store)
+    check({k: [repr(p) for p in v] for k, v in via_card.items()}
+          == {k: [repr(p) for p in v] for k, v in via_np.items()},
+          "frontier_points: the card's mask and NumPy's differ")
+    n_points = sum(len(v) for v in via_np.values())
+    log(f"  pareto_mask_torch == pareto_mask_np on {n} grids up to "
+        f"{PARETO_SHAPES[-1]} (float32, float64) and below float32 "
+        f"resolution; frontier_points over phase 14's store: {n_points} "
+        f"points, the same through both masks; at {PARETO_SHAPES[-1]} "
+        f"the card's mask (events, mask back on the host) vs NumPy: "
+        f"{times}")
+    return dict(grids=n, points=n_points, times=times)
+
+
+def phase_control_plane(dev, store: Path) -> dict:
+    """Phase 18: the profiler over B1-B3, the virtual-clock gateway, the
+    wall-clock soak and the Pareto mask on the card."""
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        for key, fn in (("profile", lambda: _profiled_tick(tmp)),
+                        ("gateway", lambda: _gateway_replays(tmp)),
+                        ("soak", lambda: _soak(tmp)),
+                        ("pareto", lambda: _pareto(dev, store))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            log(f"  ({key}: {time.perf_counter() - t0:.1f} s)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3343,7 +3694,10 @@ def main() -> int:
     log("phase 14: the serving tick (traced 10^6-user tick, every "
         "scenario's horizon, a serving sweep)")
     t14 = time.perf_counter()
-    ticked = phase_serving_tick(dev, inst, main_path)
+    kept = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    serving_store = Path(kept.name) / "serving"
+    ticked = phase_serving_tick(dev, inst, main_path,
+                                keep_store=serving_store)
     log(f"  phase 14 took {time.perf_counter() - t14:.1f} s; chip_smoke so "
         f"far {time.perf_counter() - t_start:.1f} s")
     log("phase 15: serving the MoE family at full width, depth cut "
@@ -3366,6 +3720,15 @@ def main() -> int:
     t17 = time.perf_counter()
     cluster = phase_cluster(dev)
     log(f"  phase 17 took {time.perf_counter() - t17:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - t_start:.1f} s")
+    log("phase 18: the live control plane (profiled tick, virtual-clock "
+        "gateway, wall-clock soak over TCP, the Pareto mask on the card)")
+    t18 = time.perf_counter()
+    try:
+        control = phase_control_plane(dev, serving_store)
+    finally:
+        kept.cleanup()
+    log(f"  phase 18 took {time.perf_counter() - t18:.1f} s; chip_smoke so "
         f"far {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on its slice's main path: B4/B7 serving
     # smollm-360m, B8 serving mamba2-2.7b, B5/B6 training smollm-360m
@@ -3397,6 +3760,11 @@ def main() -> int:
         if row["name"] in ("qos_matrix", "flash_attention", "gqa_decode",
                            "ssd_scan"):
             row["cluster_launches"] = cluster["launches"][row["name"]]
+        if row["name"] in control["profile"]["kernels"]:
+            prof = control["profile"]["kernels"][row["name"]]
+            row["profile_launches"] = prof["launches"]
+            row["profile_device_ms"] = prof["device_ms"]
+            row["profile_ms_per_launch"] = prof["ms_per_launch"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

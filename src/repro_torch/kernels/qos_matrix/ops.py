@@ -18,6 +18,8 @@ import torch
 
 from repro_torch.kernels._build import check_cuda_tensor as _check
 from repro_torch.kernels._build import launch as _launch
+from repro_torch.obs import kernel_span
+from repro_torch.obs.torchprof import named_scope
 
 from .ref import (greedy_argmax_ref, qos_candidates_ref, qos_matrix_ref,
                   topk_candidates_ref)
@@ -194,14 +196,17 @@ def qos_matrix(u_alpha, u_delta, u_share_k, u_share_w, u_service,
     """Dense QoS matrix Q [U, P] float32 (Eq. 1)."""
     check_service_ids(u_service, sm_service)
     if not _use_kernel(use_kernel, u_alpha):
-        return qos_matrix_ref(u_alpha, u_delta, u_share_k, u_share_w,
-                              u_service, sm_acc, sm_k, sm_w, sm_service,
-                              delta_max=delta_max)
+        with named_scope("qos_matrix_ref"):
+            return qos_matrix_ref(u_alpha, u_delta, u_share_k, u_share_w,
+                                  u_service, sm_acc, sm_k, sm_w, sm_service,
+                                  delta_max=delta_max)
     f = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
     i = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
-    return qos_matrix_cuda(f(u_alpha), f(u_delta), f(u_share_k),
-                           f(u_share_w), i(u_service), f(sm_acc), f(sm_k),
-                           f(sm_w), i(sm_service), delta_max=delta_max)
+    with named_scope("qos_matrix_cuda"):
+        return qos_matrix_cuda(f(u_alpha), f(u_delta), f(u_share_k),
+                               f(u_share_w), i(u_service), f(sm_acc),
+                               f(sm_k), f(sm_w), i(sm_service),
+                               delta_max=delta_max)
 
 
 def qos_candidates(u_alpha, u_delta, u_share_k, u_share_w,
@@ -210,13 +215,16 @@ def qos_candidates(u_alpha, u_delta, u_share_k, u_share_w,
                    use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Segmented QoS over pre-gathered ``(user, candidate)`` pairs [U, K]."""
     if not _use_kernel(use_kernel, u_alpha):
-        return qos_candidates_ref(u_alpha, u_delta, u_share_k, u_share_w,
-                                  cand_acc, cand_k, cand_w, cand_valid,
-                                  delta_max=delta_max)
+        with named_scope("qos_candidates_ref"):
+            return qos_candidates_ref(u_alpha, u_delta, u_share_k,
+                                      u_share_w, cand_acc, cand_k, cand_w,
+                                      cand_valid, delta_max=delta_max)
     f = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
-    return qos_candidates_cuda(f(u_alpha), f(u_delta), f(u_share_k),
-                               f(u_share_w), f(cand_acc), f(cand_k),
-                               f(cand_w), f(cand_valid), delta_max=delta_max)
+    with named_scope("qos_candidates_cuda"):
+        return qos_candidates_cuda(f(u_alpha), f(u_delta), f(u_share_k),
+                                   f(u_share_w), f(cand_acc), f(cand_k),
+                                   f(cand_w), f(cand_valid),
+                                   delta_max=delta_max)
 
 
 def topk_candidates(u_service, u_alpha, u_delta, u_share_k, u_share_w,
@@ -226,44 +234,58 @@ def topk_candidates(u_service, u_alpha, u_delta, u_share_k, u_share_w,
     """Top-k candidate build ``(cand_idx [U, k] int32, cand_q [U, k]
     float32)`` from the users, the impl table [S, M] and the models."""
     check_service_ids(u_service)
+    # B2's scope carries the reference's qos_candidates dispatcher's name
     if not _use_kernel(use_kernel, u_alpha):
-        return topk_candidates_ref(u_service, u_alpha, u_delta, u_share_k,
-                                   u_share_w, table, sm_acc, sm_k, sm_w, k,
-                                   delta_max=delta_max)
+        with named_scope("qos_candidates_ref"):
+            return topk_candidates_ref(u_service, u_alpha, u_delta,
+                                       u_share_k, u_share_w, table, sm_acc,
+                                       sm_k, sm_w, k, delta_max=delta_max)
     f = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
     i = lambda t: t.to(torch.int32).contiguous()  # noqa: E731
-    return topk_candidates_cuda(i(u_service), f(u_alpha), f(u_delta),
-                                f(u_share_k), f(u_share_w), i(table),
-                                f(sm_acc), f(sm_k), f(sm_w), k,
-                                delta_max=delta_max)
+    with named_scope("qos_candidates_cuda"):
+        return topk_candidates_cuda(i(u_service), f(u_alpha), f(u_delta),
+                                    f(u_share_k), f(u_share_w), i(table),
+                                    f(sm_acc), f(sm_k), f(sm_w), k,
+                                    delta_max=delta_max)
 
 
 def greedy_argmax(v, mask, *, use_kernel: Optional[bool] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked per-edge argmax over the benefit map (Alg. 3 line 11)."""
     if not _use_kernel(use_kernel, v):
-        return greedy_argmax_ref(v, mask)
+        with named_scope("greedy_argmax_ref"):
+            return greedy_argmax_ref(v, mask)
     # a bool mask (the greedy loop's) goes through as it is: no elementwise
     # launch per call
     m = mask if mask.dtype == torch.bool else mask > 0
-    return greedy_argmax_cuda(v.to(torch.float32).contiguous(),
-                              m.contiguous())
+    with named_scope("greedy_argmax_cuda"):
+        return greedy_argmax_cuda(v.to(torch.float32).contiguous(),
+                                  m.contiguous())
 
 
 def qos_matrix_from_instance(ti, use_kernel: Optional[bool] = None
                              ) -> torch.Tensor:
-    """Dense Q [U, P] over a :class:`~repro_torch.core.TorchInstance`."""
-    return qos_matrix(ti.u_alpha, ti.u_delta, ti.u_share_k, ti.u_share_w,
-                      ti.u_service, ti.sm_acc, ti.sm_k, ti.sm_w,
-                      ti.sm_service, delta_max=ti.delta_max,
-                      use_kernel=use_kernel)
+    """Dense Q [U, P] over a :class:`~repro_torch.core.TorchInstance`,
+    inside a ``kernel.qos_matrix`` obs span with the reference's args
+    (``use_kernel`` as the dispatcher resolves it)."""
+    use_kernel = _use_kernel(use_kernel, ti.u_alpha)
+    with kernel_span("qos_matrix", U=int(ti.u_alpha.shape[0]),
+                     P=int(ti.sm_acc.shape[0]), use_kernel=use_kernel):
+        return qos_matrix(ti.u_alpha, ti.u_delta, ti.u_share_k,
+                          ti.u_share_w, ti.u_service, ti.sm_acc, ti.sm_k,
+                          ti.sm_w, ti.sm_service, delta_max=ti.delta_max,
+                          use_kernel=use_kernel)
 
 
 def qos_candidates_from_instance(ti, table, k: Optional[int] = None, *,
                                  use_kernel: Optional[bool] = None):
     """Top-k candidate build (:func:`topk_candidates`, one kernel launch on
     a card) from a TorchInstance and an impl table, host-built or already
-    on the instance's device; ``(cand_idx, cand_q)``."""
+    on the instance's device; ``(cand_idx, cand_q)``. Inside a
+    ``kernel.qos_candidates`` obs span with the reference's args."""
     from repro_torch.core.candidates import topk_candidates_torch
 
-    return topk_candidates_torch(ti, table, k, use_kernel=use_kernel)
+    use_kernel = _use_kernel(use_kernel, ti.u_alpha)
+    with kernel_span("qos_candidates", U=int(ti.u_alpha.shape[0]),
+                     k=-1 if k is None else int(k), use_kernel=use_kernel):
+        return topk_candidates_torch(ti, table, k, use_kernel=use_kernel)

@@ -49,7 +49,6 @@ __all__ = [
     "get_tracer",
     "span",
     "kernel_span",
-    "get_publisher",
     "count",
     "sample",
     "save",
@@ -361,12 +360,6 @@ def kernel_span(name: str, **args: Any):
     is off."""
     full = name if name.startswith("kernel.") else "kernel." + name
     return span(full, **args)
-
-
-def get_publisher():
-    """The live telemetry stream's publisher: ``None`` — the port has no
-    stream yet, so the serving tick's stream frames are never built."""
-    return None
 
 
 def count(name: str, n: float = 1) -> None:

@@ -328,7 +328,7 @@ def run_horizon(config: HorizonConfig) -> HorizonResult:
     in-flight gauge samples at every tick boundary, realized-QoS gauge
     samples, and per-request latency histograms labeled by (scenario,
     policy). When a live stream publisher is installed
-    (:func:`repro_torch.obs.get_publisher`; the port has no stream yet),
+    (:mod:`repro_torch.obs.stream`, ``REPRO_OBS_STREAM``),
     each tick also emits a ``tick`` frame (provisional completed-window
     QoS/miss rate, queue depth) and the run ends with a ``horizon``
     summary frame — same invariant: stream-on runs are byte-identical to

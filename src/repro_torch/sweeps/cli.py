@@ -25,8 +25,13 @@ Examples::
 
 Interrupting a stored run and re-invoking the same command resumes it:
 completed chunks are read back from the manifest, not recomputed. The
-flags are the reference's (``python -m repro.sweeps``) without ``--fleet``
-and ``--stream``, plus ``--device``.
+flags are the reference's (``python -m repro.sweeps``) without ``--fleet``,
+plus ``--device``. ``--stream SPEC`` (or ``REPRO_OBS_STREAM=SPEC``)
+publishes a ``chunk`` frame per computed chunk, and the serving kind's
+``tick`` and ``horizon`` frames, while the sweep runs::
+
+    python -m repro_torch.sweeps --scenario steady --stream /tmp/s.jsonl
+    python -m repro_torch.obs dash --stream /tmp/s.jsonl
 """
 from __future__ import annotations
 
@@ -196,6 +201,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--obs", default=None, metavar="PATH",
                     help="enable repro_torch.obs tracing and save the raw "
                          "artifact at PATH")
+    ap.add_argument("--stream", default=None, metavar="SPEC",
+                    help="publish live telemetry frames while the sweep "
+                         "runs: a JSONL file path, unix:/path, or "
+                         "tcp:host:port (watch with python -m "
+                         "repro_torch.obs dash --stream SPEC); equivalent "
+                         "to setting REPRO_OBS_STREAM=SPEC")
     ap.add_argument("-q", "--quiet", action="store_true")
     args = ap.parse_args(argv)
     if args.kind == "serving" and args.validate:
@@ -207,6 +218,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         obs.enable()
     else:
         obs.enable_from_env()  # REPRO_OBS=1
+    if args.stream:
+        obs.enable_stream(args.stream, source="sweeps")
+    else:
+        obs.enable_stream_from_env(source="sweeps")  # REPRO_OBS_STREAM
 
     spec = build_spec(args)
     store_dir = None

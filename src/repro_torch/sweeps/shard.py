@@ -280,7 +280,8 @@ def _serving_metrics(per_tick, ticks: Sequence[int]
 
 
 def _note_chunk(executor: str, n_items: int, wall_s: float) -> None:
-    """Feed chunk throughput into the active tracer (a no-op when off)."""
+    """Feed chunk throughput into the active tracer and the live stream
+    (each a no-op when its half is off)."""
     rate = n_items / wall_s if wall_s > 0 else None
     tracer = obs.get_tracer()
     if tracer is not None:
@@ -290,8 +291,9 @@ def _note_chunk(executor: str, n_items: int, wall_s: float) -> None:
             tracer.metrics.histogram("sweep.items_per_s",
                                      executor=executor).observe(rate)
             tracer.sample("sweep.items_per_s", rate)
-    # the reference also publishes a "chunk" frame to the live stream here;
-    # the port's obs has no stream yet (ROADMAP queue A item 8)
+    obs.publish("chunk", executor=executor, items=int(n_items),
+                wall_s=round(float(wall_s), 6),
+                items_per_s=None if rate is None else round(rate, 6))
 
 
 # ===========================================================================

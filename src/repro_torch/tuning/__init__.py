@@ -10,22 +10,34 @@ turns those stores into decisions —
   95%-CI tie-break) into a versioned JSON lookup table that
   ``HorizonConfig.from_overrides`` consults for unset knobs; the packaged
   table is a byte copy of the reference's;
+* :mod:`~repro_torch.tuning.pareto` extracts non-dominated
+  (QoS, deadline-miss-rate) and (accuracy, latency) frontiers per
+  scenario — batched dominance on a CUDA device
+  (:func:`pareto_mask_torch`) with a NumPy reference path;
 * :mod:`~repro_torch.tuning.controller` closes the loop online:
   :class:`FeedbackPlacer` adapts the stickiness bonus from realized
   per-tick QoS/miss-rate (EWMA signals, multiplicative increase/decrease,
   clamped), exposed as serving policy ``"feedback"``.
 
-Both are the reference's (:mod:`repro.tuning`) on the host, value for
-value. Its Pareto frontiers and CLI are not ported yet.
+All three are the reference's (:mod:`repro.tuning`) value for value, on
+the same stores::
+
+    python -m repro_torch.tuning fit --store experiments/sweeps_torch/<key>
+    python -m repro_torch.tuning pareto --store experiments/sweeps_torch/<key>
+    python -m repro_torch.tuning show
 """
 from .controller import STICKINESS_MAX, STICKINESS_MIN, FeedbackPlacer
 from .fit import (DEFAULT_TABLE_PATH, TABLE_ENV_VAR, TABLE_VERSION,
                   ServingRecord, fit_table, load_table, read_serving_records,
                   recommend, save_table)
+from .pareto import (FrontierPoint, frontier_points, frontier_rows,
+                     pareto_mask_np, pareto_mask_torch)
 
 __all__ = [
     "FeedbackPlacer", "STICKINESS_MIN", "STICKINESS_MAX",
     "ServingRecord", "fit_table", "save_table", "load_table", "recommend",
     "read_serving_records", "TABLE_VERSION", "TABLE_ENV_VAR",
     "DEFAULT_TABLE_PATH",
+    "FrontierPoint", "frontier_points", "frontier_rows",
+    "pareto_mask_np", "pareto_mask_torch",
 ]

@@ -243,10 +243,16 @@ def single_evaluator(algo: str, n_services: int, max_iters: int, *,
     float32 0-d tensor, ``x [E, P]`` bool."""
     if algo not in ("egp", "agp"):
         raise ValueError(f"unknown batched algorithm {algo!r}")
-    from repro_torch.kernels.qos_matrix.ops import qos_matrix_from_instance
+    from repro_torch.kernels.qos_matrix.ops import qos_matrix
 
     def one(ti: TorchInstance):
-        Q = qos_matrix_from_instance(ti, use_kernel=use_kernel)
+        # the dispatcher itself, not qos_matrix_from_instance: the
+        # reference's batched evaluator computes QoS in jnp and records no
+        # kernel.qos_matrix span per item, so neither does this one
+        Q = qos_matrix(ti.u_alpha, ti.u_delta, ti.u_share_k, ti.u_share_w,
+                       ti.u_service, ti.sm_acc, ti.sm_k, ti.sm_w,
+                       ti.sm_service, delta_max=ti.delta_max,
+                       use_kernel=use_kernel)
         elig = eligibility_torch(ti)
         if algo == "egp":
             x = egp_place_torch(Q, elig, ti.u_edge, ti.u_service,

@@ -184,3 +184,55 @@ def test_chip_smoke_fails_without_a_card(tmp_path, monkeypatch):
                               timeout=120)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_control_plane_runs_without_loading_jax(tmp_path):
+    """A virtual gateway replay, a streamed sweep, the obs CLI over the
+    stream and the tuning CLI, in a process that never loads jax or
+    repro."""
+    stream = tmp_path / "s.jsonl"
+    code = (
+        "import sys, asyncio; "
+        "from repro_torch import obs; "
+        "from repro_torch.gateway.cli import main as gw; "
+        "from repro_torch.obs.cli import main as obs_cli; "
+        "from repro_torch.sweeps.cli import main as sweeps; "
+        "from repro_torch.tuning.cli import main as tuning; "
+        "ov = ['--override', 'n_user_slots=24', '--override', "
+        "'n_edges=3']; "
+        "assert gw(['replay', '--scenario', 'steady', '--n-ticks', '2'] "
+        "+ ov) == 0; "
+        f"assert sweeps(['--kind', 'serving', '--scenario', 'steady', "
+        f"'--seeds', '0:2', '--ticks', '2', '--override', "
+        f"'n_user_slots=24', '--out', {str(tmp_path / 'st')!r}, '-q', "
+        f"'--stream', {str(stream)!r}]) == 0; "
+        "obs.disable_stream(); "
+        f"assert obs_cli(['slo', '--stream', {str(stream)!r}]) == 0; "
+        f"assert obs_cli(['dash', '--stream', {str(stream)!r}, "
+        "'--once']) == 0; "
+        f"assert tuning(['pareto', '--store', {str(tmp_path / 'st')!r}, "
+        "'--device', 'cpu']) == 0; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'repro')]; assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "parity: OK" in proc.stdout and "SLO" in proc.stdout
+
+
+def test_pareto_and_tuning_cli_default_to_cuda(monkeypatch, tmp_path):
+    import numpy as np
+
+    from repro_torch.tuning import frontier_points, pareto_mask_torch
+    from repro_torch.tuning.cli import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pareto_mask_torch(np.ones((3, 2)), (True, False))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        frontier_points(tmp_path, use_device=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["pareto", "--store", str(tmp_path), "--device"])
+    assert pareto_mask_torch(np.ones((3, 2)), (True, False),
+                             device="cpu").tolist() == [True] * 3
