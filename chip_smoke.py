@@ -169,7 +169,28 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    the card equal to pareto_mask_np on seeded grids up to 4,096 x 3 in
    float32 and float64 and below float32 resolution, frontier_points over
    phase 14's serving store the same through the device and the NumPy
-   mask, with the device mask's time (CUDA events) beside NumPy's.
+   mask, with the device mask's time (CUDA events) beside NumPy's;
+19. the SSD scan's backward kernel (csrc/ssd_scan_bwd.cu) against the
+   float64 plain backward (ssd_chunked_bwd) at the mamba2 and zamba2
+   training shapes ([8, 1024, 80, 64], N 128 and 64, chunk 256), one chunk,
+   a ragged length, a chunk of 40, and P = N = 16 with 2 and 5 chunks, with
+   and without an initial state and dfinal: every gradient within 3e-4 of
+   its largest |value|, two calls bit-equal; its time (CUDA events and
+   device time), the plain backward's, autograd of ssd_chunked's, and its
+   bound;
+20. training mamba2-2.7b and zamba2-2.7b at full width and depth through
+   run_training (6 steps of 8 x 1,024 tokens, bf16 compute, f32 master
+   weights and Adam state, remat): launch counts per step exact (B8 twice
+   and the SSD backward once a Mamba layer; zamba2's B4 twice and B5, B6
+   once a shared-block application), no plain SSD function called, finite
+   and falling losses, every parameter with a gradient, step time,
+   tokens/s, peak memory and one step's device time by kernel; every SSD
+   backward call of one bf16 step within 3e-4 of the plain backward on
+   its inputs; and at full width and cut depth one float32 step with
+   kernels against the same step with the plain versions, the loss and
+   every gradient leaf within 3e-4 of its largest |value| (the two
+   kernels' shares read apart), beside a control with every layer's scan
+   output and its gradient rounded to bf16.
 
 It prints a JSON line of per-kernel numbers and, last, the device line
 ``{"ok": true, "device": {...}}``. It needs the repository around it and
@@ -314,6 +335,26 @@ CALL_CONTROL_BITS = 4
 #: plain output's largest |value|, or over 1 where that is smaller (the
 #: reference's absolute 3e-4, tests/test_kernels.py).
 BWD_TOL = 3e-4
+#: Phase 19, the SSD scan's backward kernel: each gradient within
+#: SSD_TOL of its largest |value| against the float64 plain backward
+#: (ssd_chunked_bwd), B8's forward gate mirrored. Phase 20 trains these
+#: models at full width and depth (TRAIN_STEPS steps of TRAIN_B x TRAIN_S
+#: tokens), holds every SSD backward call of one bf16 step within SSD_TOL
+#: of the plain backward on its own inputs, and holds one float32 step
+#: with kernels against the same step with use_kernel=False at full width
+#: and the depth in SSM_GRAD_DEPTH (mamba2 2 layers, zamba2 one segment of
+#: 6 Mamba layers and a shared block), each gradient leaf within
+#: SSM_GRAD_TOL of its largest |value|. The worst leaves are A_log and
+#: dt_bias, sums over every position of terms that mostly cancel: there
+#: the kernels read up to 9.0e-5 (H100, PR 25), and so does the backward
+#: kernel alone or B8 alone against the plain versions (float32 sums in
+#: another order), while every other leaf reads far less. The control
+#: rounds every layer's scan output and the gradient reaching it to
+#: SSM_CONTROL_BITS mantissa bits (bf16's 7) and must exceed the limit:
+#: it read 1.3e-3 to 2.2e-3.
+SSM_TRAINED = ("mamba2_2p7b", "zamba2_2p7b")
+SSM_GRAD_DEPTH = {"mamba2_2p7b": 2, "zamba2_2p7b": 6}
+SSM_GRAD_TOL, SSM_CONTROL_BITS = 3e-4, 7
 #: Phase 13, the sweep engine: Fig. 3 at the §VI-B widths (the reference
 #: sweep spec's _SYNTH_DEFAULTS: 10 edges, 100 services, U{1..10}
 #: implementations) with 2,000 users and 8 seeds; the same generator at
@@ -468,6 +509,7 @@ SOURCE = {
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
     "flash_attention_dq": "src/repro_torch/csrc/flash_attention_bwd.cu",
     "flash_attention_dkv": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "ssd_scan_bwd": "src/repro_torch/csrc/ssd_scan_bwd.cu",
 }
 REPLACES = {
     "qos_matrix": "src/repro/kernels/qos_matrix/qos_matrix.py:120",
@@ -481,6 +523,9 @@ REPLACES = {
         "src/repro/kernels/flash_attention/backward.py:145",
     "flash_attention_dkv":
         "src/repro/kernels/flash_attention/backward.py:164",
+    # no Pallas counterpart: the reference differentiates its jnp
+    # ssd_chunked (jax.grad under jax.checkpoint)
+    "ssd_scan_bwd": "src/repro/models/layers.py:705",
 }
 
 
@@ -492,7 +537,7 @@ EXTRA_KEYS = ("device_ms", "library_device_ms", "plan_bound_ms",
               "plan_bound_by", "note", "sweep_launches", "trace_launches",
               "shapes", "moe_launches", "frontend_launches",
               "cluster_launches", "profile_launches", "profile_device_ms",
-              "profile_ms_per_launch")
+              "profile_ms_per_launch", "autograd_ms", "training_launches")
 
 
 def cluster_record(report, assignment) -> dict:
@@ -2527,7 +2572,7 @@ def phase_serving(dev, arch: str, n_layers=None) -> dict:
     expect = {"flash_attention": calls["attention"],
               "flash_attention_dq": 0, "flash_attention_dkv": 0,
               "gqa_decode": calls["decode_attention"],
-              "ssd_scan": calls["ssd"]}
+              "ssd_scan": calls["ssd"], "ssd_scan_bwd": 0}
     log(f"  generate launches: {launches} (expected {expect}); peak device "
         f"memory {peak_gb:.2f} GB")
     check(launches == expect, f"{arch} launches {launches} != {expect}")
@@ -2629,7 +2674,7 @@ def phase_frontends(dev) -> dict:
         return calls, {"flash_attention": calls["attention"],
                        "flash_attention_dq": 0, "flash_attention_dkv": 0,
                        "gqa_decode": calls["decode_attention"],
-                       "ssd_scan": 0}
+                       "ssd_scan": 0, "ssd_scan_bwd": 0}
 
     out = {}
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2805,7 +2850,8 @@ def phase_cluster(dev) -> dict:
             got = {k: d[k] for k in want}
             check(got == want, f"cluster {case} {cfg.name} generate "
                   f"launches {got} != {want}")
-            check(d["qos_matrix"] == 0 and d["flash_attention_dq"] == 0,
+            check(d["qos_matrix"] == 0 and d["flash_attention_dq"] == 0
+                  and d["ssd_scan_bwd"] == 0,
                   f"cluster {case} {cfg.name}: other launches {d}")
             m = by_model.setdefault(cfg.name, dict(batches=0, requests=0,
                                                    ms=[], launches={}))
@@ -3072,15 +3118,20 @@ def _dq_rounded(n_layers: int, bits: int):
     return wrap
 
 
-def _grads_of(model, cfg, batch, use_kernel) -> dict:
-    """``{name: gradient}`` of the loss (a copy), and the loss."""
+def _grads_of(model, cfg, batch, use_kernel) -> tuple:
+    """The loss and ``{name: gradient}`` (a copy; zeros for a leaf the loss
+    does not reach, such as a shared block a cut depth never applies)."""
+    import torch
+
     from repro_torch.models import transformer as T
 
     for p in model.parameters():
         p.grad = None
     loss = T.loss_fn(model, cfg, batch, use_kernel)
     loss.backward()
-    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    return float(loss.detach()), {
+        n: (p.grad.detach().clone() if p.grad is not None
+            else torch.zeros_like(p)) for n, p in model.named_parameters()}
 
 
 def _leaf_err(a: dict, b: dict) -> tuple[float, str]:
@@ -3189,7 +3240,7 @@ def phase_training(dev) -> dict:
     per_step = {"flash_attention": 2 * cfg.n_layers,     # forward + remat
                 "flash_attention_dq": cfg.n_layers,
                 "flash_attention_dkv": cfg.n_layers,
-                "gqa_decode": 0, "ssd_scan": 0}
+                "gqa_decode": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
     expect = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     log(f"  run_training launches over {TRAIN_STEPS} steps: {launches} "
         f"(expected {expect})")
@@ -3284,12 +3335,12 @@ def phase_training(dev) -> dict:
                           .manual_seed(SEED))
     batch = _train_batch(TokenPipeline(cfg32, global_batch=GRAD_B,
                                        seq_len=GRAD_S, seed=SEED), 0, dev)
-    g_kern = _grads_of(model, cfg32, batch, None)
-    g_plain = _grads_of(model, cfg32, batch, False)
+    _, g_kern = _grads_of(model, cfg32, batch, None)
+    _, g_plain = _grads_of(model, cfg32, batch, False)
     err, worst = _leaf_err(g_kern, g_plain)
     del g_kern
     with _patched_backward(_dq_rounded(cfg.n_layers, GRAD_CONTROL_BITS)):
-        g_ctrl = _grads_of(model, cfg32, batch, False)
+        _, g_ctrl = _grads_of(model, cfg32, batch, False)
     ctrl, ctrl_worst = _leaf_err(g_ctrl, g_plain)
     log(f"  float32 gradients of a {GRAD_B}x{GRAD_S}-token step, kernels "
         f"vs plain: worst leaf {err:.3g} of its largest value ({worst}); "
@@ -3309,6 +3360,423 @@ def phase_training(dev) -> dict:
     out.update(_resume_check(dev))
     torch.cuda.empty_cache()
     return out
+
+
+# ===========================================================================
+# phase 19: the SSD scan's backward kernel
+# ===========================================================================
+
+def _ssd_bwd_work(B, L, H, P, N, chunk, with_init, with_dfinal
+                  ) -> tuple[float, float]:
+    """``(bytes, operations)`` one backward needs: x, dtA, b, c, dy, the
+    forward's entering states and chunk decay (and dfinal) read once, dx,
+    ddtA, db, dc and dinit written once; and 2 operations per multiply-add
+    of the chunked backward over the visible (s <= q) pairs: C.B^T once per
+    row and chunk, dCB's two products with B and C once per row and chunk,
+    and per (row, head) dy.x^T and the scores' product with dy over the
+    pairs, and four products of L P N (the entering gradient, the state
+    terms of dx, db and dc)."""
+    Lp = -(-L // chunk) * chunk
+    nc = Lp // chunk
+    pairs = nc * chunk * (chunk + 1) // 2
+    n_bytes = 4 * (3 * B * L * H * P + 2 * B * L * H + 4 * B * L * N
+                   + B * nc * H * (P * N + 1)
+                   + (2 if with_dfinal else 1) * B * H * P * N)
+    macs = B * (3 * pairs * N + H * (2 * pairs * P + 4 * Lp * P * N))
+    return n_bytes, 2 * macs
+
+
+def _ssd_bwd_args(x, dtA, b, c, s0, chunk, use_kernel):
+    """The padded inputs and the forward's entering states and chunk decay
+    (B8's scratch for the kernel, ssd_chunked_steps's for the plain
+    version)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ssd_scan as ss
+
+    pad = (-x.shape[1]) % chunk
+    x, dtA, b, c = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                    for t in (x, dtA, b, c))
+    steps = (ss.ssd_scan_cuda_steps(x, dtA, b, c, chunk=chunk,
+                                    initial_state=s0) if use_kernel
+             else ss.ssd_chunked_steps(x, dtA, b, c, chunk, s0))
+    return x, dtA, b, c, steps["entering_states"], steps["chunk_decay"]
+
+
+def phase_ssd_bwd_kernel(dev) -> dict:
+    """The backward kernel against the float64 plain backward
+    (ssd_chunked_bwd), two calls bitwise; numbers at the mamba2 training
+    shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ssd_scan as ss
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    # (label, B, L, H, P, N, chunk, initial state, dfinal)
+    cases = [("mamba2 training", TRAIN_B, TRAIN_S, 80, 64, 128, 256, False,
+              False),
+             ("zamba2 training", TRAIN_B, TRAIN_S, 80, 64, 64, 256, False,
+              False),
+             ("1 chunk, initial state, dfinal", 2, 256, 4, 64, 128, 256,
+              True, True),
+             ("ragged L, initial state, dfinal", 1, 300, 3, 64, 64, 256,
+              True, True),
+             ("chunk 40, initial state", 1, 200, 2, 64, 128, 40, True,
+              False),
+             ("P=N=16, initial state, dfinal", 4, 16, 8, 16, 16, 8, True,
+              True),
+             ("P=N=16, 5 chunks, dfinal", 2, 40, 8, 16, 16, 8, False, True),
+             ("P=N=16 ragged", 1, 21, 3, 16, 16, 8, True, False)]
+    names = ("dx", "ddtA", "db", "dc", "dinit")
+    rows, err = {}, 0.0
+    for label, B, L, H, P, N, chunk, with_init, with_dfinal in cases:
+        x, dtA, b, c = _ssd_inputs(B, L, H, P, N, gen)
+        dy = torch.randn((B, L, H, P), generator=gen, device=dev)
+        s0 = torch.randn((B, H, P, N), generator=gen, device=dev) \
+            if with_init else None
+        dfin = torch.randn((B, H, P, N), generator=gen, device=dev) \
+            if with_dfinal else None
+        pad = (-L) % chunk
+        dyp = F.pad(dy, (0, 0, 0, 0, 0, pad))
+        xp, ap, bp, cp, ent, dec = _ssd_bwd_args(x, dtA, b, c, s0, chunk,
+                                                 True)
+
+        def kernel():
+            return ss.ssd_scan_bwd(xp, ap, bp, cp, dyp, chunk=chunk,
+                                   entering_states=ent, chunk_decay=dec,
+                                   dfinal=dfin, use_kernel=True)
+
+        n0 = ss.LAUNCHES["ssd_scan_bwd"]
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        check(ss.LAUNCHES["ssd_scan_bwd"] == n0 + 2,
+              f"ssd_scan_bwd {label}: launches")
+        d = [t.double() for t in (xp, ap, bp, cp, dyp)]
+        ref = ss.ssd_chunked_bwd(
+            *d, None if dfin is None else dfin.double(),
+            None if s0 is None else s0.double(), chunk=chunk)
+        errs, parts = {}, []
+        for name, g, a, r in zip(names, got, again, ref):
+            if name != "dinit":
+                g, a, r = g[:, :L], a[:, :L], r[:, :L]
+            check(bool(torch.isfinite(g).all()),
+                  f"ssd_scan_bwd {label} {name} finite")
+            check(torch.equal(g, a), f"ssd_scan_bwd {label} {name}: two "
+                  "calls differ")
+            scale = float(r.abs().max())
+            errs[name] = float((g.double() - r).abs().max()) / max(scale,
+                                                                 1e-300)
+            parts.append(f"{name} {errs[name]:.3g} (max|.| {scale:.4g})")
+            if name != "dinit" or with_init:
+                err = max(err, float((g.double() - r).abs().max()))
+        log(f"  ssd_scan_bwd {label} [{B},{L},{H},{P},{N}] chunk {chunk}: "
+            "scale-free error vs float64 plain " + ", ".join(parts)
+            + "; two calls bit-equal")
+        check(all(e <= SSD_TOL for e in errs.values()),
+              f"ssd_scan_bwd {label} vs float64 plain: {errs}")
+        del got, again, ref, d
+        if not label.endswith("training"):
+            continue
+        ms = time_ms(kernel)
+        dev_ms = device_ms_total(kernel)
+        pp = _ssd_bwd_args(x, dtA, b, c, s0, chunk, False)
+        plain = time_ms(lambda: ss.ssd_chunked_bwd(
+            *pp[:4], dyp, dfin, s0, chunk=chunk, entering_states=pp[4],
+            chunk_decay=pp[5]))
+        leaves = [t.detach().clone().requires_grad_() for t in pp[:4]]
+        y, _ = ss.ssd_chunked(*leaves, chunk, s0)
+        autograd = time_ms(lambda: torch.autograd.grad(
+            y, leaves, dyp, retain_graph=True))
+        del y, leaves, pp
+        n_bytes, n_ops = _ssd_bwd_work(B, L, H, P, N, chunk, with_init,
+                                       with_dfinal)
+        bnd, by = bound_ms(n_bytes, n_ops)
+        log(f"    kernel {ms:.4f} ms (device {dev_ms:.4f} ms over its six "
+            f"launches), ssd_chunked_bwd {plain:.4f} ms, autograd of "
+            f"ssd_chunked {autograd:.4f} ms, bound {bnd:.4f} ms ({by}: "
+            f"{n_ops / 1e9:.4g} GFLOP at the float32 peak, "
+            f"{n_bytes / 1e9:.4g} GB); kernel at {bnd / ms:.3g} of the "
+            "bound")
+        rows[label] = dict(shape=[B, L, H, P, N], ms=ms, device_ms=dev_ms,
+                           plain_ms=plain, autograd_ms=autograd,
+                           bound_ms=bnd, bound_by=by, library_ms=None)
+        del x, dtA, b, c, dy, dyp, xp, ap, bp, cp, ent, dec
+        torch.cuda.empty_cache()
+    z = rows["zamba2 training"]
+    note = (f"zamba2 shape {z['shape']}: {z['ms']:.4f} ms (device "
+            f"{z['device_ms']:.4f}), bound {z['bound_ms']:.4f} "
+            f"({z['bound_by']}), ssd_chunked_bwd {z['plain_ms']:.4f}, "
+            f"autograd of ssd_chunked {z['autograd_ms']:.4f}; no Pallas "
+            "counterpart (the reference differentiates jnp ssd_chunked)")
+    return {"ssd_scan_bwd": dict(rows["mamba2 training"], max_abs_err=err,
+                                 note=note)}
+
+
+# ===========================================================================
+# phase 20: training mamba2-2.7b and zamba2-2.7b
+# ===========================================================================
+
+@contextlib.contextmanager
+def _no_plain_ssd(calls: dict):
+    """Within the block, count every call of the SSD scan's plain versions
+    that the dispatchers and SSDScan could reach (the kernels' module
+    binds them by name)."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    names = ("ssd_chunked_bwd", "ssd_chunked_steps")
+    saved = {n: getattr(ops, n) for n in names}
+
+    def counted(name):
+        def call(*args, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return saved[name](*args, **kw)
+        return call
+
+    for n in names:
+        setattr(ops, n, counted(n))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+
+
+@contextlib.contextmanager
+def _scan_rounded(bits: int):
+    """Within the block, every Mamba layer's scan output rounded to
+    ``bits`` mantissa bits, and the gradient that reaches it rounded the
+    same way: a scan whose output and output gradient are held in that
+    precision, the control of the float32 gradient check."""
+    import torch
+
+    from repro_torch.models import layers
+
+    class Rounded(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, y):
+            return _round_mantissa(y, bits)
+
+        @staticmethod
+        def backward(ctx, g):
+            return _round_mantissa(g, bits)
+
+    saved = layers.ssd
+
+    def rounded(*args, **kw):
+        y, state = saved(*args, **kw)
+        return Rounded.apply(y), state
+
+    layers.ssd = rounded
+    try:
+        yield
+    finally:
+        layers.ssd = saved
+
+
+@contextlib.contextmanager
+def _ssd_bwd_forced(forced: bool):
+    """Within the block, the SSD backward's dispatcher runs the kernel
+    (True) or the plain version (False), whatever the forward ran."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    saved = ops.ssd_scan_bwd
+
+    def call(*args, use_kernel=None, **kw):
+        return saved(*args, use_kernel=forced, **kw)
+
+    ops.ssd_scan_bwd = call
+    try:
+        yield
+    finally:
+        ops.ssd_scan_bwd = saved
+
+
+@contextlib.contextmanager
+def _ssd_bwd_held(errs: list):
+    """Within the block, every call of the SSD backward's dispatcher that
+    runs the kernel is run again with the plain version on the same
+    inputs (the forward's entering states and chunk decay included), and
+    the largest scale-free error over its five gradients is appended to
+    ``errs``; the kernel's gradients go on."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    saved = ops.ssd_scan_bwd
+
+    def call(*args, use_kernel=None, **kw):
+        out = saved(*args, use_kernel=use_kernel, **kw)
+        if args[0].is_cuda if use_kernel is None else use_kernel:
+            ref = saved(*args, use_kernel=False, **kw)
+            errs.append(max(_ssd_err((o,), (r,)) for o, r in zip(out, ref)))
+        return out
+
+    ops.ssd_scan_bwd = call
+    try:
+        yield
+    finally:
+        ops.ssd_scan_bwd = saved
+
+
+def _ssm_training(dev, arch: str) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import transformer as T
+    from repro_torch.training import AdamWConfig, make_train_step
+
+    cfg = get_config(arch).with_(remat=True)
+    n_shared = cfg.n_layers // cfg.shared_attn_every \
+        if cfg.family == "hybrid" else 0
+    per_step = {"ssd_scan": 2 * cfg.n_layers, "ssd_scan_bwd": cfg.n_layers,
+                "flash_attention": 2 * n_shared,
+                "flash_attention_dq": n_shared,
+                "flash_attention_dkv": n_shared, "gqa_decode": 0}
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    for mod in (fa, gd, ss):
+        mod.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    plain_calls = {}
+    t0 = time.perf_counter()
+    with _no_plain_ssd(plain_calls):
+        run = run_training(arch=arch, preset="full", steps=TRAIN_STEPS,
+                           global_batch=TRAIN_B, seq_len=TRAIN_S, seed=SEED,
+                           lr=TRAIN_LR, verbose=False, device=dev)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches = {**fa.LAUNCHES, **gd.LAUNCHES, **ss.LAUNCHES}
+    expect = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    log(f"  run_training launches over {TRAIN_STEPS} steps: {launches} "
+        f"(expected {expect}); plain SSD calls {plain_calls}")
+    check(launches == expect, f"{arch} training launches {launches} != "
+          f"{expect}")
+    check(not plain_calls, f"{arch}: the plain SSD scan ran on the card's "
+          f"training path: {plain_calls}")
+    losses = run["losses"]
+    check(len(losses) == TRAIN_STEPS and bool(np.isfinite(losses).all()),
+          f"{arch} training losses finite: {losses}")
+    log("  losses " + ", ".join(f"{x:.4f}" for x in losses))
+    check(losses[-1] < losses[0], f"{arch} loss did not fall: {losses}")
+    model = run["state"].params
+    n_params = sum(p.numel() for p in model.parameters())
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(p.grad.any())]
+    check(not bad, f"{arch} parameters without a gradient: {bad[:5]}")
+    step_ms = 1e3 * statistics.median(run["step_s"][1:])
+    tok_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
+    log(f"  {cfg.name}: {cfg.n_layers} Mamba2 layers"
+        + (f" + {n_shared} shared-block applications" if n_shared else "")
+        + f", d={cfg.d_model}, {cfg.ssm_heads} heads x {cfg.ssm_head_dim},"
+        f" N={cfg.ssm_state}, {n_params} parameters, remat, lr {TRAIN_LR}")
+    log(f"  step ms {', '.join(f'{1e3 * s:.1f}' for s in run['step_s'])} "
+        f"(first is warm-up); median of steps 2-{TRAIN_STEPS} "
+        f"{step_ms:.2f} ms, {tok_s:.0f} tokens/s; peak device memory "
+        f"{peak_gb:.2f} GB; run_training {total_s:.1f} s with init; every "
+        "parameter has a nonzero gradient")
+
+    # where one step's device time goes
+    pipe = TokenPipeline(cfg, global_batch=TRAIN_B, seq_len=TRAIN_S,
+                         seed=SEED)
+    step_fn = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                                               total_steps=10))
+    state = run["state"]
+    batch = _train_batch(pipe, TRAIN_STEPS, dev)
+    torch.cuda.synchronize()
+    by_kernel = device_ms_by_kernel(lambda: step_fn(state, batch))
+    busy = sum(by_kernel.values())
+    ours = {name: sum(t for k, t in by_kernel.items() if re.search(pat, k))
+            for name, pat in (
+                ("B8", r"ssd_(cb|states|recurrence|output)(_small)?_kernel"),
+                ("SSD backward", r"ssd_bwd_"),
+                ("B4", r"flash_attention_fwd_"),
+                ("B5", r"flash_attention_dq_"),
+                ("B6", r"flash_attention_dkv_"))}
+    gemm = sum(t for k, t in by_kernel.items()
+               if any(g in k.lower() for g in ("nvjet", "gemm", "xmma",
+                                               "cutlass")))
+    rest = busy - sum(ours.values()) - gemm
+    log(f"  one step under the profiler: device busy {busy:.2f} ms, "
+        f"{100 * busy / step_ms:.1f} % of the median step {step_ms:.2f} "
+        "ms; device ms per step "
+        + ", ".join(f"{k} {t:.2f} ms ({100 * t / max(busy, 1e-9):.1f} %)"
+                    for k, t in ours.items())
+        + f", GEMMs {gemm:.2f} ms, everything else {rest:.2f} ms over "
+        f"{len(by_kernel)} kernel names")
+    for name, t in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"    {t:9.3f} ms  {name[:90]}")
+    del step_fn
+
+    # every SSD backward call of one bf16 step against the plain version
+    held = []
+    with _ssd_bwd_held(held):
+        _grads_of(model, cfg, batch, None)
+    log(f"  bf16, every SSD backward call of one step ({len(held)} calls) "
+        f"vs the plain backward on its inputs: scale-free error max "
+        f"{max(held):.3g}, median {statistics.median(held):.3g}; limit "
+        f"{SSD_TOL}")
+    check(len(held) == cfg.n_layers, f"{arch}: held {len(held)} backward "
+          "calls")
+    check(max(held) <= SSD_TOL, f"{arch} SSD backward calls {max(held)}")
+    del run, state, model, batch
+    torch.cuda.empty_cache()
+
+    # float32 at full width, depth cut: kernels vs plain, and the control
+    cfg32 = cfg.with_(dtype="float32", n_layers=SSM_GRAD_DEPTH[arch])
+    model = T.init_params(cfg32, torch.Generator(device=dev)
+                          .manual_seed(SEED))
+    batch = _train_batch(TokenPipeline(cfg32, global_batch=GRAD_B,
+                                       seq_len=GRAD_S, seed=SEED), 0, dev)
+    l_kern, g_kern = _grads_of(model, cfg32, batch, None)
+    l_plain, g_plain = _grads_of(model, cfg32, batch, False)
+    err, worst = _leaf_err(g_kern, g_plain)
+    rest = _leaf_err(g_kern, {n: g for n, g in g_plain.items()
+                              if not n.endswith(("A_log", "dt_bias"))})
+    del g_kern
+    # the two kernels apart: B8 with the plain backward, and the plain
+    # forward with the backward kernel
+    apart = {}
+    for label, flag, forced in (("B8 alone", None, False),
+                                ("the backward kernel alone", False, True)):
+        with _ssd_bwd_forced(forced):
+            _, g = _grads_of(model, cfg32, batch, flag)
+        apart[label] = _leaf_err(g, g_plain)
+        del g
+    with _scan_rounded(SSM_CONTROL_BITS):
+        _, g_ctrl = _grads_of(model, cfg32, batch, False)
+    ctrl, ctrl_worst = _leaf_err(g_ctrl, g_plain)
+    loss_err = abs(l_kern - l_plain) / abs(l_plain)
+    log(f"  float32 at full width and {SSM_GRAD_DEPTH[arch]} Mamba layers, "
+        f"a {GRAD_B}x{GRAD_S}-token step, kernels vs plain: loss "
+        f"{l_kern:.6f} vs {l_plain:.6f} ({loss_err:.3g} relative), worst "
+        f"gradient leaf {err:.3g} of its largest value ({worst}), worst "
+        f"but A_log and dt_bias {rest[0]:.3g} ({rest[1]}); "
+        + "; ".join(f"{k} {e:.3g} ({n})" for k, (e, n) in apart.items())
+        + f"; control (every layer's scan output and its gradient at "
+        f"{SSM_CONTROL_BITS} mantissa bits) {ctrl:.3g} ({ctrl_worst}); "
+        f"limit {SSM_GRAD_TOL}")
+    check(loss_err <= SSM_GRAD_TOL, f"{arch} float32 loss kernels vs plain "
+          f"{loss_err}")
+    check(err <= SSM_GRAD_TOL, f"{arch} float32 gradients kernels vs plain "
+          f"{err}")
+    check(ctrl > SSM_GRAD_TOL, f"{arch} gradient control {ctrl} within "
+          f"{SSM_GRAD_TOL}")
+    del model, g_plain, g_ctrl, batch
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, tokens_per_s=tok_s, peak_gb=peak_gb,
+                busy_share=busy / step_ms, device_ms=ours, gemm_ms=gemm,
+                launches=launches, losses=losses, call_err=max(held),
+                grad_err=err, grad_control=ctrl, n_params=n_params)
+
+
+def phase_ssm_training(dev) -> dict:
+    return {arch: _ssm_training(dev, arch) for arch in SSM_TRAINED}
 
 
 # ===========================================================================
@@ -3730,13 +4198,28 @@ def main() -> int:
         kept.cleanup()
     log(f"  phase 18 took {time.perf_counter() - t18:.1f} s; chip_smoke so "
         f"far {time.perf_counter() - t_start:.1f} s")
+    log("phase 19: the SSD scan's backward kernel vs the float64 plain "
+        "backward")
+    t19 = time.perf_counter()
+    kern.update(phase_ssd_bwd_kernel(dev))
+    log(f"  phase 19 took {time.perf_counter() - t19:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - t_start:.1f} s")
+    log(f"phase 20: training {', '.join(SSM_TRAINED)}, {TRAIN_STEPS} steps "
+        f"of {TRAIN_B} x {TRAIN_S} tokens")
+    t20 = time.perf_counter()
+    trained_ssm = phase_ssm_training(dev)
+    log(f"  phase 20 took {time.perf_counter() - t20:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on its slice's main path: B4/B7 serving
-    # smollm-360m, B8 serving mamba2-2.7b, B5/B6 training smollm-360m
+    # smollm-360m, B8 serving mamba2-2.7b, B5/B6 training smollm-360m, the
+    # SSD backward training mamba2-2.7b
     launches = {**main_path["launches"],
                 **served["smollm_360m"]["launches"],
                 **served["mamba2_2p7b"]["launches"],
                 **{k: trained["launches"][k]
-                   for k in ("flash_attention_dq", "flash_attention_dkv")}}
+                   for k in ("flash_attention_dq", "flash_attention_dkv")},
+                "ssd_scan_bwd":
+                    trained_ssm["mamba2_2p7b"]["launches"]["ssd_scan_bwd"]}
 
     log(card)
     rows = [dict(name=name, route="cuda", source=SOURCE[name],
@@ -3760,6 +4243,10 @@ def main() -> int:
         if row["name"] in ("qos_matrix", "flash_attention", "gqa_decode",
                            "ssd_scan"):
             row["cluster_launches"] = cluster["launches"][row["name"]]
+        if row["name"] in ("ssd_scan", "ssd_scan_bwd", "flash_attention",
+                           "flash_attention_dq", "flash_attention_dkv"):
+            row["training_launches"] = {
+                a: r["launches"][row["name"]] for a, r in trained_ssm.items()}
         if row["name"] in control["profile"]["kernels"]:
             prof = control["profile"]["kernels"][row["name"]]
             row["profile_launches"] = prof["launches"]

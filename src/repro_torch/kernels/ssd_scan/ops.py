@@ -1,6 +1,7 @@
-"""Dispatcher over the Mamba2 SSD chunked scan (B8): the CUDA kernel
-(``csrc/ssd_scan.cu``) for CUDA tensors, the plain chunked version
-(:func:`.ref.ssd_chunked`) for tensors on the CPU.
+"""Dispatcher over the Mamba2 SSD chunked scan (B8) and its backward: the
+CUDA kernels (``csrc/ssd_scan.cu``, ``csrc/ssd_scan_bwd.cu``) for CUDA
+tensors, the plain chunked versions (:func:`.ref.ssd_chunked_steps`,
+:func:`.ref.ssd_chunked_bwd`) for tensors on the CPU.
 
 ``use_kernel=None`` follows the tensors' device, ``False`` runs the plain
 version wherever the tensors are, ``True`` insists on the kernel and raises
@@ -10,6 +11,13 @@ with ``torch.empty``, launches on the current stream (four kernels: C·Bᵀ,
 chunk states, the recurrence over chunks, the output), raises on a CUDA
 error and adds one to ``LAUNCHES["ssd_scan"]``, which so counts scans, not
 kernels. It never falls back to the plain version.
+
+:func:`ssd` runs the scan as :class:`SSDScan`, an autograd Function: its
+forward is that kernel (or the plain version), and under grad it saves the
+inputs with the forward's entering states and chunk decay; its backward is
+:func:`ssd_scan_bwd`, the backward kernel (six launches, one count in
+``LAUNCHES["ssd_scan_bwd"]``, the same checks and no fallback) or the
+plain version.
 """
 from __future__ import annotations
 
@@ -20,24 +28,37 @@ import torch.nn.functional as F
 
 from repro_torch.kernels._build import check_cuda_tensor, launch
 
-from .ref import ssd_chunked
+from .ref import ssd_chunked_bwd, ssd_chunked_steps
 
-__all__ = ["LAUNCHES", "MAX_CHUNK", "SHAPES", "reset_launch_counts", "ssd",
+__all__ = ["LAUNCHES", "MAX_CHUNK", "SHAPES", "SSDScan",
+           "reset_launch_counts", "ssd", "ssd_scan_bwd", "ssd_scan_bwd_cuda",
            "ssd_scan_cuda", "ssd_scan_cuda_steps"]
 
-#: Scans run on the card since the last :func:`reset_launch_counts` (one
-#: per :func:`ssd_scan_cuda` call, which launches four kernels).
-LAUNCHES = {"ssd_scan": 0}
-#: ``(head dim P, state width N)`` pairs the kernel is compiled for: the
-#: serving shapes on the tensor cores, and the smoke configs' (16, 16) as
-#: plain float32 loops.
+#: Scans and backward scans run on the card since the last
+#: :func:`reset_launch_counts` (one per :func:`ssd_scan_cuda` call, which
+#: launches four kernels, and one per :func:`ssd_scan_bwd_cuda` call, which
+#: launches six).
+LAUNCHES = {"ssd_scan": 0, "ssd_scan_bwd": 0}
+#: ``(head dim P, state width N)`` pairs the kernels are compiled for: the
+#: serving and training shapes (the forward on the tensor cores), and the
+#: smoke configs' (16, 16) as plain float32 loops.
 SHAPES = ((16, 16), (64, 64), (64, 128))
 #: Largest chunk the kernel takes.
 MAX_CHUNK = 1024
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES["ssd_scan"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check_shape(P: int, N: int, L: int, chunk: int, what: str) -> None:
+    if (P, N) not in SHAPES:
+        raise ValueError(f"{what}: (P, N) = {(P, N)} is not one of "
+                         f"{SHAPES}")
+    if not 0 < chunk <= MAX_CHUNK or L % chunk:
+        raise ValueError(f"{what}: L = {L} is not a multiple of a chunk "
+                         f"of 1..{MAX_CHUNK} ({chunk}); pad it (ssd pads)")
 
 
 def ssd_scan_cuda(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,
@@ -66,12 +87,7 @@ def ssd_scan_cuda_steps(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,
     Bsz, L, H, P = x.shape
     N = b.shape[-1]
     dev, f32 = x.device, torch.float32
-    if (P, N) not in SHAPES:
-        raise ValueError(f"ssd_scan: (P, N) = {(P, N)} is not one of "
-                         f"{SHAPES}")
-    if not 0 < chunk <= MAX_CHUNK or L % chunk:
-        raise ValueError(f"ssd_scan: L = {L} is not a multiple of a chunk "
-                         f"of 1..{MAX_CHUNK} ({chunk}); pad it (ssd pads)")
+    _check_shape(P, N, L, chunk, "ssd_scan")
     ptrs = [check_cuda_tensor("x", x, f32, (Bsz, L, H, P), dev, 16),
             check_cuda_tensor("dtA", dtA, f32, (Bsz, L, H), dev),
             check_cuda_tensor("b", b, f32, (Bsz, L, N), dev, 16),
@@ -98,16 +114,126 @@ def ssd_scan_cuda_steps(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def ssd_scan_bwd_cuda(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,
+                      c: torch.Tensor, dy: torch.Tensor, *, chunk: int,
+                      entering_states: torch.Tensor,
+                      chunk_decay: torch.Tensor,
+                      dfinal: Optional[torch.Tensor] = None):
+    """The backward kernel. x, dtA, b, c and ``chunk`` as for
+    :func:`ssd_scan_cuda`; ``dy [B, L, H, P]`` and ``dfinal [B, H, P, N]``
+    (``None``: zeros) the upstream gradients; ``entering_states [B, nc, H,
+    P, N]`` and ``chunk_decay [B, nc, H]`` the forward's (from
+    :func:`ssd_scan_cuda_steps`, the initial state in ``entering_states[:,
+    0]``). All float32, contiguous, on one CUDA device. Returns ``(dx,
+    ddtA, db, dc, dinit)``, float32, ``dinit`` the gradient of the initial
+    state (of a zero one where there was none)."""
+    Bsz, L, H, P = x.shape
+    N = b.shape[-1]
+    dev, f32 = x.device, torch.float32
+    _check_shape(P, N, L, chunk, "ssd_scan_bwd")
+    nc = L // chunk
+    ptrs = [check_cuda_tensor("x", x, f32, (Bsz, L, H, P), dev),
+            check_cuda_tensor("dtA", dtA, f32, (Bsz, L, H), dev),
+            check_cuda_tensor("b", b, f32, (Bsz, L, N), dev),
+            check_cuda_tensor("c", c, f32, (Bsz, L, N), dev),
+            check_cuda_tensor("dy", dy, f32, (Bsz, L, H, P), dev),
+            None if dfinal is None else check_cuda_tensor(
+                "dfinal", dfinal, f32, (Bsz, H, P, N), dev),
+            check_cuda_tensor("entering_states", entering_states, f32,
+                              (Bsz, nc, H, P, N), dev),
+            check_cuda_tensor("chunk_decay", chunk_decay, f32,
+                              (Bsz, nc, H), dev)]
+    out = (torch.empty_like(x), torch.empty_like(dtA), torch.empty_like(b),
+           torch.empty_like(c),
+           torch.empty((Bsz, H, P, N), dtype=f32, device=dev))
+    if x.numel():
+        def scratch(*shape):
+            return torch.empty(shape, dtype=f32, device=dev)
+
+        launch("ssd_scan_bwd_launch", *ptrs,
+               *(t.data_ptr() for t in out),
+               *(t.data_ptr() for t in (
+                   scratch(Bsz, nc, chunk, chunk),          # cb
+                   scratch(Bsz, nc, H, P, N),               # dchunk
+                   scratch(Bsz, nc, H, chunk, chunk),       # part_cb
+                   scratch(Bsz, L, H, N),                   # part_b
+                   scratch(Bsz, L, H, N),                   # part_c
+                   scratch(Bsz, nc, chunk, chunk))),        # dcb
+               Bsz, L, H, P, N, chunk, device=dev)
+        LAUNCHES["ssd_scan_bwd"] += 1
+    return out
+
+
+def ssd_scan_bwd(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, dy: torch.Tensor, *, chunk: int,
+                 entering_states: torch.Tensor, chunk_decay: torch.Tensor,
+                 dfinal: Optional[torch.Tensor] = None,
+                 use_kernel: Optional[bool] = None):
+    """The backward's dispatcher (``L`` a multiple of ``chunk``; arguments
+    as for :func:`ssd_scan_bwd_cuda`): the kernel for CUDA tensors,
+    :func:`.ref.ssd_chunked_bwd` for CPU tensors (``use_kernel`` as for
+    :func:`ssd`). Returns ``(dx, ddtA, db, dc, dinit)``."""
+    if not (x.is_cuda if use_kernel is None else use_kernel):
+        return ssd_chunked_bwd(x, dtA, b, c, dy, dfinal, chunk=chunk,
+                               entering_states=entering_states,
+                               chunk_decay=chunk_decay)
+    return ssd_scan_bwd_cuda(
+        x.contiguous(), dtA.contiguous(), b.contiguous(), c.contiguous(),
+        dy.contiguous(), chunk=chunk,
+        entering_states=entering_states.contiguous(),
+        chunk_decay=chunk_decay.contiguous(),
+        dfinal=None if dfinal is None else dfinal.contiguous())
+
+
+class SSDScan(torch.autograd.Function):
+    """The differentiable SSD scan (``L`` a multiple of ``chunk``): the
+    forward is B8 (:func:`ssd_scan_cuda_steps`, or
+    :func:`.ref.ssd_chunked_steps` with ``use_kernel=False`` or on the
+    CPU) and saves the inputs with the forward's entering states and chunk
+    decay; the backward is :func:`ssd_scan_bwd` with the same
+    ``use_kernel``. A gradient that does not reach ``y`` or the final state
+    comes as ``None`` and is taken as zeros."""
+
+    @staticmethod
+    def forward(ctx, x, dtA, b, c, initial_state, chunk: int,
+                use_kernel: Optional[bool]):
+        ctx.set_materialize_grads(False)
+        if x.is_cuda if use_kernel is None else use_kernel:
+            steps = ssd_scan_cuda_steps(
+                x.contiguous(), dtA.contiguous(), b.contiguous(),
+                c.contiguous(), chunk=chunk,
+                initial_state=None if initial_state is None
+                else initial_state.contiguous())
+        else:
+            steps = ssd_chunked_steps(x, dtA, b, c, chunk, initial_state)
+        ctx.save_for_backward(x, dtA, b, c, steps["entering_states"],
+                              steps["chunk_decay"])
+        ctx.args = (chunk, use_kernel, initial_state is not None)
+        return steps["y"], steps["final_state"]
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dtA, b, c, entering, decay = ctx.saved_tensors
+        chunk, use_kernel, has_init = ctx.args
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dx, ddtA, db, dc, dinit = ssd_scan_bwd(
+            x, dtA, b, c, dy, chunk=chunk, entering_states=entering,
+            chunk_decay=decay, dfinal=dfinal, use_kernel=use_kernel)
+        return dx, ddtA, db, dc, dinit if has_init else None, None, None
+
+
 def ssd(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,
         c: torch.Tensor, *, chunk: int,
         initial_state: Optional[torch.Tensor] = None,
         use_kernel: Optional[bool] = None):
     """SSD scan of a sequence of any length: pads ``L`` with zeros to a
     multiple of ``chunk`` (a padded position has dtA = 0 and x = b = c = 0,
-    so it leaves the state unchanged), scans, and cuts ``y`` back to
-    ``L``. Returns ``(y [B, L, H, P], final_state [B, H, P, N])``. The
-    kernel's output has no autograd history, so where it would run under
-    grad this raises :class:`RuntimeError`."""
+    so it leaves the state unchanged), scans through :class:`SSDScan`, and
+    cuts ``y`` back to ``L``. Returns ``(y [B, L, H, P], final_state [B, H,
+    P, N])``. Under grad the backward is the backward kernel on CUDA
+    tensors; the padding stays outside the Function, and the slice back to
+    ``L`` cuts the pad positions' gradients off."""
     L = x.shape[1]
     pad = (-L) % chunk
     if pad:
@@ -115,18 +241,5 @@ def ssd(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,
         dtA = F.pad(dtA, (0, 0, 0, pad))
         b = F.pad(b, (0, 0, 0, pad))
         c = F.pad(c, (0, 0, 0, pad))
-    if x.is_cuda if use_kernel is None else use_kernel:
-        if torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad
-                for t in (x, dtA, b, c, initial_state)):
-            raise RuntimeError(
-                "ssd: the SSD scan kernel has no backward (the reference has "
-                "none in Pallas either; ROADMAP A12); differentiate the "
-                "plain ssd_chunked with use_kernel=False")
-        y, state = ssd_scan_cuda(
-            x.contiguous(), dtA.contiguous(), b.contiguous(), c.contiguous(),
-            chunk=chunk, initial_state=None if initial_state is None
-            else initial_state.contiguous())
-    else:
-        y, state = ssd_chunked(x, dtA, b, c, chunk, initial_state)
+    y, state = SSDScan.apply(x, dtA, b, c, initial_state, chunk, use_kernel)
     return y[:, :L], state

@@ -21,8 +21,8 @@ vision frontend projects ``patches [B, P, D]`` through ``patch_in`` and
 puts them before the token embeddings (:func:`embed_input`); an
 encoder-only backbone (hubert) attends non-causally and has its own head.
 Training: :func:`loss_fn` (the chunked cross-entropy
-:func:`softmax_xent`), with ``cfg.remat`` rematerialising each dense layer
-under grad.
+:func:`softmax_xent`), with ``cfg.remat`` rematerialising each dense
+layer, each Mamba2 layer and each shared-block application under grad.
 """
 from __future__ import annotations
 
@@ -254,24 +254,53 @@ def run_attention_stack(model: LM, cfg: ModelConfig, x: torch.Tensor,
     return x
 
 
+def _mamba_layer(lp: MambaLayer, cfg: ModelConfig, x: torch.Tensor,
+                 use_kernel: Optional[bool]) -> torch.Tensor:
+    """One pre-norm Mamba2 layer with its residual, from a zero state."""
+    m, _ = L.mamba_block(lp.block, cfg, L.rms_norm(x, lp.ln, cfg.norm_eps),
+                         use_kernel=use_kernel)
+    return x + m
+
+
 def run_mamba_stack(model: LM, cfg: ModelConfig, x: torch.Tensor,
                     cache: Optional["Cache"] = None,
                     use_kernel: Optional[bool] = None,
                     layers: Optional[range] = None) -> torch.Tensor:
     """The Mamba2 layers ``layers`` (all by default) in order. With a
     cache, layer ``i`` continues from ``cache.conv[i]``/``cache.ssm[i]``
-    and writes its new state there in place. Returns the hidden state."""
+    and writes its new state there in place. Without one, under grad and
+    with ``cfg.remat``, each layer runs under ``torch.utils.checkpoint``
+    (the reference's ``jax.checkpoint`` with ``nothing_saveable``).
+    Returns the hidden state."""
+    remat = cache is None and _remat(cfg)
     for i in layers if layers is not None else range(len(model.mamba)):
         lp = model.mamba[i]
+        if cache is None:
+            x = checkpoint(_mamba_layer, lp, cfg, x, use_kernel,
+                           use_reentrant=False) if remat \
+                else _mamba_layer(lp, cfg, x, use_kernel)
+            continue
         h = L.rms_norm(x, lp.ln, cfg.norm_eps)
-        st = None if cache is None else (cache.conv[i], cache.ssm[i])
-        m, (conv, ssm) = L.mamba_block(lp.block, cfg, h, cache=st,
+        m, (conv, ssm) = L.mamba_block(lp.block, cfg, h,
+                                       cache=(cache.conv[i], cache.ssm[i]),
                                        use_kernel=use_kernel)
-        if cache is not None:
-            cache.conv[i].copy_(conv)
-            cache.ssm[i].copy_(ssm)
+        cache.conv[i].copy_(conv)
+        cache.ssm[i].copy_(ssm)
         x = x + m
     return x
+
+
+def _shared_block(sp: DenseLayer, cfg: ModelConfig, x: torch.Tensor,
+                  start: int, kv, kv_len: Optional[torch.Tensor],
+                  use_kernel: Optional[bool]) -> torch.Tensor:
+    """A hybrid's shared block (full attention, then the MLP) with its
+    residuals."""
+    h = L.rms_norm(x, sp.ln1, cfg.norm_eps)
+    a, _ = L.attention_block(sp.attn, cfg, h, start, window=0, kv_cache=kv,
+                             kv_len=kv_len, use_kernel=use_kernel)
+    x = x + a
+    h = L.rms_norm(x, sp.ln2, cfg.norm_eps)
+    return x + L.mlp_block(sp.mlp, cfg, h)
 
 
 def run_hybrid_stack(model: LM, cfg: ModelConfig, x: torch.Tensor,
@@ -281,20 +310,20 @@ def run_hybrid_stack(model: LM, cfg: ModelConfig, x: torch.Tensor,
     """Zamba2: after each segment of ``shared_attn_every`` Mamba layers,
     shared block ``segment % n_shared_blocks`` (full attention, then the
     MLP). With a cache, application ``segment`` of a shared block reads and
-    writes KV slot ``segment``. Returns the hidden state."""
+    writes KV slot ``segment``. Without one, under grad and with
+    ``cfg.remat``, each Mamba layer and each shared-block application is
+    checkpointed on its own, as the reference does. Returns the hidden
+    state."""
     k = cfg.shared_attn_every
+    remat = cache is None and _remat(cfg)
     for seg in range(cfg.n_layers // k):
         x = run_mamba_stack(model, cfg, x, cache, use_kernel,
                             range(seg * k, (seg + 1) * k))
         sp = model.shared[seg % cfg.n_shared_blocks]
-        h = L.rms_norm(x, sp.ln1, cfg.norm_eps)
         kv = None if cache is None else (cache.kv_k[seg], cache.kv_v[seg])
-        a, _ = L.attention_block(sp.attn, cfg, h, start, window=0,
-                                 kv_cache=kv, kv_len=kv_len,
-                                 use_kernel=use_kernel)
-        x = x + a
-        h = L.rms_norm(x, sp.ln2, cfg.norm_eps)
-        x = x + L.mlp_block(sp.mlp, cfg, h)
+        args = (sp, cfg, x, start, kv, kv_len, use_kernel)
+        x = checkpoint(_shared_block, *args, use_reentrant=False) if remat \
+            else _shared_block(*args)
     return x
 
 

@@ -7,6 +7,13 @@ state is ``(step, m, v)`` with ``m``/``v`` dictionaries shaped like the
 parameters' (``{name: tensor}``), and every operation runs in the
 reference's order, so the two agree to float32 rounding. It is not
 ``torch.optim.AdamW``, whose state layout and arithmetic differ.
+
+:func:`adamw_update_` updates the parameters and moments in place, leaf by
+leaf, so its float32 working copies are one leaf's (the trainer's update:
+a 2.7B-parameter model's new parameters and moments would take another
+32 GB at once); with ``chunked_update`` a large stacked leaf goes slice by
+slice along its leading dimension, the reference's layer-by-layer
+``lax.map``. :func:`adamw_update` is the same update on copies.
 """
 from __future__ import annotations
 
@@ -17,7 +24,7 @@ from typing import Dict, NamedTuple
 import torch
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
-           "global_norm", "lr_schedule"]
+           "adamw_update_", "global_norm", "lr_schedule"]
 
 Tree = Dict[str, torch.Tensor]
 
@@ -39,6 +46,11 @@ class AdamWConfig:
     eps: float = 1e-8
     weight_decay: float = 0.1
     clip_norm: float = 1.0
+    #: update a stacked leaf (``ndim >= 3``, leading dimension above 1,
+    #: more than 2**24 elements) one slice of its leading dimension at a
+    #: time, the reference's layer-by-layer ``lax.map``: the float32
+    #: working copies are one slice's. The same values either way.
+    chunked_update: bool = False
     warmup_steps: int = 100
     total_steps: int = 10_000
     min_lr_frac: float = 0.1
@@ -81,12 +93,21 @@ def global_norm(tree: Tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _chunked(p: torch.Tensor, cfg: AdamWConfig) -> bool:
+    """The reference's condition for a layer-by-layer update."""
+    return cfg.chunked_update and p.ndim >= 3 and p.shape[0] > 1 \
+        and p.numel() > 2 ** 24
+
+
 @torch.no_grad()
-def adamw_update(grads: Tree, state: AdamWState, params: Tree,
-                 cfg: AdamWConfig):
-    """One AdamW step. Returns ``(new_params, new_state, metrics)`` with
-    ``metrics = {"grad_norm", "lr"}`` (device scalars); new tensors, the
-    inputs are not modified."""
+def adamw_update_(grads: Tree, state: AdamWState, params: Tree,
+                  cfg: AdamWConfig):
+    """One AdamW step in place: each parameter and its moments (the
+    tensors of ``params``, ``state.m`` and ``state.v``) are overwritten,
+    leaf by leaf in the tree's order (slice by slice where
+    ``cfg.chunked_update`` applies). Returns ``(new_state, metrics)`` with
+    ``metrics = {"grad_norm", "lr"}`` (device scalars); ``new_state``
+    holds the same moment dictionaries and the next step."""
     step = state.step + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -98,18 +119,36 @@ def adamw_update(grads: Tree, state: AdamWState, params: Tree,
     bc2 = 1 - torch.pow(_f32(b2, stepf), stepf)
     sdt = _DTYPES[cfg.state_dtype]
 
-    new_p, new_m, new_v = {}, {}, {}
-    for name, p in params.items():
-        g = grads[name].to(torch.float32) * scale
-        m32 = state.m[name].to(torch.float32) * b1 + (1 - b1) * g
-        v32 = state.v[name].to(torch.float32) * b2 + (1 - b2) * g * g
+    def upd(p, g, m, v):
+        g = g.to(torch.float32) * scale
+        m32 = m.to(torch.float32) * b1 + (1 - b1) * g
+        v32 = v.to(torch.float32) * b2 + (1 - b2) * g * g
         mhat = m32 / bc1
         vhat = v32 / bc2
         delta = mhat / (torch.sqrt(vhat) + cfg.eps)
         p32 = p.to(torch.float32)
-        new_p[name] = (p32 - lr * (delta + cfg.weight_decay * p32)).to(
-            p.dtype)
-        new_m[name] = m32.to(sdt)
-        new_v[name] = v32.to(sdt)
-    return (new_p, AdamWState(step, new_m, new_v),
-            {"grad_norm": gnorm, "lr": lr})
+        p.copy_((p32 - lr * (delta + cfg.weight_decay * p32)).to(p.dtype))
+        m.copy_(m32.to(sdt))
+        v.copy_(v32.to(sdt))
+
+    for name, p in params.items():
+        leaf = (p, grads[name], state.m[name], state.v[name])
+        if _chunked(p, cfg):
+            for i in range(p.shape[0]):
+                upd(*(t[i] for t in leaf))
+        else:
+            upd(*leaf)
+    return AdamWState(step, state.m, state.v), {"grad_norm": gnorm, "lr": lr}
+
+
+@torch.no_grad()
+def adamw_update(grads: Tree, state: AdamWState, params: Tree,
+                 cfg: AdamWConfig):
+    """One AdamW step. Returns ``(new_params, new_state, metrics)`` with
+    ``metrics = {"grad_norm", "lr"}`` (device scalars); new tensors, the
+    inputs are not modified (:func:`adamw_update_` on copies)."""
+    new_p = {n: p.detach().clone() for n, p in params.items()}
+    copy = AdamWState(state.step, {n: t.clone() for n, t in state.m.items()},
+                      {n: t.clone() for n, t in state.v.items()})
+    new_state, metrics = adamw_update_(grads, copy, new_p, cfg)
+    return new_p, new_state, metrics

@@ -2,12 +2,13 @@
 
 ``make_train_step`` returns ``step(state, batch) -> (state, metrics)``:
 the loss's gradients by autograd (through the flash-attention backward
-kernels B5/B6 on a CUDA device), microbatch gradient accumulation, an
-optional gradient transform, then :func:`adamw_update`. The parameters
-live in the state's :class:`~repro_torch.models.LM` and are updated in
-place (the reference returns new arrays); the optimizer moments are
-replaced. Each parameter's ``.grad`` holds the step's (averaged) gradient
-until the next step clears it.
+kernels B5/B6 and the SSD scan's backward kernel on a CUDA device),
+microbatch gradient accumulation, an optional gradient transform, then
+:func:`adamw_update_`. The parameters live in the state's
+:class:`~repro_torch.models.LM`, and they and the optimizer moments are
+updated in place, leaf by leaf (the reference returns new arrays). Each
+parameter's ``.grad`` holds the step's (averaged) gradient until the next
+step clears it.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
-from .optimizer import AdamWConfig, AdamWState, adamw_init, adamw_update
+from .optimizer import AdamWConfig, AdamWState, adamw_init, adamw_update_
 
 __all__ = ["TrainState", "init_train_state", "make_grad_and_apply",
            "make_train_step", "param_tree"]
@@ -73,11 +74,8 @@ def _grads(model: T.LM, cfg: ModelConfig, batch: Batch, grad_accum: int
 
 
 def _apply(grads: Dict, state: TrainState, opt_cfg: AdamWConfig):
-    new_params, new_opt, metrics = adamw_update(
-        grads, state.opt, param_tree(state.params), opt_cfg)
-    with torch.no_grad():
-        for name, p in state.params.named_parameters():
-            p.copy_(new_params[name])
+    new_opt, metrics = adamw_update_(grads, state.opt,
+                                     param_tree(state.params), opt_cfg)
     return TrainState(state.params, new_opt), metrics
 
 

@@ -203,9 +203,9 @@ def test_softcap_under_grad_raises_and_serves_without_grad():
 
 
 def test_kernel_paths_never_hand_back_a_detached_tensor():
-    """Under grad, ``attention`` insisting on the kernel reaches the
-    kernel's guard (no CPU fallback), and ``ssd`` refuses: the SSD kernel
-    has no backward."""
+    """Under grad, ``attention`` and ``ssd`` insisting on the kernel reach
+    the kernel's guard (no CPU fallback): both go through their autograd
+    Function, whose forward is the kernel."""
     q, k, v, _ = _inputs(np.random.default_rng(5), 1, 8, 8, 2, 1, 32)
     with pytest.raises(ValueError, match="CUDA"):
         fa.attention(q.requires_grad_(), k, v, use_kernel=True)
@@ -213,7 +213,7 @@ def test_kernel_paths_never_hand_back_a_detached_tensor():
     x = torch.from_numpy(rng.normal(size=(1, 8, 1, 64)).astype(np.float32))
     dtA = -torch.rand(1, 8, 1)
     b = torch.randn(1, 8, 64)
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(ValueError, match="CUDA"):
         ss.ssd(x.requires_grad_(), dtA, b, b, chunk=8, use_kernel=True)
     y, _ = ss.ssd(x, dtA, b, b, chunk=8)           # plain: differentiable
     assert y.grad_fn is not None

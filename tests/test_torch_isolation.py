@@ -80,6 +80,42 @@ def test_training_path_runs_without_loading_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
 
 
+def test_ssm_training_path_runs_without_loading_jax(tmp_path):
+    """mamba2 and zamba2 train through run_training (the SSD scan's
+    autograd Function and its backward's plain version on the CPU) with a
+    checkpoint, and the backward kernel's wrapper refuses CPU tensors, in a
+    process that never loads jax or repro."""
+    code = ("import sys, torch; "
+            "from repro_torch.launch.train import run_training; "
+            "from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda; "
+            "[run_training(arch=a, steps=2, seq_len=12, global_batch=2, "
+            f"checkpoint_dir={str(tmp_path)!r} + a, ckpt_every=1, "
+            "verbose=False, device='cpu') for a in ('mamba2_2p7b', "
+            "'zamba2_2p7b')]; "
+            "z = torch.zeros(1, 8, 1, 16); b = torch.zeros(1, 8, 16); "
+            "err = None\n"
+            "try: ssd_scan_bwd_cuda(z, torch.zeros(1, 8, 1), b, b, z, "
+            "chunk=8, entering_states=torch.zeros(1, 1, 1, 16, 16), "
+            "chunk_decay=torch.zeros(1, 1, 1))\n"
+            "except ValueError as e: err = e\n"
+            "assert 'CUDA' in str(err), err; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro')]; assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("arch", ["mamba2_2p7b", "zamba2_2p7b"])
+def test_ssm_training_defaults_to_cuda(monkeypatch, arch):
+    from repro_torch.launch.train import run_training
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_training(arch=arch, steps=1, verbose=False)
+
+
 def test_sweep_path_runs_without_loading_jax(tmp_path):
     code = ("import sys; "
             "from repro_torch.sweeps import SweepSpec, run_sweep; "
