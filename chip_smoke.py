@@ -175,9 +175,11 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    training shapes ([8, 1024, 80, 64], N 128 and 64, chunk 256), one chunk,
    a ragged length, a chunk of 40, and P = N = 16 with 2 and 5 chunks, with
    and without an initial state and dfinal: every gradient within 3e-4 of
-   its largest |value|, two calls bit-equal; its time (CUDA events and
-   device time), the plain backward's, autograd of ssd_chunked's, and its
-   bound;
+   its largest |value|, two calls bit-equal, and a control with one head's
+   x and dy zeroed whose db and dc read above 3e-4 (the sums over heads
+   are taken on chip); its time (CUDA events and device time), the host's
+   share of a call, the plain backward's, autograd of ssd_chunked's, its
+   bound and the split plan's;
 20. training mamba2-2.7b and zamba2-2.7b at full width and depth through
    run_training (6 steps of 8 x 1,024 tokens, bf16 compute, f32 master
    weights and Adam state, remat): launch counts per step exact (B8 twice
@@ -186,8 +188,9 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    and falling losses, every parameter with a gradient, step time,
    tokens/s, peak memory and one step's device time by kernel; every SSD
    backward call of one bf16 step within 3e-4 of the plain backward on
-   its inputs; and at full width and cut depth one float32 step with
-   kernels against the same step with the plain versions, the loss and
+   its inputs, and the first again with one head's x and dy zeroed, its
+   db and dc above 3e-4; and at full width and cut depth one float32 step
+   with kernels against the same step with the plain versions, the loss and
    every gradient leaf within 3e-4 of its largest |value| (the two
    kernels' shares read apart), beside a control with every layer's scan
    output and its gradient rounded to bf16.
@@ -537,7 +540,8 @@ EXTRA_KEYS = ("device_ms", "library_device_ms", "plan_bound_ms",
               "plan_bound_by", "note", "sweep_launches", "trace_launches",
               "shapes", "moe_launches", "frontend_launches",
               "cluster_launches", "profile_launches", "profile_device_ms",
-              "profile_ms_per_launch", "autograd_ms", "training_launches")
+              "profile_ms_per_launch", "autograd_ms", "training_launches",
+              "host_enqueue_ms")
 
 
 def cluster_record(report, assignment) -> dict:
@@ -693,10 +697,14 @@ ATTN_KERNELS = re.compile(r"(flash_attention_(?:fwd|dq|dkv)(?:_mma)?_kernel"
 #: cores, and whose float32 one must not.
 TENSOR_CORE_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
                        "flash_attention_dkv")
-#: B8's launches that run products, each compiled for N = 64 and 128: every
-#: instantiation must run them on the tensor cores.
+#: B8's launches that run products, and the SSD backward's, each compiled
+#: for N = 64 and 128 (ssd_bwd_dcb_kernel once: it reads no N-wide
+#: operand): every instantiation must run them on the tensor cores, and
+#: each one's float32 small-head version (P = N = 16) none.
 SSD_PRODUCT_KERNELS = ("ssd_cb_kernel", "ssd_states_kernel",
-                       "ssd_output_kernel")
+                       "ssd_output_kernel", "ssd_bwd_cb_kernel",
+                       "ssd_bwd_dstate_kernel", "ssd_bwd_dx_kernel",
+                       "ssd_bwd_dcb_kernel", "ssd_bwd_dbc_kernel")
 
 
 def hmma_by_function(lib_path: str) -> dict:
@@ -737,8 +745,8 @@ def phase_build() -> None:
     """Build the library; print ptxas's register, shared-memory and spill
     lines and each attention and SSD kernel's tensor-core instruction
     count; check that the bf16 B4, B5 and B6 have some and their float32
-    versions none, and that B8's product kernels have some at N = 64 and
-    128."""
+    versions none, and that B8's and the SSD backward's product kernels
+    have some at N = 64 and 128 and their small-head versions none."""
     from repro_torch.kernels._build import load_library
 
     _, info = load_library()
@@ -763,11 +771,12 @@ def phase_build() -> None:
                   and all((n > 0) == want_some for n in got.values()),
                   f"{base} {dtype} tensor-core instructions {got}")
     for base in SSD_PRODUCT_KERNELS:
-        got = {int(m.group(1)): n for name, n in by_function.items()
-               if base in name and (m := re.search(r"Li(\d+)E", name))}
+        got = {int(m.group(1)) if (m := re.search(r"Li(\d+)E", name))
+               else 0: n for name, n in by_function.items() if base in name}
         log(f"  SASS {base} N={sorted(got)}: {list(got.values())} "
             "HMMA/HGMMA")
-        check(sorted(got) == [64, 128] and all(got.values()),
+        want = [0] if base == "ssd_bwd_dcb_kernel" else [64, 128]
+        check(sorted(got) == want and all(got.values()),
               f"{base} tensor-core instructions {got}")
         # the float32 small-head version, P = N = 16, runs no product on
         # the tensor cores
@@ -3386,6 +3395,14 @@ def _ssd_bwd_work(B, L, H, P, N, chunk, with_init, with_dfinal
     return n_bytes, 2 * macs
 
 
+def _ssd_bwd_scratch_gb(B, L, H, P, N, chunk) -> float:
+    """GB of scratch the backward kernel's wrapper allocates a call."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    return sum(t.numel() for t in ops._bwd_scratch(
+        B, L, H, P, N, chunk, "meta")) * 4 / 1e9
+
+
 def _ssd_bwd_args(x, dtA, b, c, s0, chunk, use_kernel):
     """The padded inputs and the forward's entering states and chunk decay
     (B8's scratch for the kernel, ssd_chunked_steps's for the plain
@@ -3403,10 +3420,41 @@ def _ssd_bwd_args(x, dtA, b, c, s0, chunk, use_kernel):
     return x, dtA, b, c, steps["entering_states"], steps["chunk_decay"]
 
 
+def _head_dropped(x, dy, head: int) -> tuple:
+    """x and dy with one head's values zeroed: inputs of the backward's
+    control, whose db and dc lose that head's share of the sums over
+    heads."""
+    x, dy = x.clone(), dy.clone()
+    x[:, :, head] = 0
+    dy[:, :, head] = 0
+    return x, dy
+
+
+def _host_ms_by_op(fn, top: int = 6) -> list:
+    """``[(name, host ms)]``: the largest self CPU times of the operations
+    and CUDA runtime calls of one ``fn()`` call after a warm-up call, from
+    ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_cpu_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and "Synchronize" not in e.key
+            and "Activity Buffer" not in e.key]  # the profiler's own
+    return sorted(rows, key=lambda kv: -kv[1])[:top]
+
+
 def phase_ssd_bwd_kernel(dev) -> dict:
     """The backward kernel against the float64 plain backward
-    (ssd_chunked_bwd), two calls bitwise; numbers at the mamba2 training
-    shape."""
+    (ssd_chunked_bwd), two calls bitwise, and a control with one head's x
+    and dy zeroed whose db and dc must read above the gate; numbers at the
+    mamba2 training shape, with the host's share of a call."""
     import torch
     import torch.nn.functional as F
 
@@ -3470,16 +3518,38 @@ def phase_ssd_bwd_kernel(dev) -> dict:
             parts.append(f"{name} {errs[name]:.3g} (max|.| {scale:.4g})")
             if name != "dinit" or with_init:
                 err = max(err, float((g.double() - r).abs().max()))
+        # control: one head's x and dy zeroed, db and dc against the plain
+        # backward of the full inputs
+        xd, dyd = _head_dropped(xp, dyp, H // 2)
+        dropped = ss.ssd_scan_bwd(xd, ap, bp, cp, dyd, chunk=chunk,
+                                  entering_states=ent, chunk_decay=dec,
+                                  dfinal=dfin, use_kernel=True)
+        ctrl = max(float((g[:, :L].double() - r[:, :L]).abs().max()
+                         / r[:, :L].abs().max()) for g, r in
+                   zip(dropped[2:4], ref[2:4]))
         log(f"  ssd_scan_bwd {label} [{B},{L},{H},{P},{N}] chunk {chunk}: "
             "scale-free error vs float64 plain " + ", ".join(parts)
-            + "; two calls bit-equal")
+            + f"; two calls bit-equal; control (head {H // 2}'s x and dy "
+            f"zeroed) db/dc {ctrl:.3g}; limit {SSD_TOL}")
         check(all(e <= SSD_TOL for e in errs.values()),
               f"ssd_scan_bwd {label} vs float64 plain: {errs}")
-        del got, again, ref, d
+        check(ctrl > SSD_TOL, f"ssd_scan_bwd {label}: control with a head "
+              f"dropped {ctrl} within {SSD_TOL}")
+        del got, again, ref, d, xd, dyd, dropped
         if not label.endswith("training"):
             continue
         ms = time_ms(kernel)
         dev_ms = device_ms_total(kernel)
+        # the host's share: one call's enqueue on the host clock (no sync),
+        # and its largest host-side operations under the profiler
+        torch.cuda.synchronize()
+        enq = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            kernel()
+            enq.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+        host_ops = _host_ms_by_op(kernel)
         pp = _ssd_bwd_args(x, dtA, b, c, s0, chunk, False)
         plain = time_ms(lambda: ss.ssd_chunked_bwd(
             *pp[:4], dyp, dfin, s0, chunk=chunk, entering_states=pp[4],
@@ -3492,20 +3562,30 @@ def phase_ssd_bwd_kernel(dev) -> dict:
         n_bytes, n_ops = _ssd_bwd_work(B, L, H, P, N, chunk, with_init,
                                        with_dfinal)
         bnd, by = bound_ms(n_bytes, n_ops)
+        p_bnd, p_by = bound_ms(n_bytes, 3 * n_ops, BF16_OPS_S)
         log(f"    kernel {ms:.4f} ms (device {dev_ms:.4f} ms over its six "
             f"launches), ssd_chunked_bwd {plain:.4f} ms, autograd of "
             f"ssd_chunked {autograd:.4f} ms, bound {bnd:.4f} ms ({by}: "
             f"{n_ops / 1e9:.4g} GFLOP at the float32 peak, "
-            f"{n_bytes / 1e9:.4g} GB); kernel at {bnd / ms:.3g} of the "
-            "bound")
+            f"{n_bytes / 1e9:.4g} GB: {1e3 * n_bytes / HBM_BYTES_S:.4f} ms); "
+            f"kernel at {bnd / ms:.3g} of the bound; the split plan's "
+            f"3 x {n_ops / 1e9:.4g} GFLOP of bf16 {p_bnd:.4f} ms ({p_by}); "
+            f"scratch {_ssd_bwd_scratch_gb(B, L, H, P, N, chunk):.4f} GB")
+        log(f"    host: one call's enqueue {statistics.median(enq):.4f} ms "
+            f"(median of {REPS}, no sync), events less device time "
+            f"{ms - (dev_ms or 0.0):.4f} ms; its largest host operations "
+            + ", ".join(f"{k} {t:.4f} ms" for k, t in host_ops))
         rows[label] = dict(shape=[B, L, H, P, N], ms=ms, device_ms=dev_ms,
                            plain_ms=plain, autograd_ms=autograd,
-                           bound_ms=bnd, bound_by=by, library_ms=None)
+                           bound_ms=bnd, bound_by=by, library_ms=None,
+                           plan_bound_ms=p_bnd, plan_bound_by=p_by,
+                           host_enqueue_ms=statistics.median(enq))
         del x, dtA, b, c, dy, dyp, xp, ap, bp, cp, ent, dec
         torch.cuda.empty_cache()
     z = rows["zamba2 training"]
     note = (f"zamba2 shape {z['shape']}: {z['ms']:.4f} ms (device "
-            f"{z['device_ms']:.4f}), bound {z['bound_ms']:.4f} "
+            f"{z['device_ms']:.4f}; host enqueue {z['host_enqueue_ms']:.4f}), "
+            f"bound {z['bound_ms']:.4f} (plan {z['plan_bound_ms']:.4f}) "
             f"({z['bound_by']}), ssd_chunked_bwd {z['plain_ms']:.4f}, "
             f"autograd of ssd_chunked {z['autograd_ms']:.4f}; no Pallas "
             "counterpart (the reference differentiates jnp ssd_chunked)")
@@ -3593,12 +3673,15 @@ def _ssd_bwd_forced(forced: bool):
 
 
 @contextlib.contextmanager
-def _ssd_bwd_held(errs: list):
+def _ssd_bwd_held(errs: list, controls: list):
     """Within the block, every call of the SSD backward's dispatcher that
     runs the kernel is run again with the plain version on the same
     inputs (the forward's entering states and chunk decay included), and
     the largest scale-free error over its five gradients is appended to
-    ``errs``; the kernel's gradients go on."""
+    ``errs``; the first such call also runs the kernel with one head's x
+    and dy zeroed, and the larger scale-free error of its db and dc
+    against the plain version of the full inputs is appended to
+    ``controls``. The kernel's gradients go on."""
     from repro_torch.kernels.ssd_scan import ops
 
     saved = ops.ssd_scan_bwd
@@ -3608,6 +3691,13 @@ def _ssd_bwd_held(errs: list):
         if args[0].is_cuda if use_kernel is None else use_kernel:
             ref = saved(*args, use_kernel=False, **kw)
             errs.append(max(_ssd_err((o,), (r,)) for o, r in zip(out, ref)))
+            if not controls:
+                x, dtA, b, c, dy = args
+                xd, dyd = _head_dropped(x, dy, x.shape[2] // 2)
+                dropped = saved(xd, dtA, b, c, dyd, use_kernel=use_kernel,
+                                **kw)
+                controls.append(max(_ssd_err((o,), (r,)) for o, r in
+                                    zip(dropped[2:4], ref[2:4])))
         return out
 
     ops.ssd_scan_bwd = call
@@ -3714,16 +3804,19 @@ def _ssm_training(dev, arch: str) -> dict:
     del step_fn
 
     # every SSD backward call of one bf16 step against the plain version
-    held = []
-    with _ssd_bwd_held(held):
+    held, held_ctrl = [], []
+    with _ssd_bwd_held(held, held_ctrl):
         _grads_of(model, cfg, batch, None)
     log(f"  bf16, every SSD backward call of one step ({len(held)} calls) "
         f"vs the plain backward on its inputs: scale-free error max "
-        f"{max(held):.3g}, median {statistics.median(held):.3g}; limit "
-        f"{SSD_TOL}")
+        f"{max(held):.3g}, median {statistics.median(held):.3g}; control "
+        f"(the first call with one head's x and dy zeroed) db/dc "
+        f"{held_ctrl[0]:.3g}; limit {SSD_TOL}")
     check(len(held) == cfg.n_layers, f"{arch}: held {len(held)} backward "
           "calls")
     check(max(held) <= SSD_TOL, f"{arch} SSD backward calls {max(held)}")
+    check(held_ctrl[0] > SSD_TOL, f"{arch} SSD backward control "
+          f"{held_ctrl[0]} within {SSD_TOL}")
     del run, state, model, batch
     torch.cuda.empty_cache()
 
@@ -3772,7 +3865,8 @@ def _ssm_training(dev, arch: str) -> dict:
     return dict(step_ms=step_ms, tokens_per_s=tok_s, peak_gb=peak_gb,
                 busy_share=busy / step_ms, device_ms=ours, gemm_ms=gemm,
                 launches=launches, losses=losses, call_err=max(held),
-                grad_err=err, grad_control=ctrl, n_params=n_params)
+                call_control=held_ctrl[0], grad_err=err, grad_control=ctrl,
+                n_params=n_params)
 
 
 def phase_ssm_training(dev) -> dict:

@@ -70,9 +70,8 @@ _SIGNATURES = {
     #  decay, B, L, H, P, N, chunk, device, stream)
     "ssd_scan_launch": ([_VOID_P] * 11 + [_I32] * 7 + [_VOID_P], _I32),
     # (x, dtA, b, c, dy, dfinal, entering, decay, dx, ddtA, db, dc, dinit,
-    #  cb, dchunk, part_cb, part_b, part_c, dcb, B, L, H, P, N, chunk,
-    #  device, stream)
-    "ssd_scan_bwd_launch": ([_VOID_P] * 19 + [_I32] * 7 + [_VOID_P], _I32),
+    #  cb, dcb, dchunk, acum, da_off, B, L, H, P, N, chunk, device, stream)
+    "ssd_scan_bwd_launch": ([_VOID_P] * 18 + [_I32] * 7 + [_VOID_P], _I32),
     "cuda_error_string": ([_I32], ctypes.c_char_p),
 }
 

@@ -15,7 +15,8 @@ kernels. It never falls back to the plain version.
 :func:`ssd` runs the scan as :class:`SSDScan`, an autograd Function: its
 forward is that kernel (or the plain version), and under grad it saves the
 inputs with the forward's entering states and chunk decay; its backward is
-:func:`ssd_scan_bwd`, the backward kernel (six launches, one count in
+:func:`ssd_scan_bwd`, the backward kernel (six launches on the tensor
+cores, the sums over heads taken on chip; one count in
 ``LAUNCHES["ssd_scan_bwd"]``, the same checks and no fallback) or the
 plain version.
 """
@@ -132,36 +133,45 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,
     dev, f32 = x.device, torch.float32
     _check_shape(P, N, L, chunk, "ssd_scan_bwd")
     nc = L // chunk
-    ptrs = [check_cuda_tensor("x", x, f32, (Bsz, L, H, P), dev),
+    ptrs = [check_cuda_tensor("x", x, f32, (Bsz, L, H, P), dev, 16),
             check_cuda_tensor("dtA", dtA, f32, (Bsz, L, H), dev),
-            check_cuda_tensor("b", b, f32, (Bsz, L, N), dev),
-            check_cuda_tensor("c", c, f32, (Bsz, L, N), dev),
-            check_cuda_tensor("dy", dy, f32, (Bsz, L, H, P), dev),
+            check_cuda_tensor("b", b, f32, (Bsz, L, N), dev, 16),
+            check_cuda_tensor("c", c, f32, (Bsz, L, N), dev, 16),
+            check_cuda_tensor("dy", dy, f32, (Bsz, L, H, P), dev, 16),
             None if dfinal is None else check_cuda_tensor(
-                "dfinal", dfinal, f32, (Bsz, H, P, N), dev),
+                "dfinal", dfinal, f32, (Bsz, H, P, N), dev, 16),
             check_cuda_tensor("entering_states", entering_states, f32,
-                              (Bsz, nc, H, P, N), dev),
+                              (Bsz, nc, H, P, N), dev, 16),
             check_cuda_tensor("chunk_decay", chunk_decay, f32,
                               (Bsz, nc, H), dev)]
     out = (torch.empty_like(x), torch.empty_like(dtA), torch.empty_like(b),
            torch.empty_like(c),
            torch.empty((Bsz, H, P, N), dtype=f32, device=dev))
     if x.numel():
-        def scratch(*shape):
-            return torch.empty(shape, dtype=f32, device=dev)
-
         launch("ssd_scan_bwd_launch", *ptrs,
                *(t.data_ptr() for t in out),
-               *(t.data_ptr() for t in (
-                   scratch(Bsz, nc, chunk, chunk),          # cb
-                   scratch(Bsz, nc, H, P, N),               # dchunk
-                   scratch(Bsz, nc, H, chunk, chunk),       # part_cb
-                   scratch(Bsz, L, H, N),                   # part_b
-                   scratch(Bsz, L, H, N),                   # part_c
-                   scratch(Bsz, nc, chunk, chunk))),        # dcb
+               *(t.data_ptr() for t in _bwd_scratch(Bsz, L, H, P, N, chunk,
+                                                    dev)),
                Bsz, L, H, P, N, chunk, device=dev)
         LAUNCHES["ssd_scan_bwd"] += 1
     return out
+
+
+def _bwd_scratch(Bsz: int, L: int, H: int, P: int, N: int, chunk: int,
+                 dev) -> tuple:
+    """The backward kernel's scratch as views of one float32 allocation:
+    ``cb`` and ``dcb`` ``[B, nc, Qp, Qp]`` (C·Bᵀ and dCB summed over heads;
+    ``Qp`` the chunk rounded up to 64), ``dchunk`` ``[B, nc, H, P, N]``
+    (the state gradients), ``acum`` ``[B, L, H]`` (dtA's cumulative sums
+    within each chunk) and ``da_off`` ``[N // 64, B, L, H]`` (da's term of
+    the entering state, per 64 columns of N; none at P = N = 16), in that
+    order, the first three 16-byte aligned."""
+    nc, qp = L // chunk, -(-chunk // 64) * 64
+    sizes = ((Bsz * nc * qp * qp,) * 2
+             + (Bsz * nc * H * P * N, Bsz * L * H,
+                N // 64 * Bsz * L * H))
+    return torch.empty(sum(sizes), dtype=torch.float32, device=dev) \
+        .split(sizes)
 
 
 def ssd_scan_bwd(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,

@@ -2,8 +2,10 @@
 against torch's autograd of ``ssd_chunked`` (float64) and against
 ``jax.grad`` of the JAX reference's ``ssd_chunked`` (float32), the
 ``SSDScan`` autograd Function (gradcheck), the dispatcher under grad on
-the CPU, and — on a CUDA card only — the backward kernel against the plain
-version and two calls bit for bit.
+the CPU, the backward kernel's precision plan emulated on the CPU (its
+products as split bf16 terms, the sums over heads in its order) against
+the float64 plain version, and — on a CUDA card only — the backward kernel
+against the plain version and two calls bit for bit.
 
 JAX is imported by a fixture, so this file also runs where only the port
 is installed (as on a card without JAX). Tolerances: 1e-10 of each
@@ -11,6 +13,8 @@ gradient's largest |value| in float64 (the same function, another order
 of sums); 1e-5 in float32 against the reference (float32 rounding of two
 orders of sums); 3e-4 on the card against the float64 plain version, the
 forward kernel's gate (tests/test_torch_ssd.py)."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ssd_scan as ss
 from torch_recorders import recorders_off  # noqa: F401  (autouse)
+from torch_split_plan import PLANS, SSD_TOL, _plan_mm
 
 F64_TOL, JAX_TOL, KERNEL_TOL = 1e-10, 1e-5, 3e-4
 #: (B, L, H, P, N, chunk): 1 to 4 chunks, and L not a multiple of it.
@@ -217,6 +222,135 @@ def test_backward_wrapper_refuses_cpu_tensors_and_bad_shapes():
     with pytest.raises(ValueError, match="multiple"):
         ss.ssd_scan_bwd_cuda(x, dtA, b, c, dy, chunk=24, **kw)
     assert ss.LAUNCHES["ssd_scan_bwd"] == 0
+
+
+# ===========================================================================
+# the backward kernel's precision plan, emulated on the CPU
+# ===========================================================================
+
+def _plan_bwd(x, dtA, b, c, dy, chunk, entering, decay, dfinal, plan):
+    """The backward kernel's steps (csrc/ssd_scan_bwd.cu), every product
+    through :func:`_plan_mm` and every sum over heads in the kernel's
+    order: C·Bᵀ once per row and chunk; each chunk's state gradient (e^a
+    dy)ᵀ·C and the reverse recurrence in float32; dCB = Σ_h L_h ∘ (dy_h
+    x_hᵀ) per 64 x 64 tile, heads in order (off the diagonal tile one
+    product of depth H·P with L's two factors folded into the operands);
+    dc = Σ_h (e^a dy_h)·S_h, each head's product formed apart and added in
+    order, whose row sums against C are da's Σ_p dy y_off, plus dCB·B; db
+    one product of depth H·P, (w x)·dS over the heads in order, plus
+    dCBᵀ·C; per head, U = B·dSᵀ (dx's state term w U and -w Σ_p x U) and
+    Mᵀ = x·dyᵀ with the scores (C Bᵀ ∘ L)ᵀ, whose product with dy adds to
+    dx and whose product with Mᵀ gives da's row and column sums. Returns
+    ``(dx, ddtA, db, dc, dinit)``."""
+    Bsz, L, H, P = x.shape
+    N = b.shape[-1]
+    nc, Q = L // chunk, chunk
+
+    def heads(t):                                   # -> [b, c, h, q, p]
+        return t.reshape(Bsz, nc, Q, H, -1).permute(0, 1, 3, 2, 4)
+
+    def flat(t):                                    # -> [b, c, q, h p]
+        return t.permute(0, 1, 3, 2, 4).reshape(Bsz, nc, t.shape[3], H * P)
+
+    xc, dyc = heads(x), heads(dy)
+    bc, cc = b.reshape(Bsz, nc, Q, N), c.reshape(Bsz, nc, Q, N)
+    a = torch.cumsum(dtA.reshape(Bsz, nc, Q, H), dim=2).permute(0, 1, 3, 2)
+    eq, w = torch.exp(a), torch.exp(a[..., -1:] - a)          # [b, c, h, q]
+    causal = torch.ones(Q, Q, dtype=torch.bool).tril()
+    seg = a[..., :, None] - a[..., None, :]
+    lm = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)), 0.0)
+
+    cb = _plan_mm(cc, bc.transpose(-1, -2), plan)             # [b, c, q, s]
+    g = _plan_mm((dyc * eq[..., None]).transpose(-1, -2), cc[:, :, None],
+                 plan)                                        # [b, c, h, p, n]
+    ds = torch.zeros_like(g[:, 0]) if dfinal is None else dfinal
+    dst = [None] * nc
+    for ci in reversed(range(nc)):
+        dst[ci] = ds
+        ds = g[:, ci] + decay[:, ci, :, None, None] * ds
+    dst = torch.stack(dst, dim=1)                             # [b, c, h, p, n]
+
+    u = _plan_mm(bc[:, :, None], dst.transpose(-1, -2), plan)  # rows s
+    ys = _plan_mm(dyc * eq[..., None], entering, plan)        # [b, c, h, q, n]
+    cbl = (cb[:, :, None] * lm).transpose(-1, -2)             # [b, c, h, s, q]
+    t = cbl * _plan_mm(xc, dyc.transpose(-1, -2), plan)
+    wdw = w * (xc * u).sum(-1)
+    dx = w[..., None] * u + _plan_mm(cbl, dyc, plan)
+    da = t.sum(-2) - t.sum(-1) + (cc[:, :, None] * ys).sum(-1) - wdw
+    da[..., -1] += wdw.sum(-1) + decay * (entering * dst).sum((-1, -2))
+    ddtA = torch.flip(torch.cumsum(torch.flip(da, (-1,)), -1), (-1,))
+
+    dcb = torch.zeros(Bsz, nc, Q, Q)
+    for q0 in range(0, Q, 64):
+        for s0 in range(0, q0 + 1, 64):
+            qs, ss_ = slice(q0, q0 + 64), slice(s0, s0 + 64)
+            if q0 == s0:    # each head apart, times L element by element
+                m = _plan_mm(dyc[..., qs, :], xc[..., ss_, :]
+                             .transpose(-1, -2), plan)
+                for h in range(H):
+                    dcb[..., qs, ss_] += lm[:, :, h, qs, ss_] * m[:, :, h]
+                continue
+            # off the diagonal L = exp(a_q - a_r) exp(a_r - a_s), a_r at the
+            # s tile's last row, folded into the operands: one product of
+            # depth H P, heads in order
+            a_r = a[..., min(s0 + 63, Q - 1), None]
+            dq = dyc[..., qs, :] * torch.exp(a[..., qs] - a_r)[..., None]
+            xs = xc[..., ss_, :] * torch.exp(a_r - a[..., ss_])[..., None]
+            dcb[..., qs, ss_] = _plan_mm(flat(dq), flat(xs).transpose(-1, -2),
+                                         plan)
+    dc = ys[:, :, 0]
+    for h in range(1, H):
+        dc = dc + ys[:, :, h]
+    dc = dc + _plan_mm(dcb, bc, plan)
+    db = _plan_mm(torch.cat([flat(xc * w[..., None]),
+                             dcb.transpose(-1, -2)], -1),
+                  torch.cat([dst.reshape(Bsz, nc, H * P, N), cc], -2), plan)
+    return (flat(dx).reshape(Bsz, L, H, P),
+            ddtA.permute(0, 1, 3, 2).reshape(Bsz, L, H),
+            db.reshape(Bsz, L, N), dc.reshape(Bsz, L, N), ds)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan_readings(N: int) -> dict:
+    """Scale-free error of each plan's gradients against the float64 plain
+    backward at one row and two heads of a training shape (L = 1024, chunk
+    256, P = 64), with an initial state and dfinal; the forward's entering
+    states and chunk decay are float64's, rounded to float32."""
+    arrs = _inputs(31 + N, 1, 1024, 2, 64, N, True, True)
+    d = {k: _t(a) for k, a in arrs.items()}
+    steps = ss.ssd_chunked_steps(d["x"], d["dtA"], d["b"], d["c"], 256,
+                                 d["init"])
+    ref = ss.ssd_chunked_bwd(d["x"], d["dtA"], d["b"], d["c"], d["dy"],
+                             d["dfinal"], d["init"], chunk=256)
+    f = {k: a.float() for k, a in d.items()}
+    out = {}
+    for plan in PLANS:
+        got = _plan_bwd(f["x"], f["dtA"], f["b"], f["c"], f["dy"], 256,
+                        steps["entering_states"].float(),
+                        steps["chunk_decay"].float(), f["dfinal"], plan)
+        out[plan] = {n: _scale_err(g, r) for n, g, r in zip(NAMES, got, ref)}
+        print(f"N={N} {plan}: ddtA {out[plan]['ddtA']:.3g}; "
+              + ", ".join(f"{n} {e:.3g}" for n, e in out[plan].items()
+                          if n != "ddtA"))
+    return out
+
+
+@pytest.mark.parametrize("N", [128, 64], ids=["mamba2", "zamba2"])
+def test_split_bf16_plan_holds_the_backward_gate(N):
+    """The kernel's plan (two bf16 terms a float32 operand, three products,
+    the sums over heads in its order) keeps every gradient, ddtA
+    included, within SSD_TOL of the float64 plain backward."""
+    r = _bwd_plan_readings(N)["bf16x3"]
+    assert all(e <= SSD_TOL for e in r.values()), r
+
+
+@pytest.mark.parametrize("N", [128, 64], ids=["mamba2", "zamba2"])
+def test_one_term_bf16_backward_exceeds_the_gate(N):
+    """Control: operands rounded once to bf16 read above the gate for at
+    least one gradient, so the gate sees the precision the second term
+    buys."""
+    r = _bwd_plan_readings(N)["bf16x1"]
+    assert max(r.values()) > SSD_TOL, r
 
 
 # ===========================================================================
