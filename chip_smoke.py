@@ -83,10 +83,15 @@ Phases, each of which must pass (any failure exits nonzero, no result):
 11. the flash-attention backward kernels (B5 dQ, B6 dK/dV) against their
    plain version in float32 and bfloat16 at the training shape, at hd=80
    with G=1, with a sliding window, at a ragged length and non-causal,
-   and in float32 also against torch's autograd through the plain
-   attention, with their times, bounds, achieved TFLOP/s, the plain
-   version's time and the backward of torch's
-   scaled_dot_product_attention;
+   and at the training families' shapes (BWD_FAMILY_CASES: gemma2's
+   softcap of 50 at its 32/16 heads x 128 with a window below Sq, hd = 16
+   at phase 6's smoke shapes, qwen3-moe's G = 16 at hd 128, internvl2's
+   G = 7 at hd 64), in float32 also against torch's autograd through the
+   plain attention; a control drops the softcap's factor 1 - t^2 from the
+   plain version and must fail the gate in both dtypes; with their times,
+   bounds, achieved TFLOP/s, the plain version's time and, where it
+   computes the same function (no softcap, no window), the backward of
+   torch's scaled_dot_product_attention;
 12. training smollm-360m at full width and depth (32 layers, random
    weights from a seed) through run_training: 6 AdamW steps on
    TokenPipeline batches of 8 x 1,024 tokens, bf16 compute, f32 master
@@ -193,7 +198,28 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    with kernels against the same step with the plain versions, the loss and
    every gradient leaf within 3e-4 of its largest |value| (the two
    kernels' shares read apart), beside a control with every layer's scan
-   output and its gradient rounded to bf16.
+   output and its gradient rounded to bf16;
+21. training every remaining family at its published widths through
+   make_train_step (6 steps, bf16 compute, f32 master weights and Adam
+   state, remat; FAMILY_TRAINED): gemma2-27b at 2 of 46 layers (swa and
+   full, its attention softcap through B4-B6), mixtral-8x7b at 2 of 32,
+   qwen3-moe-235b-a22b at 1 of 94, hubert-xlarge and internvl2-1b at full
+   depth (internvl2 over 1,024 patches + 512 tokens a row): launch counts
+   per step exact (B4 twice, B5 and B6 once an attention layer), no plain
+   attention called, finite losses, the loss on the first batch lower
+   after the last step, every parameter with a gradient, the first
+   step's peak memory under FAMILY_PEAK_GB, step time, tokens/s, peak
+   memory and one step's device time by kernel; at cut depth one float32
+   step with kernels against the plain versions, the loss and every leaf
+   within FAMILY_GRAD_TOL of its scale, beside a control with layer 0's
+   dQ at 6 mantissa bits; for the MoE models, layer 0's moe_local backward
+   at full width bit-equal twice in bf16 and within GRAD_TOL of float64;
+   for gemma2, remat_policy="save_attn" beside "nothing" (the same
+   gradients bit for bit, B4 once an attention layer a step instead of
+   twice, step ms and peak memory of each); then run_training(preset=
+   "tiny") on the card for every smoke config whose head width is 16
+   (command-r, yi, mixtral, qwen3-moe, hubert, zamba2) with the same
+   launch, loss and gradient checks.
 
 It prints a JSON line of per-kernel numbers and, last, the device line
 ``{"ok": true, "device": {...}}``. It needs the repository around it and
@@ -338,6 +364,21 @@ CALL_CONTROL_BITS = 4
 #: plain output's largest |value|, or over 1 where that is smaller (the
 #: reference's absolute 3e-4, tests/test_kernels.py).
 BWD_TOL = 3e-4
+#: Phase 11's cases at the training families' shapes (label, B, Sq, Skv,
+#: Hq, Hkv, hd, causal, window, softcap): gemma2-27b's heads (32/16, hd
+#: 128) with its attention softcap and a window below Sq; hd = 16 at the
+#: smoke shapes phase 6 gives B4 (SMOKE_ATTN_SHAPES, 4 rows of 16 tokens:
+#: G = 2, 4 and 1); qwen3-moe-235b's G = 16 at hd 128; internvl2-1b's
+#: 14/2 heads (G = 7) at hd 64.
+BWD_FAMILY_CASES = (
+    [("gemma2 softcap 50, window 512", 2, TRAIN_S, TRAIN_S, 32, 16, 128,
+      True, 512, 50.0)]
+    + [(label, B, S, S, Hq, Hkv, hd, True, 0, 0.0)
+       for label, B, S, Hq, Hkv, hd in SMOKE_ATTN_SHAPES]
+    + [("qwen3-moe G = 16, hd = 128", 2, TRAIN_S, TRAIN_S, 64, 4, 128, True,
+        0, 0.0),
+       ("internvl2 G = 7, hd = 64", 2, TRAIN_S, TRAIN_S, 14, 2, 64, True, 0,
+        0.0)])
 #: Phase 19, the SSD scan's backward kernel: each gradient within
 #: SSD_TOL of its largest |value| against the float64 plain backward
 #: (ssd_chunked_bwd), B8's forward gate mirrored. Phase 20 trains these
@@ -358,6 +399,45 @@ BWD_TOL = 3e-4
 SSM_TRAINED = ("mamba2_2p7b", "zamba2_2p7b")
 SSM_GRAD_DEPTH = {"mamba2_2p7b": 2, "zamba2_2p7b": 6}
 SSM_GRAD_TOL, SSM_CONTROL_BITS = 3e-4, 7
+#: Phase 21 trains every remaining family at its published widths:
+#: TRAIN_STEPS steps through make_train_step, bf16 compute, f32 master
+#: weights and Adam state, remat, at (layers, batch rows, positions):
+#: gemma2-27b at 2 of its 46 layers (one swa, one full), mixtral-8x7b at
+#: 2 of 32 and qwen3-moe-235b-a22b at 1 of 94 (the state of 16 bytes a
+#: parameter, 37.0, 50.6 and 59.7 GB, has to fit the card's 80 GB beside
+#: the step), hubert-xlarge and internvl2-1b at full depth (None);
+#: internvl2 at 1,024 patches + 512 tokens a row (phase 16's prompt: at
+#: TRAIN_S its 1,024 patches would leave no text token, and its token
+#: table no gradient). A first step above FAMILY_PEAK_GB fails the phase
+#: (the batch is then to be halved and the cut recorded; on an H100 the
+#: largest, qwen3-moe's, read 63.01 GB at 8 rows). The float32 check runs
+#: one step at FAMILY_GRAD_DEPTH layers (internvl2 at FAMILY_GRAD_SEQ
+#: positions), kernels against use_kernel=False, the loss and every leaf
+#: within GRAD_TOL of its largest |value| (H100: 2.2e-6 to 8.7e-6, the
+#: softcap's leaves included), and a control with layer 0's dQ at
+#: GRAD_CONTROL_BITS mantissa bits that must exceed it (2.8e-3 to
+#: 3.6e-3). SAVE_ATTN_TRAINED also compares
+#: remat_policy="save_attn" with "nothing" (SAVE_ATTN_STEPS steps in
+#: turns). TINY_TRAINED: the smoke configs whose head width is 16, each
+#: through run_training(preset="tiny") on the card for TINY_STEPS steps.
+FAMILY_TRAINED = {"gemma2_27b": (2, TRAIN_B, TRAIN_S),
+                  "mixtral_8x7b": (2, TRAIN_B, TRAIN_S),
+                  "qwen3_moe_235b": (1, TRAIN_B, TRAIN_S),
+                  "hubert_xlarge": (None, TRAIN_B, TRAIN_S),
+                  "internvl2_1b": (None, TRAIN_B, FRONTEND_PATCHES
+                                   + FRONTEND_TOKENS)}
+FAMILY_PEAK_GB = 76.0
+FAMILY_GRAD_DEPTH = {"gemma2_27b": 2, "mixtral_8x7b": 2,
+                     "qwen3_moe_235b": 1, "hubert_xlarge": 4,
+                     "internvl2_1b": 4}
+FAMILY_GRAD_SEQ = {"internvl2_1b": FRONTEND_PATCHES + GRAD_S}
+SAVE_ATTN_TRAINED, SAVE_ATTN_STEPS = ("gemma2_27b",), 4
+#: Tokens of the MoE backward reading (bit-equal bf16 calls, float32 vs
+#: float64) of each MoE run.
+MOE_BWD_TOKENS = 2 * TRAIN_S
+TINY_TRAINED = ("command_r_35b", "yi_34b", "mixtral_8x7b",
+                "qwen3_moe_235b", "hubert_xlarge", "zamba2_2p7b")
+TINY_STEPS = 10
 #: Phase 13, the sweep engine: Fig. 3 at the §VI-B widths (the reference
 #: sweep spec's _SYNTH_DEFAULTS: 10 edges, 100 services, U{1..10}
 #: implementations) with 2,000 users and 8 seeds; the same generator at
@@ -760,9 +840,7 @@ def phase_build() -> None:
     for (base, dtype, hd), n in sorted(counts.items()):
         log(f"  SASS {base} {dtype} hd={hd}: {n} HMMA/HGMMA")
     for base in TENSOR_CORE_KERNELS:
-        # the forward (B4) also at the smoke configs' hd = 16
-        dims = [16, 32, 64, 80, 128] if base.endswith("fwd") else \
-            [32, 64, 80, 128]
+        dims = [16, 32, 64, 80, 128]
         for dtype in ("bf16", "f32"):
             got = {hd: n for (b, d, hd), n in counts.items()
                    if b == base + "_kernel" and d == dtype}
@@ -2940,31 +3018,66 @@ def _bwd_work(B, Sq, Skv, Hq, Hkv, hd, causal, window, nbytes: int
                                     + 8 * rows, 8 * hd * pairs)}
 
 
+@contextlib.contextmanager
+def _cap_derivative_dropped():
+    """Within the block, the plain backward (flash_attention_bwd_ref)
+    leaves out the factor 1 - t^2 that the softcap's derivative puts on
+    dS: the control of phase 11's softcap case."""
+    from repro_torch.kernels.flash_attention import ref
+
+    saved = ref._softcap
+    ref._softcap = lambda s, c: (saved(s, c)[0], 1.0)
+    try:
+        yield
+    finally:
+        ref._softcap = saved
+
+
+def _bwd_held_in(got, ref, dtype: str) -> list:
+    """Each of dq, dk, dv held against ``ref`` at its dtype's gate:
+    float32 within BWD_TOL of the largest value (or of 1), bf16 within
+    BF16_ULPS; returns ``[(name, within, reading)]``."""
+    out = []
+    for n, a, b in zip(("dq", "dk", "dv"), got, ref):
+        if dtype == "float32":
+            e = _bwd_err(a, b)
+            out.append((n, e <= BWD_TOL, e))
+        else:
+            e = bf16_ulp_err(a, b)[1]
+            out.append((n, e <= BF16_ULPS, e))
+    return out
+
+
 def phase_backward_kernels(dev) -> dict:
     """B5 and B6 against flash_attention_bwd_ref (and, in float32, torch's
     autograd through attention_ref); numbers at the training shape
-    (bfloat16)."""
+    (bfloat16), and at the training families' shapes (BWD_FAMILY_CASES):
+    gemma2's softcap, with a control that drops the cap's derivative from
+    the plain version, hd 16, G = 16 and G = 7."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    # (label, B, Sq, Skv, Hq, Hkv, hd, causal, window)
-    main = ("training", TRAIN_B, TRAIN_S, TRAIN_S, 15, 5, 64, True, 0)
+    # (label, B, Sq, Skv, Hq, Hkv, hd, causal, window, softcap)
+    main = ("training", TRAIN_B, TRAIN_S, TRAIN_S, 15, 5, 64, True, 0, 0.0)
     cases = [main,
-             ("hd = 80, G = 1", 2, 512, 512, 8, 8, 80, True, 0),
-             ("window 256, hd = 128", 2, 1000, 1000, 6, 2, 128, True, 256),
-             ("ragged Sq = 1000", 2, 1000, 1000, 15, 5, 64, True, 0),
-             ("non-causal, Sq != Skv", 2, 300, 333, 6, 2, 32, False, 0)]
+             ("hd = 80, G = 1", 2, 512, 512, 8, 8, 80, True, 0, 0.0),
+             ("window 256, hd = 128", 2, 1000, 1000, 6, 2, 128, True, 256,
+              0.0),
+             ("ragged Sq = 1000", 2, 1000, 1000, 15, 5, 64, True, 0, 0.0),
+             ("non-causal, Sq != Skv", 2, 300, 333, 6, 2, 32, False, 0,
+              0.0)] + BWD_FAMILY_CASES
     err = {"flash_attention_dq": 0.0, "flash_attention_dkv": 0.0}
+    controls = {}
     for dtype in ("float32", "bfloat16"):
-        for label, B, Sq, Skv, Hq, Hkv, hd, causal, window in cases:
+        for label, B, Sq, Skv, Hq, Hkv, hd, causal, window, cap in cases:
             dt = getattr(torch, dtype)
             q = _randn((B, Sq, Hq, hd), dt, gen)
             k = _randn((B, Skv, Hkv, hd), dt, gen)
             v = _randn((B, Skv, Hkv, hd), dt, gen)
             do = _randn((B, Sq, Hq, hd), dt, gen)
-            kw = dict(causal=causal, window=window)
+            kw = dict(causal=causal, window=window, softcap=cap)
             o, lse = fa.flash_attention_cuda(q, k, v, **kw)
             got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
             ref = fa.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
@@ -2993,53 +3106,91 @@ def phase_backward_kernels(dev) -> dict:
                         for a, b in zip(got[1:], r[1:])))
             check(all(bool(torch.isfinite(t).all()) for t in got),
                   f"backward {label} {dtype} finite")
+            if cap:
+                with _cap_derivative_dropped():
+                    ctrl = fa.flash_attention_bwd_ref(q, k, v, o, do, lse,
+                                                      **kw)
+                held = _bwd_held_in(got, ctrl, dtype)
+                controls[dtype] = {n: e for n, _, e in held}
+                parts.append("control (the plain version without the "
+                             "cap's 1 - t^2): " + ", ".join(
+                                 f"{n} {e:.3g}" for n, _, e in held))
+                check(not all(w for _, w, _ in held),
+                      f"backward {label} {dtype}: the control without the "
+                      f"cap's derivative holds the gate ({held})")
+                del ctrl
             log(f"  backward {label} {dtype} [{B},{Sq},{Skv},{Hq}/{Hkv},"
-                f"{hd}] causal={causal} window={window}: " + "; ".join(parts))
+                f"{hd}] causal={causal} window={window} softcap={cap}: "
+                + "; ".join(parts))
             del q, k, v, do, o, lse, got, ref, refs
-    _, B, Sq, Skv, Hq, Hkv, hd, causal, window = main
-    dt = torch.bfloat16
-    q = _randn((B, Sq, Hq, hd), dt, gen)
-    k = _randn((B, Skv, Hkv, hd), dt, gen)
-    v = _randn((B, Skv, Hkv, hd), dt, gen)
-    do = _randn((B, Sq, Hq, hd), dt, gen)
-    o, lse = fa.flash_attention_cuda(q, k, v)
-    dsum = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
-    ms = {"flash_attention_dq": time_ms(
-              lambda: fa.flash_attention_dq_cuda(q, k, v, do, lse, dsum)),
-          "flash_attention_dkv": time_ms(
-              lambda: fa.flash_attention_dkv_cuda(q, k, v, do, lse, dsum))}
-    plain = time_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, do, lse))
-    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True, enable_gqa=True)
-    dos = do.transpose(1, 2)
-    lib = time_ms(lambda: torch.autograd.grad(sdpa, (qs, ks, vs), dos,
-                                              retain_graph=True))
     out = {}
-    for name, (n_bytes, n_ops) in _bwd_work(B, Sq, Skv, Hq, Hkv, hd, causal,
-                                            window, 2).items():
-        b, by = bound_ms(n_bytes, n_ops, BF16_OPS_S)
-        products = ("bf16: tensor-core products (mma.sync), Pᵀ split "
-                    "into two bf16 terms and dSᵀ into three; float32: "
-                    "CUDA-core products; " if name == "flash_attention_dkv"
-                    else "bf16: tensor-core products (mma.sync), dS split "
-                    "into two bf16 terms; float32: CUDA-core products; ")
-        out[name] = dict(shape=[B, Sq, Hq, Hkv, hd], max_abs_err=err[name],
-                         ms=ms[name], plain_ms=plain, bound_ms=b,
-                         bound_by=by, library_ms=lib,
-                         note=products + "plain_ms and library_ms time dQ, "
-                              "dK and dV together (flash_attention_bwd_ref; "
-                              "the backward of "
-                              "scaled_dot_product_attention)")
-        log(f"  {name} {out[name]['shape']} bf16: kernel {ms[name]:.4f} ms,"
-            f" bound {b:.4f} ms ({by}, {n_ops / 1e9:.2f} GFLOP); plain "
-            f"backward {plain:.4f} ms, sdpa backward {lib:.4f} ms (both "
-            f"for dQ, dK and dV); "
-            f"{_rates(n_ops, ms[name], b, lib, 'sdpa backward')}")
-    both = sum(ms.values())
-    log(f"  B5 + B6 {both:.4f} ms, {both / lib:.2f}x sdpa backward")
-    del q, k, v, do, o, lse, dsum, qs, ks, vs, sdpa
+    for label, B, Sq, Skv, Hq, Hkv, hd, causal, window, cap in (
+            [main] + BWD_FAMILY_CASES):
+        dt = torch.bfloat16
+        q = _randn((B, Sq, Hq, hd), dt, gen)
+        k = _randn((B, Skv, Hkv, hd), dt, gen)
+        v = _randn((B, Skv, Hkv, hd), dt, gen)
+        do = _randn((B, Sq, Hq, hd), dt, gen)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        o, lse = fa.flash_attention_cuda(q, k, v, **kw)
+        dsum = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        ms = {"flash_attention_dq": time_ms(
+                  lambda: fa.flash_attention_dq_cuda(q, k, v, do, lse, dsum,
+                                                     **kw)),
+              "flash_attention_dkv": time_ms(
+                  lambda: fa.flash_attention_dkv_cuda(q, k, v, do, lse, dsum,
+                                                      **kw))}
+        plain = time_ms(lambda: fa.flash_attention_bwd_ref(q, k, v, o, do,
+                                                           lse, **kw))
+        lib = None
+        if not cap and not window:
+            # SDPA computes the same function only without a softcap (and
+            # takes a window only as a mask, which the other cases avoid)
+            qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=causal, enable_gqa=True)
+            dos = do.transpose(1, 2)
+            lib = time_ms(lambda: torch.autograd.grad(
+                sdpa, (qs, ks, vs), dos, retain_graph=True))
+            del qs, ks, vs, sdpa
+        for name, (n_bytes, n_ops) in _bwd_work(B, Sq, Skv, Hq, Hkv, hd,
+                                                causal, window, 2).items():
+            b, by = bound_ms(n_bytes, n_ops, BF16_OPS_S)
+            row = dict(shape=[B, Sq, Hq, Hkv, hd], ms=ms[name],
+                       plain_ms=plain, bound_ms=b, bound_by=by,
+                       library_ms=lib)
+            lib_part = (f"sdpa backward {lib:.4f} ms; "
+                        f"{_rates(n_ops, ms[name], b, lib, 'sdpa backward')}"
+                        if lib is not None else
+                        f"no sdpa ({'softcap' if cap else 'window'}); "
+                        f"{n_ops / ms[name] / 1e9:.1f} TFLOP/s, "
+                        f"{ms[name] / b:.2f}x its bound")
+            log(f"  {name} {label} {row['shape']} window={window} "
+                f"softcap={cap} bf16: kernel {ms[name]:.4f} ms, bound "
+                f"{b:.4f} ms ({by}, {n_ops / 1e9:.2f} GFLOP); plain backward "
+                f"{plain:.4f} ms; " + lib_part)
+            if label == "training":
+                products = (
+                    "bf16: tensor-core products (mma.sync), Pᵀ and dSᵀ "
+                    "split into three bf16 terms each; float32: CUDA-core "
+                    "products; " if name == "flash_attention_dkv" else
+                    "bf16: tensor-core products (mma.sync), dS split into "
+                    "two bf16 terms; float32: CUDA-core products; ")
+                out[name] = dict(
+                    row, max_abs_err=err[name], shapes=[],
+                    note=products + "plain_ms and library_ms time dQ, dK "
+                         "and dV together (flash_attention_bwd_ref; the "
+                         "backward of scaled_dot_product_attention); shapes "
+                         "holds the training families' cases, softcap "
+                         "control " + json.dumps(controls))
+            else:
+                out[name]["shapes"].append(dict(
+                    row, label=label, window=window, softcap=cap))
+        if label == "training":
+            both = sum(ms.values())
+            log(f"  B5 + B6 {both:.4f} ms, {both / lib:.2f}x sdpa backward")
+        del q, k, v, do, o, lse, dsum
     torch.cuda.empty_cache()
     return out
 
@@ -3225,9 +3376,6 @@ def phase_training(dev) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import gqa_decode as gd
-    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch.train import run_training
     from repro_torch.models import transformer as T
     from repro_torch.training import AdamWConfig, make_train_step
@@ -3235,8 +3383,7 @@ def phase_training(dev) -> dict:
     cfg = get_config("smollm_360m").with_(remat=True)
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    for mod in (fa, gd, ss):
-        mod.reset_launch_counts()
+    _reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     run = run_training(arch="smollm_360m", preset="full", steps=TRAIN_STEPS,
@@ -3245,11 +3392,8 @@ def phase_training(dev) -> dict:
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    launches = {**fa.LAUNCHES, **gd.LAUNCHES, **ss.LAUNCHES}
-    per_step = {"flash_attention": 2 * cfg.n_layers,     # forward + remat
-                "flash_attention_dq": cfg.n_layers,
-                "flash_attention_dkv": cfg.n_layers,
-                "gqa_decode": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
+    launches = _launches()
+    per_step = _per_step(cfg)
     expect = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     log(f"  run_training launches over {TRAIN_STEPS} steps: {launches} "
         f"(expected {expect})")
@@ -3598,13 +3742,10 @@ def phase_ssd_bwd_kernel(dev) -> dict:
 # ===========================================================================
 
 @contextlib.contextmanager
-def _no_plain_ssd(calls: dict):
-    """Within the block, count every call of the SSD scan's plain versions
-    that the dispatchers and SSDScan could reach (the kernels' module
-    binds them by name)."""
-    from repro_torch.kernels.ssd_scan import ops
-
-    names = ("ssd_chunked_bwd", "ssd_chunked_steps")
+def _plain_calls(ops, names, calls: dict):
+    """Within the block, count in ``calls`` every call of the plain
+    versions ``names`` that a kernels' module ``ops`` binds by name (which
+    its dispatchers and autograd Function could reach)."""
     saved = {n: getattr(ops, n) for n in names}
 
     def counted(name):
@@ -3713,35 +3854,29 @@ def _ssm_training(dev, arch: str) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import gqa_decode as gd
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.launch.train import run_training
     from repro_torch.models import transformer as T
     from repro_torch.training import AdamWConfig, make_train_step
 
     cfg = get_config(arch).with_(remat=True)
-    n_shared = cfg.n_layers // cfg.shared_attn_every \
-        if cfg.family == "hybrid" else 0
-    per_step = {"ssd_scan": 2 * cfg.n_layers, "ssd_scan_bwd": cfg.n_layers,
-                "flash_attention": 2 * n_shared,
-                "flash_attention_dq": n_shared,
-                "flash_attention_dkv": n_shared, "gqa_decode": 0}
+    n_shared = _attention_layers(cfg)
+    per_step = _per_step(cfg)
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    for mod in (fa, gd, ss):
-        mod.reset_launch_counts()
+    _reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     plain_calls = {}
     t0 = time.perf_counter()
-    with _no_plain_ssd(plain_calls):
+    with _plain_calls(ss.ops, ("ssd_chunked_bwd", "ssd_chunked_steps"),
+                      plain_calls):
         run = run_training(arch=arch, preset="full", steps=TRAIN_STEPS,
                            global_batch=TRAIN_B, seq_len=TRAIN_S, seed=SEED,
                            lr=TRAIN_LR, verbose=False, device=dev)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    launches = {**fa.LAUNCHES, **gd.LAUNCHES, **ss.LAUNCHES}
+    launches = _launches()
     expect = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     log(f"  run_training launches over {TRAIN_STEPS} steps: {launches} "
         f"(expected {expect}); plain SSD calls {plain_calls}")
@@ -3871,6 +4006,376 @@ def _ssm_training(dev, arch: str) -> dict:
 
 def phase_ssm_training(dev) -> dict:
     return {arch: _ssm_training(dev, arch) for arch in SSM_TRAINED}
+
+
+# ===========================================================================
+# phase 21: every remaining family trains
+# ===========================================================================
+
+def _no_plain_attention(calls: dict):
+    """:func:`_plain_calls` over the attention's plain versions."""
+    from repro_torch.kernels.flash_attention import ops
+
+    return _plain_calls(ops, ("attention_ref", "flash_attention_bwd_ref"),
+                        calls)
+
+
+def _attention_layers(cfg) -> int:
+    """Attention layers a forward runs (shared-block applications in a
+    hybrid)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def _per_step(cfg, save_attn: bool = False) -> dict:
+    """Each kernel's launches in one remat training step: B4 twice an
+    attention layer (forward and recompute; once under save_attn), B5 and
+    B6 once; B8 twice and the SSD backward once a Mamba layer."""
+    n_attn = _attention_layers(cfg)
+    n_mamba = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    return {"flash_attention": (1 if save_attn else 2) * n_attn,
+            "flash_attention_dq": n_attn, "flash_attention_dkv": n_attn,
+            "gqa_decode": 0, "ssd_scan": 2 * n_mamba,
+            "ssd_scan_bwd": n_mamba}
+
+
+def _launches() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.kernels import ssd_scan as ss
+
+    return {**fa.LAUNCHES, **gd.LAUNCHES, **ss.LAUNCHES}
+
+
+def _reset_launches() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gqa_decode as gd
+    from repro_torch.kernels import ssd_scan as ss
+
+    for mod in (fa, gd, ss):
+        mod.reset_launch_counts()
+
+
+def _without_gradient(model, cfg) -> list:
+    """Parameters with no nonzero gradient, but for an audio model's token
+    table, which its frames never reach (the reference's gradient there is
+    zero too)."""
+    return [n for n, p in model.named_parameters()
+            if (p.grad is None or not bool(p.grad.any()))
+            and not (n == "tok" and cfg.frontend == "audio")]
+
+
+def _trained_checks(what: str, cfg, losses, launches, expect, plain,
+                    model, first_batch) -> float:
+    """The launch counts, no plain attention, finite losses, every
+    parameter with a gradient, and the loss falling: the trained model's
+    loss on the first step's batch below the first step's (the same
+    targets: hubert's pipeline draws each batch's targets at random, so
+    from batch to batch its loss falls by less than it varies). Returns
+    that loss."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    log(f"  launches {launches} (expected {expect}); plain attention calls "
+        f"{plain}")
+    check(launches == expect, f"{what} launches {launches} != {expect}")
+    check(not plain, f"{what}: the plain attention ran on the card's "
+          f"training path: {plain}")
+    check(bool(np.isfinite(losses).all()), f"{what} losses finite: {losses}")
+    bad = _without_gradient(model, cfg)
+    check(not bad, f"{what} parameters without a gradient: {bad[:5]}")
+    with torch.no_grad():
+        again = float(T.loss_fn(model, cfg, first_batch))
+    log("  losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; the first batch's loss after the last step {again:.4f}")
+    check(bool(np.isfinite(again)) and again < losses[0],
+          f"{what} loss did not fall: {losses[0]} on the first batch "
+          f"before the first step, {again} after the last")
+    return again
+
+
+def _family_training(dev, arch: str) -> dict:
+    """TRAIN_STEPS AdamW steps through make_train_step at full width and
+    the depth FAMILY_TRAINED gives, then one float32 step at
+    FAMILY_GRAD_DEPTH with kernels against the same step with the plain
+    versions, and its control."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step)
+
+    depth, B, S = FAMILY_TRAINED[arch]
+    full = get_config(arch)
+    cfg = full.with_(remat=True, **({"n_layers": depth} if depth else {}))
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=10)
+    pipe = TokenPipeline(cfg, global_batch=B, seq_len=S, seed=SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, opt, torch.Generator(device=dev)
+                             .manual_seed(SEED))
+    step_fn = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = torch.cuda.memory_allocated(dev) / 1e9
+    n_params = sum(p.numel() for p in state.params.parameters())
+    _reset_launches()
+    plain, losses, step_s, peaks = {}, [], [], []
+    with _no_plain_attention(plain):
+        for step in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            state, metrics = step_fn(state, _train_batch(pipe, step, dev))
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - t)
+            peaks.append(torch.cuda.max_memory_allocated(dev) / 1e9)
+    launches = _launches()
+    expect = {k: n * TRAIN_STEPS for k, n in _per_step(cfg).items()}
+    cut = (f"{cfg.n_layers} of its {full.n_layers} layers" if depth
+           else f"{cfg.n_layers} layers")
+    log(f"  {cfg.name}: {cut}, d={cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads x {cfg.head_dim}"
+        + (f", {cfg.n_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}"
+           if cfg.n_experts else f", d_ff {cfg.d_ff}")
+        + f", {n_params} parameters ({n_params * 16 / 1e9:.1f} GB of f32 "
+        f"weights, gradients and Adam moments; {state_gb:.1f} GB allocated "
+        f"after init, {init_s:.1f} s), {B} x {S} positions a step, remat, "
+        f"lr {TRAIN_LR}")
+    again = _trained_checks(arch, cfg, losses, launches, expect, plain,
+                            state.params, _train_batch(pipe, 0, dev))
+    step_ms = 1e3 * statistics.median(step_s[1:])
+    tok_s = B * S / (step_ms / 1e3)
+    log(f"  step ms {', '.join(f'{1e3 * x:.1f}' for x in step_s)} (first "
+        f"is warm-up); median of steps 2-{TRAIN_STEPS} {step_ms:.2f} ms, "
+        f"{tok_s:.0f} tokens/s; peak device memory after the first step "
+        f"{peaks[0]:.2f} GB, over the run {peaks[-1]:.2f} GB; every "
+        "parameter has a nonzero gradient")
+    check(peaks[0] <= FAMILY_PEAK_GB, f"{arch} first step's peak "
+          f"{peaks[0]:.2f} GB above {FAMILY_PEAK_GB} GB: halve its batch")
+
+    # where one step's device time goes
+    by_kernel = device_ms_by_kernel(
+        lambda: step_fn(state, _train_batch(pipe, TRAIN_STEPS, dev)))
+    busy = sum(by_kernel.values())
+    ours = {name: sum(t for k, t in by_kernel.items() if pat in k)
+            for name, pat in (("B4", "flash_attention_fwd_"),
+                              ("B5", "flash_attention_dq_"),
+                              ("B6", "flash_attention_dkv_"))}
+    gemm = sum(t for k, t in by_kernel.items()
+               if any(g in k.lower() for g in ("nvjet", "gemm", "xmma",
+                                               "cutlass")))
+    rest = busy - sum(ours.values()) - gemm
+    log(f"  one step under the profiler: device busy {busy:.2f} ms, "
+        f"{100 * busy / step_ms:.1f} % of the median step; "
+        + ", ".join(f"{k} {t:.2f} ms ({100 * t / max(busy, 1e-9):.1f} %)"
+                    for k, t in ours.items())
+        + f", GEMMs {gemm:.2f} ms, everything else {rest:.2f} ms over "
+        f"{len(by_kernel)} kernel names")
+    for name, t in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {t:9.3f} ms  {name[:90]}")
+    out = dict(step_ms=step_ms, tokens_per_s=tok_s, peak_gb=peaks[-1],
+               first_step_peak_gb=peaks[0], state_gb=state_gb,
+               n_params=n_params, launches=launches, losses=losses,
+               first_batch_after=again,
+               busy_share=busy / step_ms, device_ms=ours, gemm_ms=gemm,
+               batch=[B, S], layers=cfg.n_layers)
+    if arch in SAVE_ATTN_TRAINED:
+        out["save_attn"] = _save_attn_reading(dev, cfg, opt, state, pipe)
+    del state, step_fn, metrics
+    torch.cuda.empty_cache()
+    if cfg.n_experts:
+        out["moe_backward"] = _moe_backward_reading(dev, cfg)
+
+    # float32 at full width, depth cut: kernels vs plain, and the control
+    cfg32 = cfg.with_(dtype="float32", n_layers=FAMILY_GRAD_DEPTH[arch])
+    model = T.init_params(cfg32, torch.Generator(device=dev)
+                          .manual_seed(SEED))
+    batch = _train_batch(TokenPipeline(cfg32, global_batch=GRAD_B,
+                                       seq_len=FAMILY_GRAD_SEQ.get(
+                                           arch, GRAD_S), seed=SEED), 0, dev)
+    l_kern, g_kern = _grads_of(model, cfg32, batch, None)
+    l_plain, g_plain = _grads_of(model, cfg32, batch, False)
+    err, worst = _leaf_err(g_kern, g_plain)
+    del g_kern
+    with _patched_backward(_dq_rounded(_attention_layers(cfg32),
+                                       GRAD_CONTROL_BITS)):
+        _, g_ctrl = _grads_of(model, cfg32, batch, False)
+    ctrl, ctrl_worst = _leaf_err(g_ctrl, g_plain)
+    loss_err = abs(l_kern - l_plain) / abs(l_plain)
+    log(f"  float32 at full width and {cfg32.n_layers} layers, a "
+        f"{GRAD_B}x{batch['targets'].shape[1]}-position step, kernels vs "
+        f"plain: loss {l_kern:.6f} vs {l_plain:.6f} ({loss_err:.3g} "
+        f"relative), worst gradient leaf {err:.3g} of its largest value "
+        f"({worst}); control (layer 0's dQ at {GRAD_CONTROL_BITS} mantissa "
+        f"bits) {ctrl:.3g} ({ctrl_worst}); limit {GRAD_TOL}")
+    check(loss_err <= GRAD_TOL, f"{arch} float32 loss kernels vs plain "
+          f"{loss_err}")
+    check(err <= GRAD_TOL, f"{arch} float32 gradients kernels vs plain "
+          f"{err}")
+    check(ctrl > GRAD_TOL, f"{arch} gradient control {ctrl} within "
+          f"{GRAD_TOL}")
+    del model, g_plain, g_ctrl, batch
+    torch.cuda.empty_cache()
+    out.update(grad_err=err, grad_worst=worst, grad_control=ctrl)
+    return out
+
+
+def _moe_backward_reading(dev, cfg) -> dict:
+    """Layer 0's MoE (moe_local) at full width on MOE_BWD_TOKENS tokens
+    (capacity from the capacity factor), on the card: two bf16 backward
+    calls bit-equal (the backward of the token gathers adds up to top_k
+    contributions into each token's row in an order the device chooses),
+    and the float32 gradients within GRAD_TOL of each leaf's largest
+    |value| against float64 (the same routing: the router runs in float32
+    either way)."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    base = L.init_moe(cfg, gen, torch.float32)
+    T = MOE_BWD_TOKENS
+    x = _randn((T, cfg.d_model), torch.float32, gen)
+    dy = _randn((T, cfg.d_model), torch.float32, gen)
+    cap = L.moe_capacity(T, cfg)
+    names = ("router", "w_gate", "w_up", "w_down")
+
+    def grads(dt):
+        p = L.MoE(base.router.detach().clone(),
+                  *(getattr(base, n).detach().to(dt) for n in names[1:]))
+        xl = x.to(dt, copy=True).requires_grad_()
+        L.moe_local(xl, p, cfg, cap).backward(dy.to(dt))
+        out = {n: getattr(p, n).grad for n in names}
+        out["x"] = xl.grad
+        torch.cuda.synchronize()
+        return out
+
+    first = grads(torch.bfloat16)
+    again = grads(torch.bfloat16)
+    differ = [n for n in first if not torch.equal(first[n], again[n])]
+    del first, again
+    g32 = grads(torch.float32)
+    g64 = grads(torch.float64)
+    err, worst = _leaf_err({n: g.double() for n, g in g32.items()}, g64)
+    del g32, g64, base
+    torch.cuda.empty_cache()
+    same = "bit-equal" if not differ else f"differ in {differ}"
+    log(f"  moe_local backward at full width, {T} tokens (capacity {cap}): "
+        f"two bf16 calls {same}; "
+        f"float32 gradients vs float64 on the card: worst leaf {err:.3g} of "
+        f"its largest value ({worst}); limit {GRAD_TOL}")
+    check(not differ, f"{cfg.name}: two bf16 MoE backward calls differ in "
+          f"{differ}")
+    check(err <= GRAD_TOL, f"{cfg.name}: float32 MoE gradients vs float64 "
+          f"{err}")
+    return dict(bitwise=not differ, f32_vs_f64=err)
+
+
+def _save_attn_reading(dev, cfg, opt, state, pipe) -> dict:
+    """One bf16 step's gradients under remat_policy "nothing" and
+    "save_attn" on the same parameters and batch: bit-equal, B4 twice and
+    once an attention layer; then SAVE_ATTN_STEPS train steps under each
+    policy in turns, with their step ms and peak memory."""
+    import torch
+
+    from repro_torch.training import make_train_step
+
+    from repro_torch.models import transformer as T
+
+    batch = _train_batch(pipe, TRAIN_STEPS + 1, dev)
+    fwd = {}
+    for policy in ("nothing", "save_attn"):
+        c = cfg.with_(remat_policy=policy)
+        _reset_launches()
+        if policy == "nothing":
+            _, grads = _grads_of(state.params, c, batch, None)
+        else:
+            for p in state.params.parameters():
+                p.grad = None
+            T.loss_fn(state.params, c, batch).backward()
+        fwd[policy] = _launches()
+        expect = _per_step(c, policy == "save_attn")
+        check(fwd[policy] == expect, f"{cfg.name} {policy}: launches of "
+              f"one step {fwd[policy]} != {expect}")
+    differ = [n for n, p in state.params.named_parameters()
+              if not torch.equal(p.grad, grads[n])]
+    check(not differ, f"{cfg.name}: save_attn gradients differ from "
+          f"nothing's: {differ[:5]}")
+    del grads
+    times = {"nothing": [], "save_attn": []}
+    peaks = {}
+    for policy in ("nothing", "save_attn", "save_attn", "nothing") * (
+            SAVE_ATTN_STEPS // 2):
+        step_fn = make_train_step(cfg.with_(remat_policy=policy), opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        times[policy].append(1e3 * (time.perf_counter() - t))
+        peaks[policy] = max(peaks.get(policy, 0.0),
+                            torch.cuda.max_memory_allocated(dev) / 1e9)
+    out = {p: dict(step_ms=statistics.median(t), steps_ms=t,
+                   peak_gb=peaks[p], launches=fwd[p])
+           for p, t in times.items()}
+    log(f"  remat_policy save_attn vs nothing on {cfg.name} ({cfg.n_layers} "
+        f"layers): one step's gradients bit-equal; B4 "
+        f"{fwd['save_attn']['flash_attention']} vs "
+        f"{fwd['nothing']['flash_attention']} launches a step; "
+        + "; ".join(f"{p}: step ms "
+                    + ", ".join(f"{x:.1f}" for x in r["steps_ms"])
+                    + f" (median {r['step_ms']:.2f}), peak "
+                    f"{r['peak_gb']:.2f} GB" for p, r in out.items()))
+    return out
+
+
+def _tiny_training(dev, arch: str) -> dict:
+    """run_training(preset="tiny") on the card: the smoke config, TINY_STEPS
+    steps of the launcher's default batch."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import run_training
+
+    from repro_torch.data import TokenPipeline
+
+    cfg = get_smoke_config(arch).with_(remat=True)
+    # run_training's default batch and length
+    pipe = TokenPipeline(cfg, global_batch=8, seq_len=64, seed=SEED)
+    _reset_launches()
+    plain = {}
+    with _no_plain_attention(plain):
+        run = run_training(arch=arch, preset="tiny", steps=TINY_STEPS,
+                           seed=SEED, verbose=False, device=dev)
+    torch.cuda.synchronize()
+    launches = _launches()
+    expect = {k: n * TINY_STEPS for k, n in _per_step(cfg).items()}
+    log(f"  {cfg.name} (hd {cfg.head_dim}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads, {cfg.n_layers} layers): run_training(preset=\"tiny\") "
+        f"{TINY_STEPS} steps, "
+        f"{1e3 * statistics.median(run['step_s'][1:]):.1f} ms a step")
+    again = _trained_checks(f"{arch} tiny", cfg, run["losses"], launches,
+                            expect, plain, run["state"].params,
+                            _train_batch(pipe, 0, dev))
+    return dict(launches=launches, losses=run["losses"],
+                first_batch_after=again)
+
+
+def phase_family_training(dev) -> dict:
+    out = {}
+    for arch in FAMILY_TRAINED:
+        log(f"phase 21: training {arch}")
+        out[arch] = _family_training(dev, arch)
+    out["tiny"] = {}
+    for arch in TINY_TRAINED:
+        out["tiny"][arch] = _tiny_training(dev, arch)
+    return out
 
 
 # ===========================================================================
@@ -4304,6 +4809,12 @@ def main() -> int:
     trained_ssm = phase_ssm_training(dev)
     log(f"  phase 20 took {time.perf_counter() - t20:.1f} s; chip_smoke so "
         f"far {time.perf_counter() - t_start:.1f} s")
+    log(f"phase 21: training every remaining family ({', '.join(
+        FAMILY_TRAINED)}) and the hd-16 smoke configs through run_training")
+    t21 = time.perf_counter()
+    trained_fam = phase_family_training(dev)
+    log(f"  phase 21 took {time.perf_counter() - t21:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on its slice's main path: B4/B7 serving
     # smollm-360m, B8 serving mamba2-2.7b, B5/B6 training smollm-360m, the
     # SSD backward training mamba2-2.7b
@@ -4340,7 +4851,10 @@ def main() -> int:
         if row["name"] in ("ssd_scan", "ssd_scan_bwd", "flash_attention",
                            "flash_attention_dq", "flash_attention_dkv"):
             row["training_launches"] = {
-                a: r["launches"][row["name"]] for a, r in trained_ssm.items()}
+                a: r["launches"][row["name"]] for a, r in
+                [*trained_ssm.items(), *trained_fam.items(),
+                 *((f"{a} tiny", r) for a, r in
+                   trained_fam["tiny"].items())] if a != "tiny"}
         if row["name"] in control["profile"]["kernels"]:
             prof = control["profile"]["kernels"][row["name"]]
             row["profile_launches"] = prof["launches"]

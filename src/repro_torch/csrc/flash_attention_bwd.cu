@@ -12,9 +12,17 @@
 //   dK = scale * dS^T q,  the G = Hq / Hkv query heads of a group summed
 //   into their KV head.
 //
+// With a tanh softcap c (gemma2's attention), the forward's scores are
+// c * t with t = tanh(scale * q k^T / c): P = exp(c t - lse), and the cap's
+// derivative puts the factor 1 - t^2 on dS before it enters dQ and dK
+// (dV takes P alone). The kernels recompute t with tanhf, the forward's
+// own function: tanh.approx.f32's error of about 2^-11 would reach dQ and
+// dK through P and 1 - t^2 and cross the float32 gate.
+//
 // Visible means kpos < Skv, kpos <= qpos when causal and kpos > qpos -
 // window when a window is set (positions from 0). The mask is applied to P
-// itself: a query row that sees no key has a finite lse (kSafe +
+// itself, after the cap (a capped masked score would be -c, whose exp is
+// not 0): a query row that sees no key has a finite lse (kSafe +
 // log(1e-30)) from the forward, so exp() would not underflow there.
 //
 // What bounds it: at the training shape (Sq = Skv = 1024, hd = 64) B5 does
@@ -66,9 +74,9 @@
 // also with q scaled by 8, since dQ's sum over keys does not cancel the
 // way dK's sum over queries does. That makes four products per tile
 // instead of three. A key tile is taken in two passes of 32 keys (one at
-// hd = 32), and the q and dO fragments are loaded from shared memory for
-// each pass, so that the float32 dQ accumulator, S and dP fit in the
-// registers.
+// hd = 16 and 32), and the q and dO fragments are loaded from shared memory
+// for each pass, so that the float32 dQ accumulator, S and dP fit in the
+// registers. At hd = 16 a tile's q k^T is one k-chunk.
 //
 // The bf16 B6 (flash_attention_dkv_mma_kernel): the same owner as the
 // float32 one, one block per (64-key tile, KV head, batch row), four warps
@@ -80,11 +88,15 @@
 // tile, in two halves of 32 queries (a thread holds 32 queries' scores at
 // a time, which keeps the registers from spilling): S^T = k q^T and dP^T =
 // v dO^T; P^T and dS^T = P^T (dP^T - D) in place; then dV += P^T dO and
-// dK += dS^T q. P^T takes two terms. dS^T takes three: it has both signs,
-// and where the scores are large (q scaled by 8) the sum over the queries
-// in dK cancels so far that two terms left dK 4.5-18.5 bf16 ulps from the
-// float32 formulas in a CPU emulation, three within 1. That makes seven
-// products per tile instead of four.
+// dK += dS^T q. dS^T takes three terms: it has both signs, and where the
+// scores are large (q scaled by 8) the sum over the queries in dK cancels
+// so far that two terms left dK 4.5-18.5 bf16 ulps from the float32
+// formulas in a CPU emulation, three within 1. P^T takes three too: dV
+// sums a group's G heads' queries, and at G = 16 (qwen3-moe's 64/4 heads)
+// an element of dV that cancels left two terms 2.38 bf16 ulps from the
+// plain version on the card, which a CPU emulation of this order
+// reproduces, and three 1.0. That makes eight products per tile instead
+// of four.
 //
 // Every kernel writes each block's own rows once: no atomics, and the
 // result does not depend on scheduling (the checkpoint resume check and
@@ -130,6 +142,20 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int Sq, int Skv,
   return ok;
 }
 
+// The scaled score x after the softcap c (c tanh(x / c), as the forward
+// computes it; x itself without a cap), and in dcap the factor 1 - t^2
+// that the cap's derivative puts on dS (1 without a cap).
+__device__ __forceinline__ float capped(float x, float softcap,
+                                        float& dcap) {
+  if (softcap > 0.f) {
+    const float t = tanhf(x / softcap);
+    dcap = 1.f - t * t;
+    return softcap * t;
+  }
+  dcap = 1.f;
+  return x;
+}
+
 // ---------------------------------------------------------------------------
 // B5 in float32: dQ on the CUDA cores
 // ---------------------------------------------------------------------------
@@ -144,7 +170,7 @@ __global__ void __launch_bounds__(kThreads)
                               const float* __restrict__ dsum,
                               float* __restrict__ dq, int Sq, int Skv,
                               int Hq, int Hkv, int causal, int window,
-                              float scale) {
+                              float softcap, float scale) {
   static_assert(HD % 16 == 0, "hd must be a multiple of 16");
   constexpr int LD = HD + 1;
   constexpr int OC = HD / 16;  // output columns per thread
@@ -226,10 +252,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const int kpos = k0 + tx + 16 * jj;
+        float dcap;
+        const float x = capped(s[i][jj] * scale, softcap, dcap);
         const float p = visible(qpos, kpos, Sq, Skv, causal, window)
-                            ? expf(s[i][jj] * scale - rl[i])
+                            ? expf(x - rl[i])
                             : 0.f;
-        sds[(ty * 4 + i) * kPLD + tx + 16 * jj] = p * (dp[i][jj] - rd[i]);
+        sds[(ty * 4 + i) * kPLD + tx + 16 * jj] =
+            p * (dp[i][jj] - rd[i]) * dcap;
       }
     }
     // A row's dS was written by the 16 lanes that read it.
@@ -270,13 +299,13 @@ constexpr int kDqMmaThreads = 32 * kMmaWarpRows;
 // Keys of a 64-key tile that one pass takes: from hd = 64 on two halves of
 // 32, so that the dQ accumulator (32 floats a thread at hd = 64, 64 at
 // hd = 128) and the pass's S and dP fit in the registers together; the
-// whole tile at hd = 32. ptxas -v on the card: a whole tile spilled at
+// whole tile at hd = 16 and 32. ptxas -v on the card: a whole tile spilled at
 // hd = 128, halves spilled 16 bytes at hd = 32, and holding the q and dO
 // fragments in registers spilled at hd = 64, so they are loaded from
 // shared memory for each product instead.
 template <int HD>
 __host__ __device__ constexpr int dq_keys_per_pass() {
-  return HD == 32 ? 64 : 32;
+  return HD <= 32 ? 64 : 32;
 }
 
 template <int HD>
@@ -295,7 +324,7 @@ __global__ void __launch_bounds__(kDqMmaThreads)
                                   const float* __restrict__ dsum,
                                   __nv_bfloat16* __restrict__ dq, int Sq,
                                   int Skv, int Hq, int Hkv, int causal,
-                                  int window, float scale) {
+                                  int window, float softcap, float scale) {
   static_assert(HD % 16 == 0, "hd must be a multiple of 16");
   constexpr int LD = mma::row_elems<HD>();
   constexpr int TILE = 64 * LD;
@@ -402,8 +431,8 @@ __global__ void __launch_bounds__(kDqMmaThreads)
         }
       }
 
-      // P, then dS in place of S; element e of n-tile n is (row warp * 16
-      // + g + 8(e / 2), key kp + 8n + 2t + e % 2)
+      // P, then dS (with the cap's factor) in place of S; element e of
+      // n-tile n is (row warp * 16 + g + 8(e / 2), key kp + 8n + 2t + e % 2)
 #pragma unroll
       for (int n = 0; n < NS; ++n)
 #pragma unroll
@@ -413,8 +442,10 @@ __global__ void __launch_bounds__(kDqMmaThreads)
               !edge || visible(q0 + warp * 16 + g + 8 * r,
                                k0 + kp + 8 * n + 2 * t + (e & 1), Sq, Skv,
                                causal, window);
-          const float p = ok ? expf(s[n][e] * scale - rl[r]) : 0.f;
-          s[n][e] = p * (dp[n][e] - rd[r]);
+          float dcap;
+          const float x = capped(s[n][e] * scale, softcap, dcap);
+          const float p = ok ? expf(x - rl[r]) : 0.f;
+          s[n][e] = p * (dp[n][e] - rd[r]) * dcap;
         }
 
       // dQ += dS k with dS as two bf16 terms, 16 keys per k-chunk; the
@@ -473,7 +504,7 @@ __global__ void __launch_bounds__(kThreads)
                                const float* __restrict__ dsum,
                                float* __restrict__ dk, float* __restrict__ dv,
                                int Sq, int Skv, int Hq, int Hkv, int causal,
-                               int window, float scale) {
+                               int window, float softcap, float scale) {
   static_assert(HD % 16 == 0, "hd must be a multiple of 16");
   constexpr int LD = HD + 1;
   constexpr int OC = HD / 16;
@@ -566,11 +597,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           const int c = tx + 16 * jj;
+          float dcap;
+          const float x = capped(s[r][jj] * scale, softcap, dcap);
           const float p = visible(q0 + c, kpos, Sq, Skv, causal, window)
-                              ? expf(s[r][jj] * scale - slse[c])
+                              ? expf(x - slse[c])
                               : 0.f;
           sp[(ty * 4 + r) * kPLD + c] = p;
-          sds[(ty * 4 + r) * kPLD + c] = p * (dp[r][jj] - sd[c]);
+          sds[(ty * 4 + r) * kPLD + c] = p * (dp[r][jj] - sd[c]) * dcap;
         }
       }
       // A key row's P and dS were written by the 16 lanes that read them.
@@ -646,7 +679,7 @@ __global__ void __launch_bounds__(dkv_mma_threads<HD>())
                                    __nv_bfloat16* __restrict__ dk,
                                    __nv_bfloat16* __restrict__ dv, int Sq,
                                    int Skv, int Hq, int Hkv, int causal,
-                                   int window, float scale) {
+                                   int window, float softcap, float scale) {
   static_assert(HD % 16 == 0, "hd must be a multiple of 16");
   constexpr int NT = dkv_mma_threads<HD>();
   constexpr int LD = mma::row_elems<HD>();
@@ -764,8 +797,8 @@ __global__ void __launch_bounds__(dkv_mma_threads<HD>())
         }
       }
 
-      // P^T and dS^T in place; element e of n-tile n is (key row wr * 16
-      // + g + 8(e / 2), query qh + 8n + 2t + e % 2)
+      // P^T and dS^T (with the cap's factor) in place; element e of n-tile
+      // n is (key row wr * 16 + g + 8(e / 2), query qh + 8n + 2t + e % 2)
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -774,17 +807,19 @@ __global__ void __launch_bounds__(dkv_mma_threads<HD>())
           const bool ok =
               !edge || visible(q0 + qc, k0 + wr * 16 + g + 8 * (e >> 1), Sq,
                                Skv, causal, window);
-          const float p = ok ? expf(st[n][e] * scale - slse[qc]) : 0.f;
+          float dcap;
+          const float x = capped(st[n][e] * scale, softcap, dcap);
+          const float p = ok ? expf(x - slse[qc]) : 0.f;
           st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - sd[qc]);
+          dpt[n][e] = p * (dpt[n][e] - sd[qc]) * dcap;
         }
 
-      // dV += P^T dO with P^T as two bf16 terms, dK += dS^T q with dS^T
-      // as three; 16 queries per k-chunk
+      // dV += P^T dO and dK += dS^T q with P^T and dS^T as three bf16
+      // terms each; 16 queries per k-chunk
 #pragma unroll
       for (int kc = 0; kc < 2; ++kc) {
-        uint32_t pa[2][4], da[3][4];
-        mma::split_a<2>(st[2 * kc], st[2 * kc + 1], pa);
+        uint32_t pa[3][4], da[3][4];
+        mma::split_a<3>(st[2 * kc], st[2 * kc + 1], pa);
         mma::split_a<3>(dpt[2 * kc], dpt[2 * kc + 1], da);
 #pragma unroll
         for (int np = 0; np < NO / 2; ++np) {
@@ -795,7 +830,7 @@ __global__ void __launch_bounds__(dkv_mma_threads<HD>())
           // running sums by float32 adds (see the note at the top)
           float tv[2][4] = {}, tk[2][4] = {};
 #pragma unroll
-          for (int x = 0; x < 2; ++x) {
+          for (int x = 0; x < 3; ++x) {
             mma::mma_bf16(tv[0], pa[x], bo[0], bo[1]);
             mma::mma_bf16(tv[1], pa[x], bo[2], bo[3]);
           }
@@ -842,6 +877,7 @@ struct Args {
   const void *q, *k, *v, *dout, *lse, *dsum;
   void *dq, *dk, *dv;
   int B, Sq, Skv, Hq, Hkv, causal, window;
+  float softcap;
 };
 
 // B5 at head dim HD: the tensor-core kernel for bf16, the CUDA-core kernel
@@ -861,7 +897,7 @@ int launch_dq(const Args& a, cudaStream_t stream) {
         static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
         static_cast<T*>(a.dq), a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window,
-        scale);
+        a.softcap, scale);
   } else {
     auto kernel = flash_attention_dq_kernel<HD>;
     constexpr size_t bytes = dq_shared_bytes<HD>();
@@ -872,7 +908,7 @@ int launch_dq(const Args& a, cudaStream_t stream) {
         static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
         static_cast<T*>(a.dq), a.Sq, a.Skv, a.Hq, a.Hkv, a.causal, a.window,
-        scale);
+        a.softcap, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -895,7 +931,7 @@ int launch_dkv(const Args& a, cudaStream_t stream) {
         static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
         static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Sq, a.Skv, a.Hq,
-        a.Hkv, a.causal, a.window, scale);
+        a.Hkv, a.causal, a.window, a.softcap, scale);
   } else {
     auto kernel = flash_attention_dkv_kernel<HD>;
     constexpr size_t bytes = dkv_shared_bytes<HD>();
@@ -906,7 +942,7 @@ int launch_dkv(const Args& a, cudaStream_t stream) {
         static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.dsum),
         static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Sq, a.Skv, a.Hq,
-        a.Hkv, a.causal, a.window, scale);
+        a.Hkv, a.causal, a.window, a.softcap, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -915,6 +951,8 @@ int launch_dkv(const Args& a, cudaStream_t stream) {
 template <typename T>
 int launch_hd(int which, int hd, const Args& a, cudaStream_t s) {
   switch (hd) {
+    case 16:
+      return which ? launch_dkv<T, 16>(a, s) : launch_dq<T, 16>(a, s);
     case 32:
       return which ? launch_dkv<T, 32>(a, s) : launch_dq<T, 32>(a, s);
     case 64:
@@ -945,10 +983,10 @@ int launch_any(int which, const Args& a, int hd, int is_bf16, int device,
 extern "C" int flash_attention_dq_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* dsum, void* dq, int B, int Sq, int Skv,
-    int Hq, int Hkv, int hd, int is_bf16, int causal, int window, int device,
-    void* stream) {
-  const Args a{q,  k,  v,  dout, lse, dsum, dq,     nullptr, nullptr,
-               B,  Sq, Skv, Hq,  Hkv, causal, window};
+    int Hq, int Hkv, int hd, int is_bf16, int causal, int window,
+    float softcap, int device, void* stream) {
+  const Args a{q,  k,  v,   dout, lse,    dsum,   dq,     nullptr, nullptr,
+               B,  Sq, Skv, Hq,   Hkv,    causal, window, softcap};
   return launch_any(0, a, hd, is_bf16, device, stream);
 }
 
@@ -956,8 +994,8 @@ extern "C" int flash_attention_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* dsum, void* dk, void* dv, int B, int Sq,
     int Skv, int Hq, int Hkv, int hd, int is_bf16, int causal, int window,
-    int device, void* stream) {
-  const Args a{q,  k,  v,  dout, lse, dsum, nullptr, dk,     dv,
-               B,  Sq, Skv, Hq,  Hkv, causal, window};
+    float softcap, int device, void* stream) {
+  const Args a{q,  k,  v,   dout, lse,    dsum,   nullptr, dk,     dv,
+               B,  Sq, Skv, Hq,   Hkv,    causal, window,  softcap};
   return launch_any(1, a, hd, is_bf16, device, stream);
 }

@@ -12,7 +12,10 @@ and adds one to its ``LAUNCHES`` entry. None falls back to a plain version.
 
 A kernel's output has no autograd history, so under grad :func:`attention`
 goes through :class:`FlashAttention`, whose forward is B4 with its lse and
-whose backward is B5/B6 (the reference's ``make_trainable_attention``).
+whose backward is B5/B6, a softcap's derivative included (the reference
+differentiates its model attention ``flash_attention_jnp`` with JAX).
+:class:`AttentionStash` keeps a forward's output and lse across a
+rematerialised layer's backward (``remat_policy="save_attn"``).
 """
 from __future__ import annotations
 
@@ -24,11 +27,11 @@ from repro_torch.kernels._build import check_cuda_tensor, launch
 
 from .ref import attention_ref, flash_attention_bwd_ref
 
-__all__ = ["BWD_HEAD_DIMS", "FlashAttention", "HEAD_DIMS", "LAUNCHES",
-           "attention", "flash_attention_bwd", "flash_attention_bwd_cuda",
-           "flash_attention_cuda", "flash_attention_dkv_cuda",
-           "flash_attention_dq_cuda", "make_trainable_attention",
-           "reset_launch_counts"]
+__all__ = ["AttentionStash", "BWD_HEAD_DIMS", "FlashAttention", "HEAD_DIMS",
+           "LAUNCHES", "attention", "flash_attention_bwd",
+           "flash_attention_bwd_cuda", "flash_attention_cuda",
+           "flash_attention_dkv_cuda", "flash_attention_dq_cuda",
+           "make_trainable_attention", "reset_launch_counts"]
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
 LAUNCHES = {"flash_attention": 0, "flash_attention_dq": 0,
@@ -36,7 +39,7 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_dq": 0,
 #: Head widths the forward kernel (B4) is compiled for.
 HEAD_DIMS = (16, 32, 64, 80, 128)
 #: Head widths the backward kernels (B5, B6) are compiled for.
-BWD_HEAD_DIMS = (32, 64, 80, 128)
+BWD_HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -99,22 +102,25 @@ def _bwd_pointers(what: str, q, k, v, do, lse, dsum) -> list:
             check_cuda_tensor("dsum", dsum, f32, (B, Hq, Sq), dev)]
 
 
-def _bwd_sizes(q, k, causal: bool, window: int) -> list:
+def _bwd_sizes(q, k, causal: bool, window: int, softcap: float) -> list:
     B, Sq, Hq, hd = q.shape
     return [B, Sq, k.shape[1], Hq, k.shape[2], hd,
-            int(q.dtype == torch.bfloat16), int(causal), int(window)]
+            int(q.dtype == torch.bfloat16), int(causal), int(window),
+            float(softcap)]
 
 
 def flash_attention_dq_cuda(q, k, v, do, lse, dsum, *, causal: bool = True,
-                            window: int = 0) -> torch.Tensor:
+                            window: int = 0, softcap: float = 0.0
+                            ) -> torch.Tensor:
     """B5 kernel: dQ ``[B, Sq, Hq, hd]`` in q's dtype. q/do ``[B, Sq, Hq,
     hd]``, k/v ``[B, Skv, Hkv, hd]`` (contiguous, one dtype), the forward's
-    lse and ``dsum = rowsum(dO∘O)``, both ``[B, Hq, Sq]`` float32."""
+    lse and ``dsum = rowsum(dO∘O)``, both ``[B, Hq, Sq]`` float32; the
+    forward's ``softcap`` (0: none)."""
     ptrs = _bwd_pointers("flash_attention_dq", q, k, v, do, lse, dsum)
     dq = torch.empty_like(q)
     if q.numel() and k.numel():
         launch("flash_attention_dq_launch", *ptrs, dq.data_ptr(),
-               *_bwd_sizes(q, k, causal, window), device=q.device)
+               *_bwd_sizes(q, k, causal, window, softcap), device=q.device)
         LAUNCHES["flash_attention_dq"] += 1
     else:
         dq.zero_()
@@ -122,7 +128,7 @@ def flash_attention_dq_cuda(q, k, v, do, lse, dsum, *, causal: bool = True,
 
 
 def flash_attention_dkv_cuda(q, k, v, do, lse, dsum, *, causal: bool = True,
-                             window: int = 0):
+                             window: int = 0, softcap: float = 0.0):
     """B6 kernel: ``(dK, dV)``, each ``[B, Skv, Hkv, hd]`` in k's dtype,
     the G query heads of a group summed in the kernel. Inputs as
     :func:`flash_attention_dq_cuda`."""
@@ -130,7 +136,7 @@ def flash_attention_dkv_cuda(q, k, v, do, lse, dsum, *, causal: bool = True,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.numel() and k.numel():
         launch("flash_attention_dkv_launch", *ptrs, dk.data_ptr(),
-               dv.data_ptr(), *_bwd_sizes(q, k, causal, window),
+               dv.data_ptr(), *_bwd_sizes(q, k, causal, window, softcap),
                device=q.device)
         LAUNCHES["flash_attention_dkv"] += 1
     else:
@@ -146,56 +152,81 @@ def _dsum(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
-                             window: int = 0):
+                             window: int = 0, softcap: float = 0.0):
     """B5 then B6 from the forward's ``o`` and ``lse`` and the upstream
     gradient ``do``. Returns ``(dq, dk, dv)``."""
     dsum = _dsum(o, do)
-    kw = dict(causal=causal, window=window)
+    kw = dict(causal=causal, window=window, softcap=softcap)
     dq = flash_attention_dq_cuda(q, k, v, do, lse, dsum, **kw)
     dk, dv = flash_attention_dkv_cuda(q, k, v, do, lse, dsum, **kw)
     return dq, dk, dv
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
-                        window: int = 0, use_kernel: Optional[bool] = None):
+                        window: int = 0, softcap: float = 0.0,
+                        use_kernel: Optional[bool] = None):
     """The backward's dispatcher: B5/B6 for CUDA tensors, the plain
     version for CPU tensors (``use_kernel`` as for :func:`attention`).
     Returns ``(dq, dk, dv)``."""
+    kw = dict(causal=causal, window=window, softcap=softcap)
     if not (q.is_cuda if use_kernel is None else use_kernel):
-        return flash_attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
-                                       window=window)
+        return flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
     return flash_attention_bwd_cuda(q.contiguous(), k.contiguous(),
                                     v.contiguous(), o.contiguous(),
-                                    do.contiguous(), lse.contiguous(),
-                                    causal=causal, window=window)
+                                    do.contiguous(), lse.contiguous(), **kw)
+
+
+class AttentionStash:
+    """What ``remat_policy="save_attn"`` keeps of one rematerialised layer:
+    its :class:`FlashAttention` forward's output and lse (``kept``).
+
+    The layer's first run records them; its recompute in the backward
+    takes them back instead of running the forward again, so B4 runs once
+    per attention layer per step and everything else in the layer is
+    recomputed. One stash serves one attention call of one layer's run.
+    The reference saves the same tensor, named ``attn_out``, with
+    ``save_only_these_names``; torch's selective checkpoint policies see
+    only aten operations, and B4 is a ctypes launch."""
+
+    def __init__(self):
+        self.kept = None
 
 
 class FlashAttention(torch.autograd.Function):
-    """Differentiable attention without a softcap: the forward is B4 with
-    its lse and saves ``(q, k, v, o, lse)``; the backward is B5/B6 (the
-    plain versions on the CPU or with ``use_kernel=False``)."""
+    """Differentiable attention: the forward is B4 with its lse (or, with
+    a sealed :class:`AttentionStash`, the output and lse it recorded) and
+    saves ``(q, k, v, o, lse)``; the backward is B5/B6 with the softcap's
+    derivative (the plain versions on the CPU or with
+    ``use_kernel=False``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int,
-                use_kernel: Optional[bool]):
-        if q.is_cuda if use_kernel is None else use_kernel:
+    def forward(ctx, q, k, v, causal: bool, window: int, softcap: float,
+                use_kernel: Optional[bool],
+                stash: Optional[AttentionStash] = None):
+        if stash is not None and stash.kept is not None:
+            o, lse = stash.kept
+            o = o.view_as(o)        # this graph's output, not the record
+        elif q.is_cuda if use_kernel is None else use_kernel:
             o, lse = flash_attention_cuda(q.contiguous(), k.contiguous(),
                                           v.contiguous(), causal=causal,
-                                          window=window)
+                                          window=window, softcap=softcap)
         else:
             o, lse = attention_ref(q, k, v, causal=causal, window=window,
-                                   return_lse=True)
+                                   softcap=softcap, return_lse=True)
+        if stash is not None and stash.kept is None:
+            stash.kept = (o.detach(), lse)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.args = (causal, window, use_kernel)
+        ctx.args = (causal, window, softcap, use_kernel)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, window, use_kernel = ctx.args
+        causal, window, softcap, use_kernel = ctx.args
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
-                                         window=window, use_kernel=use_kernel)
-        return dq, dk, dv, None, None, None
+                                         window=window, softcap=softcap,
+                                         use_kernel=use_kernel)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def make_trainable_attention(*, causal: bool = True, window: int = 0):
@@ -203,26 +234,24 @@ def make_trainable_attention(*, causal: bool = True, window: int = 0):
     tensors (the reference's ``make_trainable_attention``; like it, no
     softcap)."""
     def attn(q, k, v):
-        return FlashAttention.apply(q, k, v, causal, window, None)
+        return FlashAttention.apply(q, k, v, causal, window, 0.0, None)
     return attn
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0, softcap: float = 0.0,
-              use_kernel: Optional[bool] = None) -> torch.Tensor:
+              use_kernel: Optional[bool] = None,
+              stash: Optional[AttentionStash] = None) -> torch.Tensor:
     """GQA attention of a prefill: positions contiguous from 0, causal and
     sliding-window masks, tanh softcap. Returns ``[B, Sq, Hq, hd]``.
 
     Under grad (grad enabled and an input that requires it) it goes
-    through :class:`FlashAttention`, and a softcap raises: its derivative
-    is not ported, as in the reference's trainable attention."""
+    through :class:`FlashAttention`, recording into or replaying from
+    ``stash`` where one is given."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if softcap:
-            raise NotImplementedError(
-                "attention: no backward for a softcap (the reference's "
-                "trainable attention is softcap-free; ROADMAP A12)")
-        return FlashAttention.apply(q, k, v, causal, window, use_kernel)
+        return FlashAttention.apply(q, k, v, causal, window, softcap,
+                                    use_kernel, stash)
     if not (q.is_cuda if use_kernel is None else use_kernel):
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)

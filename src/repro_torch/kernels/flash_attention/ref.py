@@ -7,8 +7,9 @@ tanh softcap. It follows the kernel's conventions: masked scores are
 ``NEG`` and the row maximum is floored at ``SAFE``, so a row with no
 visible key gives a zero output and ``lse = SAFE + log(1e-30)`` instead of
 NaN; every other row is the ordinary softmax. The backward recomputes
-the probabilities from that lse and masks them from positions, so such a
-row contributes nothing to any gradient.
+the probabilities from that lse (after the softcap, as the forward
+applies it) and masks them from positions, so such a row contributes
+nothing to any gradient.
 """
 from __future__ import annotations
 
@@ -61,15 +62,28 @@ def _visible(Sq: int, Skv: int, causal: bool, window: int, device
     return ok
 
 
+def _softcap(s: torch.Tensor, softcap: float):
+    """The capped scores ``c·t``, ``t = tanh(s / c)``, and the factor
+    ``1 − t²`` that the cap's derivative puts on dS."""
+    t = torch.tanh(s / softcap)
+    return softcap * t, 1 - t * t
+
+
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             do: torch.Tensor, lse: torch.Tensor, *,
-                            causal: bool = True, window: int = 0):
+                            causal: bool = True, window: int = 0,
+                            softcap: float = 0.0):
     """The reference's backward formulas (``backward.py``) in float32 over
     ``[Sq, Skv]`` scores: ``P = exp(scale·q kᵀ − lse)`` where the mask lets
     a key be seen (0 elsewhere), ``D = rowsum(dO∘O)``, ``dV = Pᵀ dO``,
     ``dS = P∘(dO vᵀ − D)``, ``dQ = scale·dS k``, ``dK = scale·dSᵀ q``, the
     G query heads of a group summed into their KV head.
+
+    With a ``softcap`` c the scores are ``c·t``, ``t = tanh(scale·q kᵀ /
+    c)``: ``P = exp(c·t − lse)``, and the cap's derivative multiplies dS by
+    ``1 − t²`` before dQ and dK (the derivative of ``attention_ref``'s
+    capped forward, which the reference's ``flash_attention_jnp`` shares).
 
     q, o, do: ``[B, Sq, Hq, hd]``; k, v: ``[B, Skv, Hkv, hd]``; lse
     ``[B, Hq, Sq]`` float32 (the forward's). Returns ``(dq, dk, dv)`` in
@@ -87,11 +101,15 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)  # [B,Hkv,S,hd]
     lse = lse.reshape(B, Hkv, G, Sq, 1)
     s = torch.einsum("bkgqh,bksh->bkgqs", qf, kf) * scale
+    if softcap:
+        s, dcap = _softcap(s, softcap)
     ok = _visible(Sq, Skv, causal, window, q.device)
     p = torch.where(ok, torch.exp(s - lse), torch.zeros((), device=q.device))
     dsum = (of * dof).sum(-1, keepdim=True)
     dv = torch.einsum("bkgqs,bkgqh->bksh", p, dof)
     ds = p * (torch.einsum("bkgqh,bksh->bkgqs", dof, vf) - dsum)
+    if softcap:
+        ds = ds * dcap
     dq = torch.einsum("bkgqs,bksh->bkgqh", ds, kf) * scale
     dk = torch.einsum("bkgqs,bkgqh->bksh", ds, qf) * scale
     dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hd).to(q.dtype)

@@ -155,7 +155,8 @@ def attention_block(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                     start: int, *, window: int,
                     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]]
                     = None, kv_len: Optional[torch.Tensor] = None,
-                    ring: bool = False, use_kernel: Optional[bool] = None):
+                    ring: bool = False, use_kernel: Optional[bool] = None,
+                    stash=None):
     """qkv projection → rope → attention → output projection.
 
     x: ``[B, S, D]`` at positions ``start .. start + S - 1`` in every row
@@ -172,7 +173,11 @@ def attention_block(p: Attention, cfg: ModelConfig, x: torch.Tensor,
       ``j mod Sc``), and the prompt attends itself.
 
     A write past the end of a non-ring cache raises :class:`ValueError`
-    (the reference clamps it onto the last slot). Returns
+    (the reference clamps it onto the last slot). A full-sequence forward
+    under grad records its attention output, the reference's ``attn_out``
+    (before the output projection), into ``stash`` (an
+    :class:`~repro_torch.kernels.flash_attention.AttentionStash`) or, when
+    that holds one already, takes it from there. Returns
     ``(out [B, S, D], (ck, cv))``; the cache tensors are the ones passed
     in, updated.
     """
@@ -186,7 +191,8 @@ def attention_block(p: Attention, cfg: ModelConfig, x: torch.Tensor,
 
     if kv_cache is None:
         o = attention(q, k, v, causal=cfg.causal, window=window,
-                      softcap=cfg.attn_softcap, use_kernel=use_kernel)
+                      softcap=cfg.attn_softcap, use_kernel=use_kernel,
+                      stash=stash)
         new_kv = (k, v)
     else:
         ck, cv = kv_cache

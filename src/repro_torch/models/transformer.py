@@ -22,7 +22,10 @@ puts them before the token embeddings (:func:`embed_input`); an
 encoder-only backbone (hubert) attends non-causally and has its own head.
 Training: :func:`loss_fn` (the chunked cross-entropy
 :func:`softmax_xent`), with ``cfg.remat`` rematerialising each dense
-layer, each Mamba2 layer and each shared-block application under grad.
+layer, each Mamba2 layer and each shared-block application under grad;
+``remat_policy="save_attn"`` keeps each dense layer's attention output
+across its recompute (the Mamba layers and shared blocks recompute
+everything, as in the reference).
 """
 from __future__ import annotations
 
@@ -35,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.kernels.flash_attention import AttentionStash
 
 from . import layers as L
 from .config import ATTN_SWA, MAMBA, ModelConfig
@@ -205,12 +210,14 @@ def _window_array(cfg: ModelConfig) -> np.ndarray:
 
 def _dense_layer(lp: DenseLayer, cfg: ModelConfig, x: torch.Tensor,
                  start: int, window: int, kv, kv_len, ring: bool,
-                 use_kernel: Optional[bool]) -> torch.Tensor:
-    """One [attention → MLP or MoE] layer with its residuals."""
+                 use_kernel: Optional[bool],
+                 stash: Optional[AttentionStash] = None) -> torch.Tensor:
+    """One [attention → MLP or MoE] layer with its residuals; ``stash``
+    keeps its attention output across a recompute (``save_attn``)."""
     h = L.rms_norm(x, lp.ln1, cfg.norm_eps)
     a, _ = L.attention_block(lp.attn, cfg, h, start, window=window,
                              kv_cache=kv, kv_len=kv_len, ring=ring,
-                             use_kernel=use_kernel)
+                             use_kernel=use_kernel, stash=stash)
     if lp.ln_pa is not None:
         a = L.rms_norm(a, lp.ln_pa, cfg.norm_eps)
     x = x + a
@@ -223,16 +230,12 @@ def _dense_layer(lp: DenseLayer, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _remat(cfg: ModelConfig) -> bool:
-    """Whether to rematerialise each layer: ``cfg.remat`` under grad, with
-    the reference's "nothing" policy (only the residual stream between
-    layers is kept; the layer is recomputed in the backward)."""
-    if not (cfg.remat and torch.is_grad_enabled()):
-        return False
-    if cfg.remat_policy != "nothing":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported (ROADMAP A12); "
-            "only 'nothing'")
-    return True
+    """Whether to rematerialise each layer: ``cfg.remat`` under grad. Only
+    the residual stream between layers is kept, and the layer is
+    recomputed in the backward (the reference's ``nothing_saveable``);
+    :func:`run_attention_stack` also keeps each attention output under
+    ``remat_policy="save_attn"``."""
+    return cfg.remat and torch.is_grad_enabled()
 
 
 def run_attention_stack(model: LM, cfg: ModelConfig, x: torch.Tensor,
@@ -244,13 +247,19 @@ def run_attention_stack(model: LM, cfg: ModelConfig, x: torch.Tensor,
     layer ``i`` reads and writes ``cache.kv_k[i]``/``cache.kv_v[i]`` in
     place. Without one, under grad and with ``cfg.remat``, each layer runs
     under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
-    with ``nothing_saveable``). Returns the final hidden state."""
+    with its ``_remat_policy``: ``nothing_saveable``, or under
+    ``"save_attn"`` the attention output kept in an
+    :class:`~repro_torch.kernels.flash_attention.AttentionStash`, with the
+    forward's lse, so the recompute launches no second B4). Returns the
+    final hidden state."""
     remat = cache is None and _remat(cfg)
+    save_attn = remat and cfg.remat_policy == "save_attn"
     for i, (lp, window) in enumerate(zip(model.layers, _window_array(cfg))):
         kv = None if cache is None else (cache.kv_k[i], cache.kv_v[i])
         args = (lp, cfg, x, start, int(window), kv, kv_len, ring, use_kernel)
-        x = checkpoint(_dense_layer, *args, use_reentrant=False) if remat \
-            else _dense_layer(*args)
+        stash = AttentionStash() if save_attn else None
+        x = checkpoint(_dense_layer, *args, stash, use_reentrant=False) \
+            if remat else _dense_layer(*args)
     return x
 
 

@@ -9,11 +9,15 @@ reference's order, so the two agree to float32 rounding. It is not
 ``torch.optim.AdamW``, whose state layout and arithmetic differ.
 
 :func:`adamw_update_` updates the parameters and moments in place, leaf by
-leaf, so its float32 working copies are one leaf's (the trainer's update:
-a 2.7B-parameter model's new parameters and moments would take another
-32 GB at once); with ``chunked_update`` a large stacked leaf goes slice by
-slice along its leading dimension, the reference's layer-by-layer
-``lax.map``. :func:`adamw_update` is the same update on copies.
+leaf and within a leaf block by block (:data:`UPDATE_BLOCK` elements), so
+its float32 working copies are one block's (the trainer's update: a
+2.7B-parameter model's new parameters and moments would take another 32
+GB at once, and whole-leaf working copies of qwen3-moe-235b's 3.2-GB
+expert leaves ran an 80-GB H100 out of memory at one layer); the update
+is elementwise, so the blocks give the same bits as the whole leaf.
+With ``chunked_update`` a large stacked leaf goes slice by slice along
+its leading dimension, the reference's layer-by-layer ``lax.map``.
+:func:`adamw_update` is the same update on copies.
 """
 from __future__ import annotations
 
@@ -23,8 +27,11 @@ from typing import Dict, NamedTuple
 
 import torch
 
-__all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
-           "adamw_update_", "global_norm", "lr_schedule"]
+__all__ = ["AdamWConfig", "AdamWState", "UPDATE_BLOCK", "adamw_init",
+           "adamw_update", "adamw_update_", "global_norm", "lr_schedule"]
+
+#: Elements of a leaf that one pass of :func:`adamw_update_` takes.
+UPDATE_BLOCK = 2 ** 24
 
 Tree = Dict[str, torch.Tensor]
 
@@ -105,7 +112,8 @@ def adamw_update_(grads: Tree, state: AdamWState, params: Tree,
     """One AdamW step in place: each parameter and its moments (the
     tensors of ``params``, ``state.m`` and ``state.v``) are overwritten,
     leaf by leaf in the tree's order (slice by slice where
-    ``cfg.chunked_update`` applies). Returns ``(new_state, metrics)`` with
+    ``cfg.chunked_update`` applies), :data:`UPDATE_BLOCK` elements at a
+    time. Returns ``(new_state, metrics)`` with
     ``metrics = {"grad_norm", "lr"}`` (device scalars); ``new_state``
     holds the same moment dictionaries and the next step."""
     step = state.step + 1
@@ -119,7 +127,7 @@ def adamw_update_(grads: Tree, state: AdamWState, params: Tree,
     bc2 = 1 - torch.pow(_f32(b2, stepf), stepf)
     sdt = _DTYPES[cfg.state_dtype]
 
-    def upd(p, g, m, v):
+    def upd_block(p, g, m, v):
         g = g.to(torch.float32) * scale
         m32 = m.to(torch.float32) * b1 + (1 - b1) * g
         v32 = v.to(torch.float32) * b2 + (1 - b2) * g * g
@@ -130,6 +138,13 @@ def adamw_update_(grads: Tree, state: AdamWState, params: Tree,
         p.copy_((p32 - lr * (delta + cfg.weight_decay * p32)).to(p.dtype))
         m.copy_(m32.to(sdt))
         v.copy_(v32.to(sdt))
+
+    def upd(p, g, m, v):
+        # flat views of the tensors written in place (a non-contiguous one
+        # raises rather than update a copy)
+        p, m, v, g = p.view(-1), m.view(-1), v.view(-1), g.reshape(-1)
+        for i in range(0, p.numel(), UPDATE_BLOCK):
+            upd_block(*(t[i:i + UPDATE_BLOCK] for t in (p, g, m, v)))
 
     for name, p in params.items():
         leaf = (p, grads[name], state.m[name], state.v[name])

@@ -6,9 +6,9 @@ kernels B5/B6 and the SSD scan's backward kernel on a CUDA device),
 microbatch gradient accumulation, an optional gradient transform, then
 :func:`adamw_update_`. The parameters live in the state's
 :class:`~repro_torch.models.LM`, and they and the optimizer moments are
-updated in place, leaf by leaf (the reference returns new arrays). Each
-parameter's ``.grad`` holds the step's (averaged) gradient until the next
-step clears it.
+updated in place, leaf by leaf and block by block (the reference returns
+new arrays). Each parameter's ``.grad`` holds the step's (averaged)
+gradient until the next step clears it.
 """
 from __future__ import annotations
 

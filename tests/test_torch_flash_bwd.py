@@ -166,6 +166,82 @@ def test_backward_matches_torch_autograd(case):
         assert float(plain[0][:, Skv + window - 1:].abs().max()) == 0.0
 
 
+#: (causal, window, softcap, q_scale, hd): gemma2's cap of 50 with q
+#: scaled so that the scores reach it, tighter caps, windowed and
+#: non-causal, and the smoke configs' head width 16.
+SOFTCAP_CASES = [(True, 0, 50.0, 16.0, 32), (True, 16, 2.0, 1.0, 32),
+                 (False, 0, 5.0, 4.0, 32), (True, 5, 5.0, 4.0, 32),
+                 (True, 16, 5.0, 4.0, 16)]
+
+
+@pytest.mark.parametrize("case", SOFTCAP_CASES, ids=str)
+def test_softcap_backward_matches_jax_model_attention(case):
+    """The plain backward with a softcap, and the Function, against
+    ``jax.grad`` of the reference's model attention
+    (``repro.models.layers.flash_attention_jnp`` with ``attn_softcap``,
+    which the reference's training differentiates), at gemma2's smoke
+    grouping (4/2 heads), over 40 queries and 36 keys."""
+    jax = pytest.importorskip("jax")
+    from repro.models.layers import flash_attention_jnp
+
+    causal, window, softcap, q_scale, hd = case
+    B, Sq, Skv, Hq, Hkv = 2, 40, 36, 4, 2
+    q, k, v, w = _inputs(np.random.default_rng(12), B, Sq, Skv, Hq, Hkv, hd)
+    q = q * q_scale
+    jnp = jax.numpy
+    qpos = jnp.broadcast_to(jnp.arange(Sq, dtype=jnp.int32), (B, Sq))
+    kpos = jnp.broadcast_to(jnp.arange(Skv, dtype=jnp.int32), (B, Skv))
+    jw = jnp.asarray(w.numpy())
+
+    def loss(q_, k_, v_):
+        o = flash_attention_jnp(q_, k_, v_, qpos, kpos, causal=causal,
+                                window=window, attn_softcap=softcap,
+                                q_chunk=16, kv_chunk=16)
+        return (o * jw).sum()
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    o, lse = fa.attention_ref(q, k, v, causal=causal, window=window,
+                              softcap=softcap, return_lse=True)
+    plain = fa.flash_attention_bwd_ref(q, k, v, o, w, lse, causal=causal,
+                                       window=window, softcap=softcap)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.attention(*leaves, causal=causal, window=window,
+                       softcap=softcap)
+    func = torch.autograd.grad((out * w).sum(), leaves)
+    _close(plain, ref, TOL_TRAINABLE)
+    _close(func, ref, TOL_TRAINABLE)
+    for a, b in zip(func, plain):
+        assert torch.equal(a, b)
+
+
+def test_softcap_gate_sees_a_missing_derivative(monkeypatch):
+    """The card's control: the plain backward with the cap's factor
+    ``1 − t²`` dropped reads far beyond the float32 gate (KERNEL_F32)
+    against autograd through the plain capped forward, at gemma2's cap with
+    q scaled by 16, while the plain backward itself holds 1e-5."""
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    q, k, v, w = _inputs(np.random.default_rng(13), 1, 64, 64, 4, 2, 32)
+    q = q * 16.0
+    o, lse = fa.attention_ref(q, k, v, softcap=50.0, return_lse=True)
+    rl = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(
+        (fa.attention_ref(*rl, softcap=50.0) * w).sum(), rl)
+
+    def err(got):
+        return max(float((a - b).abs().max() / b.abs().max().clamp_min(1))
+                   for a, b in zip(got, auto))
+
+    assert err(fa.flash_attention_bwd_ref(q, k, v, o, w, lse,
+                                          softcap=50.0)) <= TOL_AUTOGRAD
+    orig = fref._softcap
+    monkeypatch.setattr(fref, "_softcap",
+                        lambda s, c: (orig(s, c)[0], 1.0))
+    assert err(fa.flash_attention_bwd_ref(q, k, v, o, w, lse,
+                                          softcap=50.0)) > 10 * KERNEL_F32
+
+
 def test_backward_ref_keeps_dtypes():
     q, k, v, w = _inputs(np.random.default_rng(2), 1, 9, 9, 2, 1, 16,
                          dtype=torch.bfloat16)
@@ -192,9 +268,22 @@ def test_make_trainable_attention_is_the_function():
 
 
 def test_softcap_under_grad_raises_and_serves_without_grad():
-    q, k, v, _ = _inputs(np.random.default_rng(4), 1, 12, 12, 2, 1, 16)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        fa.attention(q.clone().requires_grad_(), k, v, softcap=50.0)
+    """A softcap under grad no longer raises: it goes through the
+    Function, whose backward carries the cap's derivative (torch's
+    autograd through the plain capped forward agrees); without grad it
+    serves the plain attention, as before."""
+    q, k, v, w = _inputs(np.random.default_rng(4), 1, 12, 12, 2, 1, 16)
+    q = q * 8.0                                 # scores that reach the cap
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.attention(*leaves, softcap=5.0)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    got = torch.autograd.grad((out * w).sum(), leaves)
+    rl = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(
+        (fa.attention_ref(*rl, softcap=5.0) * w).sum(), rl)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=TOL_AUTOGRAD,
+                                   rtol=TOL_AUTOGRAD)
     out = fa.attention(q, k, v, softcap=50.0)       # no grad: as before
     assert torch.equal(out, fa.attention_ref(q, k, v, softcap=50.0))
     with torch.no_grad():
@@ -224,8 +313,8 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take(bad):
     q = torch.zeros(1, 4, 4, 32)
     k = torch.zeros(1, 4, 2, 32)
     lse = torch.zeros(1, 4, 4)
-    if bad == "hd":
-        q, k = q[..., :16].contiguous(), k[..., :16].contiguous()
+    if bad == "hd":       # a width no kernel is compiled for
+        q, k = torch.zeros(1, 4, 4, 48), torch.zeros(1, 4, 2, 48)
     elif bad == "dtype":
         q, k = q.half(), k.half()
     elif bad == "groups":
@@ -323,14 +412,21 @@ def _dkv_bf16_emulated(q, k, v, o, do, lse, *, causal, window, p_terms,
             dv.sum(2).transpose(1, 2).to(v.dtype))
 
 
+#: The bf16 terms into which B6 splits Pᵀ for dV += Pᵀ·dO and dSᵀ for
+#: dK += dSᵀ·q (flash_attention_bwd.cu, flash_attention_dkv_mma_kernel).
+DKV_P_TERMS, DKV_DS_TERMS = 3, 3
+
+
 @pytest.mark.parametrize("case", REHEARSAL_CASES, ids=str)
 def test_bf16_split_of_p_and_ds_holds_the_ulp_gate(case):
     """B6 multiplies Pᵀ and dSᵀ, computed in float32, into bf16 tensor-core
-    products as bf16 terms, Pᵀ as two (hi + lo) and dSᵀ as three: dK and dV
-    then land within the card's gate of the plain version, 2 bf16 ulps +
+    products as bf16 terms, three each (DKV_P_TERMS, DKV_DS_TERMS): dK and
+    dV then land within the card's gate of the plain version, 2 bf16 ulps +
     1e-5. The control, one bf16 term each, lands far above it, so the gate
     tells them apart; with large scores, two terms of dSᵀ land above it too
-    (the sum over queries in dK cancels), which is why dSᵀ takes three."""
+    (the sum over queries in dK cancels), which is why dSᵀ takes three
+    (test_bf16_dv_of_sixteen_heads_needs_three_terms_of_p shows why Pᵀ
+    does)."""
     B, Sq, Skv, Hq, Hkv, hd, causal, window, q_scale = case
     q, k, v, do = _inputs(np.random.default_rng(10), B, Sq, Skv, Hq, Hkv,
                           hd, dtype=torch.bfloat16)
@@ -344,10 +440,46 @@ def test_bf16_split_of_p_and_ds_holds_the_ulp_gate(case):
                                  ds_terms=ds_terms, **kw)
         return _bf16_ulps(got[0], dk), _bf16_ulps(got[1], dv)
 
-    assert max(ulps(2, 3)) <= BF16_ULPS
+    assert max(ulps(DKV_P_TERMS, DKV_DS_TERMS)) <= BF16_ULPS
     assert min(ulps(1, 1)) > BF16_ULPS
     if q_scale > 1:
-        assert ulps(2, 2)[0] > BF16_ULPS
+        assert ulps(DKV_P_TERMS, 2)[0] > BF16_ULPS
+
+
+def _dv_in_kernel_order(q, k, v, o, do, lse, p_terms: int) -> torch.Tensor:
+    """B6's dV in the kernel's order (causal, no window): the float32 Pᵀ
+    split into ``p_terms`` bf16 terms; for each query head of the group
+    and each chunk of 16 queries, the chunk's products summed (exactly,
+    then rounded to float32, as the tensor cores' accumulator holds them)
+    and added to the running float32 dV."""
+    _, _, dof, p, _ = _p_and_ds(q, k, v, o, do, lse, causal=True, window=0,
+                                dtype=torch.float32)
+    terms = _bf16_terms(p, p_terms)                # [B, Hkv, G, Sq, Skv]
+    B, Hkv, G, Sq, Skv = p.shape
+    dv = torch.zeros(B, Hkv, Skv, dof.shape[-1])
+    for g in range(G):
+        for c0 in range(0, Sq, 16):
+            dv = dv + sum(t[:, :, g, c0:c0 + 16].double().transpose(-1, -2)
+                          @ dof[:, :, g, c0:c0 + 16].double()
+                          for t in terms).float()
+    return dv.transpose(1, 2).to(v.dtype)
+
+
+def test_bf16_dv_of_sixteen_heads_needs_three_terms_of_p():
+    """At qwen3-moe's G = 16 (64/4 heads, hd 128) dV sums 16 heads'
+    queries, and an element that cancels to a small value keeps the
+    rounding of Pᵀ's two-term split: in the kernel's order two terms read
+    2.38 bf16 ulps from the plain version on these inputs, as B6 did on
+    the card (test_backward_kernels_at_the_training_families_shapes), and
+    three terms stay within the gate."""
+    q, k, v, do = _inputs(np.random.default_rng(14), 1, 200, 200, 64, 4,
+                          128, dtype=torch.bfloat16)
+    o, lse = fa.attention_ref(q, k, v, return_lse=True)
+    dv = fa.flash_attention_bwd_ref(q, k, v, o, do, lse)[2]
+    assert _bf16_ulps(_dv_in_kernel_order(q, k, v, o, do, lse,
+                                          DKV_P_TERMS), dv) <= BF16_ULPS
+    assert _bf16_ulps(_dv_in_kernel_order(q, k, v, o, do, lse, 2),
+                      dv) > BF16_ULPS
 
 
 #: The bf16 terms into which B5 splits dS for dQ += dS·k
@@ -591,6 +723,38 @@ def test_function_on_the_card_matches_torch_autograd(cuda, case):
     for a, b in zip(got, ref):
         err = float((a - b).abs().max() / b.abs().max())
         assert err <= KERNEL_F32, err
+
+
+#: The training path's new shapes on the card: (B, Sq, Skv, Hq, Hkv, hd,
+#: causal, window, softcap, q_scale): gemma2's cap at its heads with a
+#: window below Sq and q scaled by 4 so that the scores reach the cap (at
+#: 8 the plain float32 dK itself lies 4.5 bf16 ulps from float64, as in
+#: test_plain_dk_at_large_scores_is_float32_limited), hd = 16
+#: (the smoke configs' width; G = 8 is command-r's), G = 16 at hd = 128
+#: (qwen3-moe's 64/4) and G = 7 at hd = 64 (internvl2's 14/2).
+TRAINING_CASES = [(1, 300, 300, 32, 16, 128, True, 100, 50.0, 4.0),
+                  (2, 77, 77, 8, 1, 16, True, 0, 0.0, 1.0),
+                  (2, 70, 90, 4, 2, 16, False, 0, 0.0, 1.0),
+                  (1, 200, 200, 64, 4, 128, True, 0, 0.0, 1.0),
+                  (2, 150, 150, 14, 2, 64, True, 0, 0.0, 1.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", TRAINING_CASES, ids=str)
+def test_backward_kernels_at_the_training_families_shapes(cuda, dtype,
+                                                          case):
+    B, Sq, Skv, Hq, Hkv, hd, causal, window, softcap, q_scale = case
+    dt = getattr(torch, dtype)
+    q, k, v, do = _inputs(np.random.default_rng(14), B, Sq, Skv, Hq, Hkv,
+                          hd, dtype=dt, device=cuda)
+    q = q * q_scale
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = fa.flash_attention_cuda(q, k, v, **kw)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    ref = fa.flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    _check_backward(got, ref, dt)
 
 
 @pytest.mark.cuda

@@ -125,6 +125,33 @@ def test_adamw_update_matches_jax(jax, state_dtype, grad_scale):
                     atol=OPT_TOL, rtol=OPT_TOL)
 
 
+def test_adamw_update_in_blocks_gives_the_same_bits(monkeypatch):
+    """``adamw_update_`` takes a leaf UPDATE_BLOCK elements at a time; the
+    update is elementwise, so blocks that split leaves (and a 0-d leaf)
+    give the bits of whole-leaf passes."""
+    from repro_torch.training import optimizer as O
+
+    rng = np.random.default_rng(5)
+    params = {**_tree(rng), "w4": rng.normal(size=(300, 7)).astype(
+        np.float32)}
+    grads = {n: torch.from_numpy(rng.normal(size=a.shape).astype(
+        np.float32)) for n, a in params.items()}
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=6)
+    out = []
+    for block in (O.UPDATE_BLOCK, 64):
+        monkeypatch.setattr(O, "UPDATE_BLOCK", block)
+        tp = {n: torch.from_numpy(a.copy()) for n, a in params.items()}
+        ts = adamw_init(tp, cfg)
+        for _ in range(2):
+            ts, _ = O.adamw_update_(grads, ts, tp, cfg)
+        out.append((tp, ts))
+    (pa, sa), (pb, sb) = out
+    for n in params:
+        assert torch.equal(pa[n], pb[n]), n
+        assert torch.equal(sa.m[n], sb.m[n]) and torch.equal(sa.v[n],
+                                                             sb.v[n]), n
+
+
 def test_lr_schedule_matches_jax(jax):
     from repro.training import optimizer as JO
 
@@ -304,8 +331,23 @@ def test_remat_gives_the_same_gradients():
         grads.append([p.grad for p in model.parameters()])
     for a, b in zip(*grads):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="save_attn"):
-        TT.loss_fn(model, cfg.with_(remat_policy="save_attn"), batch)
+    # save_attn: the same gradients, each layer's attention run once
+    calls, orig = [0], fa.ops.attention_ref
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return orig(*args, **kw)
+
+    model = TT.init_params(cfg, torch.Generator().manual_seed(0))
+    fa.ops.attention_ref = counted
+    try:
+        TT.loss_fn(model, cfg.with_(remat=True, remat_policy="save_attn"),
+                   batch).backward()
+    finally:
+        fa.ops.attention_ref = orig
+    assert calls[0] == cfg.n_layers
+    for a, p in zip(grads[1], model.parameters()):
+        assert torch.equal(a, p.grad)
 
 
 def test_chunked_xent_matches_jax_and_full_logits(jax):
