@@ -221,6 +221,34 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    (command-r, yi, mixtral, qwen3-moe, hubert, zamba2) with the same
    launch, loss and gradient checks.
 
+22. the fleet on the card: a sigma-kind sweep at phase 13's 10^4-user width
+   (EGP and AGP, FLEET_SEEDS seeds, one item a task) run by one process,
+   then planned by repro_torch.fleet and drained by FLEET_WORKERS `python
+   -m repro_torch.fleet worker --device cuda` processes (each a CUDA
+   context of its own) with REPRO_OBS on, the holder of the first lease
+   SIGKILLed: every other worker exits 0, the lease is reaped and mopped
+   up in process, the merge holds every value bit-equal to the single
+   process's and run_sweep on the merged store computes nothing; the
+   surviving workers' B1/B3 launches read from their stitched obs
+   artifacts; wall times, items/s and each worker's telemetry rate; then
+   `python -m repro_torch.sweeps --fleet 2 --device cuda --validate` on
+   two scenarios x two seeds (its final run_sweep computes 0 chunks,
+   within 1e-4 of the host path; a second call plans 0 tasks);
+23. the int8 implementation variants at full width and depth
+   (repro_torch.models.quant): smollm-360m and mamba2-2.7b quantized on
+   the card, quantized_bytes equal to QUANT_BYTES (the reference's count)
+   and its ratio to bf16 beside the catalog's 0.52, smollm's int8 values
+   and scales bit-equal to the CPU's; the bf16-dequantized model's top-1
+   agreement over 8 x 1,024 probe tokens through B4 (smollm) or B8
+   (mamba2), launches counted, beside a model against itself (1.0) and
+   against another seed's (near chance);
+24. compressed training: run_training(compression="topk" and "int8") of
+   smollm-360m at phase 12's shape: finite losses, phase 12's B4/B5/B6
+   launches, the median step beside phase 12's, the carry's bytes and the
+   peak memory; the next step's gradients through ErrorFeedback on the
+   card equal to the same transform on the CPU (topk bit for bit, int8 on
+   the card's draws), the carry equal to corrected - kept.
+
 It prints a JSON line of per-kernel numbers and, last, the device line
 ``{"ok": true, "device": {...}}``. It needs the repository around it and
 exits nonzero where torch sees no CUDA device.
@@ -583,6 +611,21 @@ SOAK = dict(scenario="flash_crowd", policy="feedback", speed=10.0,
             duration_s=6.0)
 PARETO_SHAPES = ((1, 2), (17, 2), (64, 3), (128, 4), (1024, 3), (4096, 3))
 PARETO_SEEDS = (0, 1)
+#: Phase 22, the fleet on the card: the sigma kind at phase 13's 10^4-user
+#: synthetic width, EGP and AGP, FLEET_SEEDS seeds (one task an item),
+#: drained by FLEET_WORKERS `python -m repro_torch.fleet worker` processes
+#: with leases of FLEET_TTL_S seconds, the holder of the first lease
+#: SIGKILLed; then the sweep CLI's --fleet 2 --validate on two scenarios x
+#: two seeds.
+FLEET_WORKERS, FLEET_SEEDS, FLEET_TTL_S = 4, 8, 10.0
+FLEET_CLI_SCENARIOS, FLEET_CLI_SEEDS = "steady,flash_crowd", "0:2"
+#: Phase 23, the int8 variants at full width: quantized_bytes of each
+#: model (tests/test_torch_quant.py recomputes both from the reference
+#: through jax.eval_shape), and logit_agreement's probes.
+QUANT_BYTES = {"smollm_360m": 409_211_520, "mamba2_2p7b": 2_702_790_304}
+QUANT_PROBES, QUANT_SEQ = 8, 1024
+#: Phase 24, compressed training of smollm-360m at phase 12's shape.
+COMPRESSIONS = ("topk", "int8")
 SOURCE = {
     "qos_matrix": "src/repro_torch/csrc/qos_kernels.cu",
     "qos_candidates": "src/repro_torch/csrc/qos_kernels.cu",
@@ -4692,6 +4735,424 @@ def phase_control_plane(dev, store: Path) -> dict:
     return out
 
 
+# ===========================================================================
+# phase 22: the fleet on the card
+# ===========================================================================
+
+def _fleet_counts(summary: dict) -> dict:
+    """B1's and B3's launches in a stitched fleet trace's counters."""
+    counters = summary["counters"]
+    return {name: int(counters.get(f"kernel.{name}.launches", 0))
+            for name in ("qos_matrix", "greedy_argmax")}
+
+
+def _fleet_cli(tmp: Path) -> dict:
+    """``python -m repro_torch.sweeps --fleet 2 --device cuda --validate``
+    twice on one store: the first drains everything through the fleet
+    (its final run_sweep computes 0 chunks) within SWEEP_ATOL of the host
+    path, the second plans 0 tasks."""
+    cmd = [sys.executable, "-m", "repro_torch.sweeps", "--scenario",
+           FLEET_CLI_SCENARIOS, "--seeds", FLEET_CLI_SEEDS, "--device",
+           "cuda", "--validate", "--fleet", "2", "--out", str(tmp / "cli")]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    outs = []
+    for call in (1, 2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        text = proc.stdout + proc.stderr
+        check(proc.returncode == 0, f"sweep CLI --fleet 2 call {call} exit "
+              f"{proc.returncode}:\n{text[-3000:]}")
+        planned = re.search(r"\[fleet\] planned (\d+) task", text)
+        computed = re.search(r"\[sweeps\] (\d+) chunk\(s\) computed", text)
+        valid = re.search(r"max\|Δσ\| = (\S+) <=", text)
+        check(planned is not None and computed is not None
+              and valid is not None, f"sweep CLI output:\n{text[-3000:]}")
+        outs.append(dict(wall_s=wall, planned=int(planned.group(1)),
+                         computed=int(computed.group(1)),
+                         max_diff=float(valid.group(1))))
+    first, second = outs
+    log(f"  sweep CLI --fleet 2 --validate ({FLEET_CLI_SCENARIOS}, seeds "
+        f"{FLEET_CLI_SEEDS}): planned {first['planned']} task(s), its "
+        f"final run_sweep computed {first['computed']} chunk(s), max "
+        f"|accel - host| {first['max_diff']:.3g}, {first['wall_s']:.1f} s; "
+        f"again: planned {second['planned']}, {second['wall_s']:.1f} s")
+    check(first["planned"] > 0 and first["computed"] == 0,
+          f"the CLI's fleet left work to its safety net: {first}")
+    check(first["max_diff"] <= SWEEP_ATOL, f"CLI validation {first}")
+    check(second["planned"] == 0 and second["computed"] == 0,
+          f"the second CLI call planned work: {second}")
+    return dict(first=first, second=second)
+
+
+def phase_fleet(dev) -> dict:
+    """repro_torch.fleet on the card: one process against FLEET_WORKERS
+    worker processes (CUDA contexts sharing the card) on the same sweep,
+    one SIGKILLed holding a lease, reaped, mopped up and merged bit-equal;
+    the workers' B1/B3 launches from their stitched obs artifacts; then
+    the sweep CLI's --fleet."""
+    import signal
+
+    import torch
+
+    from repro_torch.fleet import (LeaseQueue, merge, plan, reap,
+                                   run_worker, spawn_local_workers, status)
+    from repro_torch.fleet.telemetry import read_telemetry
+    from repro_torch.kernels.qos_matrix import ops
+    from repro_torch.obs import stitch_fleet
+    from repro_torch.sweeps import SweepSpec, run_sweep
+    from repro_torch.sweeps.shard import DEFAULT_MEMORY_BUDGET_MB
+
+    spec = SweepSpec(scenarios=("synthetic",),
+                     override_grid=({"n_users": SWEEP_FULL_USERS},),
+                     algos=("egp", "agp"), seeds=range(FLEET_SEEDS))
+    n_items = len(spec.expand())
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    procs = []
+    saved_env = {k: os.environ.get(k) for k in ("REPRO_OBS",
+                                                 "REPRO_OBS_DIR")}
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = run_sweep(spec, tmp / "one", device=dev)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        check(one.complete, "single-process sweep incomplete")
+
+        root = tmp / "fleet"
+        pl = plan(spec, root)
+        check(pl["n_tasks"] == n_items and pl["n_items"] == n_items,
+              f"fleet plan {pl}")
+        free_mb = torch.cuda.mem_get_info(dev)[0] / 2**20
+        budget = min(DEFAULT_MEMORY_BUDGET_MB,
+                     free_mb / (2 * FLEET_WORKERS))
+        os.environ.update(REPRO_OBS="1", REPRO_OBS_DIR=str(root / "obs"))
+        t0 = time.perf_counter()
+        procs = spawn_local_workers(root, FLEET_WORKERS, ttl=FLEET_TTL_S,
+                                    memory_budget_mb=budget, device="cuda")
+        queue = LeaseQueue(root / "queue")
+        deadline = time.time() + 300
+        owner = held = None
+        while owner is None and time.time() < deadline:
+            for name in queue.leased():
+                try:       # a lease may complete, or lack its block yet
+                    doc = json.loads((queue.lease_dir / f"{name}.json")
+                                     .read_text())
+                except (OSError, ValueError):
+                    continue
+                owner = doc.get("lease", {}).get("owner")
+                if owner is not None:
+                    held = name
+                    break
+            else:
+                time.sleep(0.02)
+        check(owner is not None and owner.startswith("local-"),
+              f"no fleet worker held a lease in 300 s (owner {owner!r})")
+        victim = procs[int(owner.split("-")[1])]
+        victim.send_signal(signal.SIGKILL)
+        victim.wait()
+        rcs = {i: p.wait(timeout=600) for i, p in enumerate(procs)
+               if p is not victim}
+        workers_s = time.perf_counter() - t0
+        check(all(rc == 0 for rc in rcs.values()),
+              f"surviving fleet workers' exit codes {rcs}")
+        deadline = time.time() + 4 * FLEET_TTL_S
+        while queue.leased() and time.time() < deadline:
+            time.sleep(0.2)
+            reap(root)
+        check(not queue.leased(), f"leases never expired: {queue.leased()}")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        mop = run_worker(root, owner="mopup", ttl=FLEET_TTL_S, device="cuda")
+        torch.cuda.synchronize()
+        mop_launches = {k: ops.LAUNCHES[k]
+                        for k in ("qos_matrix", "greedy_argmax")}
+        fleet_s = time.perf_counter() - t0
+        st = status(root)
+        check(st["queue"]["pending"] == 0 and st["queue"]["leased"] == 0
+              and st["queue"]["done"] == n_items, f"fleet queue {st['queue']}")
+        mg = merge(root, tmp / "merged")
+        check(mg["missing_items"] == 0 and mg["target_items"] == n_items,
+              f"fleet merge {mg}")
+        again = run_sweep(spec, tmp / "merged", device=dev)
+        check(again.execution["chunks_computed"] == 0,
+              f"run_sweep on the merged store computed "
+              f"{again.execution['chunks_computed']} chunk(s)")
+        check(_same_values(one, again),
+              "fleet values differ from the single-process run's bytes")
+        stitched = stitch_fleet(root)
+        worker_launches = _fleet_counts(stitched)
+        check(stitched["n_artifacts"] == FLEET_WORKERS - 1,
+              f"{stitched['n_artifacts']} worker obs artifacts, expected "
+              f"{FLEET_WORKERS - 1} (the killed worker saves none)")
+        check(all(n > 0 for n in worker_launches.values()),
+              f"surviving workers' B1/B3 launches {worker_launches}")
+        launches = {k: worker_launches[k] + mop_launches[k]
+                    for k in worker_launches}
+        tele = read_telemetry(root)["workers"]
+        rates = {o: r.get("items_per_s") for o, r in sorted(tele.items())}
+        log(f"  one process: {n_items} items (10^4 users, egp/agp, "
+            f"{FLEET_SEEDS} seeds) in {one_s:.2f} s, "
+            f"{n_items / one_s:.3f} items/s")
+        log(f"  fleet: {FLEET_WORKERS} workers (budget {budget:.0f} MB "
+            f"each, ttl {FLEET_TTL_S} s), {owner} SIGKILLed holding "
+            f"{held}; workers exited after {workers_s:.2f} s, reap + "
+            f"mop-up ({mop['n_tasks']} task(s)) done at {fleet_s:.2f} s: "
+            f"{n_items / fleet_s:.3f} items/s end to end; merged "
+            f"{mg['merged_items']} item(s), {mg['duplicate_items']} "
+            "duplicate(s) verified, values bit-equal to one process")
+        log(f"  telemetry items/s by worker: {rates}")
+        log(f"  B1/B3 launches: surviving workers {worker_launches} (from "
+            f"{stitched['n_artifacts']} stitched obs artifacts, "
+            f"{stitched['n_events']} events), mop-up {mop_launches}")
+        cli = _fleet_cli(tmp)
+        return dict(one_s=one_s, fleet_s=fleet_s, workers_s=workers_s,
+                    items=n_items, rates=rates, launches=launches,
+                    worker_launches=worker_launches,
+                    mop_launches=mop_launches, cli=cli)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ===========================================================================
+# phase 23: the int8 implementation variants
+# ===========================================================================
+
+def _quantized_equal(a, sa, b, sb) -> bool:
+    """Two quantize_tree results equal bit for bit (values and scales)."""
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    return pa.keys() == pb.keys() and all(
+        _same_tensor(pa[n], pb[n]) and (sa[n] is None) == (sb[n] is None)
+        and (sa[n] is None or _same_tensor(sa[n], sb[n])) for n in pa)
+
+
+def _same_tensor(x, y) -> bool:
+    import torch
+
+    return x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+
+
+def phase_quant(dev) -> dict:
+    """The int8 variants of smollm-360m and mamba2-2.7b at full width and
+    depth: quantize_tree on the card (smollm bit-equal to the CPU), the
+    storage against QUANT_BYTES and bf16, and the top-1 agreement of the
+    dequantized model through B4 (smollm) or B8 (mamba2), with controls."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.quant import (dequantize_tree, logit_agreement,
+                                          quantize_tree, quantized_bytes)
+
+    out = {}
+    for arch, kernel in (("smollm_360m", "flash_attention"),
+                         ("mamba2_2p7b", "ssd_scan")):
+        cfg = get_config(arch)
+        model = T.init_params(cfg, torch.Generator(device=dev)
+                              .manual_seed(SEED))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q, s = quantize_tree(model)
+        torch.cuda.synchronize()
+        quant_ms = 1e3 * (time.perf_counter() - t0)
+        qb = quantized_bytes(q, s)
+        bf16_b = sum(p.numel() * 2 for p in model.parameters())
+        check(qb == QUANT_BYTES[arch],
+              f"{arch} quantized_bytes {qb} != {QUANT_BYTES[arch]}")
+        n_q = sum(v is not None for v in s.values())
+        line = (f"  {arch}: quantize_tree on the card {quant_ms:.1f} ms, "
+                f"{n_q} of {len(s)} parameters int8; quantized_bytes {qb} "
+                f"(= QUANT_BYTES) against {bf16_b} bf16 bytes: ratio "
+                f"{qb / bf16_b:.4f} (catalog storage_ratio 0.52)")
+        if arch == "smollm_360m":
+            t0 = time.perf_counter()
+            qc, sc = quantize_tree(_cpu_copy(model))
+            cpu_s = time.perf_counter() - t0
+            check(_quantized_equal(q, s, qc, sc),
+                  f"{arch}: quantize_tree on the card != on the CPU")
+            line += (f"; int8 values and scales bit-equal to the CPU's "
+                     f"({cpu_s:.1f} s there)")
+            del qc, sc
+        log(line)
+        deq = dequantize_tree(q, s)
+        del q, s
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        agree = logit_agreement(cfg, model, deq, n_probes=QUANT_PROBES,
+                                seq=QUANT_SEQ, seed=SEED)
+        torch.cuda.synchronize()
+        agree_s = time.perf_counter() - t0
+        launches = _launches()
+        expect = 2 * cfg.n_layers
+        check(launches[kernel] == expect,
+              f"{arch} logit_agreement {kernel} launches {launches} "
+              f"(expected {expect})")
+        self_agree = logit_agreement(cfg, model, model,
+                                     n_probes=QUANT_PROBES, seq=QUANT_SEQ,
+                                     seed=SEED)
+        del deq
+        other = T.init_params(cfg, torch.Generator(device=dev)
+                              .manual_seed(SEED + 1))
+        other_agree = logit_agreement(cfg, model, other,
+                                      n_probes=QUANT_PROBES, seq=QUANT_SEQ,
+                                      seed=SEED)
+        del other, model
+        torch.cuda.empty_cache()
+        log(f"    top-1 agreement of the int8 variant (dequantized to "
+            f"bf16) over {QUANT_PROBES} x {QUANT_SEQ} probe tokens: "
+            f"{agree:.6f} ({agree_s:.2f} s; {kernel} launches "
+            f"{launches[kernel]} = 2 forwards x {cfg.n_layers} layers); "
+            f"controls: the model against itself {self_agree:.6f}, against "
+            f"seed {SEED + 1}'s {other_agree:.6f} (chance "
+            f"{1 / cfg.vocab_size:.2g})")
+        check(self_agree == 1.0, f"{arch} self-agreement {self_agree}")
+        check(other_agree <= 0.01, f"{arch} another seed's agreement "
+              f"{other_agree} is not near chance")
+        check(other_agree < agree <= 1.0,
+              f"{arch} int8 agreement {agree} (control {other_agree})")
+        out[arch] = dict(bytes=qb, bf16_bytes=bf16_b, ratio=qb / bf16_b,
+                         agreement=agree, self=self_agree,
+                         other_seed=other_agree, quant_ms=quant_ms,
+                         launches={kernel: launches[kernel]})
+    return out
+
+
+def _cpu_copy(model):
+    """``model``'s parameters copied to the CPU (the card's stay)."""
+    import copy
+
+    return copy.deepcopy(model).cpu()
+
+
+# ===========================================================================
+# phase 24: compressed training
+# ===========================================================================
+
+def _transform_check(dev, cfg, run: dict, pipe, method: str) -> dict:
+    """The next step's gradients and the run's carry through
+    ErrorFeedback on the card against the same transform on the CPU (topk
+    bit for bit, int8 with the card's draws), and the new carry equal to
+    corrected - kept exactly."""
+    import torch
+
+    from repro_torch.convert import reference_leaves
+    from repro_torch.distributed import ErrorFeedback
+    from repro_torch.training import AdamWConfig
+    from repro_torch.training.trainer import make_grad_and_apply
+
+    grad_fn, _ = make_grad_and_apply(cfg, AdamWConfig(lr=TRAIN_LR))
+    model, carry = run["state"].params, run["carry"]
+    _, grads = grad_fn(model, _train_batch(pipe, TRAIN_STEPS, dev))
+    grads = {n: g.detach().clone() for n, g in grads.items()}
+    leaves = reference_leaves(model)
+    ef = ErrorFeedback(method=method, leaves=leaves)
+    drawn = {}
+
+    def record(i, leaf):
+        drawn[i] = ef.draws(i, leaf)
+        return drawn[i]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, new = ef.transform(grads, carry, uniform=record)
+    torch.cuda.synchronize()
+    card_ms = 1e3 * (time.perf_counter() - t0)
+    for leaf in leaves:
+        def stack(d):
+            parts = [d[n] for n in leaf.names]
+            return torch.stack(parts) if leaf.stacked else parts[0]
+        corrected = stack({n: grads[n].float() + carry[n]
+                           for n in leaf.names})
+        check(torch.equal(stack(new), corrected - stack(out)),
+              f"{method}: carry != corrected - kept at {leaf.path}")
+    kept = sum(int((o != 0).sum()) for o in out.values())
+    total = sum(o.numel() for o in out.values())
+    cpu = lambda d: {n: t.cpu() for n, t in d.items()}  # noqa: E731
+    t0 = time.perf_counter()
+    out_c, new_c = ef.transform(cpu(grads), cpu(carry),
+                                uniform=lambda i, leaf: drawn[i].cpu())
+    cpu_s = time.perf_counter() - t0
+    for n in grads:
+        check(torch.equal(out[n].cpu(), out_c[n])
+              and torch.equal(new[n].cpu(), new_c[n]),
+              f"{method}: the card's transform != the CPU's at {n}")
+    log(f"    {method}: one step's transform on the card {card_ms:.1f} ms "
+        f"({kept} of {total} gradient entries nonzero), the carry equal "
+        f"to corrected - kept at every leaf, and bit-equal to the same "
+        f"transform on the CPU ({cpu_s:.1f} s there"
+        + (", the card's draws" if method == "int8" else "") + ")")
+    return dict(card_ms=card_ms, cpu_s=cpu_s, kept=kept, total=total)
+
+
+def phase_compressed_training(dev, trained: dict) -> dict:
+    """run_training(compression=...) of smollm-360m at full width and
+    depth at phase 12's shape: finite losses, phase 12's B4/B5/B6 launches
+    a step, the step time beside phase 12's, the carry's bytes, the peak
+    memory, and the transform on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import run_training
+
+    cfg = get_config("smollm_360m").with_(remat=True)
+    expect = {k: n * TRAIN_STEPS for k, n in _per_step(cfg).items()}
+    check(expect == trained["launches"], f"phase 12 launches "
+          f"{trained['launches']} != {expect}")
+    pipe = TokenPipeline(cfg, global_batch=TRAIN_B, seq_len=TRAIN_S,
+                         seed=SEED)
+    out = {}
+    for method in COMPRESSIONS:
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        run = run_training(arch="smollm_360m", preset="full",
+                           steps=TRAIN_STEPS, global_batch=TRAIN_B,
+                           seq_len=TRAIN_S, seed=SEED, lr=TRAIN_LR,
+                           compression=method, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        launches = _launches()
+        losses = run["losses"]
+        check(len(losses) == TRAIN_STEPS and bool(np.isfinite(losses).all()),
+              f"{method}: losses {losses}")
+        check(launches == trained["launches"],
+              f"{method}: launches {launches} != phase 12's "
+              f"{trained['launches']}")
+        step_ms = 1e3 * statistics.median(run["step_s"][1:])
+        carry_b = sum(c.numel() * c.element_size()
+                      for c in run["carry"].values())
+        log(f"  {method}: losses {', '.join(f'{x:.4f}' for x in losses)}; "
+            f"launches {launches} (phase 12's); step ms "
+            f"{', '.join(f'{1e3 * s:.1f}' for s in run['step_s'])}, median "
+            f"of steps 2-{TRAIN_STEPS} {step_ms:.2f} ms against phase 12's "
+            f"uncompressed {trained['step_ms']:.2f} ms "
+            f"({step_ms / trained['step_ms']:.2f}x); carry {carry_b} bytes; "
+            f"peak device memory {peak_gb:.2f} GB (phase 12: "
+            f"{trained['peak_gb']:.2f} GB)")
+        check_out = _transform_check(dev, cfg, run, pipe, method)
+        out[method] = dict(losses=losses, launches=launches,
+                           step_ms=step_ms, carry_bytes=carry_b,
+                           peak_gb=peak_gb, **check_out)
+        del run
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4815,6 +5276,26 @@ def main() -> int:
     trained_fam = phase_family_training(dev)
     log(f"  phase 21 took {time.perf_counter() - t21:.1f} s; chip_smoke so "
         f"far {time.perf_counter() - t_start:.1f} s")
+    log(f"phase 22: the fleet on the card ({FLEET_WORKERS} worker "
+        f"processes, one SIGKILLed) against one process; the sweep CLI's "
+        f"--fleet 2")
+    t22 = time.perf_counter()
+    fleet = phase_fleet(dev)
+    log(f"  phase 22 took {time.perf_counter() - t22:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - t_start:.1f} s")
+    log("phase 23: the int8 implementation variants at full width "
+        "(smollm_360m, mamba2_2p7b)")
+    t23 = time.perf_counter()
+    quant = phase_quant(dev)
+    log(f"  phase 23 took {time.perf_counter() - t23:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - t_start:.1f} s")
+    log(f"phase 24: compressed training of smollm_360m "
+        f"({', '.join(COMPRESSIONS)}), {TRAIN_STEPS} steps of {TRAIN_B} x "
+        f"{TRAIN_S} tokens")
+    t24 = time.perf_counter()
+    compressed = phase_compressed_training(dev, trained)
+    log(f"  phase 24 took {time.perf_counter() - t24:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches on its slice's main path: B4/B7 serving
     # smollm-360m, B8 serving mamba2-2.7b, B5/B6 training smollm-360m, the
     # SSD backward training mamba2-2.7b
@@ -4854,7 +5335,14 @@ def main() -> int:
                 a: r["launches"][row["name"]] for a, r in
                 [*trained_ssm.items(), *trained_fam.items(),
                  *((f"{a} tiny", r) for a, r in
-                   trained_fam["tiny"].items())] if a != "tiny"}
+                   trained_fam["tiny"].items()),
+                 *((f"smollm_360m {m}", r) for m, r in
+                   compressed.items())] if a != "tiny"}
+        if row["name"] in fleet["launches"]:
+            row["fleet_launches"] = fleet["launches"][row["name"]]
+        for arch, r in quant.items():
+            if row["name"] in r["launches"]:
+                row["quant_launches"] = {arch: r["launches"][row["name"]]}
         if row["name"] in control["profile"]["kernels"]:
             prof = control["profile"]["kernels"][row["name"]]
             row["profile_launches"] = prof["launches"]

@@ -25,7 +25,11 @@ and the training of the dense family:
   :mod:`repro_torch.checkpoint`, :mod:`repro_torch.launch.train` — AdamW,
   the training step (attention's backward through the flash-attention
   backward kernels, ``csrc/flash_attention_bwd.cu``), the seekable token
-  pipeline, checkpoints and the training launcher.
+  pipeline, checkpoints and the training launcher, with error-feedback
+  gradient compression (:mod:`repro_torch.distributed.compression`);
+* :mod:`repro_torch.models.quant` — the int8 implementation variants;
+* :mod:`repro_torch.sweeps`, :mod:`repro_torch.fleet` — resumable sweeps,
+  drained by one process or by a fleet of worker processes.
 
 Entry points take ``device=None``, which means ``"cuda"``; with no CUDA
 device they raise instead of running on the CPU. Pass ``device="cpu"`` to

@@ -12,12 +12,16 @@ NumPy arrays (the two packages never import each other).
   :class:`~repro_torch.models.LM` (any tree shaped like it, such as its
   gradients, converts the same way);
 * :func:`train_state_from_jax` — a reference ``TrainState`` (params, AdamW
-  step, m, v) as the port's :class:`~repro_torch.training.TrainState`.
+  step, m, v) as the port's :class:`~repro_torch.training.TrainState`;
+* :func:`reference_leaves` — the other way round: for each leaf of the
+  reference's stacked tree, the port's parameters that make it, which is
+  what :mod:`repro_torch.models.quant` and
+  :mod:`repro_torch.distributed.compression` decide and reduce over.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Union
+from typing import Dict, List, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,7 +33,8 @@ from repro_torch.models.transformer import LM, DenseLayer, MambaLayer
 from repro_torch.training import AdamWState, TrainState, param_tree
 
 __all__ = ["from_jax_instance", "to_numpy", "placement_to_numpy",
-           "model_params_from_jax", "train_state_from_jax"]
+           "model_params_from_jax", "train_state_from_jax", "RefLeaf",
+           "reference_leaves"]
 
 _INT_FIELDS = ("u_service", "u_edge", "sm_service")
 #: Mamba leaves the reference keeps in float32 whatever the param dtype.
@@ -151,3 +156,78 @@ def train_state_from_jax(cfg: ModelConfig, state,
                         device=device)
     return TrainState(model, AdamWState(step, moments(state.opt.m),
                                         moments(state.opt.v)))
+
+
+class RefLeaf(NamedTuple):
+    """One leaf of the reference's parameter tree: its ``path`` (the
+    tree's keys joined by ``/``, e.g. ``layers/attn/wq``), the ``names``
+    of the port's parameters (``named_parameters``) that make it, in layer
+    order, and whether it is ``stacked`` (a leading ``[L]`` axis over
+    those parameters) or one parameter as it is."""
+
+    path: str
+    names: Tuple[str, ...]
+    stacked: bool
+
+
+_ATTN = ("wq", "wk", "wv", "wo")
+_FFN = ("w_gate", "w_up", "w_down")
+_MAMBA = ("in_proj", "conv_w", "conv_b", "A_log", "D_skip", "dt_bias",
+          "norm_scale", "out_proj")
+
+
+def reference_leaves(model: LM) -> List[RefLeaf]:
+    """The leaves of the reference's tree for ``model`` (the tree that
+    :func:`model_params_from_jax` reads), in ``jax.tree_util`` flatten
+    order: every dict's keys sorted, depth first. A per-layer leaf of the
+    reference is ``[L, ...]``, stacked over the port's ``L`` per-layer
+    parameters, so a rule that the reference applies to a leaf (a size
+    threshold, one scale per leading channel, one top-k threshold) spans
+    every layer at once."""
+    tree: Dict = {"embed": {"tok": "tok"}, "final_norm": {"scale":
+                                                          "final_norm"}}
+    for name in ("frame_in", "patch_in"):
+        if getattr(model, name) is not None:
+            tree["embed"][name] = name
+    if model.head is not None:
+        tree["head"] = "head"
+
+    def dense(layer: DenseLayer) -> Dict:
+        ffn = "moe" if layer.moe is not None else "mlp"
+        keys = (("router",) if ffn == "moe" else ()) + _FFN
+        sub = {"ln1": {"scale": "ln1"}, "ln2": {"scale": "ln2"},
+               "attn": {k: f"attn.{k}" for k in _ATTN},
+               ffn: {k: f"{ffn}.{k}" for k in keys}}
+        if layer.ln_pa is not None:
+            sub.update(ln_pa={"scale": "ln_pa"}, ln_pf={"scale": "ln_pf"})
+        return sub
+
+    stacks = []
+    if len(model.layers):
+        tree["layers"] = dense(model.layers[0])
+        stacks.append(("layers", len(model.layers)))
+    if len(model.mamba):
+        tree["mamba"] = {"block": {k: f"block.{k}" for k in _MAMBA},
+                         "ln": {"scale": "ln"}}
+        stacks.append(("mamba", len(model.mamba)))
+    if len(model.shared):
+        tree["shared"] = dense(model.shared[0])
+        stacks.append(("shared", len(model.shared)))
+    n_of = dict(stacks)
+
+    out: List[RefLeaf] = []
+
+    def walk(node, path: Tuple[str, ...]) -> None:
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (k,))
+            return
+        top = path[0]
+        if top in n_of:
+            names = tuple(f"{top}.{i}.{node}" for i in range(n_of[top]))
+            out.append(RefLeaf("/".join(path), names, True))
+        else:
+            out.append(RefLeaf("/".join(path), (node,), False))
+
+    walk(tree, ())
+    return out

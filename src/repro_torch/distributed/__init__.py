@@ -1,7 +1,11 @@
 """repro_torch.distributed — the elastic runtime's host-side planning
-(survivor mesh, batch plan, stragglers, recovery)."""
+(survivor mesh, batch plan, stragglers, recovery) and gradient compression
+with error feedback on one device."""
+from .compression import (ErrorFeedback, int8_compress, int8_round,
+                          topk_compress)
 from .elastic import (ClusterState, StragglerMonitor, elastic_batch_plan,
                       plan_survivor_mesh, recovery_plan)
 
 __all__ = ["ClusterState", "StragglerMonitor", "plan_survivor_mesh",
-           "elastic_batch_plan", "recovery_plan"]
+           "elastic_batch_plan", "recovery_plan", "ErrorFeedback",
+           "topk_compress", "int8_compress", "int8_round"]

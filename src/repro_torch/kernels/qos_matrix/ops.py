@@ -7,7 +7,9 @@ plain PyTorch version (:mod:`.ref`) for tensors on the CPU.
 kernel wrapper (``*_cuda``) checks device, dtype, shape and contiguity,
 allocates its outputs with ``torch.empty``, launches on the current stream,
 raises if the launch reports an error, and adds one to its entry of
-:data:`LAUNCHES`. It never falls back to the plain version.
+:data:`LAUNCHES` (and, while obs tracing is on, to the obs counter
+``kernel.<name>.launches``, which carries a worker process's launches into
+its artifact). It never falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.kernels._build import check_cuda_tensor as _check
 from repro_torch.kernels._build import launch as _launch
+from repro_torch.obs import count as obs_count
 from repro_torch.obs import kernel_span
 from repro_torch.obs.torchprof import named_scope
 
@@ -51,6 +54,11 @@ _I32 = np.iinfo(np.int32)
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _launched(name: str) -> None:
+    LAUNCHES[name] += 1
+    obs_count(f"kernel.{name}.launches")
 
 
 def check_service_ids(*arrays) -> None:
@@ -108,7 +116,7 @@ def qos_matrix_cuda(u_alpha, u_delta, u_share_k, u_share_w, u_service,
     if out.numel():
         _launch("qos_matrix_launch", *ptrs, out.data_ptr(), U, P,
                 float(delta_max), device=dev)
-        LAUNCHES["qos_matrix"] += 1
+        _launched("qos_matrix")
     return out
 
 
@@ -130,7 +138,7 @@ def qos_candidates_cuda(u_alpha, u_delta, u_share_k, u_share_w,
     if out.numel():
         _launch("qos_candidates_launch", *ptrs, out.data_ptr(), U, K,
                 float(delta_max), device=dev)
-        LAUNCHES["qos_candidates"] += 1
+        _launched("qos_candidates")
     return out
 
 
@@ -165,7 +173,7 @@ def topk_candidates_cuda(u_service, u_alpha, u_delta, u_share_k, u_share_w,
         _launch("topk_candidates_launch", *ptrs, cand_idx.data_ptr(),
                 cand_q.data_ptr(), U, S, M, P, k_eff, float(delta_max),
                 device=dev)
-        LAUNCHES["qos_candidates"] += 1
+        _launched("qos_candidates")
     return cand_idx, cand_q
 
 
@@ -182,7 +190,7 @@ def greedy_argmax_cuda(v: torch.Tensor, mask: torch.Tensor
     if E:
         _launch("greedy_argmax_launch", *ptrs, best.data_ptr(),
                 idx.data_ptr(), E, P, device=dev)
-        LAUNCHES["greedy_argmax"] += 1
+        _launched("greedy_argmax")
     return best, idx
 
 

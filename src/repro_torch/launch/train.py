@@ -4,10 +4,12 @@
         --preset full --steps 6 --seq-len 1024 --checkpoint-dir ckpt
 
 Wires together: config zoo → TokenPipeline (seekable) → make_train_step
-(remat, grad-accum) → CheckpointManager (async, atomic, keep-k,
-auto-resume). It runs on the CUDA device unless ``device="cpu"`` (the
-plain PyTorch versions of the kernels). Gradient compression and the mesh
-are not ported (ROADMAP A13, A14).
+(remat, grad-accum, optional gradient compression) → CheckpointManager
+(async, atomic, keep-k, auto-resume). It runs on the CUDA device unless
+``device="cpu"`` (the plain PyTorch versions of the kernels). With
+``--compression topk|int8`` each step is split as the reference splits
+it: gradients → error-feedback compression with its carry → AdamW. The
+mesh (``mesh=``) is not ported.
 """
 from __future__ import annotations
 
@@ -20,9 +22,12 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import TokenPipeline
+from repro_torch.convert import reference_leaves
 from repro_torch.device import resolve_device
+from repro_torch.distributed import ErrorFeedback
 from repro_torch.training import (AdamWConfig, init_train_state,
                                   make_train_step)
+from repro_torch.training.trainer import make_grad_and_apply
 
 __all__ = ["run_training"]
 
@@ -30,28 +35,42 @@ __all__ = ["run_training"]
 def run_training(arch: str = "smollm_360m", preset: str = "tiny",
                  steps: int = 30, global_batch: int = 8, seq_len: int = 64,
                  checkpoint_dir: Optional[str] = None, ckpt_every: int = 10,
-                 grad_accum: int = 1, lr: float = 1e-3, seed: int = 0,
+                 grad_accum: int = 1, compression: Optional[str] = None,
+                 lr: float = 1e-3, seed: int = 0,
                  log_every: int = 10, verbose: bool = True,
                  schedule_steps: int = 0, device=None):
     """Train ``arch`` (``preset`` "tiny": its smoke config, "full": the
     published one) with ``remat=True`` for steps ``start .. steps - 1``,
     resuming from the newest checkpoint in ``checkpoint_dir``. The
     schedule warms up over ``max(2, S // 10)`` of ``S = schedule_steps or
-    steps`` total steps. Returns ``{"losses", "step_s", "state", "config",
-    "start_step"}`` (``step_s``: each step's wall seconds, ended by reading
-    its loss on the host)."""
+    steps`` total steps. ``compression`` ("topk" or "int8") runs each step
+    as ``grad_fn`` → :meth:`ErrorFeedback.transform` (over the
+    reference's stacked leaves, with its carry) → ``apply_fn``, the loss
+    being ``grad_fn``'s; it ignores ``grad_accum``, as the reference's
+    split step does. Returns ``{"losses", "step_s", "state", "config",
+    "start_step", "carry"}`` (``step_s``: each step's wall seconds, ended
+    by reading its loss on the host; ``carry``: the compression residual,
+    ``None`` without compression)."""
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if preset == "tiny" else get_config(arch)
     cfg = cfg.with_(remat=True)
     sched = schedule_steps or steps
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=max(2, sched // 10),
                           total_steps=max(sched, 10))
-    step_fn = make_train_step(cfg, opt_cfg, grad_accum=grad_accum)
     pipe = TokenPipeline(cfg, global_batch=global_batch, seq_len=seq_len,
                          seed=seed)
     state = init_train_state(cfg, opt_cfg,
                              torch.Generator(device=dev).manual_seed(seed))
     start_step = 0
+    ef = carry = None
+    if compression:
+        # split step: grads → EF compression (stateful carry) → optimizer
+        ef = ErrorFeedback(method=compression,
+                           leaves=reference_leaves(state.params))
+        grad_fn, apply_fn = make_grad_and_apply(cfg, opt_cfg)
+        carry = ef.init(dict(state.params.named_parameters()))
+    else:
+        step_fn = make_train_step(cfg, opt_cfg, grad_accum=grad_accum)
 
     mgr = None
     if checkpoint_dir:
@@ -68,7 +87,13 @@ def run_training(arch: str = "smollm_360m", preset: str = "tiny",
         t = time.perf_counter()
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in pipe.batch_at(step).items()}
-        state, metrics = step_fn(state, batch)
+        if ef is None:
+            state, metrics = step_fn(state, batch)
+        else:
+            loss_v, grads = grad_fn(state.params, batch)
+            grads, carry = ef.transform(grads, carry)
+            state, metrics = apply_fn(grads, state)
+            metrics["loss"] = loss_v
         loss = float(metrics["loss"])
         step_s.append(time.perf_counter() - t)
         losses.append(loss)
@@ -82,7 +107,7 @@ def run_training(arch: str = "smollm_360m", preset: str = "tiny",
     if mgr:
         mgr.wait()
     return {"losses": losses, "step_s": step_s, "state": state,
-            "config": cfg, "start_step": start_step}
+            "config": cfg, "start_step": start_step, "carry": carry}
 
 
 def main():
@@ -95,6 +120,8 @@ def main():
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--compression", default=None,
+                    choices=[None, "topk", "int8"])
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,

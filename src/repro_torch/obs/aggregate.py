@@ -1,11 +1,11 @@
 """Fleet-wide trace stitching and cross-worker metric rollups (the port
 of :mod:`repro.obs.aggregate`).
 
-These are file readers: they read the fleet layout the reference's
-``repro.fleet`` writes, and any set of obs artifacts, and need no fleet
-of their own. A fleet run leaves one obs artifact per worker process
-(``REPRO_OBS=1 REPRO_OBS_DIR=<fleet_root>/obs`` — each worker's atexit
-save). Each artifact's timestamps come from that process's *own*
+These are file readers: they read the fleet layout that
+:mod:`repro_torch.fleet` (or the reference's ``repro.fleet``) writes, and
+any set of obs artifacts. A fleet run leaves one obs artifact per worker
+process (``REPRO_OBS=1 REPRO_OBS_DIR=<fleet_root>/obs`` — each worker's
+atexit save). Each artifact's timestamps come from that process's *own*
 monotonic clock (``time.perf_counter_ns``), whose zero point is
 arbitrary per process — concatenating them naively would overlay every
 worker at t=0. This module merges them into **one** coherent
@@ -49,9 +49,6 @@ __all__ = [
 
 #: Subdirectory of a fleet root where worker obs artifacts land
 #: (``REPRO_OBS_DIR`` — see :func:`repro_torch.obs.trace.enable_from_env`).
-FLEET_TELEMETRY_DIR = "telemetry"
-#: the fleet telemetry record schema these readers understand
-TELEMETRY_SCHEMA_VERSION = 1
 FLEET_OBS_DIR = "obs"
 
 
@@ -183,25 +180,6 @@ def rollup_metrics(docs: Sequence[Mapping[str, Any]]) -> MetricsRegistry:
     return reg
 
 
-def read_telemetry(fleet_root) -> Dict[str, Dict[str, Any]]:
-    """Every worker telemetry record under ``<fleet_root>/telemetry/``,
-    keyed by owner (the reader half of the reference's
-    ``repro.fleet.telemetry.read_telemetry``; torn or foreign files are
-    skipped)."""
-    workers: Dict[str, Dict[str, Any]] = {}
-    d = Path(fleet_root) / FLEET_TELEMETRY_DIR
-    if d.is_dir():
-        for p in sorted(d.glob("*.json")):
-            try:
-                rec = json.loads(p.read_text())
-            except (OSError, json.JSONDecodeError):
-                continue  # mid-rename race or torn external write
-            if rec.get("telemetry_schema") != TELEMETRY_SCHEMA_VERSION:
-                continue
-            workers[rec.get("owner", p.stem)] = rec
-    return workers
-
-
 def load_fleet_artifacts(fleet_root
                          ) -> Tuple[List[str], List[Dict[str, Any]]]:
     """Every worker obs artifact under ``<fleet_root>/obs/``, sorted by
@@ -221,8 +199,10 @@ def load_fleet_artifacts(fleet_root
 def telemetry_anchors(fleet_root) -> Dict[int, Tuple[int, int]]:
     """Heartbeat fallback anchors ``{pid: (wall_ns, mono_ns)}`` from the
     fleet telemetry records (v2 records publish the pair)."""
+    from repro_torch.fleet.telemetry import read_telemetry  # deferred
+
     out: Dict[int, Tuple[int, int]] = {}
-    for rec in read_telemetry(fleet_root).values():
+    for rec in read_telemetry(fleet_root).get("workers", {}).values():
         pid, mono = rec.get("pid"), rec.get("anchor_mono_ns")
         wall = rec.get("updated_at")
         if pid is not None and mono is not None and wall is not None:

@@ -40,8 +40,8 @@ Artifacts come from ``python -m repro_torch.sweeps ... --obs PATH``, from
 ``REPRO_OBS=1 REPRO_OBS_DIR=...`` in any instrumented process, or from
 ``Tracer.save`` directly. Streams come from ``REPRO_OBS_STREAM`` /
 ``--stream`` (see :mod:`repro_torch.obs.stream`). ``tail``, ``dash --root``
-and ``stitch`` read the directory layout of the reference's fleet
-(``python -m repro.fleet``) as files; the port runs no fleet itself.
+and ``stitch`` read a fleet root (``python -m repro_torch.fleet``, or the
+reference's, whose layout is the same).
 """
 from __future__ import annotations
 
@@ -173,52 +173,11 @@ def _fleet_line(status: Dict[str, Any]) -> str:
     return "[obs tail] " + ", ".join(parts)
 
 
-#: fleet worker telemetry older than this counts as dead for rate/ETA
-#: (the reference fleet's ``DEFAULT_STALE_S``)
-_STALE_S = 30.0
-
-
-def _fleet_status(root) -> Dict[str, Any]:
-    """What ``tail`` prints of a fleet root, read from its files: the
-    lease queue's counts, the items of pending and leased tasks, each
-    worker's telemetry record, the live rate and the ETA (the fields of
-    the reference's ``repro.fleet.coordinator.status`` that ``tail``
-    reads)."""
-    from .aggregate import read_telemetry
-
-    qdir = Path(root) / "queue"
-    if not (qdir / "tasks").is_dir():
-        raise ValueError(f"no fleet queue at {qdir} — run `repro.fleet "
-                         f"plan` first (or check the --root path)")
-    names = {state: sorted(qdir.joinpath(state).glob("*.json"))
-             for state in ("tasks", "leases", "done")}
-    remaining = 0
-    for path in names["tasks"] + names["leases"]:
-        try:
-            remaining += len(json.loads(path.read_text())["keys"])
-        except (OSError, ValueError, KeyError):
-            continue  # vanished mid-scan (a raced transition) or torn
-    workers = read_telemetry(root)
-    now, rate = time.time(), 0.0
-    for rec in workers.values():
-        fresh = now - float(rec.get("updated_at") or 0.0) <= _STALE_S
-        if fresh and rec.get("state") == "running":
-            r = float(rec.get("items_per_s") or 0.0)
-            if np.isfinite(r):
-                rate += r
-    rate = round(rate, 6)
-    return {"queue": {"pending": len(names["tasks"]),
-                      "leased": len(names["leases"]),
-                      "done": len(names["done"])},
-            "remaining_items": remaining, "telemetry": workers,
-            "rate_items_per_s": rate,
-            "eta_s": round(remaining / rate, 3)
-            if remaining and rate > 0 else None}
-
-
 def _cmd_tail(args: argparse.Namespace) -> int:
+    from repro_torch.fleet.coordinator import status  # deferred: heavy import
+
     while True:
-        out = _fleet_status(args.root)
+        out = status(args.root)
         print(_fleet_line(out), flush=True)
         for name, w in sorted(out.get("telemetry", {}).items()):
             wall = w.get("last_task_wall_s")

@@ -117,11 +117,12 @@ def with_quantized_variants(cat: "Catalog", *, storage_ratio: float = 0.52,
     point on each service's accuracy/cost frontier (the paper's
     multi-implementation premise, manufactured from the same checkpoint).
 
-    Defaults are the reference's (measured there with its
-    ``repro.models.quant`` on the reduced configs: storage ≈ 0.52× for
-    int8+scales, top-1 agreement ≈ 0.98–1.0; comp_ratio reflects faster
-    weight streaming in the bandwidth-bound regimes). Pass live-measured
-    values to override.
+    Defaults are the reference's constants (the serving digests depend on
+    them): storage ≈ 0.52× for int8+scales, top-1 agreement ≈ 0.98–1.0;
+    comp_ratio reflects faster weight streaming in the bandwidth-bound
+    regimes. The port measures both with :mod:`repro_torch.models.quant`
+    (``quantized_bytes``, ``logit_agreement``; ``chip_smoke.py`` phase 23
+    at full width on the card). Pass live-measured values to override.
     """
     extra = [
         dataclasses.replace(

@@ -23,12 +23,19 @@ Examples::
         --seeds 0:8 --override switching_cost=0 --override \\
         switching_cost=2 --override stickiness=3
 
+    # the same grid drained by 4 forked local workers through
+    # repro_torch.fleet (plan -> claim/execute/merge), then aggregated
+    # from the store
+    python -m repro_torch.sweeps --kind serving --scenario flash_crowd \\
+        --seeds 0:8 --override switching_cost=0 --fleet 4
+
 Interrupting a stored run and re-invoking the same command resumes it:
 completed chunks are read back from the manifest, not recomputed. The
-flags are the reference's (``python -m repro.sweeps``) without ``--fleet``,
-plus ``--device``. ``--stream SPEC`` (or ``REPRO_OBS_STREAM=SPEC``)
-publishes a ``chunk`` frame per computed chunk, and the serving kind's
-``tick`` and ``horizon`` frames, while the sweep runs::
+flags are the reference's (``python -m repro.sweeps``) plus ``--device``,
+which ``--fleet N`` passes on to its workers. ``--stream SPEC`` (or
+``REPRO_OBS_STREAM=SPEC``) publishes a ``chunk`` frame per computed chunk,
+and the serving kind's ``tick`` and ``horizon`` frames, while the sweep
+runs::
 
     python -m repro_torch.sweeps --scenario steady --stream /tmp/s.jsonl
     python -m repro_torch.obs dash --stream /tmp/s.jsonl
@@ -37,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import sys
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
@@ -166,6 +174,60 @@ def _validate(spec: SweepSpec, result) -> float:
     return worst
 
 
+def _run_fleet(spec: SweepSpec, store_dir: Path, n_workers: int, *,
+               memory_budget_mb: float, device: str, quiet: bool) -> None:
+    """The ``--fleet N`` convenience path: plan under ``<store>/fleet``,
+    fork N local workers on ``device``, wait, reap stragglers, merge into
+    the store. The subsequent ``run_sweep`` call resumes from the merged
+    store — normally a pure read, and the single-process safety net for
+    any chunk a crashed worker left behind.
+
+    The fleet root is keyed by the spec *fingerprint*: the store is
+    deliberately shared across ``--seeds``/``--ticks`` extensions (that
+    is what makes them resume), but one queue serves one exact spec — an
+    extended grid plans a fresh queue whose already-complete seeds are
+    skipped against the shared store. With accelerator groups on CUDA the
+    kernel library is built here first, so that the N workers load it
+    instead of each running ``nvcc``."""
+    from repro_torch.fleet.coordinator import merge, plan, reap
+    from repro_torch.fleet.worker import spawn_local_workers
+
+    fleet_root = store_dir / "fleet" / spec.fingerprint()
+    pl = plan(spec, fleet_root, target_store=store_dir)
+    if not quiet:
+        print(f"[fleet] planned {pl['n_tasks']} task(s) "
+              f"({pl['n_items']} item(s), {pl['skipped_items']} already "
+              f"stored) under {fleet_root}")
+    if pl["n_tasks"] or pl["skipped_tasks"]:
+        if any(spec.executor_of(a) == "accel" for a in spec.algos) and \
+                str(device).startswith("cuda"):
+            from repro_torch.kernels._build import load_library
+            load_library()
+        procs = spawn_local_workers(fleet_root, n_workers, quiet=quiet,
+                                    silence=quiet, device=device,
+                                    memory_budget_mb=memory_budget_mb)
+        rcs = [p.wait() for p in procs]
+        if any(rcs) and not quiet:
+            print(f"[fleet] worker exit codes {rcs} — the final "
+                  f"single-process pass will cover any gap",
+                  file=sys.stderr)
+        reap(fleet_root)
+        mg = merge(fleet_root, store_dir)
+        if not quiet:
+            print(f"[fleet] merged {mg['merged_items']} item(s) from "
+                  f"{len(mg['workers'])} worker store(s) "
+                  f"({mg['duplicate_items']} duplicate(s) verified "
+                  f"bit-for-bit); store now holds "
+                  f"{mg['target_items']} item(s)")
+        if mg.get("missing_items") == 0:
+            # everything is in the merged store: the fleet root (queue +
+            # a second copy of every result shard in the worker stores)
+            # is redundant — prune it so resume-with-extended-seeds runs
+            # don't accumulate fingerprint-keyed roots of duplicate data.
+            # A partial merge keeps the root: it IS the recovery state.
+            shutil.rmtree(fleet_root, ignore_errors=True)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.sweeps",
@@ -176,6 +238,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="device of the accelerator algorithms (default: "
                          "cuda, split over every visible CUDA device; "
                          "'cpu' runs the plain PyTorch versions)")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="drain the sweep with N forked local worker "
+                         "processes through repro_torch.fleet (plan -> "
+                         "workers on --device -> crash-safe merge) before "
+                         "aggregating; requires a store")
     ap.add_argument("--out", default=None,
                     help="store directory (default: "
                          "experiments/sweeps_torch/<store-key>, stable "
@@ -230,6 +297,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         # --ticks reuses the same store and resumes instead of recomputing
         store_dir = Path(args.out) if args.out else \
             _DEFAULT_STORE_ROOT / spec.store_key()
+
+    if args.fleet and args.fleet > 0:
+        if store_dir is None:
+            ap.error("--fleet dispatches through a shared store; drop "
+                     "--no-store")
+        _run_fleet(spec, store_dir, args.fleet,
+                   memory_budget_mb=args.memory_budget_mb,
+                   device=args.device, quiet=args.quiet)
 
     result = run_sweep(spec, store_dir=store_dir,
                        chunk_size=args.chunk_size,
