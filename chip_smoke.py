@@ -247,7 +247,23 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    launches, the median step beside phase 12's, the carry's bytes and the
    peak memory; the next step's gradients through ErrorFeedback on the
    card equal to the same transform on the CPU (topk bit for bit, int8 on
-   the card's draws), the carry equal to corrected - kept.
+   the card's draws), the carry equal to corrected - kept;
+25. the device mesh on the card: torch.cuda.device_count() NCCL ranks
+   (spawned processes, one a card; one on a one-card machine), each on
+   make_host_mesh(model=1), under a deadline of MESH_TIMEOUT_S. For
+   smollm-360m at full width and depth and mixtral-8x7b at full width
+   and 2 of its 32 layers: one float32 GRAD_B x GRAD_S gradient without
+   a mesh (one microbatch a data rank: the mesh's MoE gives each data
+   rank's tokens their own capacity) and on the mesh with sp_matmuls off
+   and on (on where the heads and d_ff split), the loss and every
+   leaf within GRAD_TOL of its largest |value|, B4/B5/B6 launches equal
+   to the no-mesh step's, the collectives' counters non-zero; then
+   MESH_STEPS bf16 steps of TRAIN_B x TRAIN_S tokens without and with the
+   mesh (smollm through run_training(mesh=...), mixtral through
+   make_train_step with sp_matmuls on), the losses within the step
+   tolerances of each other, the step ms side by side;
+   compressed_psum on the card bit-equal to its CPU result on the card's
+   draws; the world size and the mesh shapes.
 
 It prints a JSON line of per-kernel numbers and, last, the device line
 ``{"ok": true, "device": {...}}``. It needs the repository around it and
@@ -626,6 +642,13 @@ QUANT_BYTES = {"smollm_360m": 409_211_520, "mamba2_2p7b": 2_702_790_304}
 QUANT_PROBES, QUANT_SEQ = 8, 1024
 #: Phase 24, compressed training of smollm-360m at phase 12's shape.
 COMPRESSIONS = ("topk", "int8")
+#: Phase 25, the mesh on the card: the models (arch, layers or None for
+#: all), the bf16 steps of each without and with the mesh, their losses'
+#: tolerances (the first step's, then every step's: tests/
+#: test_integration.py), and the deadline of the spawned ranks.
+MESH_MODELS = (("smollm_360m", None), ("mixtral_8x7b", 2))
+MESH_STEPS, MESH_FIRST_TOL, MESH_STEP_TOL = 3, 1e-4, 2e-3
+MESH_TIMEOUT_S = 240
 SOURCE = {
     "qos_matrix": "src/repro_torch/csrc/qos_kernels.cu",
     "qos_candidates": "src/repro_torch/csrc/qos_kernels.cu",
@@ -2558,10 +2581,10 @@ def _gate_logits(run, cfg, spec: dict, calls: dict, picks=None) -> dict:
         if name != "moe_block":
             return held_wrap(name, fn)
 
-        def call(p, c, x):
+        def call(p, c, x, *rest):
             if not first_moe:
                 first_moe.append((p, c, x.clone()))
-            return fn(p, c, x)
+            return fn(p, c, x, *rest)
         return call
 
     names = KERNEL_DISPATCHERS + (("moe_block",) if cfg.n_experts else ())
@@ -5153,6 +5176,310 @@ def phase_compressed_training(dev, trained: dict) -> dict:
     return out
 
 
+def _mesh_grads(dev, cfg, ctx) -> dict:
+    """One float32 gradient of ``cfg`` at GRAD_B x GRAD_S (the rows
+    rounded up to a multiple of the data axis) without a mesh and on
+    ``ctx``'s mesh with sp_matmuls off and, where the heads and d_ff split
+    over the model axis (the reference's shard_map raises otherwise), on:
+    the loss and leaf errors, B4-B6 launches and collective counts of
+    each. Without the mesh the rows go as one microbatch a data rank
+    (grad_accum): the mesh's MoE routes each data rank's tokens with their
+    own capacity, as the reference's does, and the mean of the
+    microbatches' losses is the mesh's loss where every row holds as many
+    tokens."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models import transformer as T
+    from repro_torch.training.trainer import _grads
+
+    cfg32 = cfg.with_(dtype="float32")
+    model = T.init_params(cfg32, torch.Generator(device=dev)
+                          .manual_seed(SEED))
+    rows = -(-GRAD_B // ctx.data_size) * ctx.data_size
+    batch = _train_batch(TokenPipeline(cfg32, global_batch=rows,
+                                       seq_len=GRAD_S, seed=SEED), 0, dev)
+    _reset_launches()
+    loss0, g = _grads(model, cfg32, batch, ctx.data_size)
+    want = {n: t.detach().clone() for n, t in g.items()}
+    launches0 = {k: n // ctx.data_size for k, n in _launches().items()}
+    out = {"launches": launches0, "rows": rows}
+    m = ctx.model_size
+    splits = all(n % m == 0 for n in (cfg.gqa.n_q_pad, cfg.gqa.n_kv_pad,
+                                      cfg.d_ff_pad))
+    for sp in (False, True) if splits else (False,):
+        _reset_launches()
+        C.reset_counts()
+        loss, g = _grads(model, cfg32, batch, 1,
+                         dataclasses.replace(ctx, sp_matmuls=sp))
+        launches = _launches()
+        err, worst = _leaf_err(g, want)
+        loss_err = abs(float(loss) - float(loss0)) / abs(float(loss0))
+        counts = {op: dict(c) for op, c in C.COUNTS.items()}
+        check(loss_err <= GRAD_TOL and err <= GRAD_TOL,
+              f"{cfg.name} sp={sp}: mesh loss {float(loss)} vs "
+              f"{float(loss0)}, worst leaf {err} ({worst})")
+        check(launches == launches0, f"{cfg.name} sp={sp}: mesh launches "
+              f"{launches} != the no-mesh step's {launches0}")
+        # a baseline on a one-rank model axis has no sequence to gather;
+        # SP gathers it and the FSDP shard inside its projections
+        check(counts["psum"]["calls"] > 0 and (not sp or (
+            counts["all_gather"]["calls"] > 0
+            and counts["psum_scatter"]["calls"] > 0)),
+            f"{cfg.name} sp={sp}: collectives {counts}")
+        out[f"sp{int(sp)}"] = dict(loss_err=loss_err, grad_err=err,
+                                   worst=worst, counts=counts)
+    del model, want, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_steps(dev, cfg, mesh, arch: str, depth, sp: bool) -> dict:
+    """MESH_STEPS bf16 steps of TRAIN_B x TRAIN_S tokens from one seed
+    without and with the mesh: a model at full depth through run_training,
+    a cut one through make_train_step (with ``sp`` as sp_matmuls); without
+    the mesh one microbatch a data rank, as :func:`_mesh_grads` says;
+    each step's ms, ended by reading the loss on the host."""
+    import torch
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.train import run_training
+    from repro_torch.models.layers import MeshContext
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step)
+
+    data = int(mesh.shape[0])
+    runs = {}
+    for on in (False, True):
+        torch.cuda.empty_cache()
+        _reset_launches()
+        accum = 1 if on else data
+        if depth is None:
+            run = run_training(arch=arch, preset="full", steps=MESH_STEPS,
+                               global_batch=TRAIN_B, seq_len=TRAIN_S,
+                               seed=SEED, lr=TRAIN_LR, verbose=False,
+                               grad_accum=accum,
+                               mesh=mesh if on else None, device=dev)
+            losses, step_s = run["losses"], run["step_s"]
+            del run
+        else:
+            opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=10)
+            ctx = MeshContext(mesh, ("data",), sp_matmuls=sp) if on \
+                else None
+            state = init_train_state(cfg, opt, torch.Generator(device=dev)
+                                     .manual_seed(SEED))
+            step_fn = make_train_step(cfg, opt, ctx, grad_accum=accum)
+            pipe = TokenPipeline(cfg, global_batch=TRAIN_B, seq_len=TRAIN_S,
+                                 seed=SEED)
+            losses, step_s = [], []
+            for step in range(MESH_STEPS):
+                t = time.perf_counter()
+                state, metrics = step_fn(state, _train_batch(pipe, step,
+                                                             dev))
+                losses.append(float(metrics["loss"]))
+                step_s.append(time.perf_counter() - t)
+            del state, step_fn, metrics
+        runs["mesh" if on else "one"] = dict(
+            losses=losses, step_ms=[1e3 * x for x in step_s],
+            launches={k: n // accum for k, n in _launches().items()})
+    one, on = runs["one"], runs["mesh"]
+    first = abs(on["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+    worst = max(abs(a - b) / abs(b) for a, b in zip(on["losses"],
+                                                    one["losses"]))
+    check(first <= MESH_FIRST_TOL and worst <= MESH_STEP_TOL,
+          f"{arch} mesh losses {on['losses']} vs {one['losses']}")
+    check(on["launches"] == one["launches"], f"{arch} mesh step launches "
+          f"{on['launches']} != {one['launches']}")
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _mesh_profile(dev, cfg, mesh) -> dict:
+    """One bf16 TRAIN_B x TRAIN_S make_train_step step without and with
+    the mesh (after a warm-up step): its wall ms, then under
+    torch.profiler its device busy ms, the NCCL kernels' share, and the
+    largest host operations of the mesh step."""
+    import torch
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.layers import MeshContext
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step)
+
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=10)
+    batch = _train_batch(TokenPipeline(cfg, global_batch=TRAIN_B,
+                                       seq_len=TRAIN_S, seed=SEED), 0, dev)
+    out = {}
+    for on in (False, True):
+        torch.cuda.empty_cache()
+        state = init_train_state(cfg, opt, torch.Generator(device=dev)
+                                 .manual_seed(SEED))
+        step_fn = make_train_step(
+            cfg, opt, MeshContext(mesh, ("data",)) if on else None,
+            grad_accum=1 if on else int(mesh.shape[0]))
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        float(step_fn(state, batch)[1]["loss"])
+        wall = 1e3 * (time.perf_counter() - t)
+        by_kernel = device_ms_by_kernel(lambda: step_fn(state, batch))
+        reading = dict(wall_ms=wall, busy_ms=sum(by_kernel.values()),
+                       nccl_ms=sum(v for k, v in by_kernel.items()
+                                   if "nccl" in k.lower()))
+        if on:
+            reading["host_ops"] = _host_ms_by_op(
+                lambda: step_fn(state, batch))
+        out["mesh" if on else "one"] = reading
+        del state, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(rank: int, world: int, init_file: str, out_dir: str,
+              model: int = 1, device: str = "cuda",
+              profile: bool = False) -> None:
+    """Phase 25 in one rank (a spawned process on card ``rank``): the
+    NCCL process group, make_host_mesh(model=model), every model's
+    gradients and steps with and without it (with ``profile``, the full
+    depth models' profiled steps too: about 35 s more), and
+    compressed_psum against the CPU; writes its readings to
+    ``out_dir/rank<r>.json``. ``device="cpu"`` rehearses it with gloo."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compressed_psum, int8_round
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.layers import MeshContext
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+        dev = torch.device("cuda", rank)
+    else:
+        dev = torch.device(device)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = make_host_mesh(model=model, device=device)
+        ctx = MeshContext(mesh, ("data",))
+        out = {"world": world, "mesh": dict(zip(mesh.mesh_dim_names,
+                                                tuple(mesh.shape))),
+               "models": {}}
+        for arch, depth in MESH_MODELS:
+            t0 = time.perf_counter()
+            cfg = get_config(arch).with_(
+                remat=True, **({"n_layers": depth} if depth else {}))
+            grads = _mesh_grads(dev, cfg, ctx)
+            steps = _mesh_steps(dev, cfg, mesh, arch, depth,
+                                "sp1" in grads)
+            out["models"][arch] = dict(grads=grads, steps=steps,
+                                       layers=cfg.n_layers)
+            if profile and depth is None:
+                out["models"][arch]["profile"] = _mesh_profile(dev, cfg,
+                                                               mesh)
+            out["models"][arch]["seconds"] = time.perf_counter() - t0
+        # compressed_psum on the card against the CPU, on the card's draws
+        x_of = [torch.randn(4096, generator=torch.Generator().manual_seed(
+            SEED + r)) * (r + 1) for r in range(world)]
+        got = compressed_psum(x_of[rank].to(dev), ("data", "model"),
+                              torch.Generator(device=dev).manual_seed(
+                                  SEED + rank), mesh=mesh).cpu()
+        want = None
+        for r in range(world):
+            draws = torch.rand(4096, generator=torch.Generator(device=dev)
+                               .manual_seed(SEED + r), device=dev).cpu()
+            q = int8_round(x_of[r], draws)[0]
+            want = q if want is None else want + q
+        check(torch.equal(got, want), "compressed_psum on the card != the "
+              "CPU's sum of int8_round on the same draws: max diff "
+              f"{float((got - want).abs().max())}")
+        out["compressed_psum_equal"] = True
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f, default=float)
+
+
+def phase_mesh(dev, model: int = 1, profile: bool = False) -> dict:
+    """Phase 25: spawn torch.cuda.device_count() ranks of mesh_rank (on a
+    ``(world // model, model)`` mesh, ``profile`` passed on) with a
+    deadline, read every rank's readings, log rank 0's."""
+    import torch
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"  this process holds {torch.cuda.memory_allocated(dev) / 1e9:.2f}"
+        " GB of the card while the ranks run")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        procs = mp.start_processes(mesh_rank,
+                                   args=(world, f"{tmp}/pg", tmp, model,
+                                         "cuda", profile),
+                                   nprocs=world, join=False,
+                                   start_method="spawn")
+        try:
+            while not procs.join(timeout=5):
+                check(time.perf_counter() - t0 < MESH_TIMEOUT_S,
+                      f"phase 25's {world} ranks still running after "
+                      f"{MESH_TIMEOUT_S} s")
+        finally:
+            for p in procs.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    out = ranks[0]
+    log(f"  {world} NCCL rank(s), mesh {out['mesh']}, {wall:.1f} s with "
+        "the spawn")
+    for arch, r in out["models"].items():
+        g = r["grads"]
+        for sp in ("sp0", "sp1"):
+            if sp not in g:
+                log(f"  {arch}: no SP on this model axis (heads or d_ff do "
+                    "not split)")
+                continue
+            log(f"  {arch} ({r['layers']} layers) {sp}: float32 "
+                f"{g['rows']}x{GRAD_S} gradient on the mesh vs without: "
+                f"loss {g[sp]['loss_err']:.3g}, worst leaf "
+                f"{g[sp]['grad_err']:.3g} ({g[sp]['worst']}); launches "
+                f"{g['launches']} in each; collectives (calls, bytes) "
+                + ", ".join(f"{op} {c['calls']} {c['bytes']}"
+                            for op, c in g[sp]["counts"].items()))
+        for kind in ("one", "mesh"):
+            st = r["steps"][kind]
+            log(f"  {arch} {TRAIN_B}x{TRAIN_S} bf16 steps "
+                f"{'on the mesh' if kind == 'mesh' else 'without a mesh'}: "
+                f"losses {', '.join(f'{x:.5f}' for x in st['losses'])}; "
+                f"step ms {', '.join(f'{x:.1f}' for x in st['step_ms'])}; "
+                f"launches {st['launches']}")
+        if "profile" in r:
+            for kind, pr in r["profile"].items():
+                log(f"  {arch} one {'mesh' if kind == 'mesh' else 'no-mesh'}"
+                    f" step: wall {pr['wall_ms']:.1f} ms; under the "
+                    f"profiler device busy {pr['busy_ms']:.1f} ms, NCCL "
+                    f"kernels {pr['nccl_ms']:.1f} ms")
+            log("  the mesh step's largest host operations: " + ", ".join(
+                f"{k} {v:.1f} ms" for k, v in r["profile"]["mesh"]
+                ["host_ops"]))
+        log(f"  {arch} took {r['seconds']:.1f} s in rank 0")
+    log("  compressed_psum on the card bit-equal to the CPU's on the same "
+        "draws in every rank")
+    out["wall_s"] = wall
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5299,6 +5626,13 @@ def main() -> int:
     # each kernel's launches on its slice's main path: B4/B7 serving
     # smollm-360m, B8 serving mamba2-2.7b, B5/B6 training smollm-360m, the
     # SSD backward training mamba2-2.7b
+    log(f"phase 25: the device mesh on the card ({', '.join(
+        a for a, _ in MESH_MODELS)}; make_host_mesh(model=1) over "
+        f"{torch.cuda.device_count()} NCCL rank(s))")
+    t25 = time.perf_counter()
+    meshed = phase_mesh(dev)
+    log(f"  phase 25 took {time.perf_counter() - t25:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - t_start:.1f} s")
     launches = {**main_path["launches"],
                 **served["smollm_360m"]["launches"],
                 **served["mamba2_2p7b"]["launches"],
@@ -5338,6 +5672,12 @@ def main() -> int:
                    trained_fam["tiny"].items()),
                  *((f"smollm_360m {m}", r) for m, r in
                    compressed.items())] if a != "tiny"}
+        if row["name"] in ("flash_attention", "flash_attention_dq",
+                           "flash_attention_dkv"):
+            row["mesh_launches"] = {
+                f"{a} {kind}": r["steps"][kind]["launches"][row["name"]]
+                for a, r in meshed["models"].items()
+                for kind in ("one", "mesh")}
         if row["name"] in fleet["launches"]:
             row["fleet_launches"] = fleet["launches"][row["name"]]
         for arch, r in quant.items():

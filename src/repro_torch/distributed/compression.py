@@ -1,5 +1,5 @@
-"""Gradient compression with error feedback (the port of the single-device
-part of :mod:`repro.distributed.compression`).
+"""Gradient compression with error feedback: the port of
+:mod:`repro.distributed.compression`.
 
 Two standard compressors, each with an explicit error-feedback carry
 (EF-SGD style — the compression residual is added back next step,
@@ -17,18 +17,24 @@ with one threshold, and int8 takes one scale over all layers.
 leaves, compresses them, and hands back per-layer tensors.
 
 Use through ``run_training(compression="topk"|"int8")``, which calls
-``grad_fn`` → :meth:`ErrorFeedback.transform` → ``apply_fn``.
+``grad_fn`` → :meth:`ErrorFeedback.transform` → ``apply_fn``, or wrap a
+reduction over a mesh axis with :func:`compressed_psum`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import (TYPE_CHECKING, Callable, Dict, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import torch
 
-from repro_torch.convert import RefLeaf
+from . import collectives as C
 
-__all__ = ["topk_compress", "int8_compress", "int8_round", "ErrorFeedback"]
+if TYPE_CHECKING:   # the models import this package's collectives
+    from repro_torch.convert import RefLeaf
+
+__all__ = ["topk_compress", "int8_compress", "int8_round", "ErrorFeedback",
+           "compressed_psum"]
 
 Grads = Dict[str, torch.Tensor]
 #: ``uniform(i, leaf)``: the draws in [0, 1) for the ``i``-th leaf
@@ -91,6 +97,8 @@ class ErrorFeedback:
     leaves: Optional[Sequence[RefLeaf]] = None
 
     def _leaves(self, grads: Mapping[str, torch.Tensor]) -> List[RefLeaf]:
+        from repro_torch.convert import RefLeaf
+
         if self.leaves is not None:
             return list(self.leaves)
         return [RefLeaf(k, (k,), False) for k in sorted(grads)]
@@ -133,3 +141,20 @@ class ErrorFeedback:
                 outs[n] = k.to(grads[n].dtype)
                 news[n] = r
         return ({n: outs[n] for n in grads}, {n: news[n] for n in grads})
+
+
+def compressed_psum(x: torch.Tensor, axis, generator: torch.Generator, *,
+                    method: str = "int8", mesh=None) -> torch.Tensor:
+    """psum over the mesh axis ``axis`` with pre-compression: each rank's
+    ``x`` quantized by :func:`int8_compress` with draws from
+    ``generator`` (on ``x``'s device), then summed in rank order;
+    ``method="none"`` is the plain psum. Unbiased (stochastic rounding),
+    so error feedback is optional here. ``mesh`` defaults to the one of
+    :func:`~repro_torch.distributed.collectives.use_mesh`."""
+    if method == "int8":
+        compressed, _ = int8_compress(x, generator)
+    elif method == "none":
+        compressed = x
+    else:
+        raise ValueError(method)
+    return C.psum(compressed, axis, mesh=mesh)

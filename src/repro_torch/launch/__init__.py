@@ -1,1 +1,2 @@
-"""repro_torch.launch — command-line entry points (training, serving)."""
+"""repro_torch.launch — command-line entry points (training, serving) and
+the device meshes they train on (``mesh``)."""

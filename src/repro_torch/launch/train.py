@@ -1,4 +1,4 @@
-"""Training launcher: the port of ``repro.launch.train`` on one device.
+"""Training launcher: the port of ``repro.launch.train``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_360m \
         --preset full --steps 6 --seq-len 1024 --checkpoint-dir ckpt
@@ -8,8 +8,14 @@ Wires together: config zoo → TokenPipeline (seekable) → make_train_step
 (async, atomic, keep-k, auto-resume). It runs on the CUDA device unless
 ``device="cpu"`` (the plain PyTorch versions of the kernels). With
 ``--compression topk|int8`` each step is split as the reference splits
-it: gradients → error-feedback compression with its carry → AdamW. The
-mesh (``mesh=``) is not ported.
+it: gradients → error-feedback compression with its carry → AdamW.
+
+On a device mesh, call ``run_training(mesh=make_host_mesh(model=m))``
+(:mod:`repro_torch.launch.mesh`) in every rank of an initialized process
+group (NCCL on the card; gloo with ``device="cpu"``): each rank trains on
+its data rank's rows of every batch and its model rank's heads, experts
+or ``d_ff`` slice, and the losses are the global ones. The CLI runs one
+process, as the reference's does.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from repro_torch.data import TokenPipeline
 from repro_torch.convert import reference_leaves
 from repro_torch.device import resolve_device
 from repro_torch.distributed import ErrorFeedback
+from repro_torch.models.layers import MeshContext
 from repro_torch.training import (AdamWConfig, init_train_state,
                                   make_train_step)
 from repro_torch.training.trainer import make_grad_and_apply
@@ -37,7 +44,7 @@ def run_training(arch: str = "smollm_360m", preset: str = "tiny",
                  checkpoint_dir: Optional[str] = None, ckpt_every: int = 10,
                  grad_accum: int = 1, compression: Optional[str] = None,
                  lr: float = 1e-3, seed: int = 0,
-                 log_every: int = 10, verbose: bool = True,
+                 log_every: int = 10, mesh=None, verbose: bool = True,
                  schedule_steps: int = 0, device=None):
     """Train ``arch`` (``preset`` "tiny": its smoke config, "full": the
     published one) with ``remat=True`` for steps ``start .. steps - 1``,
@@ -50,7 +57,22 @@ def run_training(arch: str = "smollm_360m", preset: str = "tiny",
     split step does. Returns ``{"losses", "step_s", "state", "config",
     "start_step", "carry"}`` (``step_s``: each step's wall seconds, ended
     by reading its loss on the host; ``carry``: the compression residual,
-    ``None`` without compression)."""
+    ``None`` without compression).
+
+    ``mesh`` (a ``("data", "model")`` DeviceMesh; call in every rank)
+    trains with ``MeshContext(mesh, ("data",))``: every rank builds the
+    same parameters from ``seed``, takes its rows ``[r·B/d, (r+1)·B/d)``
+    of each batch (on the mesh's device: this rank's card, or the CPU for
+    a gloo mesh), and gets the mesh-summed gradients, so the ranks stay
+    identical; compression runs on those gradients. Only data rank 0 of
+    model rank 0 writes checkpoints; every rank restores."""
+    ctx = None
+    if mesh is not None:
+        ctx = MeshContext(mesh, ("data",))
+        if device is None:
+            device = mesh.device_type
+            if device == "cuda":
+                device = torch.device("cuda", torch.cuda.current_device())
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if preset == "tiny" else get_config(arch)
     cfg = cfg.with_(remat=True)
@@ -67,11 +89,12 @@ def run_training(arch: str = "smollm_360m", preset: str = "tiny",
         # split step: grads → EF compression (stateful carry) → optimizer
         ef = ErrorFeedback(method=compression,
                            leaves=reference_leaves(state.params))
-        grad_fn, apply_fn = make_grad_and_apply(cfg, opt_cfg)
+        grad_fn, apply_fn = make_grad_and_apply(cfg, opt_cfg, ctx)
         carry = ef.init(dict(state.params.named_parameters()))
     else:
-        step_fn = make_train_step(cfg, opt_cfg, grad_accum=grad_accum)
+        step_fn = make_train_step(cfg, opt_cfg, ctx, grad_accum=grad_accum)
 
+    writer = ctx is None or (ctx.data_index == 0 and ctx.model_index == 0)
     mgr = None
     if checkpoint_dir:
         mgr = CheckpointManager(checkpoint_dir, keep=3, every=ckpt_every)
@@ -97,7 +120,7 @@ def run_training(arch: str = "smollm_360m", preset: str = "tiny",
         loss = float(metrics["loss"])
         step_s.append(time.perf_counter() - t)
         losses.append(loss)
-        if mgr:
+        if mgr and writer:
             mgr.maybe_save(step + 1, state)
         if verbose and (step % log_every == 0 or step == steps - 1):
             print(f"[train] step {step:5d} loss {loss:8.4f} "

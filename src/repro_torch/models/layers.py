@@ -1,6 +1,6 @@
-"""Model layers in PyTorch: the single-device subset of the JAX package's
+"""Model layers in PyTorch: the port of the JAX package's
 ``models/layers.py`` (attention, MLP, the capacity-based MoE and the
-Mamba2 block).
+Mamba2 block, on one device or on a device mesh).
 
 Parameters live in small :class:`torch.nn.Module` holders
 (:class:`Attention`, :class:`MLP`, :class:`MoE`, :class:`Mamba`); the math is plain
@@ -14,30 +14,50 @@ attention through :func:`~repro_torch.kernels.gqa_decode.decode_attention`
 passed through. The chunked scan :func:`ssd_chunked` (B8's plain version)
 lives beside its kernel and is re-exported here. The MoE's expert
 products are plain batched products (the reference leaves them to XLA
-too). Mesh sharding, sequence parallelism and the MoE's expert- and
-tensor-parallel paths are not ported yet.
+too).
+
+On a mesh (a :class:`MeshContext`) every rank holds the **local** block of
+each activation that the reference's sharding constraints name (PyTorch
+has no SPMD partitioner, so :func:`cst` moves blocks with the collectives
+of :mod:`repro_torch.distributed.collectives`): the residual stream is
+``[B/data, S/model, D]``. Attention and the MLP gather the sequence and
+compute on this rank's heads or ``d_ff`` slice, then sum the
+out-projection over the model axis — a ``psum`` and a slice back to the
+local sequence (the baseline), or a ``psum_scatter`` (Megatron-SP,
+``sp_matmuls``: :func:`sp_qkv`, :func:`sp_out_proj`, :func:`sp_mlp`,
+which also all-gather the FSDP weight shard). Where the heads or ``d_ff``
+do not divide the model axis the baseline runs the whole block on every
+model rank. The MoE shards its experts (ep) or its ``d_ff`` (tp) over the
+model axis, with the capacity of this rank's tokens. The Mamba2 block runs
+on the gathered sequence of the local batch (no tensor-parallel scan).
+Parameters are replicated on every rank and sliced at use; each rank's
+backward gives its share of a parameter's gradient, which the trainer sums
+over the mesh.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels.flash_attention import attention
 from repro_torch.kernels.gqa_decode import decode_attention
 from repro_torch.kernels.ssd_scan import ssd, ssd_chunked
 
 from .config import ModelConfig
 
-__all__ = ["Attention", "MLP", "Mamba", "MoE", "MoERouting", "apply_rope",
-           "attention_block", "dense", "init_attention", "init_mamba",
-           "init_mlp", "init_moe", "mamba_block", "mlp_block",
-           "moe_block", "moe_capacity", "moe_local", "moe_route",
-           "rms_norm", "ssd_chunked", "ssd_decode_step", "torch_dtype"]
+__all__ = ["Attention", "MLP", "Mamba", "MeshContext", "MoE", "MoERouting",
+           "apply_rope", "attention_block", "cst", "dense",
+           "init_attention", "init_mamba", "init_mlp", "init_moe",
+           "mamba_block", "mlp_block", "moe_block", "moe_capacity",
+           "moe_local", "moe_route", "rms_norm", "sp_mlp", "sp_out_proj",
+           "sp_qkv", "ssd_chunked", "ssd_decode_step", "torch_dtype"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -57,6 +77,170 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     """A trainable parameter (serving runs under ``torch.inference_mode``,
     so it records no graph)."""
     return nn.Parameter(t)
+
+
+# ===========================================================================
+# Mesh context & layouts
+# ===========================================================================
+
+@dataclasses.dataclass(frozen=True)
+class MeshContext:
+    """Carries the mesh and logical-axis mapping through the model."""
+    mesh: Any                       # torch.distributed DeviceMesh
+    batch_axes: Tuple[str, ...]     # e.g. ("data",) or ("pod", "data")
+    model_axis: str = "model"
+    shard_seq: bool = True          # sequence-parallel residual stream
+    #: Megatron-SP projections: the sequence all-gather and the
+    #: out-projection's psum_scatter inside the differentiated region
+    #: (:func:`sp_qkv`, :func:`sp_out_proj`, :func:`sp_mlp`); the baseline
+    #: sums the out-projection with a full psum and slices.
+    sp_matmuls: bool = False
+    #: the global ``(batch, sequence)`` of the activations in flight, which
+    #: the layout rules read; :func:`~repro_torch.models.transformer
+    #: .forward` sets it (:meth:`at`)
+    shape: Optional[Tuple[int, int]] = None
+
+    @property
+    def model_size(self) -> int:
+        return C.axis_size(self.model_axis, mesh=self.mesh)
+
+    @property
+    def fsdp_axes(self):
+        """Axes the FSDP (ZeRO-3) domain spans — the full DP domain."""
+        return self.batch_axes
+
+    @property
+    def data_size(self) -> int:
+        return C.axis_size(self.batch_axes, mesh=self.mesh)
+
+    @property
+    def model_index(self) -> int:
+        return C.axis_index(self.model_axis, mesh=self.mesh)
+
+    @property
+    def data_index(self) -> int:
+        return C.axis_index(self.batch_axes, mesh=self.mesh)
+
+    @property
+    def mesh_axes(self) -> Tuple[str, ...]:
+        """Every axis of the mesh, in its order."""
+        return tuple(self.mesh.mesh_dim_names)
+
+    def at(self, batch: int, seq: int) -> "MeshContext":
+        """This context for activations of global shape ``[batch, seq,
+        ...]``."""
+        if self.shape == (batch, seq):
+            return self
+        return dataclasses.replace(self, shape=(int(batch), int(seq)))
+
+    def stream(self) -> Tuple[Optional[str], ...]:
+        """The residual stream's layout: ``("batch", "model", None)``, or
+        the sequence whole without ``shard_seq``."""
+        return ("batch", "model" if self.shard_seq else None, None)
+
+    def block(self, dim: int, name: Optional[str]):
+        """``(ranks, index, axis)`` of dimension ``dim`` (0: batch, 1:
+        sequence) laid out over ``name`` ("batch" or "model"): one rank and
+        the whole dimension where ``name`` is None or the global size does
+        not divide over the axis — then the dimension is replicated. The
+        layout rules of the port live here."""
+        if name is None:
+            return 1, 0, None
+        if self.shape is None:
+            raise ValueError("MeshContext.at(batch, seq) must bind the "
+                             "global shape before a layout is read")
+        if (dim, name) == (0, "batch"):
+            n, axis = self.data_size, self.batch_axes
+        elif (dim, name) == (1, "model"):
+            n, axis = self.model_size, self.model_axis
+        else:
+            raise ValueError(f"no layout rule for {name!r} on dimension "
+                             f"{dim}")
+        if self.shape[dim] % n:
+            return 1, 0, None
+        return n, C.axis_index(axis, mesh=self.mesh), axis
+
+    def unique(self, layout) -> bool:
+        """Whether this rank's block of ``layout`` is held by no rank
+        before it: the first rank of every axis that replicates it (the
+        loss counts each token once)."""
+        rows, _, _ = self.block(0, layout[0])
+        seq, _, _ = self.block(1, layout[1])
+        return (rows > 1 or self.data_index == 0) and \
+            (seq > 1 or self.model_index == 0)
+
+
+def cst(ctx: Optional[MeshContext], x: torch.Tensor, *axes,
+        frm=None) -> torch.Tensor:
+    """Move ``x`` from this rank's block of layout ``frm`` (default: every
+    dimension whole) to its block of layout ``axes``; a no-op without a
+    mesh. Entries: ``"batch"`` (dimension 0 over the batch axes),
+    ``"model"`` (dimension 1, the sequence, over the model axis) or None
+    (whole). A dimension that leaves an axis is all-gathered, one that
+    enters it is sliced (:meth:`MeshContext.block`: a global size that
+    does not divide stays whole)."""
+    if ctx is None:
+        return x
+    frm = tuple(frm) if frm is not None else (None,) * len(axes)
+    for dim, (a, b) in enumerate(zip(frm, axes)):
+        if a == b:
+            continue
+        if a is not None and b is not None:
+            raise ValueError(f"cannot move dimension {dim} from {a!r} to "
+                             f"{b!r}")
+        n, i, axis = ctx.block(dim, a or b)
+        if n == 1:
+            continue
+        if b is None:
+            x = C.all_gather(x, axis, dim, mesh=ctx.mesh)
+        else:
+            size = x.shape[dim] // n
+            x = x.narrow(dim, i * size, size)
+    return x
+
+
+def _model_slice(ctx: MeshContext, n: int) -> Optional[slice]:
+    """This model rank's block of ``n`` (heads, ``d_ff``, experts,
+    vocabulary rows), or None where ``n`` does not divide the axis."""
+    m = ctx.model_size
+    if n % m:
+        return None
+    i = ctx.model_index
+    return slice(i * (n // m), (i + 1) * (n // m))
+
+
+def _fsdp(ctx: MeshContext, w: torch.Tensor, dim: int) -> torch.Tensor:
+    """The reference's FSDP all-gather of a weight inside a shard_map body:
+    this data rank's block of ``dim``, all-gathered over the FSDP axes
+    (the replicated weight's values; its backward reduce-scatters the
+    gradient over the data ranks)."""
+    n = C.axis_size(ctx.fsdp_axes, mesh=ctx.mesh)
+    if w.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of a {tuple(w.shape)} weight "
+                         f"does not split over the {n} FSDP ranks")
+    size = w.shape[dim] // n
+    i = C.axis_index(ctx.fsdp_axes, mesh=ctx.mesh)
+    return C.all_gather(w.narrow(dim, i * size, size), ctx.fsdp_axes, dim,
+                        mesh=ctx.mesh)
+
+
+def _sp_sharded(ctx: Optional[MeshContext]) -> bool:
+    """The SP path applies when tokens shard over (batch × seq): global
+    batch divisible by the data axes, sequence (above 1) by the model
+    axis."""
+    if ctx is None or not ctx.sp_matmuls:
+        return False
+    B, S = ctx.shape
+    return S > 1 and B % ctx.data_size == 0 and S % ctx.model_size == 0
+
+
+def _divides(ctx: MeshContext, what: str, *sizes: int) -> None:
+    """The reference's shard_map raises where a sharded size does not
+    divide its axis."""
+    m = ctx.model_size
+    if any(n % m for n in sizes):
+        raise ValueError(f"{what} {sizes} do not split over the {m}-rank "
+                         "model axis (the reference's shard_map raises)")
 
 
 # ===========================================================================
@@ -156,7 +340,7 @@ def attention_block(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                     kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]]
                     = None, kv_len: Optional[torch.Tensor] = None,
                     ring: bool = False, use_kernel: Optional[bool] = None,
-                    stash=None):
+                    stash=None, ctx: Optional[MeshContext] = None):
     """qkv projection → rope → attention → output projection.
 
     x: ``[B, S, D]`` at positions ``start .. start + S - 1`` in every row
@@ -180,7 +364,17 @@ def attention_block(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     that holds one already, takes it from there. Returns
     ``(out [B, S, D], (ck, cv))``; the cache tensors are the ones passed
     in, updated.
+
+    With ``ctx`` (a bound :class:`MeshContext`, full-sequence forward from
+    position 0 only) ``x`` is this rank's block of the residual stream and
+    so is ``out``; ``(k, v)`` are this rank's heads of the gathered
+    sequence.
     """
+    if ctx is not None:
+        if kv_cache is not None or start:
+            raise NotImplementedError("a mesh runs full-sequence forwards "
+                                      "only (no KV cache)")
+        return _attention_mesh(p, cfg, x, ctx, window, use_kernel, stash)
     dt = torch_dtype(cfg.dtype)
     B, S = x.shape[:2]
     positions = torch.arange(start, start + S, dtype=torch.int32,
@@ -228,6 +422,55 @@ def attention_block(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     return out, new_kv
 
 
+def _head_slices(cfg: ModelConfig, ctx: MeshContext):
+    """This model rank's query and KV head slots, or None where either
+    count does not divide the model axis (then every model rank runs the
+    whole block)."""
+    q = _model_slice(ctx, cfg.gqa.n_q_pad)
+    kv = _model_slice(ctx, cfg.gqa.n_kv_pad)
+    return None if q is None or kv is None else (q, kv)
+
+
+def _attention_mesh(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                    ctx: MeshContext, window: int,
+                    use_kernel: Optional[bool], stash):
+    """:func:`attention_block` on a mesh: the reference's mesh branches
+    (``layers.py`` ``attention_block``), each rank's attention on its
+    heads of its rows' gathered sequence."""
+    dt = torch_dtype(cfg.dtype)
+    heads = _head_slices(cfg, ctx)
+    stream = ctx.stream()
+    sp = _sp_sharded(ctx)
+    if sp:
+        _divides(ctx, "attention heads (q, kv)", cfg.gqa.n_q_pad,
+                 cfg.gqa.n_kv_pad)
+        x = cst(ctx, x, "batch", "model", None, frm=stream)
+        q, k, v = sp_qkv(ctx, cfg, x, p.wq, p.wk, p.wv)
+    else:
+        x = cst(ctx, x, "batch", None, None, frm=stream)
+        qs, kvs = heads if heads is not None else (slice(None),) * 2
+        q = _project_heads(x, p.wq[:, qs], dt)
+        k = _project_heads(x, p.wk[:, kvs], dt)
+        v = _project_heads(x, p.wv[:, kvs], dt)
+    B, S = x.shape[0], q.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device
+                             ).expand(B, S)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = attention(q, k, v, causal=cfg.causal, window=window,
+                  softcap=cfg.attn_softcap, use_kernel=use_kernel,
+                  stash=stash)
+    if sp:
+        out = sp_out_proj(ctx, cfg, o, p.wo)
+        return cst(ctx, out, *stream, frm=("batch", "model", None)), (k, v)
+    wo = p.wo if heads is None else p.wo[heads[0]]
+    H, hd, D = wo.shape
+    out = o.flatten(-2) @ wo.reshape(H * hd, D).to(dt)
+    if heads is not None:
+        out = C.psum(out, ctx.model_axis, mesh=ctx.mesh)
+    return cst(ctx, out, *stream, frm=("batch", None, None)), (k, v)
+
+
 # ===========================================================================
 # Dense MLP (SwiGLU / GeLU)
 # ===========================================================================
@@ -249,10 +492,73 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator,
                _normal((F_, D), generator, dtype))
 
 
-def mlp_block(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def mlp_block(p: MLP, cfg: ModelConfig, x: torch.Tensor,
+              ctx: Optional[MeshContext] = None) -> torch.Tensor:
+    """SwiGLU/GeLU MLP. With ``ctx``: this rank's ``d_ff`` slice of its
+    rows' gathered sequence, summed over the model axis back into the
+    stream (:func:`sp_mlp` under SP); the whole MLP on every model rank
+    where ``d_ff`` does not divide the axis."""
     dt = torch_dtype(cfg.dtype)
-    h = _act(cfg.act)(dense(x, p.w_gate, dt)) * dense(x, p.w_up, dt)
-    return dense(h, p.w_down, dt)
+    if ctx is None:
+        h = _act(cfg.act)(dense(x, p.w_gate, dt)) * dense(x, p.w_up, dt)
+        return dense(h, p.w_down, dt)
+    stream = ctx.stream()
+    if _sp_sharded(ctx):
+        _divides(ctx, "d_ff", p.w_gate.shape[1])
+        x = cst(ctx, x, "batch", "model", None, frm=stream)
+        out = sp_mlp(ctx, cfg, x, p.w_gate, p.w_up, p.w_down)
+        return cst(ctx, out, *stream, frm=("batch", "model", None))
+    x = cst(ctx, x, "batch", None, None, frm=stream)
+    f = _model_slice(ctx, p.w_gate.shape[1])
+    fs = f if f is not None else slice(None)
+    h = _act(cfg.act)(dense(x, p.w_gate[:, fs], dt)) \
+        * dense(x, p.w_up[:, fs], dt)
+    out = dense(h, p.w_down[fs], dt)
+    if f is not None:
+        out = C.psum(out, ctx.model_axis, mesh=ctx.mesh)
+    return cst(ctx, out, *stream, frm=("batch", None, None))
+
+
+# ===========================================================================
+# Sequence-parallel (Megatron-SP) projections
+# ===========================================================================
+
+def sp_qkv(ctx: MeshContext, cfg: ModelConfig, x: torch.Tensor, wq, wk,
+           wv):
+    """x: this rank's ``[B/data, S/model, D]`` block → (q, k, v) of this
+    rank's heads over its rows' whole sequence. The sequence all-gather
+    is inside the differentiated region, so its backward is a
+    reduce-scatter; the weights' FSDP shard is all-gathered too."""
+    dt = torch_dtype(cfg.dtype)
+    qs, kvs = _head_slices(cfg, ctx)
+    xg = C.all_gather(x, ctx.model_axis, 1, mesh=ctx.mesh)
+    return tuple(_project_heads(xg, _fsdp(ctx, w[:, s].to(dt), 0), dt)
+                 for w, s in ((wq, qs), (wk, kvs), (wv, kvs)))
+
+
+def sp_out_proj(ctx: MeshContext, cfg: ModelConfig, o: torch.Tensor, wo
+                ) -> torch.Tensor:
+    """o: ``[B/data, S, H/model, hd]`` → the residual delta's
+    ``[B/data, S/model, D]`` block through an explicit psum_scatter."""
+    dt = torch_dtype(cfg.dtype)
+    qs, _ = _head_slices(cfg, ctx)
+    wo_ = _fsdp(ctx, wo[qs].to(dt), 2)
+    H, hd, D = wo_.shape
+    part = o.flatten(-2) @ wo_.reshape(H * hd, D)
+    return C.psum_scatter(part, ctx.model_axis, 1, mesh=ctx.mesh)
+
+
+def sp_mlp(ctx: MeshContext, cfg: ModelConfig, x: torch.Tensor, wg, wu,
+           wd) -> torch.Tensor:
+    """Fused SP MLP: gather the sequence once, this rank's ``d_ff`` slice,
+    psum_scatter out."""
+    dt = torch_dtype(cfg.dtype)
+    f = _model_slice(ctx, wg.shape[1])
+    xg = C.all_gather(x, ctx.model_axis, 1, mesh=ctx.mesh)
+    h = _act(cfg.act)(xg @ _fsdp(ctx, wg[:, f].to(dt), 0)) \
+        * (xg @ _fsdp(ctx, wu[:, f].to(dt), 0))
+    part = h @ _fsdp(ctx, wd[f].to(dt), 1)
+    return C.psum_scatter(part, ctx.model_axis, 1, mesh=ctx.mesh)
 
 
 # ===========================================================================
@@ -339,36 +645,96 @@ def moe_local(x: torch.Tensor, p: MoE, cfg: ModelConfig, capacity: int
     products as batched products in the compute dtype, and the combine
     ``out = out + y[slot_j] · g_j`` for j = 0..k−1 in that dtype, in the
     reference's order. x: ``[T, D]``."""
+    return _moe_experts(x, p.router, p.w_gate, p.w_up, p.w_down, cfg,
+                        capacity, 0, cfg.n_experts)
+
+
+def _moe_experts(x: torch.Tensor, router: torch.Tensor, w_gate, w_up,
+                 w_down, cfg: ModelConfig, capacity: int, e0: int,
+                 n_local: int) -> torch.Tensor:
+    """Route ``x [T, D]`` over every expert, then compute experts ``[e0,
+    e0 + n_local)`` (``w_gate``/``w_up [n_local, D, F]``, ``w_down
+    [n_local, F, D]``, perhaps a ``d_ff`` slice of each): the reference's
+    ``_moe_local`` with its ``e0``/``n_local``. An assignment to another
+    expert, or dropped for capacity, goes to the dump slot; the output is
+    this rank's term of the sum over the model axis."""
     T, D = x.shape
-    E, k = cfg.n_experts, cfg.top_k
+    k = cfg.top_k
     dt = x.dtype
-    r = moe_route(x, p.router, cfg, capacity)
-    n_slots = E * capacity
-    flat_slot = r.slot.reshape(-1)
+    r = moe_route(x, router, cfg, capacity)
+    n_slots = n_local * capacity
+    local = r.kept & (r.idx >= e0) & (r.idx < e0 + n_local)
+    slot = torch.where(local, r.slot - e0 * capacity,
+                       torch.full_like(r.slot, n_slots))
+    flat_slot = slot.reshape(-1)
     slot_token = torch.zeros(n_slots + 1, dtype=torch.long, device=x.device)
     slot_token[flat_slot] = torch.arange(T, device=x.device
                                          ).repeat_interleave(k)
     slot_valid = torch.zeros(n_slots + 1, dtype=torch.bool, device=x.device)
-    slot_valid[flat_slot] = r.kept.reshape(-1)
+    slot_valid[flat_slot] = local.reshape(-1)
     xb = (x[slot_token[:-1]] * slot_valid[:-1, None].to(dt)
-          ).reshape(E, capacity, D)
-    h = _act(cfg.act)(torch.bmm(xb, p.w_gate.to(dt))) \
-        * torch.bmm(xb, p.w_up.to(dt))
-    yb = torch.bmm(h, p.w_down.to(dt)).reshape(n_slots, D)
+          ).reshape(n_local, capacity, D)
+    h = _act(cfg.act)(torch.bmm(xb, w_gate.to(dt))) \
+        * torch.bmm(xb, w_up.to(dt))
+    yb = torch.bmm(h, w_down.to(dt)).reshape(n_slots, D)
     yb = torch.cat([yb, yb.new_zeros(1, D)])
-    weight = r.gate.to(dt) * r.kept.to(dt)
+    weight = r.gate.to(dt) * local.to(dt)
     out = torch.zeros(T, D, dtype=dt, device=x.device)
     for j in range(k):
-        out = out + yb[r.slot[:, j]] * weight[:, j:j + 1]
+        out = out + yb[slot[:, j]] * weight[:, j:j + 1]
     return out
 
 
-def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """MoE FFN of ``x [B, S, D]`` on one device, capacity from the
-    ``B·S`` tokens (the reference's ``moe_block`` with ``ctx=None``)."""
-    B, S, D = x.shape
-    out = moe_local(x.reshape(-1, D), p, cfg, moe_capacity(B * S, cfg))
-    return out.reshape(B, S, D)
+def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor,
+              ctx: Optional[MeshContext] = None) -> torch.Tensor:
+    """MoE FFN of ``x [B, S, D]``; without ``ctx`` on one device, capacity
+    from the ``B·S`` tokens (the reference's ``moe_block`` with
+    ``ctx=None``). With ``ctx`` (``x`` this rank's stream block), the
+    reference's ``shard_map`` body in one of two modes:
+
+    * **ep** (``n_experts % model_size == 0``): this model rank computes
+      experts ``[i·E/m, (i+1)·E/m)``;
+    * **tp** (otherwise): every expert, this rank's ``d_ff`` slice.
+
+    Either way the rank routes its rows' gathered sequence over every
+    expert, with the capacity of its ``T_local`` tokens (the whole batch
+    when the global batch does not divide the data axes: the routing is
+    then replicated over them), casts and all-gathers the FSDP weight
+    shard, and sums the outputs over the model axis: a ``psum_scatter``
+    into the stream under SP, else a ``psum``."""
+    B_, S_, D = x.shape
+    if ctx is None:
+        out = moe_local(x.reshape(-1, D), p, cfg, moe_capacity(B_ * S_, cfg))
+        return out.reshape(B_, S_, D)
+    dt = torch_dtype(cfg.dtype)
+    B, S = ctx.shape
+    m, E = ctx.model_size, cfg.n_experts
+    ep_mode = E % m == 0
+    n_local = E // m if ep_mode else E
+    shardable = B % ctx.data_size == 0
+    T_local = (B * S) // ctx.data_size if shardable else B * S
+    capacity = moe_capacity(T_local, cfg)
+    sp = ctx.sp_matmuls and shardable and S % m == 0
+    stream = ctx.stream()
+    xl = cst(ctx, x, "batch", None, None, frm=stream)
+    if ep_mode:
+        e0 = ctx.model_index * n_local
+        es = slice(e0, e0 + n_local)
+        gw, uw, dw = p.w_gate[es], p.w_up[es], p.w_down[es]
+    else:
+        e0 = 0
+        _divides(ctx, "MoE d_ff", p.w_gate.shape[2])
+        f = _model_slice(ctx, p.w_gate.shape[2])
+        gw, uw, dw = p.w_gate[:, :, f], p.w_up[:, :, f], p.w_down[:, f]
+    gw, uw = (_fsdp(ctx, w.to(dt), 1) for w in (gw, uw))
+    dw = _fsdp(ctx, dw.to(dt), 2)
+    out = _moe_experts(xl.reshape(-1, D), p.router, gw, uw, dw, cfg,
+                       capacity, e0, n_local).reshape(xl.shape)
+    if sp:
+        out = C.psum_scatter(out, ctx.model_axis, 1, mesh=ctx.mesh)
+        return cst(ctx, out, *stream, frm=("batch", "model", None))
+    out = C.psum(out, ctx.model_axis, mesh=ctx.mesh)
+    return cst(ctx, out, *stream, frm=("batch", None, None))
 
 
 # ===========================================================================
@@ -433,13 +799,28 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def mamba_block(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
                 cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                use_kernel: Optional[bool] = None):
+                use_kernel: Optional[bool] = None,
+                ctx: Optional[MeshContext] = None):
     """Mamba2 block. x: ``[B, S, D]``. ``cache = (conv_state [B, cw-1,
     ch], ssm_state [B, H, P, N] float32)`` continues a sequence; ``None``
     starts one. ``S > 1`` (or no cache) scans the sequence through the SSD
     dispatcher from the cache's state; ``S == 1`` with a cache is a decode
     step. Returns ``(out [B, S, D], (new_conv, new_ssm))``; the cache
-    tensors passed in are not modified."""
+    tensors passed in are not modified.
+
+    With ``ctx`` (no cache) ``x`` and ``out`` are this rank's stream
+    blocks: the block runs whole on its rows' gathered sequence on every
+    model rank (no tensor-parallel scan), and the new cache is that of the
+    gathered sequence."""
+    if ctx is not None:
+        if cache is not None:
+            raise NotImplementedError("a mesh runs full-sequence forwards "
+                                      "only (no cache)")
+        stream = ctx.stream()
+        out, new_cache = mamba_block(
+            p, cfg, cst(ctx, x, "batch", None, None, frm=stream),
+            use_kernel=use_kernel)
+        return cst(ctx, out, *stream, frm=("batch", None, None)), new_cache
     dt_ = torch_dtype(cfg.dtype)
     Bsz, S, _ = x.shape
     din, N, H, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \

@@ -1,6 +1,7 @@
 """The model families in PyTorch: parameters, cache, forward, prefill and
-decode — the single-device counterpart of the JAX package's
-``models/transformer.py`` for every family of the zoo.
+decode — the counterpart of the JAX package's ``models/transformer.py``
+for every family of the zoo (serving on one device; training on one
+device or a device mesh).
 
 The reference scans stacked ``[L, ...]`` parameters with ``lax.scan``; the
 port keeps one module per layer in an :class:`LM` and runs them in Python
@@ -26,6 +27,16 @@ layer, each Mamba2 layer and each shared-block application under grad;
 ``remat_policy="save_attn"`` keeps each dense layer's attention output
 across its recompute (the Mamba layers and shared blocks recompute
 everything, as in the reference).
+
+On a device mesh (``ctx``, a :class:`~.layers.MeshContext`) :func:`forward`
+and :func:`loss_fn` take the **global** batch, the same on every rank,
+as the reference takes a global array; the embedding takes this data
+rank's rows (vocab-parallel above 4,096 tokens: a masked gather of the
+model rank's table rows, summed over the model axis), the stack runs on
+this rank's ``[B/data, S/model, D]`` block, and the loss is the global
+mean — its masked numerator and token count each summed over the mesh
+before the division. :func:`param_pspecs` gives the reference's
+sharding specs as tuples of axis names.
 """
 from __future__ import annotations
 
@@ -39,15 +50,18 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels.flash_attention import AttentionStash
 
 from . import layers as L
 from .config import ATTN_SWA, MAMBA, ModelConfig
+from .layers import MeshContext, cst
 
 __all__ = ["Cache", "DenseLayer", "LM", "MambaLayer", "cache_spec",
            "decode_step", "embed_input", "embed_tokens", "forward",
            "init_cache",
-           "init_params", "logits_fn", "loss_fn", "prefill",
+           "init_params", "leaf_pspecs", "logits_fn", "loss_fn",
+           "param_pspecs", "prefill",
            "run_attention_stack", "run_hybrid_stack", "run_mamba_stack",
            "softmax_xent"]
 
@@ -144,47 +158,177 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
 
 
 # ===========================================================================
+# Parameter sharding specs (FSDP over 'data', TP over 'model')
+# ===========================================================================
+
+Spec = Tuple[Optional[str], ...]
+
+
+def param_pspecs(cfg: ModelConfig, stacked: bool = True) -> Dict:
+    """The reference's ``param_pspecs``: a tree mirroring its parameter
+    tree (``{"embed": {"tok": ...}, "layers": {"attn": {"wq": ...}}, ...}``)
+    whose leaves are tuples of axis names (a ``PartitionSpec``'s entries).
+    Stacked per-layer leaves get a leading ``None`` (the layer dimension
+    unsharded); hybrid shared blocks are stacked over ``n_shared_blocks``
+    whatever ``stacked`` says, as in the reference."""
+    def st(*spec) -> Spec:
+        return ((None,) + spec) if stacked else spec
+
+    attn = {"wq": st("data", "model", None), "wk": st("data", "model", None),
+            "wv": st("data", "model", None), "wo": st("model", None, "data")}
+    mlp = {"w_gate": st("data", "model"), "w_up": st("data", "model"),
+           "w_down": st("model", "data")}
+    norm = {"scale": st(None)}
+    specs: Dict = {"embed": {"tok": ("model", "data")}}
+    if cfg.frontend == "audio":
+        specs["embed"]["frame_in"] = ("data", "model")
+    if cfg.frontend == "vision":
+        specs["embed"]["patch_in"] = ("data", "model")
+    if cfg.family in ("hybrid", "ssm"):
+        mamba = {
+            "in_proj": st("data", "model"), "conv_w": st(None, "model"),
+            "conv_b": st("model"), "A_log": st(None), "D_skip": st(None),
+            "dt_bias": st(None), "norm_scale": st("model"),
+            "out_proj": st("model", "data")}
+        specs["mamba"] = {"block": mamba, "ln": norm}
+        if cfg.family == "hybrid":
+            specs["shared"] = {
+                "ln1": {"scale": (None, None)},
+                "attn": {"wq": (None, "data", "model", None),
+                         "wk": (None, "data", "model", None),
+                         "wv": (None, "data", "model", None),
+                         "wo": (None, "model", None, "data")},
+                "ln2": {"scale": (None, None)},
+                "mlp": {"w_gate": (None, "data", "model"),
+                        "w_up": (None, "data", "model"),
+                        "w_down": (None, "model", "data")}}
+    else:
+        lp: Dict = {"ln1": norm, "attn": attn, "ln2": norm}
+        if cfg.n_experts:
+            if cfg.n_experts % max(cfg.tp_shards, 1) == 0:
+                lp["moe"] = {"router": st(None, None),
+                             "w_gate": st("model", "data", None),
+                             "w_up": st("model", "data", None),
+                             "w_down": st("model", None, "data")}
+            else:
+                lp["moe"] = {"router": st(None, None),
+                             "w_gate": st(None, "data", "model"),
+                             "w_up": st(None, "data", "model"),
+                             "w_down": st(None, "model", "data")}
+        else:
+            lp["mlp"] = mlp
+        if cfg.post_norms:
+            lp["ln_pa"] = norm
+            lp["ln_pf"] = norm
+        specs["layers"] = lp
+    specs["final_norm"] = {"scale": (None,)}
+    if cfg.encoder_only or not cfg.tie_embeddings:
+        specs["head"] = ("data", "model")
+    return specs
+
+
+def leaf_pspecs(model: LM, cfg: ModelConfig) -> Dict[str, Spec]:
+    """``{parameter name: spec}`` for the port's parameters, through
+    :func:`~repro_torch.convert.reference_leaves`: a per-layer parameter
+    takes its stacked leaf's spec without the leading ``None``."""
+    from repro_torch.convert import reference_leaves
+
+    tree = param_pspecs(cfg)
+    out: Dict[str, Spec] = {}
+    for leaf in reference_leaves(model):
+        spec = tree
+        for key in leaf.path.split("/"):
+            spec = spec[key]
+        for name in leaf.names:
+            out[name] = spec[1:] if leaf.stacked else spec
+    return {name: out[name] for name, _ in model.named_parameters()}
+
+
+# ===========================================================================
 # Embedding / head
 # ===========================================================================
 
-def embed_tokens(model: LM, cfg: ModelConfig, tokens: torch.Tensor
-                 ) -> torch.Tensor:
+def embed_tokens(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
+                 ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """``[B, S]`` token ids → ``[B, S, D]`` in the compute dtype (times
-    ``sqrt(D)``, rounded to that dtype, with ``scale_embed``)."""
+    ``sqrt(D)``, rounded to that dtype, with ``scale_embed``).
+
+    With ``ctx``: the global ids in, this data rank's rows out (``[B/data,
+    S, D]``, the sequence whole). Decode-sized inputs (at most 4,096
+    tokens) and a batch that does not divide the data axes take a plain
+    lookup; else the lookup is vocab-parallel, the reference's
+    ``shard_map`` body: this model rank's ``V_pad/model`` table rows (the
+    FSDP shard all-gathered), a masked gather, a psum over the model
+    axis."""
     dt = L.torch_dtype(cfg.dtype)
-    x = model.tok[tokens].to(dt)
+    if ctx is not None:
+        B, S = tokens.shape
+        ctx = ctx.at(B, S)
+        tokens = cst(ctx, tokens, "batch", None)
+    if ctx is None or B * S <= 4096 or B % ctx.data_size:
+        x = model.tok[tokens].to(dt)
+    else:
+        L._divides(ctx, "vocabulary rows", cfg.vocab_pad)
+        rows = L._model_slice(ctx, cfg.vocab_pad)
+        table = L._fsdp(ctx, model.tok[rows].to(dt), 1)
+        local = tokens - rows.start
+        ok = (local >= 0) & (local < table.shape[0])
+        x = table[local.clamp(0, table.shape[0] - 1)] * ok[..., None].to(dt)
+        x = C.psum(x, ctx.model_axis, mesh=ctx.mesh)
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
     return x
 
 
+def _global_shape(cfg: ModelConfig, tokens, frames, patches
+                  ) -> Tuple[int, int]:
+    """The input's global ``(B, S)``."""
+    if cfg.frontend == "audio":
+        return tuple(frames.shape[:2])
+    B, S = tokens.shape
+    return B, S + (patches.shape[1] if cfg.frontend == "vision" else 0)
+
+
 def embed_input(model: LM, cfg: ModelConfig,
                 tokens: Optional[torch.Tensor] = None, *,
                 frames: Optional[torch.Tensor] = None,
-                patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+                patches: Optional[torch.Tensor] = None,
+                ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """The model's input ``[B, S, D]`` in the compute dtype: ``frames [B,
     S, D] @ frame_in`` (audio), ``patches [B, P, D] @ patch_in`` followed
     by the embedded ``tokens [B, S_t]`` (vision: S = P + S_t), or the
     embedded tokens (the reference's ``embed_input`` over its ``batch``
-    dict)."""
+    dict). With ``ctx``: global inputs in, this rank's stream block
+    out."""
     dt = L.torch_dtype(cfg.dtype)
     if cfg.frontend == "audio":
         if frames is None:
             raise ValueError(f"{cfg.name} (audio) takes frames")
-        return L.dense(frames.to(dt), model.frame_in, dt)
-    if tokens is None or (cfg.frontend == "vision" and patches is None):
+    elif tokens is None or (cfg.frontend == "vision" and patches is None):
         raise ValueError(f"{cfg.name} takes tokens" + (
             " after its patches" if cfg.frontend == "vision" else ""))
-    x = embed_tokens(model, cfg, tokens)
-    if cfg.frontend == "vision":
-        x = torch.cat([L.dense(patches.to(dt), model.patch_in, dt), x], 1)
-    return x
+    if ctx is not None:
+        ctx = ctx.at(*_global_shape(cfg, tokens, frames, patches))
+    if cfg.frontend == "audio":
+        x = L.dense(cst(ctx, frames, "batch", None, None).to(dt),
+                    model.frame_in, dt)
+    else:
+        x = embed_tokens(model, cfg, tokens, ctx)
+        if cfg.frontend == "vision":
+            px = L.dense(cst(ctx, patches, "batch", None, None).to(dt),
+                         model.patch_in, dt)
+            x = torch.cat([px, x], 1)
+    if ctx is None:
+        return x
+    return cst(ctx, x, *ctx.stream(), frm=("batch", None, None))
 
 
-def logits_fn(model: LM, cfg: ModelConfig, x: torch.Tensor
-              ) -> torch.Tensor:
+def logits_fn(model: LM, cfg: ModelConfig, x: torch.Tensor,
+              ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """Final norm and head (tied: the embedding's transpose), float32
-    logits, logit softcap, and −1e30 added on padded vocab slots."""
+    logits, logit softcap, and −1e30 added on padded vocab slots; on a
+    mesh, of this rank's tokens (``ctx`` is not read, as in the
+    reference)."""
     dt = L.torch_dtype(cfg.dtype)
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
     w = model.tok.T if model.head is None else model.head
@@ -211,19 +355,20 @@ def _window_array(cfg: ModelConfig) -> np.ndarray:
 def _dense_layer(lp: DenseLayer, cfg: ModelConfig, x: torch.Tensor,
                  start: int, window: int, kv, kv_len, ring: bool,
                  use_kernel: Optional[bool],
-                 stash: Optional[AttentionStash] = None) -> torch.Tensor:
+                 stash: Optional[AttentionStash] = None,
+                 ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """One [attention → MLP or MoE] layer with its residuals; ``stash``
     keeps its attention output across a recompute (``save_attn``)."""
     h = L.rms_norm(x, lp.ln1, cfg.norm_eps)
     a, _ = L.attention_block(lp.attn, cfg, h, start, window=window,
                              kv_cache=kv, kv_len=kv_len, ring=ring,
-                             use_kernel=use_kernel, stash=stash)
+                             use_kernel=use_kernel, stash=stash, ctx=ctx)
     if lp.ln_pa is not None:
         a = L.rms_norm(a, lp.ln_pa, cfg.norm_eps)
     x = x + a
     h = L.rms_norm(x, lp.ln2, cfg.norm_eps)
-    f = L.mlp_block(lp.mlp, cfg, h) if lp.moe is None \
-        else L.moe_block(lp.moe, cfg, h)
+    f = L.mlp_block(lp.mlp, cfg, h, ctx) if lp.moe is None \
+        else L.moe_block(lp.moe, cfg, h, ctx)
     if lp.ln_pf is not None:
         f = L.rms_norm(f, lp.ln_pf, cfg.norm_eps)
     return x + f
@@ -242,7 +387,8 @@ def run_attention_stack(model: LM, cfg: ModelConfig, x: torch.Tensor,
                         start: int, cache: Optional["Cache"] = None,
                         kv_len: Optional[torch.Tensor] = None,
                         ring: bool = False,
-                        use_kernel: Optional[bool] = None) -> torch.Tensor:
+                        use_kernel: Optional[bool] = None,
+                        ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """The layers in order (the reference's ``lax.scan``). With a cache,
     layer ``i`` reads and writes ``cache.kv_k[i]``/``cache.kv_v[i]`` in
     place. Without one, under grad and with ``cfg.remat``, each layer runs
@@ -250,31 +396,35 @@ def run_attention_stack(model: LM, cfg: ModelConfig, x: torch.Tensor,
     with its ``_remat_policy``: ``nothing_saveable``, or under
     ``"save_attn"`` the attention output kept in an
     :class:`~repro_torch.kernels.flash_attention.AttentionStash`, with the
-    forward's lse, so the recompute launches no second B4). Returns the
-    final hidden state."""
+    forward's lse, so the recompute launches no second B4; on a mesh the
+    recompute runs the layer's collectives again, in the same order on
+    every rank). Returns the final hidden state."""
     remat = cache is None and _remat(cfg)
     save_attn = remat and cfg.remat_policy == "save_attn"
     for i, (lp, window) in enumerate(zip(model.layers, _window_array(cfg))):
         kv = None if cache is None else (cache.kv_k[i], cache.kv_v[i])
         args = (lp, cfg, x, start, int(window), kv, kv_len, ring, use_kernel)
         stash = AttentionStash() if save_attn else None
-        x = checkpoint(_dense_layer, *args, stash, use_reentrant=False) \
-            if remat else _dense_layer(*args)
+        x = checkpoint(_dense_layer, *args, stash, ctx,
+                       use_reentrant=False) \
+            if remat else _dense_layer(*args, None, ctx)
     return x
 
 
 def _mamba_layer(lp: MambaLayer, cfg: ModelConfig, x: torch.Tensor,
-                 use_kernel: Optional[bool]) -> torch.Tensor:
+                 use_kernel: Optional[bool],
+                 ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """One pre-norm Mamba2 layer with its residual, from a zero state."""
     m, _ = L.mamba_block(lp.block, cfg, L.rms_norm(x, lp.ln, cfg.norm_eps),
-                         use_kernel=use_kernel)
+                         use_kernel=use_kernel, ctx=ctx)
     return x + m
 
 
 def run_mamba_stack(model: LM, cfg: ModelConfig, x: torch.Tensor,
                     cache: Optional["Cache"] = None,
                     use_kernel: Optional[bool] = None,
-                    layers: Optional[range] = None) -> torch.Tensor:
+                    layers: Optional[range] = None,
+                    ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """The Mamba2 layers ``layers`` (all by default) in order. With a
     cache, layer ``i`` continues from ``cache.conv[i]``/``cache.ssm[i]``
     and writes its new state there in place. Without one, under grad and
@@ -285,9 +435,9 @@ def run_mamba_stack(model: LM, cfg: ModelConfig, x: torch.Tensor,
     for i in layers if layers is not None else range(len(model.mamba)):
         lp = model.mamba[i]
         if cache is None:
-            x = checkpoint(_mamba_layer, lp, cfg, x, use_kernel,
+            x = checkpoint(_mamba_layer, lp, cfg, x, use_kernel, ctx,
                            use_reentrant=False) if remat \
-                else _mamba_layer(lp, cfg, x, use_kernel)
+                else _mamba_layer(lp, cfg, x, use_kernel, ctx)
             continue
         h = L.rms_norm(x, lp.ln, cfg.norm_eps)
         m, (conv, ssm) = L.mamba_block(lp.block, cfg, h,
@@ -301,21 +451,23 @@ def run_mamba_stack(model: LM, cfg: ModelConfig, x: torch.Tensor,
 
 def _shared_block(sp: DenseLayer, cfg: ModelConfig, x: torch.Tensor,
                   start: int, kv, kv_len: Optional[torch.Tensor],
-                  use_kernel: Optional[bool]) -> torch.Tensor:
+                  use_kernel: Optional[bool],
+                  ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """A hybrid's shared block (full attention, then the MLP) with its
     residuals."""
     h = L.rms_norm(x, sp.ln1, cfg.norm_eps)
     a, _ = L.attention_block(sp.attn, cfg, h, start, window=0, kv_cache=kv,
-                             kv_len=kv_len, use_kernel=use_kernel)
+                             kv_len=kv_len, use_kernel=use_kernel, ctx=ctx)
     x = x + a
     h = L.rms_norm(x, sp.ln2, cfg.norm_eps)
-    return x + L.mlp_block(sp.mlp, cfg, h)
+    return x + L.mlp_block(sp.mlp, cfg, h, ctx)
 
 
 def run_hybrid_stack(model: LM, cfg: ModelConfig, x: torch.Tensor,
                      start: int, cache: Optional["Cache"] = None,
                      kv_len: Optional[torch.Tensor] = None,
-                     use_kernel: Optional[bool] = None) -> torch.Tensor:
+                     use_kernel: Optional[bool] = None,
+                     ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """Zamba2: after each segment of ``shared_attn_every`` Mamba layers,
     shared block ``segment % n_shared_blocks`` (full attention, then the
     MLP). With a cache, application ``segment`` of a shared block reads and
@@ -327,10 +479,10 @@ def run_hybrid_stack(model: LM, cfg: ModelConfig, x: torch.Tensor,
     remat = cache is None and _remat(cfg)
     for seg in range(cfg.n_layers // k):
         x = run_mamba_stack(model, cfg, x, cache, use_kernel,
-                            range(seg * k, (seg + 1) * k))
+                            range(seg * k, (seg + 1) * k), ctx)
         sp = model.shared[seg % cfg.n_shared_blocks]
         kv = None if cache is None else (cache.kv_k[seg], cache.kv_v[seg])
-        args = (sp, cfg, x, start, kv, kv_len, use_kernel)
+        args = (sp, cfg, x, start, kv, kv_len, use_kernel, ctx)
         x = checkpoint(_shared_block, *args, use_reentrant=False) if remat \
             else _shared_block(*args)
     return x
@@ -338,15 +490,16 @@ def run_hybrid_stack(model: LM, cfg: ModelConfig, x: torch.Tensor,
 
 def _run_stack(model: LM, cfg: ModelConfig, x: torch.Tensor, start: int,
                cache: Optional["Cache"], kv_len: Optional[torch.Tensor],
-               ring: bool, use_kernel: Optional[bool]) -> torch.Tensor:
+               ring: bool, use_kernel: Optional[bool],
+               ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """The family's layer stack."""
     if cfg.family == "ssm":
-        return run_mamba_stack(model, cfg, x, cache, use_kernel)
+        return run_mamba_stack(model, cfg, x, cache, use_kernel, ctx=ctx)
     if cfg.family == "hybrid":
         return run_hybrid_stack(model, cfg, x, start, cache, kv_len,
-                                use_kernel)
+                                use_kernel, ctx)
     return run_attention_stack(model, cfg, x, start, cache, kv_len, ring,
-                               use_kernel)
+                               use_kernel, ctx)
 
 
 # ===========================================================================
@@ -419,12 +572,18 @@ def forward(model: LM, cfg: ModelConfig,
             tokens: Optional[torch.Tensor] = None,
             use_kernel: Optional[bool] = None, *,
             frames: Optional[torch.Tensor] = None,
-            patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+            patches: Optional[torch.Tensor] = None,
+            ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """Full-sequence forward of ``[B, S]`` tokens (and the frontend's
     ``frames`` or ``patches``, as :func:`embed_input` takes them); the
-    final hidden ``[B, S, D]`` (before the final norm)."""
-    x = embed_input(model, cfg, tokens, frames=frames, patches=patches)
-    return _run_stack(model, cfg, x, 0, None, None, False, use_kernel)
+    final hidden ``[B, S, D]`` (before the final norm). With ``ctx``: the
+    global inputs on every rank, this rank's ``[B/data, S/model, D]``
+    block of the final hidden out (:meth:`~.layers.MeshContext.stream`)."""
+    if ctx is not None:
+        ctx = ctx.at(*_global_shape(cfg, tokens, frames, patches))
+    x = embed_input(model, cfg, tokens, frames=frames, patches=patches,
+                    ctx=ctx)
+    return _run_stack(model, cfg, x, 0, None, None, False, use_kernel, ctx)
 
 
 @torch.no_grad()
@@ -492,15 +651,44 @@ def _chunk_xent(model: LM, cfg: ModelConfig, x: torch.Tensor,
 
 def softmax_xent(model: LM, cfg: ModelConfig, x: torch.Tensor,
                  targets: torch.Tensor, mask: torch.Tensor,
+                 ctx: Optional[MeshContext] = None,
                  chunk: int = 512) -> torch.Tensor:
     """Cross-entropy over the (padded) vocabulary. Above 16,384 vocabulary
     slots and ``chunk`` positions it runs chunk by chunk over the sequence,
     each chunk's logits recomputed in the backward (checkpointed), so the
     ``[B, S, V]`` float32 logits never exist at once — the reference's
-    ``lax.map`` over ``jax.checkpoint``-ed chunks."""
+    ``lax.map`` over ``jax.checkpoint``-ed chunks.
+
+    With ``ctx``: ``x`` is this rank's stream block, ``targets``/``mask``
+    the global ``[B, S]``; the masked numerator and the token count are
+    each summed over the mesh before the division, a token held by several
+    ranks counting on the first of them only. The value is the global
+    mean on every rank; its backward is this rank's term of it."""
+    if ctx is None:
+        loss, mass = _xent_sums(model, cfg, x, targets, mask, chunk)
+        return loss / mass.clamp_min(1.0)
+    ctx = ctx.at(*targets.shape)
+    layout = ctx.stream()[:2]
+    targets, mask = (cst(ctx, t, *layout) for t in (targets, mask))
+    loss, mass = _xent_sums(model, cfg, x, targets, mask, chunk)
+    if not ctx.unique(layout):
+        loss, mass = loss * 0.0, mass * 0.0
+    world = ctx.mesh_axes
+    with torch.no_grad():
+        total = C.psum(mass.detach(), world, mesh=ctx.mesh).clamp_min(1.0)
+    term = loss / total
+    with torch.no_grad():
+        value = C.psum(term.detach(), world, mesh=ctx.mesh)
+    return value + (term - term.detach())     # the value exactly
+
+
+def _xent_sums(model: LM, cfg: ModelConfig, x: torch.Tensor,
+               targets: torch.Tensor, mask: torch.Tensor, chunk: int):
+    """``(Σ masked nll, Σ mask)`` of :func:`softmax_xent`, chunked as it
+    says."""
     B, S, _ = x.shape
     if cfg.vocab_pad <= 16384 or S <= chunk:
-        return _xent_from_logits(logits_fn(model, cfg, x), targets, mask)
+        return _chunk_xent(model, cfg, x, targets, mask)
     nch = -(-S // chunk)
     pad = nch * chunk - S
     if pad:
@@ -517,19 +705,22 @@ def softmax_xent(model: LM, cfg: ModelConfig, x: torch.Tensor,
             if grad else _chunk_xent(*args)
         losses.append(loss)
         masses.append(mass)
-    return torch.stack(losses).sum() / torch.stack(masses).sum().clamp_min(1.0)
+    return torch.stack(losses).sum(), torch.stack(masses).sum()
 
 
 def loss_fn(model: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            use_kernel: Optional[bool] = None) -> torch.Tensor:
+            use_kernel: Optional[bool] = None,
+            ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` (``tokens`` or the
     frontend's ``frames``/``patches``, ``targets`` ``[B, S]`` and an
-    optional float ``mask``)."""
+    optional float ``mask``); with ``ctx`` the global batch on every rank
+    and the global mean (:func:`softmax_xent`)."""
     x = forward(model, cfg, batch.get("tokens"), use_kernel,
-                frames=batch.get("frames"), patches=batch.get("patches"))
+                frames=batch.get("frames"), patches=batch.get("patches"),
+                ctx=ctx)
     targets = batch["targets"]
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones(targets.shape, dtype=torch.float32,
                           device=targets.device)
-    return softmax_xent(model, cfg, x, targets, mask.float())
+    return softmax_xent(model, cfg, x, targets, mask.float(), ctx)

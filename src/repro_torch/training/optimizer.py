@@ -28,7 +28,8 @@ from typing import Dict, NamedTuple
 import torch
 
 __all__ = ["AdamWConfig", "AdamWState", "UPDATE_BLOCK", "adamw_init",
-           "adamw_update", "adamw_update_", "global_norm", "lr_schedule"]
+           "adamw_state_pspecs", "adamw_update", "adamw_update_",
+           "global_norm", "lr_schedule"]
 
 #: Elements of a leaf that one pass of :func:`adamw_update_` takes.
 UPDATE_BLOCK = 2 ** 24
@@ -74,6 +75,12 @@ def adamw_init(params: Tree, cfg: AdamWConfig) -> AdamWState:
            for n, p in params.items()},
         v={n: torch.zeros(p.shape, dtype=dt, device=p.device)
            for n, p in params.items()})
+
+
+def adamw_state_pspecs(param_pspecs) -> AdamWState:
+    """The state's specs: the step replicated (``()``), the moments laid
+    out as the parameters (elementwise state)."""
+    return AdamWState(step=(), m=param_pspecs, v=param_pspecs)
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,14 @@ microbatch gradient accumulation, an optional gradient transform, then
 updated in place, leaf by leaf and block by block (the reference returns
 new arrays). Each parameter's ``.grad`` holds the step's (averaged)
 gradient until the next step clears it.
+
+With a :class:`~repro_torch.models.layers.MeshContext` the step runs in
+every rank of the mesh on the same global batch and the same (replicated)
+parameters, as the reference's ``run_training`` jits its step without
+state shardings. Each rank's backward gives its share of each gradient
+(its tokens, its heads, its experts); every leaf is then summed over the
+whole mesh in rank order, so every rank holds the full gradient and the
+optimizer keeps the ranks' parameters bit-identical.
 """
 from __future__ import annotations
 
@@ -16,15 +24,24 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import collectives as C
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import MeshContext
 
-from .optimizer import AdamWConfig, AdamWState, adamw_init, adamw_update_
+from .optimizer import (AdamWConfig, AdamWState, adamw_init,
+                        adamw_state_pspecs, adamw_update_)
 
 __all__ = ["TrainState", "init_train_state", "make_grad_and_apply",
-           "make_train_step", "param_tree"]
+           "make_train_step", "param_tree", "train_state_pspecs"]
 
 Batch = Dict[str, torch.Tensor]
+
+#: Elements of one gradient reduction over the mesh: the leaves, in order,
+#: go into flat buckets of at most this many elements (a larger leaf
+#: alone), one psum a bucket (a psum a leaf made ~600 exchanges a
+#: smollm-360m step).
+REDUCE_BUCKET = 2 ** 26
 
 
 class TrainState(NamedTuple):
@@ -46,11 +63,20 @@ def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig,
     return TrainState(model, adamw_init(param_tree(model), opt_cfg))
 
 
-def _grads(model: T.LM, cfg: ModelConfig, batch: Batch, grad_accum: int
-           ) -> Tuple[torch.Tensor, Dict]:
+def train_state_pspecs(cfg: ModelConfig) -> TrainState:
+    """The reference's ``train_state_pspecs``: the parameters' spec tree
+    (:func:`~repro_torch.models.transformer.param_pspecs`) and the AdamW
+    state's, tuples of axis names."""
+    pspecs = T.param_pspecs(cfg)
+    return TrainState(params=pspecs, opt=adamw_state_pspecs(pspecs))
+
+
+def _grads(model: T.LM, cfg: ModelConfig, batch: Batch, grad_accum: int,
+           ctx: Optional[MeshContext] = None) -> Tuple[torch.Tensor, Dict]:
     """Mean loss and gradients over ``grad_accum`` equal microbatches (the
     leading axis split in order), accumulated in ``.grad`` and divided
-    once, as the reference sums and divides."""
+    once, as the reference sums and divides. With ``ctx`` each gradient
+    is summed over the mesh before the division."""
     for p in model.parameters():
         p.grad = None
     n = next(iter(batch.values())).shape[0]
@@ -61,16 +87,44 @@ def _grads(model: T.LM, cfg: ModelConfig, batch: Batch, grad_accum: int
     loss = None
     for i in range(grad_accum):
         mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-        l = T.loss_fn(model, cfg, mb)
+        l = T.loss_fn(model, cfg, mb, ctx=ctx)
         l.backward()
         loss = l.detach() if loss is None else loss + l.detach()
-    grads = {}
-    for name, p in model.named_parameters():
-        g = p.grad if p.grad is not None else torch.zeros_like(p)
-        if grad_accum > 1:
+    params = dict(model.named_parameters())
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+             for n, p in params.items()}
+    if ctx is not None:
+        _mesh_sum_(grads, ctx)
+        for n, p in params.items():
+            p.grad = grads[n]
+    if grad_accum > 1:
+        for g in grads.values():
             g /= grad_accum
-        grads[name] = g
     return (loss / grad_accum if grad_accum > 1 else loss), grads
+
+
+def _mesh_sum_(grads: Dict[str, torch.Tensor], ctx: MeshContext) -> None:
+    """Replace each gradient by its sum over every axis of the mesh (in
+    rank order, so every rank gets the same bits), bucket by bucket
+    (:data:`REDUCE_BUCKET`); the new gradients are views of the summed
+    buckets."""
+    names = list(grads)
+    i = 0
+    while i < len(names):
+        dt, n, j = grads[names[i]].dtype, 0, i
+        while j < len(names) and grads[names[j]].dtype == dt and (
+                j == i or n + grads[names[j]].numel() <= REDUCE_BUCKET):
+            n += grads[names[j]].numel()
+            j += 1
+        flat = torch.cat([grads[k].reshape(-1) for k in names[i:j]])
+        total = C.psum(flat, ctx.mesh_axes, mesh=ctx.mesh)
+        del flat
+        off = 0
+        for k in names[i:j]:
+            size = grads[k].numel()
+            grads[k] = total[off:off + size].view(grads[k].shape)
+            off += size
+        i = j
 
 
 def _apply(grads: Dict, state: TrainState, opt_cfg: AdamWConfig):
@@ -80,16 +134,18 @@ def _apply(grads: Dict, state: TrainState, opt_cfg: AdamWConfig):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    ctx: Optional[MeshContext] = None,
                     grad_accum: int = 1,
                     grad_transform: Optional[Callable] = None):
     """``step(state, batch) -> (state, metrics)`` with ``metrics`` holding
     ``loss``, ``grad_norm`` and ``lr`` as device scalars. ``grad_accum >
     1`` averages the gradients of that many microbatches;
     ``grad_transform`` maps the gradient dictionary before the optimizer
-    (the hook for gradient compression)."""
+    (the hook for gradient compression). With ``ctx`` the step is called
+    in every rank with the global batch; the loss is the global one."""
 
     def step(state: TrainState, batch: Batch):
-        loss, grads = _grads(state.params, cfg, batch, grad_accum)
+        loss, grads = _grads(state.params, cfg, batch, grad_accum, ctx)
         if grad_transform is not None:
             grads = grad_transform(grads)
         state, metrics = _apply(grads, state, opt_cfg)
@@ -99,13 +155,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     return step
 
 
-def make_grad_and_apply(cfg: ModelConfig, opt_cfg: AdamWConfig):
+def make_grad_and_apply(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                        ctx: Optional[MeshContext] = None):
     """The step split in two for host-side gradient transforms:
     ``grad_fn(model, batch) -> (loss, grads)`` and ``apply_fn(grads,
-    state) -> (state, metrics)``."""
+    state) -> (state, metrics)``; with ``ctx`` the gradients are the
+    mesh-summed ones."""
 
     def grad_fn(model: T.LM, batch: Batch):
-        return _grads(model, cfg, batch, 1)
+        return _grads(model, cfg, batch, 1, ctx)
 
     def apply_fn(grads: Dict, state: TrainState):
         return _apply(grads, state, opt_cfg)

@@ -1,0 +1,381 @@
+"""The rank side of the port's mesh tests (tests/test_torch_mesh*.py): the
+cases, a spawner of gloo ranks with a deadline, and the work each rank
+does. Imports torch and repro_torch only (a spawned rank imports this
+module, never JAX); the reference's side is tests/torch_mesh_reference.py,
+which writes what the ranks compare against into one ``.npz``."""
+from __future__ import annotations
+
+import os
+import pickle
+import subprocess
+import sys
+import time
+from pathlib import Path
+from typing import Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+#: float32 forward, loss and gradient tolerances (the forward absolute, the
+#: loss relative, a gradient leaf relative to its largest |value|); the
+#: step tolerances of tests/test_integration.py for run_training's losses
+FWD_TOL, GRAD_TOL = 1e-5, 1e-4
+FIRST_STEP_TOL, STEP_TOL = 1e-4, 2e-3
+#: seconds a spawn of ranks may take before it is killed and fails
+SPAWN_TIMEOUT = 240
+
+
+class Case(NamedTuple):
+    """One configuration on one mesh shape: the smoke config of ``arch``
+    with ``over``, in float32 with remat, ``B x S`` tokens of the
+    pipeline's batch 0 (seed 1), run with each ``sp_matmuls`` in
+    ``sps``."""
+    name: str
+    arch: str
+    over: Tuple
+    shape: Tuple[int, int]
+    sps: Tuple[bool, ...]
+    B: int = 4
+    S: int = 40
+
+
+MODEL_CASES = (
+    Case("yi_41", "yi_34b", (), (4, 1), (False, True)),
+    Case("yi_22", "yi_34b", (), (2, 2), (False, True)),
+    Case("mixtral_41", "mixtral_8x7b", (), (4, 1), (False, True)),
+    Case("mixtral_22", "mixtral_8x7b", (), (2, 2), (False, True)),
+    # tp mode: 6 experts over a 4-rank model axis, d_ff 96 split in 4
+    Case("mixtral_tp_14", "mixtral_8x7b", (("n_experts", 6),), (1, 4),
+         (False,)),
+    # 3 query heads, 1 KV head: the whole block on each model rank
+    Case("smollm_22", "smollm_360m", (), (2, 2), (False,)),
+    # 8 x 520 > 4,096 tokens: the vocab-parallel embedding
+    Case("yi_vocab_22", "yi_34b", (), (2, 2), (True,), 8, 520),
+    # per-data-shard capacity that drops assignments (T_local = 320)
+    Case("mixtral_drops_22", "mixtral_8x7b", (("capacity_factor", 0.5),),
+         (2, 2), (False,), 4, 160),
+)
+SSM_CASES = (
+    Case("mamba2_41", "mamba2_2p7b", (), (4, 1), (False,)),
+    Case("zamba2_41", "zamba2_2p7b", (), (4, 1), (False, True)),
+)
+#: the frontends with the sequence split: hubert's frames, internvl2's 8
+#: patches before 32 tokens (its 1 KV head: no SP, the whole attention on
+#: each model rank)
+FRONTEND_CASES = (
+    Case("hubert_22", "hubert_xlarge", (), (2, 2), (False, True)),
+    Case("internvl2_22", "internvl2_1b", (), (2, 2), (False,)),
+)
+#: run_training(mesh=..., steps=3) cases: (arch, mesh shape, compression)
+TRAIN_CASES = (("mixtral_8x7b", (4, 1), None), ("mixtral_8x7b", (2, 2), None),
+               ("smollm_360m", (2, 2), "topk"))
+
+
+def train_key(arch: str, shape: Tuple[int, int], compression) -> str:
+    return f"{arch}_{shape[0]}{shape[1]}" + (f"_{compression}"
+                                             if compression else "")
+TRAIN_KW = dict(steps=3, global_batch=4, seq_len=32, seed=1)
+
+
+def case_config(case: Case, cfg):
+    return cfg.with_(dtype="float32", remat=True, **dict(case.over))
+
+
+def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested dict of arrays as ``{"a/b/c": array}``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def unflatten(flat: Dict[str, np.ndarray], prefix: str) -> Dict:
+    """The nested dict under ``prefix`` of :func:`flatten`'s keys."""
+    tree: Dict = {}
+    for key, v in flat.items():
+        if not key.startswith(prefix):
+            continue
+        node, parts = tree, key[len(prefix):].split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# the reference's subprocess and the ranks' spawn
+# ---------------------------------------------------------------------------
+
+def run_reference(tmp: str, part: str) -> str:
+    """tests/torch_mesh_reference.py's ``part`` ("models" or "train") in
+    one subprocess on a 4-device host platform; the path of its
+    ``.npz``."""
+    here = Path(__file__).resolve().parent
+    path = os.path.join(tmp, f"ref_{part}.npz")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=os.pathsep.join(
+                   [str(here.parent / "src"), os.environ.get("PYTHONPATH",
+                                                             "")]))
+    proc = subprocess.run(
+        [sys.executable, str(here / "torch_mesh_reference.py"), path, part],
+        env=env, capture_output=True, text=True, timeout=SPAWN_TIMEOUT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return path
+
+
+def _entry(rank: int, fn, world: int, tmp: str, args) -> None:
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg",
+                            world_size=world, rank=rank)
+    try:
+        out = fn(rank, *args)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def spawn(fn, world: int, tmp: str, *args, timeout: float = SPAWN_TIMEOUT):
+    """Run ``fn(rank, *args)`` in ``world`` gloo ranks (spawned processes,
+    the default process group initialized and destroyed around it); the
+    ranks' return values in rank order. A rank that raises fails the
+    spawn (the others are terminated); so does the deadline."""
+    import torch.multiprocessing as mp
+
+    os.makedirs(tmp, exist_ok=True)
+    ctx = mp.start_processes(_entry, args=(fn, world, tmp, args),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{world} ranks still running after "
+                                   f"{timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    outs = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+            outs.append(pickle.load(f))
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# the ranks' work
+# ---------------------------------------------------------------------------
+
+def _batch(cfg, B: int, S: int) -> Dict[str, torch.Tensor]:
+    from repro_torch.data import TokenPipeline
+
+    return {k: torch.from_numpy(v) for k, v in TokenPipeline(
+        cfg, global_batch=B, seq_len=S, seed=1).batch_at(0).items()}
+
+
+def _leaf_errs(grads: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor]
+               ) -> Dict[str, float]:
+    """Each leaf's max |grad − ref| over the ref's largest |value| (0 where
+    both are zero)."""
+    out = {}
+    for name, r in ref.items():
+        r = r.detach()
+        scale = float(r.abs().max())
+        err = float((grads[name] - r).abs().max())
+        out[name] = err / scale if scale else err
+    return out
+
+
+def _gathered(ctx, x: torch.Tensor) -> torch.Tensor:
+    """The global ``[B, S, D]`` of a stream block."""
+    from repro_torch.models.layers import cst
+
+    return cst(ctx, x, None, None, None, frm=ctx.stream())
+
+
+def model_case(rank: int, case: Case, ref_path: str) -> Dict:
+    """Forward, loss and gradients of ``case`` on this rank's mesh with
+    each ``sp_matmuls``, against the reference's Auto-mesh results and the
+    port's one-device gradient of the same rows as one microbatch a data
+    rank (``grad_accum``: the mesh's MoE routes each data rank's tokens
+    with their own capacity; every row holds as many tokens, so the mean
+    of the microbatches' losses is the mesh's loss). Returns the errors,
+    the rank's collective counts and a digest of its reduced
+    gradients."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import model_params_from_jax
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import MeshContext
+    from repro_torch.training.trainer import _grads, param_tree
+
+    ref = dict(np.load(ref_path))
+    cfg = case_config(case, get_smoke_config(case.arch))
+    model = model_params_from_jax(cfg, unflatten(ref, f"{case.name}/params/"))
+    batch = _batch(cfg, case.B, case.S)
+    inputs = {k: batch[k] for k in ("frames", "patches") if k in batch}
+    _, g = _grads(model, cfg, batch, case.shape[0])
+    one = {n: t.clone() for n, t in g.items()}
+    mesh = make_host_mesh(model=case.shape[1], device="cpu")
+    out: Dict = {}
+    for sp in case.sps:
+        key = f"{case.name}/sp{int(sp)}"
+        ctx = MeshContext(mesh, ("data",), sp_matmuls=sp)
+        C.reset_counts()
+        with torch.no_grad():
+            x = T.forward(model, cfg, batch.get("tokens"), ctx=ctx, **inputs)
+            B, S = ref[f"{key}/x"].shape[:2]
+            xg = _gathered(ctx.at(B, S), x)
+        loss, grads = _grads(model, cfg, batch, 1, ctx)
+        want = param_tree(model_params_from_jax(
+            cfg, unflatten(ref, f"{case.name}/grads/")))
+        digest = torch.stack([g.double().sum() for g in grads.values()])
+        out[sp] = dict(
+            fwd=float((xg - torch.from_numpy(ref[f"{key}/x"])).abs().max()),
+            local_shape=tuple(x.shape),
+            loss=float(loss), ref_loss=float(ref[f"{case.name}/loss"]),
+            vs_ref=_leaf_errs(grads, want),
+            vs_one=_leaf_errs(grads, one),
+            counts={op: dict(c) for op, c in C.COUNTS.items()},
+            digest=digest.numpy())
+    return out
+
+
+def model_cases(rank: int, cases, ref_path: str) -> Dict:
+    return {c.name: model_case(rank, c, ref_path) for c in cases}
+
+
+def jobs(rank: int, *work) -> Dict:
+    """Several of this module's rank functions in one spawn: ``work`` is
+    ``(key, function name, args)`` triples; their results by key."""
+    return {key: globals()[fn](rank, *args) for key, fn, args in work}
+
+
+def train_cases(rank: int, cases, ref_path: str, ckpt: str) -> Dict:
+    """run_training(mesh=...) from the reference's initial parameters
+    (the port's initializer replaced by them), with compression where the
+    case says, then (the last case's model, no compression) a checkpoint
+    that data rank 0 of model rank 0 writes and every rank restores."""
+    import repro_torch.launch.train as LT
+    from repro_torch.convert import model_params_from_jax
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training import (TrainState, adamw_init, param_tree)
+
+    ref = dict(np.load(ref_path))
+    orig = LT.init_train_state
+    out = {}
+    try:
+        for arch, shape, compression in cases:
+            name = train_key(arch, shape, compression)
+
+            def reference_init(cfg, opt_cfg, generator, arch=arch):
+                model = model_params_from_jax(
+                    cfg, unflatten(ref, f"train/{arch}/params/"),
+                    device=generator.device)
+                return TrainState(model, adamw_init(param_tree(model),
+                                                    opt_cfg))
+
+            LT.init_train_state = reference_init
+            mesh = make_host_mesh(model=shape[1], device="cpu")
+            run = LT.run_training(arch=arch, mesh=mesh, device="cpu",
+                                  compression=compression, verbose=False,
+                                  **TRAIN_KW)
+            params = param_tree(run["state"].params)
+            out[name] = dict(losses=run["losses"], want=ref[f"train/{name}"],
+                             digest=np.array([float(p.detach().double().sum())
+                                              for p in params.values()]))
+        # checkpoints: three steps saved by one rank, every rank resumes
+        arch, shape, _ = cases[-1]
+        mesh = make_host_mesh(model=shape[1], device="cpu")
+        kw = dict(TRAIN_KW, arch=arch, mesh=mesh, device="cpu",
+                  verbose=False, checkpoint_dir=ckpt, ckpt_every=3)
+        first = LT.run_training(**kw)
+        import torch.distributed as dist
+        dist.barrier()
+        written = sorted(os.listdir(ckpt))
+        again = LT.run_training(**dict(kw, steps=4))
+        out["resume"] = dict(written=written,
+                             start_step=again["start_step"],
+                             losses=first["losses"] + again["losses"])
+    finally:
+        LT.init_train_state = orig
+    return out
+
+
+def compressed_psum_case(rank: int) -> Dict:
+    """``compressed_psum`` over each axis against the rank-order sum of
+    ``int8_round`` outputs fed the same draws, recomputed here for every
+    rank; ``method="none"`` against ``psum``; the autograd collectives'
+    forward and backward against one-process sums; a sweep mesh over the
+    first two ranks."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import compressed_psum, int8_round
+    from repro_torch.launch.mesh import make_host_mesh, make_sweep_mesh
+
+    mesh = make_host_mesh(model=2, device="cpu")
+    d, m = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+
+    def x_of(r):
+        return torch.randn(5, 7, generator=torch.Generator().manual_seed(
+            100 + r), dtype=torch.float32) * (r + 1)
+
+    def draws_of(r):
+        return torch.rand(5, 7, generator=torch.Generator().manual_seed(
+            200 + r), dtype=torch.float32)
+
+    out = {}
+    with C.use_mesh(mesh):
+        for axis, line in (("data", [m, 2 + m]), ("model", [2 * d, 2 * d + 1]),
+                           (("data", "model"), [0, 1, 2, 3])):
+            got = compressed_psum(x_of(rank), axis,
+                                  torch.Generator().manual_seed(200 + rank))
+            want = None
+            for r in line:
+                q = int8_round(x_of(r), draws_of(r))[0]
+                want = q if want is None else want + q
+            plain = compressed_psum(x_of(rank), axis, torch.Generator(),
+                                    method="none")
+            psum_want = None
+            for r in line:
+                psum_want = x_of(r) if psum_want is None \
+                    else psum_want + x_of(r)
+            out[str(axis)] = dict(int8=bool(torch.equal(got, want)),
+                                  none=bool(torch.equal(plain, psum_want)))
+        # autograd: d/dx of Σ_r <w_r, op(x)_r> on every rank's own copy
+        x = x_of(rank).requires_grad_(True)
+        w = {r: draws_of(r) for r in range(4)}
+        model_line = [2 * d, 2 * d + 1]
+        y = C.all_gather(x, "model", 1)               # [5, 14]
+        (y * torch.cat([w[r] for r in [rank]] * 2, 1)).sum().backward()
+        # Σ over the line of rank r's weight block for this rank's slot
+        want = sum(w[r] for r in model_line)
+        out["all_gather_bwd"] = bool(torch.equal(x.grad, want))
+        x.grad = None
+        stacked = C.all_gather(x_of(rank), "model", 0, tiled=False)
+        out["all_gather_stacked"] = bool(torch.equal(
+            stacked, torch.stack([x_of(r) for r in model_line])))
+        xx = torch.cat([x_of(rank), x_of(rank)], 0).requires_grad_(True)
+        z = C.psum_scatter(xx, "model", 0)            # [5, 7]
+        (z * w[rank]).sum().backward()
+        want = torch.cat([w[r] for r in model_line], 0)
+        zs = None
+        for r in model_line:
+            zs = x_of(r) if zs is None else zs + x_of(r)
+        out["psum_scatter"] = bool(torch.equal(z.detach(), zs))
+        out["psum_scatter_bwd"] = bool(torch.equal(xx.grad, want))
+        out["axis_index"] = (C.axis_index("data"), C.axis_index("model"),
+                             C.axis_index(("data", "model")))
+    sweep = make_sweep_mesh(2, device="cpu")
+    coord = sweep.get_coordinate()
+    out["sweep_mesh"] = (sweep.mesh_dim_names, tuple(sweep.shape),
+                         None if coord is None else tuple(coord))
+    return out

@@ -1,0 +1,120 @@
+"""The reference's side of the port's mesh tests: run in one subprocess
+with ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` and
+``JAX_PLATFORMS=cpu``, it computes on ``jax.make_mesh(shape, ("data",
+"model"), axis_types=(AxisType.Auto,) * 2)`` (the reference's
+``make_host_mesh`` builds Explicit axes, on which its sharding constraints
+raise under JAX 0.9) and writes one ``.npz``:
+
+    python tests/torch_mesh_reference.py OUT.npz models|train
+
+``models``: for each of torch_mesh_ranks.MODEL_CASES its initial
+parameters, for each ``sp_matmuls`` the forward's final hidden under
+``MeshContext(mesh, ("data",), sp_matmuls=sp)``, and the loss and
+``jax.grad`` of ``loss_fn`` under the first of them (the reference's SP
+and baseline gradients are one function; a compile is most of the cost).
+``train``: the same for SSM_CASES and FRONTEND_CASES, and for
+TRAIN_CASES the initial
+parameters given to ``run_training`` and its losses with ``mesh=``."""
+import os
+import sys
+
+os.environ.setdefault("XLA_FLAGS",
+                      "--xla_force_host_platform_device_count=4")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+from jax.sharding import AxisType  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_mesh_ranks as R  # noqa: E402
+
+
+def _mesh(shape):
+    return jax.make_mesh(shape, ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+
+
+def _params(cfg, seed: int = 0):
+    """Parameters in the reference's tree: Normal(0, 0.02) from NumPy in
+    every leaf (``init_params``'s shapes; run eagerly it takes seconds a
+    model on the CPU)."""
+    from repro.models import transformer as T
+
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(lambda: T.init_params(cfg, jax.random.PRNGKey(0)))
+    return jax.tree_util.tree_map(
+        lambda s: jax.numpy.asarray(
+            (rng.standard_normal(s.shape) * 0.02).astype(s.dtype)), shapes)
+
+
+def model_case(case, out):
+    from repro.configs import get_smoke_config
+    from repro.data import TokenPipeline
+    from repro.models import transformer as T
+    from repro.models.layers import MeshContext
+
+    cfg = R.case_config(case, get_smoke_config(case.arch))
+    params = _params(cfg)
+    out.update(R.flatten(params, f"{case.name}/params/"))
+    batch = {k: jax.numpy.asarray(v) for k, v in TokenPipeline(
+        cfg, global_batch=case.B, seq_len=case.S, seed=1).batch_at(0).items()}
+    for sp in case.sps:
+        ctx = MeshContext(_mesh(case.shape), ("data",), sp_matmuls=sp)
+        key = f"{case.name}/sp{int(sp)}"
+        if sp != case.sps[0]:
+            out[f"{key}/x"] = np.asarray(jax.jit(
+                lambda p, b: T.forward(p, cfg, b, ctx))(params, batch))
+            continue
+
+        def loss_and_x(p, b):
+            # loss_fn's body, the final hidden kept
+            x = T.forward(p, cfg, b, ctx)
+            return T.softmax_xent(p, cfg, x, b["targets"],
+                                  b["mask"].astype(jax.numpy.float32),
+                                  ctx), x
+
+        (loss, x), grads = jax.jit(jax.value_and_grad(
+            loss_and_x, has_aux=True))(params, batch)
+        out[f"{key}/x"] = np.asarray(x)
+        out[f"{case.name}/loss"] = np.asarray(loss)
+        out.update(R.flatten(grads, f"{case.name}/grads/"))
+
+
+def train_case(arch, shape, compression, out):
+    """``run_training(mesh=..., compression=...)`` from :func:`_params`
+    (its initializer replaced, as the port's ranks replace theirs)."""
+    import repro.training as RT
+    from repro.configs import get_smoke_config
+    from repro.launch.train import run_training
+
+    params = _params(get_smoke_config(arch).with_(remat=True),
+                     R.TRAIN_KW["seed"])
+    out.update(R.flatten(params, f"train/{arch}/params/"))
+    orig = RT.init_train_state
+    RT.init_train_state = lambda cfg, opt_cfg, key: RT.TrainState(
+        params, RT.adamw_init(params, opt_cfg))
+    try:
+        run = run_training(arch=arch, mesh=_mesh(shape), verbose=False,
+                           compression=compression, **R.TRAIN_KW)
+    finally:
+        RT.init_train_state = orig
+    out[f"train/{R.train_key(arch, shape, compression)}"] = np.asarray(
+        run["losses"])
+
+
+def main(path: str, part: str) -> None:
+    out = {}
+    if part == "models":
+        for case in R.MODEL_CASES:
+            model_case(case, out)
+    else:
+        for case in R.SSM_CASES + R.FRONTEND_CASES:
+            model_case(case, out)
+        for arch, shape, compression in R.TRAIN_CASES:
+            train_case(arch, shape, compression, out)
+    np.savez(path, **out)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2])
