@@ -184,7 +184,12 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    x and dy zeroed whose db and dc read above 3e-4 (the sums over heads
    are taken on chip); its time (CUDA events and device time), the host's
    share of a call, the plain backward's, autograd of ssd_chunked's, its
-   bound and the split plan's;
+   bound and the split plan's; then B8 and the backward on HEAD_BLOCKS
+   head blocks of the mamba2 shape, as the tensor-parallel Mamba block's
+   model ranks call them: y, the final state, dx and ddtA bit-equal to the
+   same heads of the whole call, db/dc summed over the blocks in order
+   within 3e-4 of the whole call's, a head-dropped control above it, each
+   block's time beside the whole call's;
 20. training mamba2-2.7b and zamba2-2.7b at full width and depth through
    run_training (6 steps of 8 x 1,024 tokens, bf16 compute, f32 master
    weights and Adam state, remat): launch counts per step exact (B8 twice
@@ -203,8 +208,9 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    make_train_step (6 steps, bf16 compute, f32 master weights and Adam
    state, remat; FAMILY_TRAINED): gemma2-27b at 2 of 46 layers (swa and
    full, its attention softcap through B4-B6), mixtral-8x7b at 2 of 32,
-   qwen3-moe-235b-a22b at 1 of 94, hubert-xlarge and internvl2-1b at full
-   depth (internvl2 over 1,024 patches + 512 tokens a row): launch counts
+   qwen3-moe-235b-a22b at 1 of 94, hubert-xlarge at 24 of 48 and
+   internvl2-1b at 12 of 24 (internvl2 over 1,024 patches + 512 tokens a
+   row): launch counts
    per step exact (B4 twice, B5 and B6 once an attention layer), no plain
    attention called, finite losses, the loss on the first batch lower
    after the last step, every parameter with a gradient, the first
@@ -251,9 +257,10 @@ Phases, each of which must pass (any failure exits nonzero, no result):
 25. the device mesh on the card: torch.cuda.device_count() NCCL ranks
    (spawned processes, one a card; one on a one-card machine), each on
    make_host_mesh(model=1), under a deadline of MESH_TIMEOUT_S. For
-   smollm-360m at full width and depth and mixtral-8x7b at full width
-   and 2 of its 32 layers: one float32 GRAD_B x GRAD_S gradient without
-   a mesh (one microbatch a data rank: the mesh's MoE gives each data
+   smollm-360m at full width and depth (its float32 gradient at 8 layers),
+   mixtral-8x7b at full width and 2 of its 32 layers and mamba2-2.7b at 2
+   of its 64 (its heads split over the model axis): one float32 GRAD_B x
+   GRAD_S gradient without a mesh (one microbatch a data rank: the mesh's MoE gives each data
    rank's tokens their own capacity) and on the mesh with sp_matmuls off
    and on (on where the heads and d_ff split), the loss and every
    leaf within GRAD_TOL of its largest |value|, B4/B5/B6 launches equal
@@ -261,7 +268,12 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    MESH_STEPS bf16 steps of TRAIN_B x TRAIN_S tokens without and with the
    mesh (smollm through run_training(mesh=...), mixtral through
    make_train_step with sp_matmuls on), the losses within the step
-   tolerances of each other, the step ms side by side;
+   tolerances of each other, the step ms side by side; smollm (8 layers)
+   and mamba2 again with the training state stored as each rank's blocks
+   (shard_train_state) beside the replicated state: equal losses and
+   launches, every block bit-equal after MESH_STEPS steps, each rank's
+   state bytes and peak memory; mamba2's sharded state saved with
+   mesh=/pspecs= and restored bit-equal into another sharded state;
    compressed_psum on the card bit-equal to its CPU result on the card's
    draws; the world size and the mesh shapes.
 
@@ -440,6 +452,10 @@ BWD_FAMILY_CASES = (
 #: rounds every layer's scan output and the gradient reaching it to
 #: SSM_CONTROL_BITS mantissa bits (bf16's 7) and must exceed the limit:
 #: it read 1.3e-3 to 2.2e-3.
+#: Phase 19 also runs B8 and the backward on head blocks of the mamba2
+#: training shape: HEAD_BLOCKS blocks of its 80 heads, a model rank's share
+#: of the tensor-parallel Mamba block at model = HEAD_BLOCKS.
+HEAD_BLOCKS = 4
 SSM_TRAINED = ("mamba2_2p7b", "zamba2_2p7b")
 SSM_GRAD_DEPTH = {"mamba2_2p7b": 2, "zamba2_2p7b": 6}
 SSM_GRAD_TOL, SSM_CONTROL_BITS = 3e-4, 7
@@ -449,7 +465,8 @@ SSM_GRAD_TOL, SSM_CONTROL_BITS = 3e-4, 7
 #: gemma2-27b at 2 of its 46 layers (one swa, one full), mixtral-8x7b at
 #: 2 of 32 and qwen3-moe-235b-a22b at 1 of 94 (the state of 16 bytes a
 #: parameter, 37.0, 50.6 and 59.7 GB, has to fit the card's 80 GB beside
-#: the step), hubert-xlarge and internvl2-1b at full depth (None);
+#: the step), hubert-xlarge at 24 of 48 and internvl2-1b at 12 of 24 (cut
+#: to keep the script's time as phases 19 and 25 grew);
 #: internvl2 at 1,024 patches + 512 tokens a row (phase 16's prompt: at
 #: TRAIN_S its 1,024 patches would leave no text token, and its token
 #: table no gradient). A first step above FAMILY_PEAK_GB fails the phase
@@ -467,8 +484,8 @@ SSM_GRAD_TOL, SSM_CONTROL_BITS = 3e-4, 7
 FAMILY_TRAINED = {"gemma2_27b": (2, TRAIN_B, TRAIN_S),
                   "mixtral_8x7b": (2, TRAIN_B, TRAIN_S),
                   "qwen3_moe_235b": (1, TRAIN_B, TRAIN_S),
-                  "hubert_xlarge": (None, TRAIN_B, TRAIN_S),
-                  "internvl2_1b": (None, TRAIN_B, FRONTEND_PATCHES
+                  "hubert_xlarge": (24, TRAIN_B, TRAIN_S),
+                  "internvl2_1b": (12, TRAIN_B, FRONTEND_PATCHES
                                    + FRONTEND_TOKENS)}
 FAMILY_PEAK_GB = 76.0
 FAMILY_GRAD_DEPTH = {"gemma2_27b": 2, "mixtral_8x7b": 2,
@@ -646,8 +663,18 @@ COMPRESSIONS = ("topk", "int8")
 #: all), the bf16 steps of each without and with the mesh, their losses'
 #: tolerances (the first step's, then every step's: tests/
 #: test_integration.py), and the deadline of the spawned ranks.
-MESH_MODELS = (("smollm_360m", None), ("mixtral_8x7b", 2))
+MESH_MODELS = (("smollm_360m", None), ("mixtral_8x7b", 2),
+               ("mamba2_2p7b", 2))
 MESH_STEPS, MESH_FIRST_TOL, MESH_STEP_TOL = 3, 1e-4, 2e-3
+#: The models trained again with their state stored as each rank's blocks
+#: (shard_train_state), beside the replicated state on the same mesh: the
+#: losses equal and each block after MESH_STEPS steps bit-equal to the
+#: replicated state's; MESH_CKPT's sharded state is written and restored
+#: with mesh=/pspecs=, bit-equal.
+MESH_SHARDED = (("smollm_360m", 8), ("mamba2_2p7b", 2))
+MESH_CKPT = "mamba2_2p7b"
+#: Layers of the float32 mesh gradients where fewer than MESH_MODELS's.
+MESH_GRAD_DEPTH = {"smollm_360m": 8}
 MESH_TIMEOUT_S = 240
 SOURCE = {
     "qos_matrix": "src/repro_torch/csrc/qos_kernels.cu",
@@ -687,7 +714,7 @@ EXTRA_KEYS = ("device_ms", "library_device_ms", "plan_bound_ms",
               "shapes", "moe_launches", "frontend_launches",
               "cluster_launches", "profile_launches", "profile_device_ms",
               "profile_ms_per_launch", "autograd_ms", "training_launches",
-              "host_enqueue_ms")
+              "host_enqueue_ms", "head_block")
 
 
 def cluster_record(report, assignment) -> dict:
@@ -3660,11 +3687,13 @@ def _host_ms_by_op(fn, top: int = 6) -> list:
     return sorted(rows, key=lambda kv: -kv[1])[:top]
 
 
-def phase_ssd_bwd_kernel(dev) -> dict:
+def phase_ssd_bwd_kernel(dev) -> tuple:
     """The backward kernel against the float64 plain backward
     (ssd_chunked_bwd), two calls bitwise, and a control with one head's x
     and dy zeroed whose db and dc must read above the gate; numbers at the
-    mamba2 training shape, with the host's share of a call."""
+    mamba2 training shape, with the host's share of a call; then B8 and
+    the backward on head blocks (:func:`_ssd_head_blocks`). Returns the
+    backward's row and B8's head-block reading."""
     import torch
     import torch.nn.functional as F
 
@@ -3793,6 +3822,7 @@ def phase_ssd_bwd_kernel(dev) -> dict:
         del x, dtA, b, c, dy, dyp, xp, ap, bp, cp, ent, dec
         torch.cuda.empty_cache()
     z = rows["zamba2 training"]
+    blocks = _ssd_head_blocks(dev)
     note = (f"zamba2 shape {z['shape']}: {z['ms']:.4f} ms (device "
             f"{z['device_ms']:.4f}; host enqueue {z['host_enqueue_ms']:.4f}), "
             f"bound {z['bound_ms']:.4f} (plan {z['plan_bound_ms']:.4f}) "
@@ -3800,7 +3830,95 @@ def phase_ssd_bwd_kernel(dev) -> dict:
             f"autograd of ssd_chunked {z['autograd_ms']:.4f}; no Pallas "
             "counterpart (the reference differentiates jnp ssd_chunked)")
     return {"ssd_scan_bwd": dict(rows["mamba2 training"], max_abs_err=err,
-                                 note=note)}
+                                 note=note, head_block=blocks["bwd"])}, \
+        blocks["fwd"]
+
+
+def _ssd_head_blocks(dev) -> dict:
+    """B8 and the SSD backward on HEAD_BLOCKS head blocks of the mamba2
+    training shape, as the model ranks of the tensor-parallel Mamba block
+    call them (B and C whole, each block's own forward scratch): y, the
+    final state, dx and ddtA bit-equal to the same heads of the whole
+    call; the blocks' db/dc partials, summed in block order, within
+    SSD_TOL of the whole call's (its sums over heads are on chip, in head
+    order); a control with one head's x and dy zeroed in one block, whose
+    sum must read above it; each block launch's event ms beside the whole
+    call's."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as ss
+
+    B, L, H, P, N, chunk = TRAIN_B, TRAIN_S, 80, 64, 128, 256
+    k = H // HEAD_BLOCKS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1919)
+    x, dtA, b, c = _ssd_inputs(B, L, H, P, N, gen)
+    dy = torch.randn((B, L, H, P), generator=gen, device=dev)
+
+    def fwd(x_, a_):
+        return ss.ssd_scan_cuda_steps(x_, a_, b, c, chunk=chunk)
+
+    def bwd(x_, a_, dy_, st):
+        return ss.ssd_scan_bwd(x_, a_, b, c, dy_, chunk=chunk,
+                               entering_states=st["entering_states"],
+                               chunk_decay=st["chunk_decay"],
+                               use_kernel=True)
+
+    whole = fwd(x, dtA)
+    gw = bwd(x, dtA, dy, whole)
+    sums = {"blocks": [None, None], "control": [None, None]}
+    times = {"fwd": [], "bwd": []}
+    for j in range(HEAD_BLOCKS):
+        hs = slice(j * k, (j + 1) * k)
+        xs, as_, dys = (t[:, :, hs].contiguous() for t in (x, dtA, dy))
+        st = fwd(xs, as_)
+        g = bwd(xs, as_, dys, st)
+        for name, got, want in (("y", st["y"], whole["y"][:, :, hs]),
+                                ("final state", st["final_state"],
+                                 whole["final_state"][:, hs]),
+                                ("dx", g[0], gw[0][:, :, hs]),
+                                ("ddtA", g[1], gw[1][:, :, hs])):
+            check(torch.equal(got, want), f"head block {j} ({k} of {H} "
+                  f"heads): {name} differs from the whole call's: max "
+                  f"{float((got - want).abs().max())}")
+        ctrl = g
+        if j == HEAD_BLOCKS // 2:
+            xd, dyd = _head_dropped(xs, dys, k // 2)
+            ctrl = bwd(xd, as_, dyd, st)
+            del xd, dyd
+        for key, gg in (("blocks", g), ("control", ctrl)):
+            sums[key] = [t if acc is None else acc + t
+                         for acc, t in zip(sums[key], gg[2:4])]
+        times["fwd"].append(time_ms(lambda: fwd(xs, as_)))
+        times["bwd"].append(time_ms(lambda: bwd(xs, as_, dys, st)))
+        del xs, as_, dys, st, g, ctrl
+    torch.cuda.synchronize()
+
+    def err(parts):
+        return max(float((p - w).abs().max() / w.abs().max())
+                   for p, w in zip(parts, gw[2:4]))
+
+    e, ctrl = err(sums["blocks"]), err(sums["control"])
+    whole_ms = {"fwd": time_ms(lambda: fwd(x, dtA)),
+                "bwd": time_ms(lambda: bwd(x, dtA, dy, whole))}
+    log(f"  head blocks [{B},{L},{k} of {H},{P},{N}] chunk {chunk} "
+        f"({HEAD_BLOCKS} blocks, B and C whole): y, final state, dx and "
+        f"ddtA bit-equal to the whole call's heads; db/dc summed over the "
+        f"blocks in order {e:.3g} of the whole call's largest |value| "
+        f"(its sums over heads on chip), control (one head's x and dy "
+        f"zeroed in block {HEAD_BLOCKS // 2}) {ctrl:.3g}; limit {SSD_TOL}")
+    for kind, name in (("fwd", "B8"), ("bwd", "SSD backward")):
+        log(f"    {name} a head block " + ", ".join(
+            f"{t:.4f}" for t in times[kind]) + f" ms (events); the whole "
+            f"call {whole_ms[kind]:.4f} ms; the blocks together "
+            f"{sum(times[kind]):.4f} ms")
+    check(e <= SSD_TOL, f"head blocks' db/dc {e} above {SSD_TOL}")
+    check(ctrl > SSD_TOL, f"head-block control {ctrl} within {SSD_TOL}")
+    del x, dtA, b, c, dy, whole, gw
+    torch.cuda.empty_cache()
+    return {kind: dict(shape=[B, L, k, P, N], blocks=HEAD_BLOCKS,
+                       ms=times[kind], whole_ms=whole_ms[kind],
+                       db_dc_err=e, control=ctrl)
+            for kind in ("fwd", "bwd")}
 
 
 # ===========================================================================
@@ -5206,10 +5324,11 @@ def _mesh_grads(dev, cfg, ctx) -> dict:
     loss0, g = _grads(model, cfg32, batch, ctx.data_size)
     want = {n: t.detach().clone() for n, t in g.items()}
     launches0 = {k: n // ctx.data_size for k, n in _launches().items()}
-    out = {"launches": launches0, "rows": rows}
+    out = {"launches": launches0, "rows": rows, "layers": cfg.n_layers}
     m = ctx.model_size
-    splits = all(n % m == 0 for n in (cfg.gqa.n_q_pad, cfg.gqa.n_kv_pad,
-                                      cfg.d_ff_pad))
+    sizes = (cfg.ssm_heads,) if cfg.family == "ssm" else (
+        cfg.gqa.n_q_pad, cfg.gqa.n_kv_pad, cfg.d_ff_pad)
+    splits = all(n % m == 0 for n in sizes)
     for sp in (False, True) if splits else (False,):
         _reset_launches()
         C.reset_counts()
@@ -5237,12 +5356,14 @@ def _mesh_grads(dev, cfg, ctx) -> dict:
     return out
 
 
-def _mesh_steps(dev, cfg, mesh, arch: str, depth, sp: bool) -> dict:
+def _mesh_steps(dev, cfg, mesh, arch: str, depth, sp: bool):
     """MESH_STEPS bf16 steps of TRAIN_B x TRAIN_S tokens from one seed
     without and with the mesh: a model at full depth through run_training,
     a cut one through make_train_step (with ``sp`` as sp_matmuls); without
     the mesh one microbatch a data rank, as :func:`_mesh_grads` says;
-    each step's ms, ended by reading the loss on the host."""
+    each step's ms, ended by reading the loss on the host. Returns the
+    runs and the gates they fail (the losses within MESH_FIRST_TOL and
+    MESH_STEP_TOL of one device's, the launches equal)."""
     import torch
 
     from repro_torch.data import TokenPipeline
@@ -5289,12 +5410,156 @@ def _mesh_steps(dev, cfg, mesh, arch: str, depth, sp: bool) -> dict:
     first = abs(on["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
     worst = max(abs(a - b) / abs(b) for a, b in zip(on["losses"],
                                                     one["losses"]))
-    check(first <= MESH_FIRST_TOL and worst <= MESH_STEP_TOL,
-          f"{arch} mesh losses {on['losses']} vs {one['losses']}")
-    check(on["launches"] == one["launches"], f"{arch} mesh step launches "
-          f"{on['launches']} != {one['launches']}")
+    failed = [what for ok, what in (
+        (first <= MESH_FIRST_TOL and worst <= MESH_STEP_TOL,
+         f"{arch} mesh losses {on['losses']} vs {one['losses']} (first "
+         f"{first:.3g} of {MESH_FIRST_TOL}, worst {worst:.3g} of "
+         f"{MESH_STEP_TOL})"),
+        (on["launches"] == one["launches"], f"{arch} mesh step launches "
+         f"{on['launches']} != {one['launches']}")) if not ok]
     torch.cuda.empty_cache()
-    return runs
+    return runs, failed
+
+
+def _mesh_sharded(dev, cfg, ctx, arch: str, tmp: str) -> dict:
+    """MESH_STEPS bf16 TRAIN_B x TRAIN_S steps of make_train_step on the
+    mesh with the state stored as this rank's blocks, then with the
+    replicated state from the same seed (each run's peak counted above
+    what the card holds besides its own state, by step up to the
+    optimizer and in it; the sharded state's gradients freed before the
+    replicated run): losses, step ms, launches, bytes of state and peak
+    GB of each, every block bit-equal
+    to the same block of the replicated state after the steps; for
+    MESH_CKPT a checkpoint of the sharded state saved and restored with
+    mesh=/pspecs= into another sharded state,
+    bit-equal, with its seconds."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.layers import block_of
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step, param_tree,
+                                      shard_train_state, state_bytes,
+                                      train_state_pspecs)
+
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=10)
+    pipe = TokenPipeline(cfg, global_batch=TRAIN_B, seq_len=TRAIN_S,
+                         seed=SEED)
+    step = make_train_step(cfg, opt, ctx)
+
+    def init():
+        return init_train_state(cfg, opt, torch.Generator(device=dev)
+                                .manual_seed(SEED))
+
+    cuda = dev.type == "cuda"       # tools/mesh_phase.py --cpu: no card
+
+    def run(state):
+        # each step's peaks above what the card holds besides this state:
+        # up to the optimizer (forward, backward, the replicated state's
+        # reduction) and the optimizer's own (trainer._apply), so that the
+        # two layouts' peaks can be told apart by phase
+        from repro_torch.training import trainer
+
+        base, grads_gb, update_gb = 0, [], []
+        apply = trainer._apply
+
+        def split_apply(*a, **k):
+            grads_gb.append((torch.cuda.max_memory_allocated(dev) - base)
+                            / 1e9)
+            torch.cuda.reset_peak_memory_stats(dev)
+            return apply(*a, **k)
+
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev) - state_bytes(state)
+            trainer._apply = split_apply
+        _reset_launches()
+        losses, ms = [], []
+        try:
+            for i in range(MESH_STEPS):
+                t = time.perf_counter()
+                state, metrics = step(state, _train_batch(pipe, i, dev))
+                losses.append(float(metrics["loss"]))
+                ms.append(1e3 * (time.perf_counter() - t))
+                if cuda:
+                    update_gb.append((torch.cuda.max_memory_allocated(dev)
+                                      - base) / 1e9)
+                    torch.cuda.reset_peak_memory_stats(dev)
+        finally:
+            trainer._apply = apply
+        return state, dict(losses=losses, step_ms=ms, launches=_launches(),
+                           state_bytes=state_bytes(state),
+                           peak_gb=max(grads_gb + update_gb, default=0.0),
+                           grads_peak_gb=grads_gb, update_peak_gb=update_gb)
+
+    whole = init()
+    sharded = shard_train_state(whole, cfg, ctx)
+    del whole
+    sharded, out_s = run(sharded)
+    for p in sharded.params.parameters():   # the same baseline for both
+        p.grad = None
+    whole, out_r = run(init())
+    check(out_s["losses"] == out_r["losses"], f"{arch} sharded state's "
+          f"losses {out_s['losses']} != the replicated state's "
+          f"{out_r['losses']}")
+    check(out_s["launches"] == out_r["launches"], f"{arch} sharded state's "
+          f"launches {out_s['launches']} != {out_r['launches']}")
+    worst, where = 0.0, ""
+    full = {**{f"params/{n}": p.detach() for n, p in
+               param_tree(whole.params).items()},
+            **{f"m/{n}": t for n, t in whole.opt.m.items()},
+            **{f"v/{n}": t for n, t in whole.opt.v.items()}}
+    specs = {n: p.pspec for n, p in param_tree(sharded.params).items()}
+    mine = {**{f"params/{n}": p.detach() for n, p in
+               param_tree(sharded.params).items()},
+            **{f"m/{n}": t for n, t in sharded.opt.m.items()},
+            **{f"v/{n}": t for n, t in sharded.opt.v.items()}}
+    for key, got in mine.items():
+        want = block_of(full[key], specs[key.split("/", 1)[1]], ctx)
+        e = 0.0 if torch.equal(got, want) else float(
+            (got - want).abs().max()) / max(float(full[key].abs().max()),
+                                            1e-30)
+        if e > worst:
+            worst, where = e, key
+    check(worst == 0.0, f"{arch} sharded state after {MESH_STEPS} steps: "
+          f"block {where} {worst} of its leaf's largest |value| off the "
+          "replicated state's")
+    out = dict(sharded=out_s, replicated=out_r, worst=worst, worst_leaf=where)
+    del whole, full
+    if arch == MESH_CKPT:
+        pspecs = train_state_pspecs(cfg)
+        path = os.path.join(tmp, "sharded_ckpt")
+        t = time.perf_counter()
+        save_checkpoint(path, MESH_STEPS, sharded, mesh=ctx.mesh,
+                        pspecs=pspecs)
+        dist.barrier()
+        save_s = time.perf_counter() - t
+        like = shard_train_state(init_train_state(
+            cfg, opt, torch.Generator(device=dev).manual_seed(SEED + 1)),
+            cfg, ctx)
+        t = time.perf_counter()
+        back = restore_checkpoint(path, MESH_STEPS, like, mesh=ctx.mesh,
+                                  pspecs=pspecs)
+        restore_s = time.perf_counter() - t
+        same = int(back.opt.step) == MESH_STEPS and all(
+            torch.equal(a.detach(), b.detach()) for a, b in zip(
+                [*param_tree(back.params).values(), *back.opt.m.values(),
+                 *back.opt.v.values()],
+                [*param_tree(sharded.params).values(),
+                 *sharded.opt.m.values(), *sharded.opt.v.values()]))
+        check(same, f"{arch}: the sharded checkpoint restored with mesh=/"
+              "pspecs= differs from the state saved")
+        out["checkpoint"] = dict(save_s=save_s, restore_s=restore_s,
+                                 bytes=sum(f.stat().st_size for f in
+                                           Path(path).rglob("*.npy")))
+        del like, back
+    del sharded
+    torch.cuda.empty_cache()
+    return out
 
 
 def _mesh_profile(dev, cfg, mesh) -> dict:
@@ -5374,15 +5639,27 @@ def mesh_rank(rank: int, world: int, init_file: str, out_dir: str,
             t0 = time.perf_counter()
             cfg = get_config(arch).with_(
                 remat=True, **({"n_layers": depth} if depth else {}))
-            grads = _mesh_grads(dev, cfg, ctx)
-            steps = _mesh_steps(dev, cfg, mesh, arch, depth,
-                                "sp1" in grads)
+            grads = _mesh_grads(dev, cfg.with_(n_layers=MESH_GRAD_DEPTH.get(
+                arch, cfg.n_layers)), ctx)
+            # a gate of the steps that fails is read after every case
+            # has run (phase_mesh fails the phase on it)
+            steps, failed = _mesh_steps(dev, cfg, mesh, arch, depth,
+                                        "sp1" in grads)
             out["models"][arch] = dict(grads=grads, steps=steps,
-                                       layers=cfg.n_layers)
+                                       layers=cfg.n_layers, failed=failed)
             if profile and depth is None:
                 out["models"][arch]["profile"] = _mesh_profile(dev, cfg,
                                                                mesh)
             out["models"][arch]["seconds"] = time.perf_counter() - t0
+        out["sharded"] = {}
+        for arch, depth in MESH_SHARDED:
+            t0 = time.perf_counter()
+            cfg = get_config(arch).with_(
+                remat=True, **({"n_layers": depth} if depth else {}))
+            out["sharded"][arch] = _mesh_sharded(dev, cfg, ctx, arch,
+                                                 out_dir)
+            out["sharded"][arch]["layers"] = cfg.n_layers
+            out["sharded"][arch]["seconds"] = time.perf_counter() - t0
         # compressed_psum on the card against the CPU, on the card's draws
         x_of = [torch.randn(4096, generator=torch.Generator().manual_seed(
             SEED + r)) * (r + 1) for r in range(world)]
@@ -5450,7 +5727,7 @@ def phase_mesh(dev, model: int = 1, profile: bool = False) -> dict:
                 log(f"  {arch}: no SP on this model axis (heads or d_ff do "
                     "not split)")
                 continue
-            log(f"  {arch} ({r['layers']} layers) {sp}: float32 "
+            log(f"  {arch} ({g['layers']} layers) {sp}: float32 "
                 f"{g['rows']}x{GRAD_S} gradient on the mesh vs without: "
                 f"loss {g[sp]['loss_err']:.3g}, worst leaf "
                 f"{g[sp]['grad_err']:.3g} ({g[sp]['worst']}); launches "
@@ -5474,8 +5751,47 @@ def phase_mesh(dev, model: int = 1, profile: bool = False) -> dict:
                 f"{k} {v:.1f} ms" for k, v in r["profile"]["mesh"]
                 ["host_ops"]))
         log(f"  {arch} took {r['seconds']:.1f} s in rank 0")
+    world_note = "the mesh has one rank: a block is the whole leaf" \
+        if world == 1 else f"{world} ranks"
+    for arch, r in out["sharded"].items():
+        for kind in ("sharded", "replicated"):
+            st = r[kind]
+            log(f"  {arch} ({r['layers']} layers) {TRAIN_B}x{TRAIN_S} bf16 "
+                f"steps on the mesh, state {kind}: losses "
+                f"{', '.join(f'{x:.5f}' for x in st['losses'])}; step ms "
+                f"{', '.join(f'{x:.1f}' for x in st['step_ms'])}; "
+                f"launches {st['launches']}")
+        log(f"  {arch} state bytes a rank, sharded vs replicated "
+            f"({world_note}): " + ", ".join(
+                f"rank {i} {rk['sharded'][arch]['sharded']['state_bytes']}"
+                for i, rk in enumerate(ranks))
+            + f" vs {r['replicated']['state_bytes']}; peak GB a rank, "
+            "sharded vs replicated: " + ", ".join(
+                f"rank {i} {rk['sharded'][arch]['sharded']['peak_gb']:.2f} "
+                f"vs {rk['sharded'][arch]['replicated']['peak_gb']:.2f}"
+                for i, rk in enumerate(ranks)))
+        log(f"  {arch} rank 0's peak GB by step, up to the optimizer | the "
+            "optimizer's own (each above what the card holds besides the "
+            "run's state; the other state holds no gradients): " + "; ".join(
+                f"{kind} " + ", ".join(
+                    f"{g:.2f} | {u:.2f}" for g, u in zip(
+                        r[kind]["grads_peak_gb"], r[kind]["update_peak_gb"]))
+                for kind in ("sharded", "replicated")))
+        log(f"  {arch} blocks after {MESH_STEPS} steps vs the replicated "
+            f"state's: worst {r['worst']:.3g} ({r['worst_leaf'] or 'every '
+            'block bit-equal'})")
+        if "checkpoint" in r:
+            ck = r["checkpoint"]
+            log(f"  {arch} sharded checkpoint ({ck['bytes'] / 1e9:.2f} GB, "
+                "the reference's format): saved with mesh=/pspecs= in "
+                f"{ck['save_s']:.1f} s, restored into another sharded "
+                f"state in {ck['restore_s']:.1f} s, bit-equal")
+        log(f"  {arch} sharded run took {r['seconds']:.1f} s in rank 0")
     log("  compressed_psum on the card bit-equal to the CPU's on the same "
         "draws in every rank")
+    failed = sorted({what for rk in ranks for r in rk["models"].values()
+                     for what in r["failed"]})
+    check(not failed, "phase 25's steps: " + "; ".join(failed))
     out["wall_s"] = wall
     return out
 
@@ -5588,7 +5904,9 @@ def main() -> int:
     log("phase 19: the SSD scan's backward kernel vs the float64 plain "
         "backward")
     t19 = time.perf_counter()
-    kern.update(phase_ssd_bwd_kernel(dev))
+    bwd_row, head_block_fwd = phase_ssd_bwd_kernel(dev)
+    kern.update(bwd_row)
+    kern["ssd_scan"]["head_block"] = head_block_fwd
     log(f"  phase 19 took {time.perf_counter() - t19:.1f} s; chip_smoke so "
         f"far {time.perf_counter() - t_start:.1f} s")
     log(f"phase 20: training {', '.join(SSM_TRAINED)}, {TRAIN_STEPS} steps "
@@ -5673,11 +5991,16 @@ def main() -> int:
                  *((f"smollm_360m {m}", r) for m, r in
                    compressed.items())] if a != "tiny"}
         if row["name"] in ("flash_attention", "flash_attention_dq",
-                           "flash_attention_dkv"):
+                           "flash_attention_dkv", "ssd_scan",
+                           "ssd_scan_bwd"):
             row["mesh_launches"] = {
                 f"{a} {kind}": r["steps"][kind]["launches"][row["name"]]
                 for a, r in meshed["models"].items()
                 for kind in ("one", "mesh")}
+            row["mesh_launches"].update({
+                f"{a} {kind} state": r[kind]["launches"][row["name"]]
+                for a, r in meshed["sharded"].items()
+                for kind in ("sharded", "replicated")})
         if row["name"] in fleet["launches"]:
             row["fleet_launches"] = fleet["launches"][row["name"]]
         for arch, r in quant.items():

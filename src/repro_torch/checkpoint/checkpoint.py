@@ -23,6 +23,16 @@ their logical dtype in the manifest, as the reference stores its
 ``ml_dtypes`` leaves, and are decoded with torch, so NumPy needs no bf16
 type. Restoring into a tree that holds a module loads the module's
 parameters in place.
+
+A state sharded over a device mesh (``shard_train_state``: each rank
+holds its blocks) is saved and restored with ``mesh=`` and ``pspecs=``
+(``train_state_pspecs``, the reference's tree): the save gathers each
+leaf whole in every rank and one rank (index 0 on every axis) writes it,
+leaf by leaf, so the checkpoint is the reference's format and a device
+holds one whole leaf at a time; the restore reads each leaf in every
+rank, checks its digest, and keeps the rank's block (a replicated
+``tree_like`` comes back sharded). Checkpoints pass both ways between a
+sharded state, the one-device port and the reference.
 """
 from __future__ import annotations
 
@@ -33,7 +43,7 @@ import shutil
 import threading
 import time
 from pathlib import Path
-from typing import Any, List, Optional, Tuple
+from typing import Any, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,12 +90,21 @@ def _flatten(tree) -> Tuple[List[Any], str]:
     return leaves, treedef
 
 
-def _unflatten(like, leaves):
+def _unflatten(like, leaves, blocks=None):
     """``like``'s structure with the leaves of the iterator ``leaves``
-    (modules loaded in place)."""
+    (modules loaded in place). ``blocks``, ``(mesh context, iterator of
+    the leaves' specs)``: the leaves are this rank's blocks, and a module
+    stored whole is first copied as blocks."""
     if _is_namedtuple(like):
-        return type(like)(*(_unflatten(x, leaves) for x in like))
+        return type(like)(*(_unflatten(x, leaves, blocks) for x in like))
     if isinstance(like, nn.Module):
+        if blocks is not None:
+            from repro_torch.models.layers import is_blocks, shard_module
+
+            ctx, specs = blocks
+            by_name = {n: next(specs) for n, _ in like.named_parameters()}
+            if not is_blocks(like):
+                like = shard_module(like, by_name, ctx)
         with torch.no_grad():
             for name, p in like.named_parameters():
                 val = next(leaves)
@@ -96,10 +115,12 @@ def _unflatten(like, leaves):
                 p.copy_(val)
         return like
     if isinstance(like, dict):
-        vals = {k: _unflatten(like[k], leaves) for k in sorted(like)}
+        vals = {k: _unflatten(like[k], leaves, blocks) for k in sorted(like)}
         return {k: vals[k] for k in like}
     if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(x, leaves) for x in like)
+        return type(like)(_unflatten(x, leaves, blocks) for x in like)
+    if blocks is not None:
+        next(blocks[1])
     return next(leaves).to(like.device)
 
 
@@ -154,11 +175,83 @@ def _write(directory: Path, step: int, host_leaves, treedef: str,
     return final
 
 
-def save_checkpoint(directory, step: int, tree, *, keep: int = 3) -> Path:
-    """Blocking save. Returns the final checkpoint path."""
+def save_checkpoint(directory, step: int, tree, *, keep: int = 3,
+                    mesh=None, pspecs=None) -> Path:
+    """Blocking save. Returns the final checkpoint path. With ``mesh`` and
+    ``pspecs`` (a sharded state; every rank calls it) each leaf is
+    gathered whole and written by one rank before the next is
+    gathered."""
     leaves, treedef = _flatten(tree)
-    return _write(Path(directory), step, [_to_host(x) for x in leaves],
-                  treedef, keep)
+    if mesh is None:
+        return _write(Path(directory), step, [_to_host(x) for x in leaves],
+                      treedef, keep)
+    writer, host = _gathered(tree, leaves, mesh, pspecs)
+    if writer:
+        return _write(Path(directory), step, host, treedef, keep)
+    for _ in host:          # the gathers are collectives
+        pass
+    return Path(directory) / f"step_{step:09d}"
+
+
+def _mesh_ctx(mesh):
+    from repro_torch.models.layers import MeshContext
+
+    return MeshContext(mesh, tuple(a for a in mesh.mesh_dim_names
+                                   if a != "model"))
+
+
+def _leaf_specs(tree, pspecs) -> List[Tuple[tuple, Optional[tuple]]]:
+    """``(spec, whole shape)`` of each leaf of a training state ``tree``
+    in flatten order. ``pspecs`` mirrors it as ``train_state_pspecs``
+    gives it: a NamedTuple by field, a module by a tree of the
+    reference's shape (``param_pspecs``), the AdamW moments (dicts keyed
+    by a module's parameter names) by that module's tree, a tensor by a
+    tuple. Whole shapes come from the module's parameters (a block's
+    ``whole_shape``), by name; a tensor without one is whole."""
+    from repro_torch.models.transformer import leaf_pspecs
+
+    out: List[Tuple[tuple, Optional[tuple]]] = []
+    seen: List[Tuple[Any, dict, dict]] = []    # (spec tree, specs, shapes)
+
+    def walk(node, spec):
+        if _is_namedtuple(node):
+            for f in node._fields:
+                walk(getattr(node, f), getattr(spec, f))
+        elif isinstance(node, nn.Module):
+            by_name = leaf_pspecs(node, tree=spec)
+            shapes = {n: tuple(getattr(p, "whole_shape", p.shape))
+                      for n, p in node.named_parameters()}
+            seen.append((spec, by_name, shapes))
+            out.extend((tuple(by_name[n]), shapes[n]) for n in shapes)
+        elif isinstance(node, dict):
+            by_name, shapes = next((b, sh) for t, b, sh in seen
+                                   if t is spec or t == spec)
+            out.extend((tuple(by_name[k]), shapes[k]) for k in sorted(node))
+        else:
+            out.append((tuple(spec), None))
+
+    walk(tree, pspecs)
+    return out
+
+
+def _gathered(tree, leaves, mesh, pspecs) -> Tuple[bool, Iterator]:
+    """``(writer, host leaves)``: whether this rank writes, and a
+    generator that gathers each leaf whole in turn (on every rank) and
+    yields its host copy (None on the other ranks)."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models.layers import whole_of
+
+    ctx = _mesh_ctx(mesh)
+    writer = C.axis_index(ctx.mesh_axes, mesh=mesh) == 0
+    specs = _leaf_specs(tree, pspecs)
+
+    def gen():
+        for leaf, (spec, shape) in zip(leaves, specs):
+            whole = whole_of(leaf, spec, shape or tuple(leaf.shape), ctx)
+            yield _to_host(whole) if writer else None
+            del whole
+
+    return writer, gen()
 
 
 def _gc(directory: Path, keep: int) -> None:
@@ -188,27 +281,40 @@ def latest_step(directory) -> Optional[int]:
     return best
 
 
-def restore_checkpoint(directory, step: int, tree_like, *,
-                       verify: bool = True):
+def restore_checkpoint(directory, step: int, tree_like, *, mesh=None,
+                       pspecs=None, verify: bool = True):
     """Restore step ``step`` into the structure of ``tree_like``: tensor
-    leaves on their ``like``'s device, modules loaded in place. Raises
-    :class:`IOError` on a checksum mismatch and :class:`ValueError` when
-    the leaf count or a module's shapes differ."""
+    leaves on their ``like``'s device, modules loaded in place. With
+    ``mesh`` and ``pspecs`` each rank keeps its block of each leaf as it
+    reads it (a module stored whole becomes a copy stored as blocks).
+    Raises :class:`IOError` on a checksum mismatch and
+    :class:`ValueError` when the leaf count or a module's shapes
+    differ."""
     path = Path(directory) / f"step_{step:09d}"
     manifest = json.loads((path / "manifest.json").read_text())
     leaves_like, _ = _flatten(tree_like)
     if len(manifest["leaves"]) != len(leaves_like):
         raise ValueError(f"leaf count mismatch: {len(manifest['leaves'])} "
                          f"in {path} vs {len(leaves_like)}")
+    ctx = specs = None
+    if mesh is not None and pspecs is not None:
+        from repro_torch.models.layers import block_of
+
+        ctx = _mesh_ctx(mesh)
+        specs = [sp for sp, _ in _leaf_specs(tree_like, pspecs)]
     out = []
-    for meta in manifest["leaves"]:
+    for i, meta in enumerate(manifest["leaves"]):
         arr = np.load(path / meta["name"])
         if verify and hashlib.sha256(arr.tobytes()).hexdigest() \
                 != meta["sha256"]:
             raise IOError(f"checksum mismatch in {path / meta['name']}")
-        out.append(_decode_leaf(arr, meta["dtype"], meta["shape"],
-                                meta.get("raw_encoded", False)))
-    return _unflatten(tree_like, iter(out))
+        leaf = _decode_leaf(arr, meta["dtype"], meta["shape"],
+                            meta.get("raw_encoded", False))
+        if ctx is not None:
+            leaf = block_of(leaf, specs[i], ctx).clone()
+        out.append(leaf)
+    return _unflatten(tree_like, iter(out),
+                      None if ctx is None else (ctx, iter(specs)))
 
 
 class CheckpointManager:
@@ -221,15 +327,24 @@ class CheckpointManager:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
 
-    def maybe_save(self, step: int, tree) -> bool:
+    def maybe_save(self, step: int, tree, *, mesh=None, pspecs=None
+                   ) -> bool:
         """At every ``every``-th step: copy the leaves to the host on this
         thread (the caller may update the tree right after), then write
-        them on a background thread."""
+        them on a background thread. With ``mesh`` and ``pspecs`` (a
+        sharded state; every rank calls it) the leaves are gathered whole
+        one at a time and one rank writes them."""
         if step % self.every:
             return False
         self.wait()
         leaves, treedef = _flatten(tree)
-        host = [_to_host(x) for x in leaves]
+        if mesh is None:
+            host = [_to_host(x) for x in leaves]
+        else:
+            writer, gen = _gathered(tree, leaves, mesh, pspecs)
+            host = list(gen)
+            if not writer:
+                return True
 
         def work():
             try:
@@ -250,10 +365,12 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def restore_latest(self, tree_like):
+    def restore_latest(self, tree_like, *, mesh=None, pspecs=None):
         """``(step, tree)`` of the newest finished checkpoint, or
-        ``(None, None)``."""
+        ``(None, None)``; ``mesh``/``pspecs`` as for
+        :func:`restore_checkpoint`."""
         step = latest_step(self.directory)
         if step is None:
             return None, None
-        return step, restore_checkpoint(self.directory, step, tree_like)
+        return step, restore_checkpoint(self.directory, step, tree_like,
+                                        mesh=mesh, pspecs=pspecs)

@@ -28,11 +28,32 @@ local sequence (the baseline), or a ``psum_scatter`` (Megatron-SP,
 which also all-gather the FSDP weight shard). Where the heads or ``d_ff``
 do not divide the model axis the baseline runs the whole block on every
 model rank. The MoE shards its experts (ep) or its ``d_ff`` (tp) over the
-model axis, with the capacity of this rank's tokens. The Mamba2 block runs
-on the gathered sequence of the local batch (no tensor-parallel scan).
-Parameters are replicated on every rank and sliced at use; each rank's
-backward gives its share of a parameter's gradient, which the trainer sums
-over the mesh.
+model axis, with the capacity of this rank's tokens. The Mamba2 block
+splits its SSM heads over the model axis (:func:`mamba_block`): each model
+rank computes its heads' columns of ``z``, ``x`` and ``dt`` and the whole
+``B``/``C`` channels, scans its heads through B8, takes the gated norm's
+sum of squares as a psum over the model axis and sums its rows of
+``out_proj`` back into the stream as the MLP does; where the heads do not
+divide the axis the block runs whole on every model rank.
+
+Parameters are stored in one of two layouts. **Replicated** (the layout
+``init_params`` gives): every rank holds every parameter whole, slices it
+at use, and its backward gives its share of each gradient, which the
+trainer sums over the mesh. **Blocks** (``shard_train_state``): every
+rank holds only its block of each parameter as ``train_state_pspecs``
+lays it out (a ``"data"`` dimension split over the FSDP axes, a
+``"model"`` dimension over the model axis, a size that does not divide
+its axis whole); each block parameter carries its spec and whole shape
+(``pspec``, ``whole_shape``). A layer then materializes its parameters
+on entry (:func:`local_params`): each is all-gathered from the blocks
+over the FSDP axes, unless the layer gathers the FSDP block itself in
+the compute dtype (:func:`_fsdp`: the SP projections, the MoE's experts,
+the vocab-parallel lookup of an untied table), and over the model axis,
+unless the rank computes with the very block it stores (attention's
+heads, the MLP's and the MoE's ``d_ff`` or experts, the Mamba block's
+``out_proj`` rows and norm scale, the table's vocabulary rows). The
+gathers' backward sums the ranks' gradients of the block in rank order,
+the reduction the replicated layout's trainer makes over the whole mesh.
 """
 from __future__ import annotations
 
@@ -209,19 +230,27 @@ def _model_slice(ctx: MeshContext, n: int) -> Optional[slice]:
     return slice(i * (n // m), (i + 1) * (n // m))
 
 
-def _fsdp(ctx: MeshContext, w: torch.Tensor, dim: int) -> torch.Tensor:
+def _fsdp(ctx: MeshContext, w: torch.Tensor, dim: int, whole: int
+          ) -> torch.Tensor:
     """The reference's FSDP all-gather of a weight inside a shard_map body:
-    this data rank's block of ``dim``, all-gathered over the FSDP axes
-    (the replicated weight's values; its backward reduce-scatters the
-    gradient over the data ranks)."""
+    this data rank's block of ``dim`` (whole size ``whole``), all-gathered
+    over the FSDP axes (the replicated weight's values; its backward
+    reduce-scatters the gradient over the data ranks). A replicated weight
+    is narrowed to the block first; a weight stored as blocks reaches here
+    as its stored block (:func:`local_params` keeps the FSDP dimension of
+    the weights these sites gather) and is gathered as it is."""
     n = C.axis_size(ctx.fsdp_axes, mesh=ctx.mesh)
-    if w.shape[dim] % n:
+    if whole % n:
         raise ValueError(f"dimension {dim} of a {tuple(w.shape)} weight "
                          f"does not split over the {n} FSDP ranks")
-    size = w.shape[dim] // n
-    i = C.axis_index(ctx.fsdp_axes, mesh=ctx.mesh)
-    return C.all_gather(w.narrow(dim, i * size, size), ctx.fsdp_axes, dim,
-                        mesh=ctx.mesh)
+    size = whole // n
+    if w.shape[dim] == whole:
+        i = C.axis_index(ctx.fsdp_axes, mesh=ctx.mesh)
+        w = w.narrow(dim, i * size, size)
+    elif w.shape[dim] != size:
+        raise ValueError(f"dimension {dim} of a {tuple(w.shape)} weight is "
+                         f"neither whole ({whole}) nor an FSDP block")
+    return C.all_gather(w, ctx.fsdp_axes, dim, mesh=ctx.mesh)
 
 
 def _sp_sharded(ctx: Optional[MeshContext]) -> bool:
@@ -241,6 +270,266 @@ def _divides(ctx: MeshContext, what: str, *sizes: int) -> None:
     if any(n % m for n in sizes):
         raise ValueError(f"{what} {sizes} do not split over the {m}-rank "
                          "model axis (the reference's shard_map raises)")
+
+
+def _part(w: torch.Tensor, dim: int, n: int, sl: Optional[slice]
+          ) -> torch.Tensor:
+    """This model rank's slice ``sl`` of dimension ``dim`` (whole size
+    ``n``) of ``w``: a whole (replicated) weight is narrowed, a stored
+    block (:func:`local_params` keeps the block the rank computes with) is
+    that slice already; ``sl`` None is the whole dimension."""
+    if w.shape[dim] == n:
+        return w if sl is None else w.narrow(dim, sl.start,
+                                              sl.stop - sl.start)
+    if sl is None or w.shape[dim] != sl.stop - sl.start:
+        raise ValueError(f"dimension {dim} of a {tuple(w.shape)} weight is "
+                         f"neither whole ({n}) nor this rank's block {sl}")
+    return w
+
+
+# ===========================================================================
+# Parameters stored as each rank's block (the sharded training state)
+# ===========================================================================
+
+Spec = Tuple[Optional[str], ...]
+
+
+def leaf_split(ctx: MeshContext, spec: Spec, shape
+               ) -> Tuple[Optional[Tuple[str, ...]], ...]:
+    """For each dimension of a leaf of whole ``shape`` laid out as
+    ``spec``: the mesh axes it is split over — the FSDP axes for
+    ``"data"``, the model axis for ``"model"`` — or None where it stays
+    whole (no name, an axis of one rank, or a size that does not divide
+    the axis: GSPMD pads such a dimension, the port keeps it whole)."""
+    out = []
+    for name, size in zip(spec, shape):
+        axes = {"data": tuple(ctx.fsdp_axes),
+                "model": (ctx.model_axis,)}.get(name)
+        n = C.axis_size(axes, mesh=ctx.mesh) if axes else 1
+        out.append(axes if n > 1 and size % n == 0 else None)
+    return tuple(out)
+
+
+def block_of(t: torch.Tensor, spec: Spec, ctx: MeshContext
+             ) -> torch.Tensor:
+    """This rank's block of the whole leaf ``t`` (a view)."""
+    for dim, axes in enumerate(leaf_split(ctx, spec, t.shape)):
+        if axes is not None:
+            n = C.axis_size(axes, mesh=ctx.mesh)
+            b = t.shape[dim] // n
+            t = t.narrow(dim, C.axis_index(axes, mesh=ctx.mesh) * b, b)
+    return t
+
+
+class _LeafPlan:
+    """How one block parameter is materialized for a layer and how its
+    gradient goes back: the dimensions all-gathered (every split one but
+    those of ``keep``, which the layer uses as stored: the model block it
+    computes with, or the FSDP block that :func:`_fsdp` gathers in the
+    compute dtype itself), and the ranks whose gradients of this rank's
+    block are summed — the FSDP axes unless their block is kept (then
+    :func:`_fsdp`'s backward sums them) and the model axis unless its
+    block is kept (a rank outside that set adds exact zeros to the block
+    in the replicated layout's sum over the mesh)."""
+
+    def __init__(self, ctx: MeshContext, spec: Spec, shape,
+                 keep: Tuple[int, ...] = ()):
+        self.ctx = ctx
+        split = leaf_split(ctx, spec, shape)
+        fsdp, model = tuple(ctx.fsdp_axes), (ctx.model_axis,)
+        kept = {split[d] for d in keep if split[d] is not None}
+        # (axes, dim) of each gathered dimension, the FSDP one first (the
+        # mesh's order)
+        self.gather = sorted(((axes, d) for d, axes in enumerate(split)
+                              if axes is not None and axes not in kept),
+                             key=lambda ad: ad[0] != fsdp)
+        self.sizes = [(C.axis_size(a, mesh=ctx.mesh), d)
+                      for a, d in self.gather]
+        self.reduce = tuple(a for axes in (fsdp, model) if axes not in kept
+                            and C.axis_size(axes, mesh=ctx.mesh) > 1
+                            for a in axes)
+
+    @property
+    def trivial(self) -> bool:
+        return not self.gather and not self.reduce
+
+    def materialize(self, block: torch.Tensor) -> torch.Tensor:
+        """The all-gathered weight (no autograd)."""
+        if not self.gather:
+            return block
+        axes = tuple(a for g, _ in self.gather for a in g)
+        mesh = self.ctx.mesh
+        n = C.axis_size(axes, mesh=mesh)
+        stacked = C._gather(block.unsqueeze(0), C._group(mesh, axes), n, 0)
+
+        def assemble(t, sizes):
+            if not sizes:
+                return t[0]
+            k, dim = sizes[0]
+            parts = t.unflatten(0, (k, -1))
+            return torch.cat([assemble(parts[i], sizes[1:])
+                              for i in range(k)], dim=dim)
+
+        return assemble(stacked, self.sizes)
+
+    def reduce_grad(self, g: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the sum over :attr:`reduce`'s ranks (in
+        rank order) of their gradients of the materialized weight."""
+        if not self.reduce:
+            return g
+        mesh = self.ctx.mesh
+        n = C.axis_size(self.reduce, mesh=mesh)
+        group = C._group(mesh, self.reduce)
+        if not self.gather:
+            return C._sum(g, group, n)
+        m = C.axis_size(self.ctx.model_axis, mesh=mesh) \
+            if self.ctx.model_axis in self.reduce else 1
+        fsdp = tuple(self.ctx.fsdp_axes)
+        regions = []
+        for k in range(n):          # the reduce group's rank k
+            r = g
+            for (axes, dim), (size, _) in zip(self.gather, self.sizes):
+                idx = k // m if axes == fsdp else k % m
+                b = g.shape[dim] // size
+                r = r.narrow(dim, idx * b, b)
+            regions.append(r)
+        return C._scatter_sum(torch.stack(regions), group, n, 0)[0]
+
+
+class _Materialize(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, block, plan: _LeafPlan):
+        fctx.plan = plan
+        out = plan.materialize(block)
+        return out.view_as(out) if out is block else out
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.plan.reduce_grad(g.contiguous()), None
+
+
+def _kept_dims(cfg: ModelConfig, ctx: MeshContext) -> dict:
+    """``{"<module>.<leaf>": dimensions}``: the dimensions of a layer's
+    weight that the layer uses as this rank stores them, read from the
+    rules the layers split by (:func:`_head_slices`, :func:`_model_slice`,
+    :func:`_moe_ep`, :func:`_sp_sharded`): the model block it computes
+    with, and the FSDP block of a weight it gathers through
+    :func:`_fsdp` (the SP projections, the MoE's experts). The rest are
+    materialized whole; :func:`_part` and :func:`_fsdp` raise where a
+    weight is neither whole nor the block they expect."""
+    sp = _sp_sharded(ctx)
+    out = {}
+
+    def keep(module, dims, model_on, fsdp_dims=None):
+        for leaf, m in dims.items():
+            d = ((m,) if model_on else ()) + (
+                (fsdp_dims[leaf],) if fsdp_dims else ())
+            out[f"{module}.{leaf}"] = d
+
+    if cfg.n_heads:
+        keep("attn", {"wq": 1, "wk": 1, "wv": 1, "wo": 0},
+             _head_slices(cfg, ctx) is not None,
+             sp and {"wq": 0, "wk": 0, "wv": 0, "wo": 2})
+    if cfg.d_ff:
+        keep("mlp", {"w_gate": 1, "w_up": 1, "w_down": 0},
+             _model_slice(ctx, cfg.d_ff_pad) is not None,
+             sp and {"w_gate": 0, "w_up": 0, "w_down": 1})
+    if cfg.n_experts:
+        ep = _moe_ep(cfg, ctx)
+        keep("moe", {"w_gate": 0 if ep else 2, "w_up": 0 if ep else 2,
+                     "w_down": 0 if ep else 1}, True,
+             {"w_gate": 1, "w_up": 1, "w_down": 2})
+    if cfg.ssm_heads:
+        keep("block", {"out_proj": 0, "norm_scale": 0},
+             _model_slice(ctx, cfg.ssm_heads) is not None)
+    return out
+
+
+class _Local:
+    """A module read through this rank's materialized parameters: an
+    attribute that names a parameter gives its tensor, a sub-module a view
+    of it, anything else (a ``ModuleList``, None, a flag) the module's
+    own."""
+
+    def __init__(self, module: nn.Module, tensors: dict, prefix: str = ""):
+        self.__dict__.update(_module=module, _tensors=tensors,
+                             _prefix=prefix)
+
+    def __getattr__(self, name: str):
+        key = self._prefix + name
+        if key in self._tensors:
+            return self._tensors[key]
+        v = getattr(self._module, name)
+        if isinstance(v, nn.Module) and not isinstance(v, nn.ModuleList):
+            return _Local(v, self._tensors, key + ".")
+        return v
+
+
+def is_blocks(module) -> bool:
+    """Whether ``module``'s parameters are stored as blocks
+    (:func:`shard_module`)."""
+    if isinstance(module, _Local):
+        return False
+    p = next(module.parameters(), None)
+    return p is not None and hasattr(p, "pspec")
+
+
+def local_params(module, cfg: ModelConfig, ctx: Optional[MeshContext],
+                 recurse: bool = True, kept: Optional[dict] = None):
+    """``module`` read through this rank's working copies of its
+    parameters: itself where they are replicated (or without a mesh),
+    else a view whose tensors are materialized from the stored blocks
+    (:class:`_LeafPlan`), keeping as stored the dimensions ``kept`` names
+    (default :func:`_kept_dims`; ``recurse=False`` takes the module's own
+    parameters only, as the model takes its embedding, head and final
+    norm). A layer calls it on entry, so under remat the gathers run
+    again in the recompute and a layer's whole weights live only while
+    it runs."""
+    if ctx is None or not is_blocks(module):
+        return module
+    if kept is None:
+        kept = _kept_dims(cfg, ctx)
+    tensors = {}
+    for name, p in module.named_parameters(recurse=recurse):
+        plan = _plan(p, ctx, kept.get(".".join(name.split(".")[-2:]), ()))
+        tensors[name] = p if plan.trivial else _Materialize.apply(p, plan)
+    return _Local(module, tensors)
+
+
+def _plan(p: nn.Parameter, ctx: MeshContext, keep: Tuple[int, ...]
+          ) -> _LeafPlan:
+    """The block parameter ``p``'s plan on ``ctx``'s mesh, made once and
+    kept on the parameter (a layer asks for it twice a step under
+    remat)."""
+    key = (id(ctx.mesh), tuple(ctx.fsdp_axes), ctx.model_axis, keep)
+    plans = p.__dict__.setdefault("mesh_plans", {})
+    if key not in plans:
+        plans[key] = _LeafPlan(ctx, p.pspec, p.whole_shape, keep)
+    return plans[key]
+
+
+def shard_module(module: nn.Module, specs: dict, ctx: MeshContext
+                 ) -> nn.Module:
+    """A copy of ``module`` whose parameters are this rank's blocks of its
+    parameters (``specs``: their specs by name), each a new parameter
+    carrying ``pspec`` (its spec) and ``whole_shape``."""
+    import copy
+
+    memo = {}
+    for name, p in module.named_parameters():
+        blk = nn.Parameter(block_of(p.detach(), specs[name], ctx).clone(),
+                           requires_grad=p.requires_grad)
+        blk.pspec, blk.whole_shape = tuple(specs[name]), tuple(p.shape)
+        memo[id(p)] = blk
+    return copy.deepcopy(module, memo)
+
+
+@torch.no_grad()
+def whole_of(t: torch.Tensor, spec: Spec, shape, ctx: MeshContext
+             ) -> torch.Tensor:
+    """The whole leaf from every rank's block ``t`` (a collective: every
+    rank calls it)."""
+    return _LeafPlan(ctx, spec, shape).materialize(t.detach())
 
 
 # ===========================================================================
@@ -448,10 +737,11 @@ def _attention_mesh(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         q, k, v = sp_qkv(ctx, cfg, x, p.wq, p.wk, p.wv)
     else:
         x = cst(ctx, x, "batch", None, None, frm=stream)
-        qs, kvs = heads if heads is not None else (slice(None),) * 2
-        q = _project_heads(x, p.wq[:, qs], dt)
-        k = _project_heads(x, p.wk[:, kvs], dt)
-        v = _project_heads(x, p.wv[:, kvs], dt)
+        qs, kvs = heads if heads is not None else (None, None)
+        nq, nkv = cfg.gqa.n_q_pad, cfg.gqa.n_kv_pad
+        q = _project_heads(x, _part(p.wq, 1, nq, qs), dt)
+        k = _project_heads(x, _part(p.wk, 1, nkv, kvs), dt)
+        v = _project_heads(x, _part(p.wv, 1, nkv, kvs), dt)
     B, S = x.shape[0], q.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device
                              ).expand(B, S)
@@ -463,7 +753,7 @@ def _attention_mesh(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     if sp:
         out = sp_out_proj(ctx, cfg, o, p.wo)
         return cst(ctx, out, *stream, frm=("batch", "model", None)), (k, v)
-    wo = p.wo if heads is None else p.wo[heads[0]]
+    wo = _part(p.wo, 0, cfg.gqa.n_q_pad, heads and heads[0])
     H, hd, D = wo.shape
     out = o.flatten(-2) @ wo.reshape(H * hd, D).to(dt)
     if heads is not None:
@@ -504,16 +794,16 @@ def mlp_block(p: MLP, cfg: ModelConfig, x: torch.Tensor,
         return dense(h, p.w_down, dt)
     stream = ctx.stream()
     if _sp_sharded(ctx):
-        _divides(ctx, "d_ff", p.w_gate.shape[1])
+        _divides(ctx, "d_ff", cfg.d_ff_pad)
         x = cst(ctx, x, "batch", "model", None, frm=stream)
         out = sp_mlp(ctx, cfg, x, p.w_gate, p.w_up, p.w_down)
         return cst(ctx, out, *stream, frm=("batch", "model", None))
     x = cst(ctx, x, "batch", None, None, frm=stream)
-    f = _model_slice(ctx, p.w_gate.shape[1])
-    fs = f if f is not None else slice(None)
-    h = _act(cfg.act)(dense(x, p.w_gate[:, fs], dt)) \
-        * dense(x, p.w_up[:, fs], dt)
-    out = dense(h, p.w_down[fs], dt)
+    F_ = cfg.d_ff_pad
+    f = _model_slice(ctx, F_)
+    h = _act(cfg.act)(dense(x, _part(p.w_gate, 1, F_, f), dt)) \
+        * dense(x, _part(p.w_up, 1, F_, f), dt)
+    out = dense(h, _part(p.w_down, 0, F_, f), dt)
     if f is not None:
         out = C.psum(out, ctx.model_axis, mesh=ctx.mesh)
     return cst(ctx, out, *stream, frm=("batch", None, None))
@@ -531,9 +821,12 @@ def sp_qkv(ctx: MeshContext, cfg: ModelConfig, x: torch.Tensor, wq, wk,
     reduce-scatter; the weights' FSDP shard is all-gathered too."""
     dt = torch_dtype(cfg.dtype)
     qs, kvs = _head_slices(cfg, ctx)
+    nq, nkv, D = cfg.gqa.n_q_pad, cfg.gqa.n_kv_pad, cfg.d_model
     xg = C.all_gather(x, ctx.model_axis, 1, mesh=ctx.mesh)
-    return tuple(_project_heads(xg, _fsdp(ctx, w[:, s].to(dt), 0), dt)
-                 for w, s in ((wq, qs), (wk, kvs), (wv, kvs)))
+    return tuple(_project_heads(
+        xg, _fsdp(ctx, _part(w, 1, n, s).to(dt), 0, D), dt)
+                 for w, n, s in ((wq, nq, qs), (wk, nkv, kvs),
+                                 (wv, nkv, kvs)))
 
 
 def sp_out_proj(ctx: MeshContext, cfg: ModelConfig, o: torch.Tensor, wo
@@ -542,7 +835,8 @@ def sp_out_proj(ctx: MeshContext, cfg: ModelConfig, o: torch.Tensor, wo
     ``[B/data, S/model, D]`` block through an explicit psum_scatter."""
     dt = torch_dtype(cfg.dtype)
     qs, _ = _head_slices(cfg, ctx)
-    wo_ = _fsdp(ctx, wo[qs].to(dt), 2)
+    wo_ = _fsdp(ctx, _part(wo, 0, cfg.gqa.n_q_pad, qs).to(dt), 2,
+                cfg.d_model)
     H, hd, D = wo_.shape
     part = o.flatten(-2) @ wo_.reshape(H * hd, D)
     return C.psum_scatter(part, ctx.model_axis, 1, mesh=ctx.mesh)
@@ -553,11 +847,13 @@ def sp_mlp(ctx: MeshContext, cfg: ModelConfig, x: torch.Tensor, wg, wu,
     """Fused SP MLP: gather the sequence once, this rank's ``d_ff`` slice,
     psum_scatter out."""
     dt = torch_dtype(cfg.dtype)
-    f = _model_slice(ctx, wg.shape[1])
+    F_ = cfg.d_ff_pad
+    f = _model_slice(ctx, F_)
     xg = C.all_gather(x, ctx.model_axis, 1, mesh=ctx.mesh)
-    h = _act(cfg.act)(xg @ _fsdp(ctx, wg[:, f].to(dt), 0)) \
-        * (xg @ _fsdp(ctx, wu[:, f].to(dt), 0))
-    part = h @ _fsdp(ctx, wd[f].to(dt), 1)
+    D = cfg.d_model
+    h = _act(cfg.act)(xg @ _fsdp(ctx, _part(wg, 1, F_, f).to(dt), 0, D)) \
+        * (xg @ _fsdp(ctx, _part(wu, 1, F_, f).to(dt), 0, D))
+    part = h @ _fsdp(ctx, _part(wd, 0, F_, f).to(dt), 1, D)
     return C.psum_scatter(part, ctx.model_axis, 1, mesh=ctx.mesh)
 
 
@@ -685,6 +981,12 @@ def _moe_experts(x: torch.Tensor, router: torch.Tensor, w_gate, w_up,
     return out
 
 
+def _moe_ep(cfg: ModelConfig, ctx: MeshContext) -> bool:
+    """Whether the mesh MoE shards its experts over the model axis (ep),
+    else every expert's ``d_ff`` (tp)."""
+    return cfg.n_experts % ctx.model_size == 0
+
+
 def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor,
               ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """MoE FFN of ``x [B, S, D]``; without ``ctx`` on one device, capacity
@@ -709,7 +1011,7 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     dt = torch_dtype(cfg.dtype)
     B, S = ctx.shape
     m, E = ctx.model_size, cfg.n_experts
-    ep_mode = E % m == 0
+    ep_mode = _moe_ep(cfg, ctx)
     n_local = E // m if ep_mode else E
     shardable = B % ctx.data_size == 0
     T_local = (B * S) // ctx.data_size if shardable else B * S
@@ -720,14 +1022,17 @@ def moe_block(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     if ep_mode:
         e0 = ctx.model_index * n_local
         es = slice(e0, e0 + n_local)
-        gw, uw, dw = p.w_gate[es], p.w_up[es], p.w_down[es]
+        gw, uw, dw = (_part(w, 0, E, es)
+                      for w in (p.w_gate, p.w_up, p.w_down))
     else:
         e0 = 0
-        _divides(ctx, "MoE d_ff", p.w_gate.shape[2])
-        f = _model_slice(ctx, p.w_gate.shape[2])
-        gw, uw, dw = p.w_gate[:, :, f], p.w_up[:, :, f], p.w_down[:, f]
-    gw, uw = (_fsdp(ctx, w.to(dt), 1) for w in (gw, uw))
-    dw = _fsdp(ctx, dw.to(dt), 2)
+        F_ = cfg.d_ff_pad
+        _divides(ctx, "MoE d_ff", F_)
+        f = _model_slice(ctx, F_)
+        gw, uw, dw = (_part(p.w_gate, 2, F_, f), _part(p.w_up, 2, F_, f),
+                      _part(p.w_down, 1, F_, f))
+    gw, uw = (_fsdp(ctx, w.to(dt), 1, D) for w in (gw, uw))
+    dw = _fsdp(ctx, dw.to(dt), 2, D)
     out = _moe_experts(xl.reshape(-1, D), p.router, gw, uw, dw, cfg,
                        capacity, e0, n_local).reshape(xl.shape)
     if sp:
@@ -809,22 +1114,71 @@ def mamba_block(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
     tensors passed in are not modified.
 
     With ``ctx`` (no cache) ``x`` and ``out`` are this rank's stream
-    blocks: the block runs whole on its rows' gathered sequence on every
-    model rank (no tensor-parallel scan), and the new cache is that of the
-    gathered sequence."""
+    blocks, and the block runs on its rows' gathered sequence. Where the
+    SSM heads divide the model axis, this model rank computes heads ``[i ·
+    H/m, (i+1) · H/m)`` (the reference's constraints on ``z``, ``xBC``,
+    ``dt`` and ``xin``): its columns of ``z``, of ``xBC``'s ``x`` part and
+    of ``dt``, the whole ``B``/``C`` channels (replicated over the model
+    axis, as the reference keeps them), the conv on those channels, the
+    scan of its heads with ``D_skip``, the gated norm with its sum of
+    squares over ``d_inner`` a psum over the model axis, and its rows of
+    ``out_proj``, summed over the model axis into the stream (a psum and a
+    slice, or a psum_scatter under SP). The new cache is that of its
+    channels and heads. Elsewhere the block runs whole on every model
+    rank."""
     if ctx is not None:
         if cache is not None:
             raise NotImplementedError("a mesh runs full-sequence forwards "
                                       "only (no cache)")
-        stream = ctx.stream()
-        out, new_cache = mamba_block(
-            p, cfg, cst(ctx, x, "batch", None, None, frm=stream),
-            use_kernel=use_kernel)
+        return _mamba_mesh(p, cfg, x, ctx, use_kernel)
+    return _mamba_heads(p, cfg, x, cache, use_kernel)
+
+
+def _mamba_mesh(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
+                ctx: MeshContext, use_kernel: Optional[bool]):
+    """:func:`mamba_block` on a mesh."""
+    stream = ctx.stream()
+    x = cst(ctx, x, "batch", None, None, frm=stream)
+    H, hp = cfg.ssm_heads, cfg.ssm_head_dim
+    hs = _model_slice(ctx, H)
+    if hs is None:
+        out, new_cache = _mamba_heads(p, cfg, x, None, use_kernel)
         return cst(ctx, out, *stream, frm=("batch", None, None)), new_cache
+    din, N = cfg.d_inner, cfg.ssm_state
+    ch = slice(hs.start * hp, hs.stop * hp)      # this rank's d_inner
+    # [z | x | B | C | dt] columns of in_proj, [x | B | C] conv channels
+    cols = (ch, slice(din + ch.start, din + ch.stop),
+            slice(2 * din, 2 * din + 2 * N),
+            slice(2 * din + 2 * N + hs.start, 2 * din + 2 * N + hs.stop))
+    chans = (ch, slice(din, din + 2 * N))
+    w = dict(in_proj=torch.cat([p.in_proj[:, c] for c in cols], 1),
+             conv_w=torch.cat([p.conv_w[:, c] for c in chans], 1),
+             conv_b=torch.cat([p.conv_b[c] for c in chans]),
+             A_log=p.A_log[hs], D_skip=p.D_skip[hs], dt_bias=p.dt_bias[hs],
+             norm_scale=_part(p.norm_scale, 0, din, ch),
+             out_proj=_part(p.out_proj, 0, din, ch))
+    out, new_cache = _mamba_heads(
+        _Local(p, w), cfg, x, None, use_kernel,
+        sumsq=lambda t: C.psum(t, ctx.model_axis, mesh=ctx.mesh))
+    if _sp_sharded(ctx):
+        out = C.psum_scatter(out, ctx.model_axis, 1, mesh=ctx.mesh)
+        return cst(ctx, out, *stream, frm=("batch", "model", None)), \
+            new_cache
+    out = C.psum(out, ctx.model_axis, mesh=ctx.mesh)
+    return cst(ctx, out, *stream, frm=("batch", None, None)), new_cache
+
+
+def _mamba_heads(p, cfg: ModelConfig, x: torch.Tensor, cache,
+                 use_kernel: Optional[bool], sumsq=None):
+    """The Mamba2 block on the heads ``p``'s weights hold (``A_log``'s
+    length; every head on one device): ``sumsq`` sums the gated norm's
+    sums of squares over the ranks that hold the other heads (None: this
+    block holds all of ``d_inner``)."""
     dt_ = torch_dtype(cfg.dtype)
     Bsz, S, _ = x.shape
-    din, N, H, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
+    N, hp = cfg.ssm_state, cfg.ssm_head_dim
+    H = p.A_log.shape[0]
+    din = H * hp
     conv_ch = din + 2 * N
 
     zxbcdt = dense(x, p.in_proj, dt_)
@@ -862,7 +1216,15 @@ def mamba_block(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
         Y = y1[:, None]
 
     Y = Y.to(dt_) + xin * p.D_skip.to(dt_)[None, None, :, None]
-    Y = Y.reshape(Bsz, S, din)
-    Y = rms_norm(Y * F.silu(z), p.norm_scale, cfg.norm_eps)
+    Y = Y.reshape(Bsz, S, din) * F.silu(z)
+    if sumsq is None:
+        Y = rms_norm(Y, p.norm_scale, cfg.norm_eps)
+    else:
+        # the norm over d_inner = every rank's heads: its sum of squares
+        # summed over them, each rank scaling its own slice
+        yf = Y.float()
+        ms = sumsq(yf.pow(2).sum(-1, keepdim=True)) / cfg.d_inner
+        Y = (yf * torch.rsqrt(ms + cfg.norm_eps)
+             * (1.0 + p.norm_scale.float())).to(Y.dtype)
     out = dense(Y, p.out_proj, dt_)
     return out, (new_conv.to(dt_), final_state.float())

@@ -227,13 +227,17 @@ def param_pspecs(cfg: ModelConfig, stacked: bool = True) -> Dict:
     return specs
 
 
-def leaf_pspecs(model: LM, cfg: ModelConfig) -> Dict[str, Spec]:
+def leaf_pspecs(model: LM, cfg: Optional[ModelConfig] = None, *,
+                tree: Optional[Dict] = None) -> Dict[str, Spec]:
     """``{parameter name: spec}`` for the port's parameters, through
     :func:`~repro_torch.convert.reference_leaves`: a per-layer parameter
-    takes its stacked leaf's spec without the leading ``None``."""
+    takes its stacked leaf's spec without the leading ``None``. The specs
+    are ``tree`` (a tree of the reference's shape, as
+    :func:`param_pspecs` gives) or ``param_pspecs(cfg)``."""
     from repro_torch.convert import reference_leaves
 
-    tree = param_pspecs(cfg)
+    if tree is None:
+        tree = param_pspecs(cfg)
     out: Dict[str, Spec] = {}
     for leaf in reference_leaves(model):
         spec = tree
@@ -261,16 +265,17 @@ def embed_tokens(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     FSDP shard all-gathered), a masked gather, a psum over the model
     axis."""
     dt = L.torch_dtype(cfg.dtype)
+    vocab_parallel = _vocab_parallel(ctx, tokens)
     if ctx is not None:
-        B, S = tokens.shape
-        ctx = ctx.at(B, S)
+        ctx = ctx.at(*tokens.shape)
         tokens = cst(ctx, tokens, "batch", None)
-    if ctx is None or B * S <= 4096 or B % ctx.data_size:
+    if not vocab_parallel:
         x = model.tok[tokens].to(dt)
     else:
         L._divides(ctx, "vocabulary rows", cfg.vocab_pad)
         rows = L._model_slice(ctx, cfg.vocab_pad)
-        table = L._fsdp(ctx, model.tok[rows].to(dt), 1)
+        table = L._fsdp(ctx, L._part(model.tok, 0, cfg.vocab_pad, rows)
+                        .to(dt), 1, cfg.d_model)
         local = tokens - rows.start
         ok = (local >= 0) & (local < table.shape[0])
         x = table[local.clamp(0, table.shape[0] - 1)] * ok[..., None].to(dt)
@@ -278,6 +283,16 @@ def embed_tokens(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
     return x
+
+
+def _vocab_parallel(ctx: Optional[MeshContext],
+                    tokens: Optional[torch.Tensor]) -> bool:
+    """Whether :func:`embed_tokens` looks ``tokens`` up vocab-parallel:
+    on a mesh, above 4,096 tokens, a batch that divides the data axes."""
+    if ctx is None or tokens is None:
+        return False
+    B, S = tokens.shape
+    return B * S > 4096 and B % ctx.data_size == 0
 
 
 def _global_shape(cfg: ModelConfig, tokens, frames, patches
@@ -358,7 +373,10 @@ def _dense_layer(lp: DenseLayer, cfg: ModelConfig, x: torch.Tensor,
                  stash: Optional[AttentionStash] = None,
                  ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """One [attention → MLP or MoE] layer with its residuals; ``stash``
-    keeps its attention output across a recompute (``save_attn``)."""
+    keeps its attention output across a recompute (``save_attn``). A
+    layer stored as blocks materializes its weights here
+    (:func:`~.layers.local_params`)."""
+    lp = L.local_params(lp, cfg, ctx)
     h = L.rms_norm(x, lp.ln1, cfg.norm_eps)
     a, _ = L.attention_block(lp.attn, cfg, h, start, window=window,
                              kv_cache=kv, kv_len=kv_len, ring=ring,
@@ -415,6 +433,7 @@ def _mamba_layer(lp: MambaLayer, cfg: ModelConfig, x: torch.Tensor,
                  use_kernel: Optional[bool],
                  ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """One pre-norm Mamba2 layer with its residual, from a zero state."""
+    lp = L.local_params(lp, cfg, ctx)
     m, _ = L.mamba_block(lp.block, cfg, L.rms_norm(x, lp.ln, cfg.norm_eps),
                          use_kernel=use_kernel, ctx=ctx)
     return x + m
@@ -477,10 +496,12 @@ def run_hybrid_stack(model: LM, cfg: ModelConfig, x: torch.Tensor,
     state."""
     k = cfg.shared_attn_every
     remat = cache is None and _remat(cfg)
+    # blocks stored as blocks materialize once for all their applications
+    shared = [L.local_params(sp, cfg, ctx) for sp in model.shared]
     for seg in range(cfg.n_layers // k):
         x = run_mamba_stack(model, cfg, x, cache, use_kernel,
                             range(seg * k, (seg + 1) * k), ctx)
-        sp = model.shared[seg % cfg.n_shared_blocks]
+        sp = shared[seg % cfg.n_shared_blocks]
         kv = None if cache is None else (cache.kv_k[seg], cache.kv_v[seg])
         args = (sp, cfg, x, start, kv, kv_len, use_kernel, ctx)
         x = checkpoint(_shared_block, *args, use_reentrant=False) if remat \
@@ -568,6 +589,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                     for k, (s, d) in spec.items()}), ring
 
 
+def _local_model(model, cfg: ModelConfig, ctx: Optional[MeshContext],
+                 tokens: Optional[torch.Tensor] = None):
+    """The model read through its embedding, head, frontends and final
+    norm as this rank's working tensors (:func:`~.layers.local_params`,
+    once a forward: a tied table's embedding and head, and every chunk of
+    the loss, share one materialized copy); a model stored as blocks
+    needs its mesh. An untied table looked up vocab-parallel
+    (:func:`embed_tokens` on ``tokens``) is used as stored: this model
+    rank's rows, its FSDP block gathered by the lookup."""
+    if ctx is None and L.is_blocks(model):
+        raise ValueError("a model stored as blocks (shard_train_state) "
+                         "runs on its mesh: pass ctx")
+    rows = model.head is not None and _vocab_parallel(ctx, tokens)
+    return L.local_params(model, cfg, ctx, recurse=False,
+                          kept={"tok": (0, 1)} if rows else {})
+
+
 def forward(model: LM, cfg: ModelConfig,
             tokens: Optional[torch.Tensor] = None,
             use_kernel: Optional[bool] = None, *,
@@ -581,6 +619,7 @@ def forward(model: LM, cfg: ModelConfig,
     block of the final hidden out (:meth:`~.layers.MeshContext.stream`)."""
     if ctx is not None:
         ctx = ctx.at(*_global_shape(cfg, tokens, frames, patches))
+    model = _local_model(model, cfg, ctx, tokens)
     x = embed_input(model, cfg, tokens, frames=frames, patches=patches,
                     ctx=ctx)
     return _run_stack(model, cfg, x, 0, None, None, False, use_kernel, ctx)
@@ -668,6 +707,7 @@ def softmax_xent(model: LM, cfg: ModelConfig, x: torch.Tensor,
         loss, mass = _xent_sums(model, cfg, x, targets, mask, chunk)
         return loss / mass.clamp_min(1.0)
     ctx = ctx.at(*targets.shape)
+    model = _local_model(model, cfg, ctx)
     layout = ctx.stream()[:2]
     targets, mask = (cst(ctx, t, *layout) for t in (targets, mask))
     loss, mass = _xent_sums(model, cfg, x, targets, mask, chunk)
@@ -715,6 +755,7 @@ def loss_fn(model: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     frontend's ``frames``/``patches``, ``targets`` ``[B, S]`` and an
     optional float ``mask``); with ``ctx`` the global batch on every rank
     and the global mean (:func:`softmax_xent`)."""
+    model = _local_model(model, cfg, ctx, batch.get("tokens"))
     x = forward(model, cfg, batch.get("tokens"), use_kernel,
                 frames=batch.get("frames"), patches=batch.get("patches"),
                 ctx=ctx)

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -115,16 +115,18 @@ def _chunked(p: torch.Tensor, cfg: AdamWConfig) -> bool:
 
 @torch.no_grad()
 def adamw_update_(grads: Tree, state: AdamWState, params: Tree,
-                  cfg: AdamWConfig):
+                  cfg: AdamWConfig, grad_norm: Optional[torch.Tensor] = None):
     """One AdamW step in place: each parameter and its moments (the
     tensors of ``params``, ``state.m`` and ``state.v``) are overwritten,
     leaf by leaf in the tree's order (slice by slice where
     ``cfg.chunked_update`` applies), :data:`UPDATE_BLOCK` elements at a
-    time. Returns ``(new_state, metrics)`` with
-    ``metrics = {"grad_norm", "lr"}`` (device scalars); ``new_state``
-    holds the same moment dictionaries and the next step."""
+    time. The leaves may be each rank's blocks of a sharded state, the
+    update being elementwise; their global norm is then ``grad_norm``
+    (else :func:`global_norm` of ``grads``). Returns ``(new_state,
+    metrics)`` with ``metrics = {"grad_norm", "lr"}`` (device scalars);
+    ``new_state`` holds the same moment dictionaries and the next step."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.clip_norm else 1.0
     lr = lr_schedule(cfg, step)

@@ -59,6 +59,17 @@ SSM_CASES = (
     Case("mamba2_41", "mamba2_2p7b", (), (4, 1), (False,)),
     Case("zamba2_41", "zamba2_2p7b", (), (4, 1), (False, True)),
 )
+#: the tensor-parallel Mamba block: the smoke configs' 8 SSM heads over 2
+#: and 4 model ranks; 6 heads (d_inner 192 in heads of 32) over 4 do not
+#: divide, and each model rank runs the whole block
+TP_CASES = (
+    Case("mamba2_22", "mamba2_2p7b", (), (2, 2), (False, True)),
+    Case("mamba2_14", "mamba2_2p7b", (), (1, 4), (False, True)),
+    Case("zamba2_22", "zamba2_2p7b", (), (2, 2), (False, True)),
+    Case("zamba2_14", "zamba2_2p7b", (), (1, 4), (False, True)),
+    Case("mamba2_h6_14", "mamba2_2p7b",
+         (("ssm_expand", 3), ("ssm_head_dim", 32)), (1, 4), (False,)),
+)
 #: the frontends with the sequence split: hubert's frames, internvl2's 8
 #: patches before 32 tokens (its 1 KV head: no SP, the whole attention on
 #: each model rank)
@@ -69,6 +80,33 @@ FRONTEND_CASES = (
 #: run_training(mesh=..., steps=3) cases: (arch, mesh shape, compression)
 TRAIN_CASES = (("mixtral_8x7b", (4, 1), None), ("mixtral_8x7b", (2, 2), None),
                ("smollm_360m", (2, 2), "topk"))
+
+
+#: the sharded training state against the replicated one: (arch, mesh
+#: shape), SHARD_STEPS float32 steps of the smoke config on SHARD_B x
+#: SHARD_S tokens, after which every block is bit-equal to the same block
+#: of the replicated state
+SHARD_CASES = tuple((a, s) for a in ("smollm_360m", "mixtral_8x7b",
+                                     "mamba2_2p7b", "zamba2_2p7b")
+                    for s in ((4, 1), (2, 2), (1, 4)))
+SHARD_STEPS, SHARD_B, SHARD_S = 3, 4, 40
+#: the same on the SP path (sp_matmuls) with a vocab-parallel lookup of an
+#: untied table (SHARD_SP_B x SHARD_SP_S above 4,096 tokens): the FSDP
+#: blocks that the SP projections, the MoE and the lookup gather, and the
+#: table's vocabulary rows, used as stored
+SHARD_SP_CASES = (("yi_34b", (4, 1)), ("yi_34b", (2, 2)),
+                  ("mixtral_8x7b", (2, 2)))
+SHARD_SP_B, SHARD_SP_S = 8, 520
+#: the bfloat16 loss of mixtral's smoke config on a mesh against one
+#: device's, in both packages (tests/torch_mesh_bf16_gap.py): the model
+#: ranks' partial outputs are each rounded to bfloat16 before their psum.
+#: The smoke config with mixtral-8x7b's ratios (32/8 heads, 8 experts), so
+#: that the heads and experts divide a model axis of 4
+GAP_ARCH, GAP_B, GAP_S = "mixtral_8x7b", 8, 64
+GAP_OVER = (("n_heads", 16), ("n_kv_heads", 4), ("n_experts", 8))
+GAP_SHAPES = ((1, 2), (1, 4))
+#: the state written, restored and passed between the packages
+CKPT_ARCH, CKPT_STEP = "mamba2_2p7b", 3
 
 
 def train_key(arch: str, shape: Tuple[int, int], compression) -> str:
@@ -231,11 +269,13 @@ def model_case(rank: int, case: Case, ref_path: str) -> Dict:
         key = f"{case.name}/sp{int(sp)}"
         ctx = MeshContext(mesh, ("data",), sp_matmuls=sp)
         C.reset_counts()
-        with torch.no_grad():
-            x = T.forward(model, cfg, batch.get("tokens"), ctx=ctx, **inputs)
-            B, S = ref[f"{key}/x"].shape[:2]
-            xg = _gathered(ctx.at(B, S), x)
-        loss, grads = _grads(model, cfg, batch, 1, ctx)
+        with _scanned_heads() as heads:
+            with torch.no_grad():
+                x = T.forward(model, cfg, batch.get("tokens"), ctx=ctx,
+                              **inputs)
+                B, S = ref[f"{key}/x"].shape[:2]
+                xg = _gathered(ctx.at(B, S), x)
+            loss, grads = _grads(model, cfg, batch, 1, ctx)
         want = param_tree(model_params_from_jax(
             cfg, unflatten(ref, f"{case.name}/grads/")))
         digest = torch.stack([g.double().sum() for g in grads.values()])
@@ -246,8 +286,51 @@ def model_case(rank: int, case: Case, ref_path: str) -> Dict:
             vs_ref=_leaf_errs(grads, want),
             vs_one=_leaf_errs(grads, one),
             counts={op: dict(c) for op, c in C.COUNTS.items()},
-            digest=digest.numpy())
+            scan_heads=sorted(set(heads)), digest=digest.numpy())
     return out
+
+
+class _scanned_heads:
+    """Records the head count of every SSD scan the model layers run
+    (``models.layers.ssd``) while it is entered."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self.heads, self.orig = [], layers.ssd
+
+        def spy(x, *args, **kw):
+            self.heads.append(int(x.shape[2]))
+            return self.orig(x, *args, **kw)
+
+        layers.ssd = spy
+        return self.heads
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+
+        layers.ssd = self.orig
+
+
+def gap_case(rank: int, ref_path: str, shape) -> Dict:
+    """The port's side of tests/torch_mesh_bf16_gap.py: GAP_ARCH's
+    bfloat16 ``loss_fn`` from the reference's parameters on one device and
+    on this spawn's ``shape`` mesh with ``sp_matmuls``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import model_params_from_jax
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import MeshContext
+
+    ref = dict(np.load(ref_path))
+    cfg = get_smoke_config(GAP_ARCH).with_(remat=True, **dict(GAP_OVER))
+    model = model_params_from_jax(cfg, unflatten(ref, "gap/params/"))
+    batch = _batch(cfg, GAP_B, GAP_S)
+    ctx = MeshContext(make_host_mesh(model=shape[1], device="cpu"),
+                      ("data",), sp_matmuls=True)
+    with torch.no_grad():
+        return dict(one=float(T.loss_fn(model, cfg, batch)),
+                    mesh=float(T.loss_fn(model, cfg, batch, ctx=ctx)))
 
 
 def model_cases(rank: int, cases, ref_path: str) -> Dict:
@@ -378,4 +461,227 @@ def compressed_psum_case(rank: int) -> Dict:
     coord = sweep.get_coordinate()
     out["sweep_mesh"] = (sweep.mesh_dim_names, tuple(sweep.shape),
                          None if coord is None else tuple(coord))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the sharded training state and its checkpoints
+# ---------------------------------------------------------------------------
+
+def _shard_setup(arch: str, shape, seed: int = 0, sp: bool = False):
+    """``(cfg, ctx, opt_cfg, replicated state)`` of a SHARD_CASES case
+    (``sp``: a SHARD_SP_CASES case)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.layers import MeshContext
+    from repro_torch.training import AdamWConfig, init_train_state
+
+    cfg = get_smoke_config(arch).with_(dtype="float32", remat=True)
+    ctx = MeshContext(make_host_mesh(model=shape[1], device="cpu"),
+                      ("data",), sp_matmuls=sp)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    return cfg, ctx, opt, init_train_state(
+        cfg, opt, torch.Generator().manual_seed(seed))
+
+
+def _state_leaves(state) -> Dict[str, torch.Tensor]:
+    """``{"params/<n>" | "m/<n>" | "v/<n>": tensor}`` of a TrainState."""
+    from repro_torch.training import param_tree
+
+    out = {f"params/{n}": p.detach()
+           for n, p in param_tree(state.params).items()}
+    out.update({f"m/{n}": t for n, t in state.opt.m.items()})
+    out.update({f"v/{n}": t for n, t in state.opt.v.items()})
+    return out
+
+
+def _blocks_vs(sharded, whole, ctx) -> Dict[str, float]:
+    """Each leaf of a sharded state against this rank's block of the same
+    leaf of a whole one: max |diff| over the whole leaf's largest
+    |value| (0.0 where bit-equal)."""
+    from repro_torch.models.layers import block_of
+    from repro_torch.training import param_tree
+
+    specs = {n: p.pspec for n, p in param_tree(sharded.params).items()}
+    want, got = _state_leaves(whole), _state_leaves(sharded)
+    out = {}
+    for key, g in got.items():
+        w = want[key]
+        b = block_of(w, specs[key.split("/", 1)[1]], ctx)
+        if g.shape != b.shape:
+            out[key] = float("inf")
+        elif torch.equal(g, b):
+            out[key] = 0.0
+        else:
+            out[key] = float((g - b).abs().max()) / max(
+                float(w.abs().max()), 1e-30)
+    return out
+
+
+def shard_case(rank: int, arch: str, shape) -> Dict:
+    """The sharded state of ``arch`` on ``shape``: shard then gather back
+    (the identity), the bytes it holds, SHARD_STEPS steps of the same
+    step function on it and on the replicated state (losses, each block
+    against the replicated state's), and the SSD scans' head counts."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models.layers import leaf_split
+    from repro_torch.training import (gather_train_state, make_train_step,
+                                      param_tree, shard_train_state,
+                                      state_bytes)
+
+    cfg, ctx, opt, state = _shard_setup(arch, shape)
+    sharded = shard_train_state(state, cfg, ctx)
+    back = gather_train_state(sharded, ctx)
+    identity = all(torch.equal(a, b) for a, b in zip(
+        _state_leaves(back).values(), _state_leaves(state).values()))
+    world = shape[0] * shape[1]
+    whole_bytes, held = state_bytes(state), state_bytes(sharded)
+    multi = [a for a in ctx.mesh_axes if C.axis_size(a, mesh=ctx.mesh) > 1]
+    stay_whole = {}          # leaves not split over some axis: their bytes
+    for n, p in param_tree(sharded.params).items():
+        split = {a for axes in leaf_split(ctx, p.pspec, p.whole_shape)
+                 if axes for a in axes}
+        if any(a not in split for a in multi):
+            stay_whole[n] = 3 * p.numel() * p.element_size()
+    pipe = TokenPipeline(cfg, global_batch=SHARD_B, seq_len=SHARD_S, seed=1)
+    step = make_train_step(cfg, opt, ctx)
+    losses = {"replicated": [], "sharded": []}
+    with _scanned_heads() as heads:
+        for i in range(SHARD_STEPS):
+            batch = {k: torch.from_numpy(v)
+                     for k, v in pipe.batch_at(i).items()}
+            state, m1 = step(state, batch)
+            sharded, m2 = step(sharded, batch)
+            losses["replicated"].append(float(m1["loss"]))
+            losses["sharded"].append(float(m2["loss"]))
+    return dict(identity=identity, whole_bytes=whole_bytes, held=held,
+                stay_whole=stay_whole, world=world, losses=losses,
+                blocks=_blocks_vs(sharded, state, ctx),
+                steps=int(sharded.opt.step), scan_heads=sorted(set(heads)))
+
+
+def shard_sp_case(rank: int, arch: str, shape) -> Dict:
+    """A SHARD_SP_CASES case: SHARD_STEPS steps of the same step function
+    on the sharded and the replicated state (losses, each block against
+    the replicated state's), the dimensions each block parameter's plans
+    all-gathered, and whether make_train_step refuses a grad_transform on
+    the sharded state."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.training import (make_train_step, param_tree,
+                                      shard_train_state)
+
+    cfg, ctx, opt, state = _shard_setup(arch, shape, sp=True)
+    sharded = shard_train_state(state, cfg, ctx)
+    pipe = TokenPipeline(cfg, global_batch=SHARD_SP_B, seq_len=SHARD_SP_S,
+                         seed=1)
+    batches = [{k: torch.from_numpy(v) for k, v in pipe.batch_at(i).items()}
+               for i in range(SHARD_STEPS)]
+    try:
+        make_train_step(cfg, opt, ctx, grad_transform=dict)(sharded,
+                                                            batches[0])
+        refused = False
+    except ValueError:
+        refused = True
+    step = make_train_step(cfg, opt, ctx)
+    losses = {"replicated": [], "sharded": []}
+    for batch in batches:
+        state, m1 = step(state, batch)
+        sharded, m2 = step(sharded, batch)
+        losses["replicated"].append(float(m1["loss"]))
+        losses["sharded"].append(float(m2["loss"]))
+    gathered = {n: sorted({d for plan in p.mesh_plans.values()
+                           for _, d in plan.gather})
+                for n, p in param_tree(sharded.params).items()
+                if hasattr(p, "mesh_plans")}
+    return dict(losses=losses, blocks=_blocks_vs(sharded, state, ctx),
+                gathered=gathered, refused=refused)
+
+
+def shard_sp_cases(rank: int, cases) -> Dict:
+    """Every SHARD_SP_CASES case of this spawn's shape."""
+    return {f"{a}_{s[0]}{s[1]}": shard_sp_case(rank, a, s) for a, s in cases}
+
+
+def shard_cases(rank: int, cases, ckpt: str, shape) -> Dict:
+    """Every SHARD_CASES case of this spawn's shape, then the checkpoint
+    cases (:func:`checkpoint_case`)."""
+    out = {f"{a}_{s[0]}{s[1]}": shard_case(rank, a, s) for a, s in cases}
+    out["checkpoint"] = checkpoint_case(rank, ckpt, shape)
+    return out
+
+
+def checkpoint_case(rank: int, ckpt: str, shape) -> Dict:
+    """Checkpoints of CKPT_ARCH's sharded state. At (2, 2): SHARD_STEPS
+    steps, a blocking save with ``mesh=``/``pspecs=`` into
+    ``ckpt/sharded`` and an async one through CheckpointManager into
+    ``ckpt/managed``, each restored with ``mesh=``/``pspecs=`` into
+    another sharded state and into a replicated one (which comes back
+    sharded); rank 0 returns the whole leaves it saved. At every shape:
+    the reference's checkpoint ``ckpt/reference`` (the port's leaves from
+    seed 3, written by the reference's save_checkpoint) and, at (1, 4),
+    the (2, 2) spawn's ``ckpt/sharded`` restored into this shape's
+    sharded state, each block against the block of the one-device
+    restore of the same checkpoint."""
+    from repro_torch.checkpoint import (CheckpointManager, latest_step,
+                                        restore_checkpoint, save_checkpoint)
+    from repro_torch.data import TokenPipeline
+    import torch.distributed as dist
+    from repro_torch.training import (gather_train_state, make_train_step,
+                                      shard_train_state, train_state_pspecs)
+
+    cfg, ctx, opt, state = _shard_setup(CKPT_ARCH, shape)
+    pspecs = train_state_pspecs(cfg)
+    mesh = ctx.mesh
+
+    def fresh(seed, sharded=True):
+        s = _shard_setup(CKPT_ARCH, shape, seed)[3]
+        return shard_train_state(s, cfg, ctx) if sharded else s
+
+    def restored_vs_one_device(path, step):
+        whole = restore_checkpoint(path, step, fresh(7, sharded=False))
+        out = {}
+        for kind, like in (("sharded", fresh(8)),
+                           ("replicated", fresh(9, sharded=False))):
+            got = restore_checkpoint(path, step, like, mesh=mesh,
+                                     pspecs=pspecs)
+            errs = _blocks_vs(got, whole, ctx)
+            out[kind] = max(errs.values())
+            out[f"{kind}_step"] = int(got.opt.step)
+        return out
+
+    out = {"reference": restored_vs_one_device(f"{ckpt}/reference", 1)}
+    if shape == (2, 2):
+        sharded = shard_train_state(state, cfg, ctx)
+        step = make_train_step(cfg, opt, ctx)
+        pipe = TokenPipeline(cfg, global_batch=SHARD_B, seq_len=SHARD_S,
+                             seed=1)
+        for i in range(SHARD_STEPS):
+            sharded, _ = step(sharded, {k: torch.from_numpy(v) for k, v in
+                                        pipe.batch_at(i).items()})
+        save_checkpoint(f"{ckpt}/sharded", CKPT_STEP, sharded, mesh=mesh,
+                        pspecs=pspecs)
+        mgr = CheckpointManager(f"{ckpt}/managed", every=1)
+        mgr.maybe_save(CKPT_STEP, sharded, mesh=mesh, pspecs=pspecs)
+        mgr.wait()
+        dist.barrier()
+        for name in ("sharded", "managed"):
+            got = restore_checkpoint(f"{ckpt}/{name}", CKPT_STEP,
+                                     fresh(5), mesh=mesh, pspecs=pspecs)
+            out[f"{name}_bitequal"] = max(_blocks_vs(
+                got, gather_train_state(sharded, ctx), ctx).values()) == 0
+        step_, again = CheckpointManager(f"{ckpt}/managed") \
+            .restore_latest(fresh(6), mesh=mesh, pspecs=pspecs)
+        out["managed_latest"] = (step_, max(_blocks_vs(
+            again, gather_train_state(sharded, ctx), ctx).values()) == 0)
+        out["latest"] = latest_step(f"{ckpt}/sharded")
+        whole = gather_train_state(sharded, ctx)
+        if rank == 0:
+            from repro_torch.checkpoint.checkpoint import _flatten
+
+            out["whole"] = [t.detach().numpy().copy()
+                            for t in _flatten(whole)[0]]
+    if shape == (1, 4):
+        out["from_22"] = restored_vs_one_device(f"{ckpt}/sharded",
+                                                CKPT_STEP)
     return out

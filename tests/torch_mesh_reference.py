@@ -5,7 +5,7 @@ with ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` and
 ``make_host_mesh`` builds Explicit axes, on which its sharding constraints
 raise under JAX 0.9) and writes one ``.npz``:
 
-    python tests/torch_mesh_reference.py OUT.npz models|train
+    python tests/torch_mesh_reference.py OUT.npz models|train|tp|gap
 
 ``models``: for each of torch_mesh_ranks.MODEL_CASES its initial
 parameters, for each ``sp_matmuls`` the forward's final hidden under
@@ -14,7 +14,11 @@ parameters, for each ``sp_matmuls`` the forward's final hidden under
 and baseline gradients are one function; a compile is most of the cost).
 ``train``: the same for SSM_CASES and FRONTEND_CASES, and for
 TRAIN_CASES the initial
-parameters given to ``run_training`` and its losses with ``mesh=``."""
+parameters given to ``run_training`` and its losses with ``mesh=``.
+``tp``: the same as ``models`` for TP_CASES (the Mamba2 and Zamba2
+stacks with their heads split over the model axis). ``gap``: GAP_ARCH's
+bfloat16 loss on one device and on GAP_SHAPES's meshes
+(tests/torch_mesh_bf16_gap.py)."""
 import os
 import sys
 
@@ -103,10 +107,37 @@ def train_case(arch, shape, compression, out):
         run["losses"])
 
 
+def gap_case(out):
+    """GAP_ARCH's smoke config in its bfloat16 compute dtype, as phase 25
+    of chip_smoke.py runs mixtral on the card: ``loss_fn`` on one device
+    and on each GAP_SHAPES Auto mesh with ``sp_matmuls``, from
+    :func:`_params`."""
+    from repro.configs import get_smoke_config
+    from repro.data import TokenPipeline
+    from repro.models import transformer as T
+    from repro.models.layers import MeshContext
+
+    cfg = get_smoke_config(R.GAP_ARCH).with_(remat=True,
+                                               **dict(R.GAP_OVER))
+    params = _params(cfg)
+    out.update(R.flatten(params, "gap/params/"))
+    batch = {k: jax.numpy.asarray(v) for k, v in TokenPipeline(
+        cfg, global_batch=R.GAP_B, seq_len=R.GAP_S, seed=1).batch_at(0)
+        .items()}
+    out["gap/one"] = np.asarray(jax.jit(
+        lambda p, b: T.loss_fn(p, cfg, b))(params, batch))
+    for shape in R.GAP_SHAPES:
+        ctx = MeshContext(_mesh(shape), ("data",), sp_matmuls=True)
+        out[f"gap/{shape[0]}{shape[1]}"] = np.asarray(jax.jit(
+            lambda p, b: T.loss_fn(p, cfg, b, ctx))(params, batch))
+
+
 def main(path: str, part: str) -> None:
     out = {}
-    if part == "models":
-        for case in R.MODEL_CASES:
+    if part == "gap":
+        gap_case(out)
+    elif part in ("models", "tp"):
+        for case in R.MODEL_CASES if part == "models" else R.TP_CASES:
             model_case(case, out)
     else:
         for case in R.SSM_CASES + R.FRONTEND_CASES:

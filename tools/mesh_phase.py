@@ -15,6 +15,11 @@ full depth, one bf16 step without and with the mesh under
 step's largest host operations; ``chip_smoke._mesh_profile``). Prints the
 card's name and power limit first.
 
+Each rank also trains MESH_SHARDED with the state stored as its blocks
+(``shard_train_state``) beside the replicated state, and writes and
+restores a sharded checkpoint. On a machine with four cards ``--model 1 2
+4`` runs (4, 1), (2, 2) and (1, 4).
+
 ``--cpu N`` rehearses the same ranks on the CPU: N gloo processes, the
 models' smoke configs in place of the published ones, and small
 gradient and step shapes (no kernels; the launch counts read 0).
@@ -68,6 +73,14 @@ def rehearse(world: int, model: int) -> None:
         losses = {k: v["losses"] for k, v in r["steps"].items()}
         print(f"[mesh] {arch}: (loss, worst leaf) {grads}; losses {losses}",
               flush=True)
+    for arch, r in out["sharded"].items():
+        print(f"[mesh] {arch} state as blocks: losses "
+              f"{r['sharded']['losses']} (replicated "
+              f"{r['replicated']['losses']}); worst block {r['worst']}; "
+              f"state bytes {r['sharded']['state_bytes']} of "
+              f"{r['replicated']['state_bytes']}"
+              + ("; checkpoint restored bit-equal" if "checkpoint" in r
+                 else ""), flush=True)
 
 
 def main() -> None:
