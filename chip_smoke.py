@@ -275,7 +275,23 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    state bytes and peak memory; mamba2's sharded state saved with
    mesh=/pspecs= and restored bit-equal into another sharded state;
    compressed_psum on the card bit-equal to its CPU result on the card's
-   draws; the world size and the mesh shapes.
+   draws; the world size and the mesh shapes;
+26. serving on the device mesh: B7's block variant (a block of a cache's
+   slots with the whole cache's valid range, and its logsumexp) at
+   smollm's serving decode (an empty block), mixtral's batch-1 ring
+   wrapped past 8,192 positions, zamba2's batch-1 8,224 slots and a
+   window, each block held per call against its plain version (B7's gate,
+   the lse within SERVE_LSE_TOL), the blocks combined against the whole
+   cache's launch, one block timed beside its bound and SDPA; then
+   torch.cuda.device_count() NCCL ranks, each on make_host_mesh(model=1),
+   serving smollm-360m, mamba2-2.7b and zamba2-2.7b at full width and
+   depth and mixtral-8x7b at 4 of 32 layers (SERVE_B x SERVE_PROMPT
+   prompts, SERVE_STEPS greedy steps through prefill(ctx=) and
+   decode_step(ctx=), the caches as each rank's blocks) beside the same
+   without the mesh: in float32 the greedy tokens equal and the prefill
+   logits within SERVE_MESH_TOL, in both dtypes each rank's launches equal;
+   prefill ms, decode ms a step, a decode step's collectives and the peak
+   memory of each.
 
 It prints a JSON line of per-kernel numbers and, last, the device line
 ``{"ok": true, "device": {...}}``. It needs the repository around it and
@@ -676,6 +692,21 @@ MESH_CKPT = "mamba2_2p7b"
 #: Layers of the float32 mesh gradients where fewer than MESH_MODELS's.
 MESH_GRAD_DEPTH = {"smollm_360m": 8}
 MESH_TIMEOUT_S = 240
+#: Phase 26, serving on the mesh: the models (arch, layers or None for
+#: all; phases 7, 9, 10 and 15's serving cells), served SERVE_B x
+#: SERVE_PROMPT and SERVE_STEPS greedy steps without and with the mesh;
+#: the float32 prefill logits' gate (max |difference| over the largest
+#: |logit|); B7's block variant checked on the card with its cache split
+#: into SERVE_MESH_BLOCKS blocks of slots, its lse within SERVE_LSE_TOL of
+#: the plain version's; and the batch-1 cases (arch, layers, prompt, cache
+#: slots) with the KV slots over the batch axes that tools/mesh_phase.py
+#: --serve runs on several cards: mixtral's 4,096-slot ring wrapped by an
+#: 8,192-token prompt, zamba2's 8,224 slots.
+SERVE_MESH = (("smollm_360m", None), ("mamba2_2p7b", None),
+              ("zamba2_2p7b", None), ("mixtral_8x7b", 4))
+SERVE_MESH_TOL, SERVE_LSE_TOL, SERVE_MESH_BLOCKS = 1e-4, 1e-5, 4
+SERVE_SEQ_CASES = (("mixtral_8x7b", 4, 8192, 8224),
+                   ("zamba2_2p7b", None, 8192, 8224))
 SOURCE = {
     "qos_matrix": "src/repro_torch/csrc/qos_kernels.cu",
     "qos_candidates": "src/repro_torch/csrc/qos_kernels.cu",
@@ -714,7 +745,7 @@ EXTRA_KEYS = ("device_ms", "library_device_ms", "plan_bound_ms",
               "shapes", "moe_launches", "frontend_launches",
               "cluster_launches", "profile_launches", "profile_device_ms",
               "profile_ms_per_launch", "autograd_ms", "training_launches",
-              "host_enqueue_ms", "head_block")
+              "host_enqueue_ms", "head_block", "block")
 
 
 def cluster_record(report, assignment) -> dict:
@@ -5796,6 +5827,429 @@ def phase_mesh(dev, model: int = 1, profile: bool = False) -> dict:
     return out
 
 
+# ===========================================================================
+# phase 26: serving on a device mesh
+# ===========================================================================
+
+def _b7_block_check(dev) -> dict:
+    """B7's block variant on the card: each case's cache split into
+    SERVE_MESH_BLOCKS blocks of slots, each block launched with its
+    ``slot0``, the whole cache's ``sc_total`` and ``return_lse`` and held
+    per call against the plain version (B7's gate; lse within
+    SERVE_LSE_TOL), the blocks combined in rank order against the whole
+    cache's launch (gated in float32, logged in bf16); an empty block and
+    a ring that wraps among the cases.
+    Timed at mixtral's batch-1 ring (one block of its 4,096 slots): the
+    kernel, the plain version, the bound of the block's valid slots and
+    SDPA on the same block."""
+    import torch
+
+    from repro_torch.kernels import gqa_decode as gd
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    n = SERVE_MESH_BLOCKS
+    # (label, B, Sc, Hkv, G, hd, kv_len, window, ring): smollm's serving
+    # decode (its last block empty), mixtral's batch-1 ring past 8,192
+    # positions, zamba2's batch-1 cache of 8,224 slots, a window
+    cases = [("smollm rows", SERVE_B, SERVE_SEQ, 5, 3, 64, [1040] * SERVE_B,
+              0, False),
+             ("mixtral ring", 1, 4096, 8, 4, 128, [8192 + 17], 0, True),
+             ("zamba2 batch 1", 1, 8224, 32, 1, 80, [8200], 0, False),
+             ("window", 2, 1024, 2, 3, 64, [1000, 300], 200, False)]
+    worst = {"float32": 0.0, "bfloat16": 0.0, "lse": 0.0}
+    empty = 0
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for label, B, Sc, Hkv, G, hd, lens, window, ring in cases:
+            q = _randn((B, Hkv * G, hd), dt, gen)
+            kc = _randn((B, Sc, Hkv, hd), dt, gen)
+            vc = _randn((B, Sc, Hkv, hd), dt, gen)
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+            kw = dict(window=window, ring=ring)
+            b = Sc // n
+            outs, lses = [], []
+            for r in range(n):
+                blk = (kc[:, r * b:(r + 1) * b].contiguous(),
+                       vc[:, r * b:(r + 1) * b].contiguous())
+                n0 = gd.LAUNCHES["gqa_decode"]
+                o, lse = gd.gqa_decode_cuda(q, *blk, kv_len, slot0=r * b,
+                                            sc_total=Sc, return_lse=True,
+                                            **kw)
+                ro, rlse = gd.gqa_decode_ref(q, *blk, kv_len, slot0=r * b,
+                                             sc_total=Sc, return_lse=True,
+                                             **kw)
+                torch.cuda.synchronize()
+                check(gd.LAUNCHES["gqa_decode"] == n0 + 1,
+                      f"B7 block {label}: not one launch")
+                e = float((o.float() - ro.float()).abs().max())
+                _held_in_ulps(o, ro, f"B7 block {label} {r}")
+                check(dtype == "bfloat16" or e <= ATTN_TOL[dtype],
+                      f"B7 block {label} {r} {dtype}: max abs {e}")
+                none = rlse <= 0.5 * gd.ref.NEG
+                check(torch.equal(lse <= 0.5 * gd.ref.NEG, none),
+                      f"B7 block {label} {r}: empty (row, head)s differ")
+                le = float((lse - rlse)[~none].abs().max()) if \
+                    bool((~none).any()) else 0.0
+                check(le <= SERVE_LSE_TOL, f"B7 block {label} {r} {dtype}: "
+                      f"lse {le}")
+                empty += int(none.all())
+                worst[dtype] = max(worst[dtype], e)
+                worst["lse"] = max(worst["lse"], le)
+                outs.append(o)
+                lses.append(lse)
+            # combined: gated in float32 (in bf16 each block's output is
+            # rounded before the combine, so where the blocks' outputs
+            # cancel the sum is not within ulps of the whole cache's; the
+            # per-call gate above is bf16's)
+            whole = gd.gqa_decode_cuda(q, kc, vc, kv_len, **kw)
+            got = gd.combine_blocks(torch.stack(outs), torch.stack(lses))
+            e = float((got.float() - whole.float()).abs().max())
+            check(dtype == "bfloat16" or e <= ATTN_TOL[dtype],
+                  f"B7 blocks {label} combined {dtype}: max abs {e}")
+            log(f"  B7 block variant {label} {dtype} [{B},{Sc},{Hkv}x{G},"
+                f"{hd}] kv_len {lens[0]} window {window} ring {ring}, {n} "
+                f"blocks: each within the gate of its plain version, the "
+                f"combined blocks {e:.3g} off the whole cache's launch")
+    check(empty > 0, "no B7 block case held an empty block")
+    # timed: one block of mixtral's batch-1 ring (every slot valid)
+    B, Sc, Hkv, G, hd = 1, 4096, 8, 4, 128
+    b = Sc // n
+    dt = torch.bfloat16
+    q = _randn((B, Hkv * G, hd), dt, gen)
+    kc = _randn((B, b, Hkv, hd), dt, gen)
+    vc = _randn((B, b, Hkv, hd), dt, gen)
+    kv_len = torch.tensor([8192 + 17], dtype=torch.int32, device=dev)
+
+    def kernel():
+        return gd.gqa_decode_cuda(q, kc, vc, kv_len, ring=True, slot0=b,
+                                  sc_total=Sc, return_lse=True)
+
+    n_bytes = 2 * (2 * B * Hkv * G * hd + 2 * b * Hkv * hd) + 4 * B \
+        + 4 * B * Hkv * G
+    n_ops = 4 * hd * G * Hkv * b
+    bound, by = bound_ms(n_bytes, n_ops, BF16_OPS_S)
+    out = dict(shape=[B, b, Hkv, G, hd], ms=time_ms(kernel),
+               device_ms=device_ms_per_call(kernel, "gqa_decode_kernel"),
+               plain_ms=time_ms(lambda: gd.gqa_decode_ref(
+                   q, kc, vc, kv_len, ring=True, slot0=b, sc_total=Sc,
+                   return_lse=True)),
+               library_ms=time_ms(lambda: _sdpa(q[:, None], kc, vc)),
+               bound_ms=bound, bound_by=by,
+               max_abs_err=max(worst["float32"], worst["bfloat16"]),
+               f32_err=worst["float32"], lse_err=worst["lse"],
+               empty_blocks=empty)
+    log(f"  B7 block variant timed: one {b}-slot block of mixtral's "
+        f"{Sc}-slot batch-1 ring, bf16 {out['shape']}: kernel "
+        f"{out['ms']:.4f} ms events, {out['device_ms']} ms device; plain "
+        f"{out['plain_ms']:.4f} ms; sdpa {out['library_ms']:.4f} ms; bound "
+        f"{bound:.4f} ms ({by})")
+    torch.cuda.empty_cache()
+    return out
+
+
+class _HeldBlocks:
+    """While entered, every B7 call the model layers make with
+    ``return_lse`` (the block variant) is held against its plain version on
+    the same inputs: the output within B7's gate, the lse within
+    SERVE_LSE_TOL; the readings are kept."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import layers
+
+        self.orig, self.calls, self.worst = layers.decode_attention, 0, {}
+        orig = self.orig
+
+        def held(q, kc, vc, kv_len, **kw):
+            out = orig(q, kc, vc, kv_len, **kw)
+            if kw.get("return_lse") and q.is_cuda:
+                o, lse = out
+                ro, rlse = orig(q, kc, vc, kv_len,
+                                **dict(kw, use_kernel=False))
+                e = float((o.float() - ro.float()).abs().max())
+                _held_in_ulps(o, ro, "B7 block call")
+                check(o.dtype == torch.bfloat16 or e <= ATTN_TOL["float32"],
+                      f"B7 block call: max abs {e}")
+                none = rlse <= -5e29
+                check(bool(((lse <= -5e29) == none).all()),
+                      "B7 block call: empty (row, head)s differ")
+                le = float((lse - rlse).abs()[~none].max()) \
+                    if bool((~none).any()) else 0.0
+                check(le <= SERVE_LSE_TOL, f"B7 block call: lse {le}")
+                self.calls += 1
+                self.worst[str(o.dtype)] = max(
+                    self.worst.get(str(o.dtype), 0.0), e)
+                self.worst["lse"] = max(self.worst.get("lse", 0.0), le)
+            return out
+
+        layers.decode_attention = held
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+
+        layers.decode_attention = self.orig
+
+
+def _serve_run(dev, model, cfg, tokens, ctx, max_seq: int, steps: int,
+               shard_seq: bool = False) -> dict:
+    """``prefill`` of ``tokens`` and ``steps`` greedy ``decode_step``
+    calls (on ``ctx``'s mesh, or without one), the KV slots laid over the
+    batch axes after the prefill where ``shard_seq``: the prefill's logits
+    and every token on the host, the prefill's ms and each step's (host
+    clock, ended by a sync), the kernels' launches, the collectives of the
+    last step (calls and bytes) and the peak memory."""
+    import torch
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models import transformer as T
+
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    B = tokens.shape[0]
+    _reset_launches()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    cache, ring = T.init_cache(cfg, B, max_seq, dev, ctx=ctx)
+    sync()
+    t = time.perf_counter()
+    logits, cache = T.prefill(model, cfg, tokens, cache, ring, ctx=ctx)
+    toks = [logits.argmax(-1)]
+    sync()
+    prefill_ms = 1e3 * (time.perf_counter() - t)
+    first = logits.float().cpu()
+    if shard_seq:
+        cache = T.shard_cache(cache, ctx)
+    step_ms = []
+    for _ in range(steps):
+        C.reset_counts()
+        t = time.perf_counter()
+        logits, cache = T.decode_step(model, cfg, toks[-1], cache, ring,
+                                      ctx=ctx)
+        toks.append(logits.argmax(-1))
+        sync()
+        step_ms.append(1e3 * (time.perf_counter() - t))
+    out = dict(logits=first, tokens=torch.stack(toks).cpu(),
+               prefill_ms=prefill_ms, step_ms=step_ms,
+               launches=_launches(),
+               step_counts={op: dict(c) for op, c in C.COUNTS.items()},
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9
+               if cuda else 0.0)
+    del cache, logits
+    return out
+
+
+def _serve_pair(dev, model, cfg, tokens, ctx, max_seq: int, steps: int,
+                shard_seq: bool = False) -> dict:
+    """One ``_serve_run`` without the mesh and one on it. Without it an MoE
+    model serves one group of rows a data rank (its prefill's capacity
+    comes from a data rank's tokens, as on the mesh); launches are per
+    group. Returns both readings and their comparison: the prefill logits'
+    max |difference| over the no-mesh run's largest |logit|, and the
+    greedy tokens' agreement."""
+    import torch
+
+    rows = tokens.shape[0]
+    groups = ctx.data_size if cfg.n_experts and rows % ctx.data_size == 0 \
+        else 1
+    parts = [_serve_run(dev, model, cfg, g, None, max_seq, steps)
+             for g in tokens.chunk(groups)]
+    one = dict(parts[0],
+               logits=torch.cat([p["logits"] for p in parts]),
+               tokens=torch.cat([p["tokens"] for p in parts], 1),
+               prefill_ms=sum(p["prefill_ms"] for p in parts),
+               step_ms=[sum(s) for s in zip(*(p["step_ms"] for p in parts))])
+    with _HeldBlocks() as held:
+        on = _serve_run(dev, model, cfg, tokens, ctx, max_seq, steps,
+                        shard_seq)
+    logit_err = float((on["logits"] - one["logits"]).abs().max()) / float(
+        one["logits"].abs().max())
+    same = float((on["tokens"] == one["tokens"]).float().mean())
+    drop = ("logits", "tokens")
+    return dict(one={k: v for k, v in one.items() if k not in drop},
+                mesh={k: v for k, v in on.items() if k not in drop},
+                logit_err=logit_err, token_agreement=same,
+                tokens_equal=bool(torch.equal(on["tokens"], one["tokens"])),
+                block_calls=held.calls, block_worst=held.worst)
+
+
+def mesh_serve_rank(rank: int, world: int, init_file: str, out_dir: str,
+                    model: int = 1, device: str = "cuda",
+                    seq: bool = False) -> None:
+    """Phase 26 in one rank (a spawned process on card ``rank``): the NCCL
+    process group, make_host_mesh(model=model), and for each SERVE_MESH
+    model, in float32 and bfloat16 compute from the same float32 masters,
+    SERVE_B x SERVE_PROMPT prompts and SERVE_STEPS greedy steps without and
+    with the mesh (:func:`_serve_pair`); with ``seq`` also the
+    SERVE_SEQ_CASES at batch 1 with the KV slots over the batch axes.
+    Writes ``out_dir/rank<r>.json``. ``device="cpu"`` rehearses it with
+    gloo."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import MeshContext
+
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+        dev = torch.device("cuda", rank)
+    else:
+        dev = torch.device(device)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"file://{init_file}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = make_host_mesh(model=model, device=device)
+        ctx = MeshContext(mesh, ("data",))
+        out = {"world": world, "mesh": dict(zip(mesh.mesh_dim_names,
+                                                tuple(mesh.shape))),
+               "models": {}, "seq": {}}
+        cases = [(a, d, SERVE_B, SERVE_PROMPT, SERVE_SEQ, SERVE_STEPS,
+                  False, "models") for a, d in SERVE_MESH]
+        if seq:
+            cases += [(a, d, 1, prompt, slots, SERVE_STEPS, True, "seq")
+                      for a, d, prompt, slots in SERVE_SEQ_CASES]
+        for arch, depth, B, S, slots, steps, shard_seq, part in cases:
+            t0 = time.perf_counter()
+            cfg = get_config(arch, **({"n_layers": depth} if depth else {}))
+            params = T.init_params(cfg, torch.Generator(device=dev)
+                                   .manual_seed(SEED))
+            tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+                0, cfg.vocab_size, (B, S)), device=dev)
+            r = {"layers": cfg.n_layers}
+            for dtype in ("float32", "bfloat16"):
+                r[dtype] = _serve_pair(dev, params, cfg.with_(dtype=dtype),
+                                       tokens, ctx, slots, steps, shard_seq)
+            r["seconds"] = time.perf_counter() - t0
+            out[part][arch] = r
+            del params
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f, default=float)
+
+
+def _serve_gates(ranks: list, part: str) -> list:
+    """The gates phase 26 fails on, read after every case has run: in
+    float32 the mesh's greedy tokens equal to the no-mesh run's and its
+    prefill logits within SERVE_MESH_TOL; in both dtypes each rank's
+    launches equal to the no-mesh run's (per group of rows)."""
+    failed = []
+    for i, rk in enumerate(ranks):
+        for arch, r in rk[part].items():
+            f = r["float32"]
+            if not (f["tokens_equal"] and f["logit_err"] <= SERVE_MESH_TOL):
+                failed.append(f"rank {i} {arch} float32: prefill logits "
+                              f"{f['logit_err']:.3g} (gate {SERVE_MESH_TOL})"
+                              f", tokens equal {f['tokens_equal']} "
+                              f"(agreement {f['token_agreement']:.4f})")
+            for dtype in ("float32", "bfloat16"):
+                x = r[dtype]
+                if x["mesh"]["launches"] != x["one"]["launches"]:
+                    failed.append(f"rank {i} {arch} {dtype}: mesh launches "
+                                  f"{x['mesh']['launches']} != "
+                                  f"{x['one']['launches']}")
+    return failed
+
+
+def phase_serve_mesh(dev, model: int = 1, seq: bool = False,
+                     block: bool = True) -> dict:
+    """Phase 26: B7's block variant on the card (:func:`_b7_block_check`,
+    where ``block``), then torch.cuda.device_count() ranks of
+    mesh_serve_rank (on a ``(world // model, model)`` mesh, ``seq`` passed
+    on) spawned with a deadline; every rank's readings read, rank 0's
+    logged, the gates checked after every case has run."""
+    import torch
+    import torch.multiprocessing as mp
+
+    block = _b7_block_check(dev) if block else None
+    world = torch.cuda.device_count()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        procs = mp.start_processes(mesh_serve_rank,
+                                   args=(world, f"{tmp}/pg", tmp, model,
+                                         "cuda", seq),
+                                   nprocs=world, join=False,
+                                   start_method="spawn")
+        try:
+            while not procs.join(timeout=5):
+                check(time.perf_counter() - t0 < MESH_TIMEOUT_S,
+                      f"phase 26's {world} ranks still running after "
+                      f"{MESH_TIMEOUT_S} s")
+        finally:
+            for p in procs.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    out = _log_serve_mesh(ranks, wall)
+    out["block"] = block
+    return out
+
+
+def _log_serve_mesh(ranks: list, wall: float) -> dict:
+    """Log rank 0's phase-26 readings (and every rank's launches), then
+    check the gates."""
+    out = ranks[0]
+    log(f"  {out['world']} rank(s), mesh {out['mesh']}, {wall:.1f} s with "
+        "the spawn")
+    for part in ("models", "seq"):
+        for arch, r in out[part].items():
+            for dtype in ("float32", "bfloat16"):
+                x = r[dtype]
+                for kind in ("one", "mesh"):
+                    s = x[kind]
+                    steps = sorted(s["step_ms"])
+                    log(f"  {arch} ({r['layers']} layers{', batch 1, KV '
+                        'slots over the batch axes' if part == 'seq' else ''}"
+                        f") {dtype} {'on the mesh' if kind == 'mesh' else
+                                     'without a mesh'}: prefill "
+                        f"{s['prefill_ms']:.1f} ms, decode median "
+                        f"{steps[len(steps) // 2]:.2f} ms a step (min "
+                        f"{steps[0]:.2f}, max {steps[-1]:.2f}), launches "
+                        f"{ {k: n for k, n in s['launches'].items() if n} }"
+                        f", peak {s['peak_gb']:.2f} GB"
+                        + (", a decode step's collectives (calls, bytes) "
+                           + ", ".join(f"{op} {c['calls']} {c['bytes']}"
+                                       for op, c in s["step_counts"].items())
+                           if kind == "mesh" else ""))
+                log(f"  {arch} {dtype}: prefill logits "
+                    f"{x['logit_err']:.3g} of the largest |logit| off the "
+                    f"no-mesh run, greedy tokens agree at "
+                    f"{x['token_agreement']:.4f}"
+                    + (f"; {x['block_calls']} B7 block calls held, worst "
+                       f"{x['block_worst']}" if x["block_calls"] else ""))
+            log(f"  {arch} took {r['seconds']:.1f} s in rank 0")
+    same = [i for i, rk in enumerate(ranks) if all(
+        rk[p][a][d]["mesh"]["launches"] == out[p][a][d]["mesh"]["launches"]
+        for p in ("models", "seq") for a in rk[p]
+        for d in ("float32", "bfloat16"))]
+    log(f"  ranks {same} of {len(ranks)} launch what rank 0 launches on the "
+        "mesh")
+    failed = _serve_gates(ranks, "models") + _serve_gates(ranks, "seq")
+    check(not failed, "phase 26: " + "; ".join(failed))
+    out["wall_s"] = wall
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5951,6 +6405,14 @@ def main() -> int:
     meshed = phase_mesh(dev)
     log(f"  phase 25 took {time.perf_counter() - t25:.1f} s; chip_smoke so "
         f"far {time.perf_counter() - t_start:.1f} s")
+    log(f"phase 26: serving on the device mesh ({', '.join(
+        a for a, _ in SERVE_MESH)}; B7's block variant; "
+        f"{torch.cuda.device_count()} NCCL rank(s))")
+    t26 = time.perf_counter()
+    served_mesh = phase_serve_mesh(dev)
+    kern["gqa_decode"]["block"] = served_mesh["block"]
+    log(f"  phase 26 took {time.perf_counter() - t26:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - t_start:.1f} s")
     launches = {**main_path["launches"],
                 **served["smollm_360m"]["launches"],
                 **served["mamba2_2p7b"]["launches"],
@@ -6001,6 +6463,11 @@ def main() -> int:
                 f"{a} {kind} state": r[kind]["launches"][row["name"]]
                 for a, r in meshed["sharded"].items()
                 for kind in ("sharded", "replicated")})
+        if row["name"] in ("flash_attention", "gqa_decode", "ssd_scan"):
+            row["mesh_serve_launches"] = {
+                f"{a} {d} {kind}": r[d][kind]["launches"][row["name"]]
+                for a, r in served_mesh["models"].items()
+                for d in ("float32", "bfloat16") for kind in ("one", "mesh")}
         if row["name"] in fleet["launches"]:
             row["fleet_launches"] = fleet["launches"][row["name"]]
         for arch, r in quant.items():

@@ -13,6 +13,16 @@
 // when Sc is not a multiple of its block. A tanh softcap applies to the
 // scaled scores, and a row with no valid slot gives zeros.
 //
+// The cache may be one block of a longer one: the Sc slots of k, v are
+// slots slot0 .. slot0 + Sc - 1 of a cache of Sc_total slots (a rank's
+// block when the cache's sequence is split over a mesh). The valid range
+// is computed on the whole cache (its Sc_total slots, its ring), then
+// intersected with the block. With an lse pointer the kernel also writes
+// the float32 logsumexp of each (row, head)'s valid scores, or -1e30 where
+// the block holds none (its output is then zeros), so the blocks' outputs
+// combine into the whole cache's: o = sum_r exp(lse_r - LSE) o_r. The
+// defaults (slot0 = 0, Sc_total = Sc, no lse) are the whole cache.
+//
 // The valid slots of a row are one contiguous range [lo, hi): hi =
 // min(kv_len, Sc), lo = kv_len - window for a window outside ring mode,
 // else 0. The kernel visits only that range, which is the same function:
@@ -122,7 +132,8 @@ __global__ void __launch_bounds__(kThreads)
     gqa_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                       const T* __restrict__ vc,
                       const int* __restrict__ kv_len, T* __restrict__ out,
-                      int Sc, int Hkv, int G, int window, int ring,
+                      float* __restrict__ lse, int Sc, int Hkv, int G,
+                      int window, int ring, int slot0, int sc_total,
                       float softcap, float scale) {
   constexpr int LPS = LanesPerSlot<HD>::value;
   constexpr int kStreams = kWarps * (32 / LPS);
@@ -146,10 +157,12 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y;
   const int Hq = Hkv * G;
 
-  // the row's valid range [lo, hi), and this split's part [t_lo, t_hi)
+  // the row's valid range [lo, hi) on the whole cache, as slots of this
+  // block, and this split's part [t_lo, t_hi)
   const int n = kv_len[b];
-  const int hi = max(0, min(n, Sc));
-  const int lo = (!ring && window > 0) ? max(0, n - window) : 0;
+  const int hi = min(max(0, min(n, sc_total)), slot0 + Sc) - slot0;
+  const int lo =
+      max((!ring && window > 0) ? max(0, n - window) : 0, slot0) - slot0;
   const int per = (max(hi - lo, 0) + n_split - 1) / n_split;
   const int t_lo = lo + rank * per;
   const int t_hi = min(hi, t_lo + per);
@@ -308,6 +321,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int r = 0; r < kMaxSplits; ++r)
         if (r < n_split) fold(mm, ll, aa, rm[r], rl[r], ra[r]);
       orow[e] = attn::Pack<T>::from_f32(aa / fmaxf(ll, 1e-30f));
+      if (lse != nullptr && e % HD == 0)
+        lse[static_cast<int64_t>(b) * Hq + kvh * G + g0 + g] =
+            ll > 0.f ? fmaxf(mm, attn::kSafe) + logf(ll) : attn::kNeg;
     }
   }
   cluster.sync();  // no block leaves while rank 0 reads its shared memory
@@ -315,8 +331,9 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int HD, int GC>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const void* kv_len, void* out, int B, int Sc, int Hkv,
-                   int G, int window, int ring, int splits, float softcap,
+                   const void* kv_len, void* out, void* lse, int B, int Sc,
+                   int Hkv, int G, int window, int ring, int splits,
+                   int slot0, int sc_total, float softcap,
                    cudaStream_t stream) {
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(Hkv * ((G + GC - 1) / GC), B, splits);
@@ -333,8 +350,9 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
   return cudaLaunchKernelEx(
       &config, gqa_decode_kernel<T, HD, GC>, static_cast<const T*>(q),
       static_cast<const T*>(kc), static_cast<const T*>(vc),
-      static_cast<const int*>(kv_len), static_cast<T*>(out), Sc, Hkv, G,
-      window, ring, softcap, 1.0f / sqrtf(static_cast<float>(HD)));
+      static_cast<const int*>(kv_len), static_cast<T*>(out),
+      static_cast<float*>(lse), Sc, Hkv, G, window, ring, slot0, sc_total,
+      softcap, 1.0f / sqrtf(static_cast<float>(HD)));
 }
 
 // The heads a block takes: one where G is 1 (its 128 registers, against
@@ -342,62 +360,64 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
 // (G = 2 and 3 run one chunk with heads idle).
 template <typename T, int HD>
 cudaError_t launch_gc(const void* q, const void* kc, const void* vc,
-                      const void* kv_len, void* out, int B, int Sc, int Hkv,
-                      int G, int window, int ring, int splits, float softcap,
+                      const void* kv_len, void* out, void* lse, int B,
+                      int Sc, int Hkv, int G, int window, int ring,
+                      int splits, int slot0, int sc_total, float softcap,
                       cudaStream_t stream) {
   if (G == 1)
-    return launch<T, HD, 1>(q, kc, vc, kv_len, out, B, Sc, Hkv, G, window,
-                            ring, splits, softcap, stream);
-  return launch<T, HD, 4>(q, kc, vc, kv_len, out, B, Sc, Hkv, G, window,
-                          ring, splits, softcap, stream);
+    return launch<T, HD, 1>(q, kc, vc, kv_len, out, lse, B, Sc, Hkv, G,
+                            window, ring, splits, slot0, sc_total, softcap,
+                            stream);
+  return launch<T, HD, 4>(q, kc, vc, kv_len, out, lse, B, Sc, Hkv, G,
+                          window, ring, splits, slot0, sc_total, softcap,
+                          stream);
 }
 
 template <typename T>
 cudaError_t launch_hd(int hd, const void* q, const void* kc, const void* vc,
-                      const void* kv_len, void* out, int B, int Sc, int Hkv,
-                      int G, int window, int ring, int splits, float softcap,
+                      const void* kv_len, void* out, void* lse, int B,
+                      int Sc, int Hkv, int G, int window, int ring,
+                      int splits, int slot0, int sc_total, float softcap,
                       cudaStream_t stream) {
+#define REPRO_GQA_CASE(HD)                                                  \
+  case HD:                                                                  \
+    return launch_gc<T, HD>(q, kc, vc, kv_len, out, lse, B, Sc, Hkv, G,     \
+                            window, ring, splits, slot0, sc_total, softcap, \
+                            stream);
   switch (hd) {
-    case 16:
-      return launch_gc<T, 16>(q, kc, vc, kv_len, out, B, Sc, Hkv, G, window,
-                              ring, splits, softcap, stream);
-    case 32:
-      return launch_gc<T, 32>(q, kc, vc, kv_len, out, B, Sc, Hkv, G, window,
-                              ring, splits, softcap, stream);
-    case 64:
-      return launch_gc<T, 64>(q, kc, vc, kv_len, out, B, Sc, Hkv, G, window,
-                              ring, splits, softcap, stream);
-    case 80:
-      return launch_gc<T, 80>(q, kc, vc, kv_len, out, B, Sc, Hkv, G, window,
-                              ring, splits, softcap, stream);
-    case 128:
-      return launch_gc<T, 128>(q, kc, vc, kv_len, out, B, Sc, Hkv, G,
-                               window, ring, splits, softcap, stream);
+    REPRO_GQA_CASE(16)
+    REPRO_GQA_CASE(32)
+    REPRO_GQA_CASE(64)
+    REPRO_GQA_CASE(80)
+    REPRO_GQA_CASE(128)
     default:
       return cudaErrorInvalidValue;
   }
+#undef REPRO_GQA_CASE
 }
 
 }  // namespace
 
 extern "C" int gqa_decode_launch(const void* q, const void* k_cache,
                                  const void* v_cache, const void* kv_len,
-                                 void* out, int B, int Sc, int Hkv, int G,
-                                 int hd, int is_bf16, int window, int ring,
-                                 int splits, float softcap, int device,
+                                 void* out, void* lse, int B, int Sc, int Hkv,
+                                 int G, int hd, int is_bf16, int window,
+                                 int ring, int splits, int slot0,
+                                 int sc_total, float softcap, int device,
                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B <= 0 || B > 65535 || Hkv <= 0 || G <= 0 || splits < 1 ||
-      splits > kMaxSplits)
+      splits > kMaxSplits || slot0 < 0 || sc_total < slot0 + Sc)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = is_bf16 ? launch_hd<__nv_bfloat16>(hd, q, k_cache, v_cache, kv_len,
-                                           out, B, Sc, Hkv, G, window, ring,
-                                           splits, softcap, s)
-                : launch_hd<float>(hd, q, k_cache, v_cache, kv_len, out, B,
-                                   Sc, Hkv, G, window, ring, splits, softcap,
-                                   s);
+                                           out, lse, B, Sc, Hkv, G, window,
+                                           ring, splits, slot0, sc_total,
+                                           softcap, s)
+                : launch_hd<float>(hd, q, k_cache, v_cache, kv_len, out,
+                                   lse, B, Sc, Hkv, G, window, ring, splits,
+                                   slot0, sc_total, softcap, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

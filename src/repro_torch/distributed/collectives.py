@@ -16,8 +16,9 @@ So a rank's backward gives the gradient of the sum of every rank's loss
 term with respect to that rank's own copy of each input, and a replicated
 parameter's gradient is the sum of its ranks' gradients (the trainer sums
 them). Every reduction adds the ranks' terms in rank order, ``((r0 + r1) +
-r2) + …``, on the rank that owns the block, and an all-gather hands the
-sums out: two runs, and every rank, see the same bits. They go through
+r2) + …``, on the rank that owns the block (a bf16 or fp16 input in
+float32, rounded once at the end, as XLA sums it), and an all-gather hands
+the sums out: two runs, and every rank, see the same bits. They go through
 ``torch.distributed`` on the mesh's groups (NCCL or gloo) even where an
 axis has one rank, so a one-card mesh exercises the same calls.
 
@@ -162,10 +163,14 @@ def _scatter_sum(x: torch.Tensor, group, n: int, dim: int,
     recv = torch.empty_like(send)
     _counted(op, send)
     dist.all_to_all_single(recv, send, group=group)
-    acc = recv[0]
+    # a float narrower than float32 is summed in float32 and rounded once,
+    # as XLA's psum of a bf16 array is (a running bf16 sum rounds at every
+    # addition); the exchange stays in the input dtype
+    wide = recv.is_floating_point() and torch.finfo(recv.dtype).bits < 32
+    acc = recv[0].float() if wide else recv[0]
     for j in range(1, n):
         acc = acc + recv[j]
-    return acc.movedim(0, dim)
+    return (acc.to(recv.dtype) if wide else acc).movedim(0, dim)
 
 
 def _sum(x: torch.Tensor, group, n: int) -> torch.Tensor:

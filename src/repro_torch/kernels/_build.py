@@ -65,10 +65,10 @@ _SIGNATURES = {
     "flash_attention_dkv_launch": ([_VOID_P] * 8 + [_I32] * 9 + [_F32, _I32,
                                                                 _VOID_P],
                                    _I32),
-    # (q, k_cache, v_cache, kv_len, out, B, Sc, Hkv, G, hd, is_bf16, window,
-    #  ring, splits, softcap, device, stream)
-    "gqa_decode_launch": ([_VOID_P] * 5 + [_I32] * 9 + [_F32, _I32, _VOID_P],
-                          _I32),
+    # (q, k_cache, v_cache, kv_len, out, lse, B, Sc, Hkv, G, hd, is_bf16,
+    #  window, ring, splits, slot0, sc_total, softcap, device, stream)
+    "gqa_decode_launch": ([_VOID_P] * 6 + [_I32] * 11 + [_F32, _I32,
+                                                       _VOID_P], _I32),
     # (x, dtA, b, c, initial_state, y, state, cb, chunk_states, entering,
     #  decay, B, L, H, P, N, chunk, device, stream)
     "ssd_scan_launch": ([_VOID_P] * 11 + [_I32] * 7 + [_VOID_P], _I32),

@@ -9,6 +9,11 @@ alignment and contiguity, allocates its output with ``torch.empty``,
 picks the kernel's split count with :func:`decode_splits`, launches on the
 current stream, raises on a CUDA error and adds one to
 ``LAUNCHES["gqa_decode"]``. It never falls back to the plain version.
+
+Both take a block of a longer cache (``slot0``, ``sc_total``: a rank's
+slots when the cache's sequence is split over a mesh) and can return the
+float32 logsumexp beside the output (``return_lse``), which
+:func:`~.ref.combine_blocks` reads to merge the blocks.
 """
 from __future__ import annotations
 
@@ -56,13 +61,21 @@ def _sm_count(index: int) -> int:
 def gqa_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, kv_len: torch.Tensor, *,
                     window: int = 0, ring: bool = False,
-                    softcap: float = 0.0) -> torch.Tensor:
+                    softcap: float = 0.0, slot0: int = 0,
+                    sc_total: Optional[int] = None,
+                    return_lse: bool = False):
     """B7 kernel. q ``[B, Hq, hd]``, k/v_cache ``[B, Sc, Hkv, hd]`` (one
-    dtype, float32 or bfloat16), kv_len ``[B]`` int32, all contiguous on
-    one CUDA device, ``hd`` in :data:`HEAD_DIMS`. Returns ``[B, Hq, hd]``
-    in q's dtype."""
+    dtype, float32 or bfloat16; slots ``slot0 ..`` of a ``sc_total``-slot
+    cache, by default the whole one), kv_len ``[B]`` int32, all contiguous
+    on one CUDA device, ``hd`` in :data:`HEAD_DIMS`. Returns ``[B, Hq,
+    hd]`` in q's dtype, and with ``return_lse`` the float32 ``[B, Hq]``
+    logsumexp too."""
     B, Hq, hd = q.shape
     Sc, Hkv = k_cache.shape[1], k_cache.shape[2]
+    total = Sc if sc_total is None else int(sc_total)
+    if slot0 < 0 or total < slot0 + Sc:
+        raise ValueError(f"gqa_decode: slots {slot0}..{slot0 + Sc - 1} are "
+                         f"not a block of a {total}-slot cache")
     dev = q.device
     if q.dtype not in _DTYPES:
         raise TypeError(f"gqa_decode: dtype {q.dtype} is not one of "
@@ -80,27 +93,33 @@ def gqa_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                               dev, 16),
             check_cuda_tensor("kv_len", kv_len, torch.int32, (B,), dev)]
     out = torch.empty_like(q)
+    lse = torch.empty((B, Hq), dtype=torch.float32, device=dev) \
+        if return_lse else None
     if q.numel():
         splits = decode_splits(B, Hkv, Sc, _sm_count(dev.index))
-        launch("gqa_decode_launch", *ptrs, out.data_ptr(), B, Sc, Hkv,
-               Hq // Hkv, hd, int(q.dtype == torch.bfloat16), int(window),
-               int(ring), splits, float(softcap), device=dev)
+        launch("gqa_decode_launch", *ptrs, out.data_ptr(),
+               0 if lse is None else lse.data_ptr(), B, Sc, Hkv, Hq // Hkv,
+               hd, int(q.dtype == torch.bfloat16), int(window), int(ring),
+               splits, int(slot0), total, float(softcap), device=dev)
         LAUNCHES["gqa_decode"] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_len: torch.Tensor, *,
                      window: int = 0, ring: bool = False,
                      softcap: float = 0.0,
-                     use_kernel: Optional[bool] = None) -> torch.Tensor:
-    """One query token per row against a KV cache: ``kv_len`` valid slots
-    per row, sliding window, ring buffer, softcap. Returns
-    ``[B, Hq, hd]``."""
+                     use_kernel: Optional[bool] = None, slot0: int = 0,
+                     sc_total: Optional[int] = None,
+                     return_lse: bool = False):
+    """One query token per row against a KV cache (or its block of slots
+    ``slot0 ..`` of a ``sc_total``-slot cache): ``kv_len`` valid slots per
+    row, sliding window, ring buffer, softcap. Returns ``[B, Hq, hd]``,
+    and with ``return_lse`` the float32 ``[B, Hq]`` logsumexp too."""
+    kw = dict(window=window, ring=ring, softcap=softcap, slot0=slot0,
+              sc_total=sc_total, return_lse=return_lse)
     if not (q.is_cuda if use_kernel is None else use_kernel):
-        return gqa_decode_ref(q, k_cache, v_cache, kv_len, window=window,
-                              ring=ring, softcap=softcap)
+        return gqa_decode_ref(q, k_cache, v_cache, kv_len, **kw)
     return gqa_decode_cuda(q.contiguous(), k_cache.contiguous(),
                            v_cache.contiguous(),
-                           kv_len.to(torch.int32).contiguous(),
-                           window=window, ring=ring, softcap=softcap)
+                           kv_len.to(torch.int32).contiguous(), **kw)

@@ -68,7 +68,7 @@ from torch import nn
 
 from repro_torch.distributed import collectives as C
 from repro_torch.kernels.flash_attention import attention
-from repro_torch.kernels.gqa_decode import decode_attention
+from repro_torch.kernels.gqa_decode import combine_blocks, decode_attention
 from repro_torch.kernels.ssd_scan import ssd, ssd_chunked
 
 from .config import ModelConfig
@@ -120,6 +120,10 @@ class MeshContext:
     #: the layout rules read; :func:`~repro_torch.models.transformer
     #: .forward` sets it (:meth:`at`)
     shape: Optional[Tuple[int, int]] = None
+    #: the whole KV cache's slot count where its sequence is laid out over
+    #: the batch axes (a decode step at batch 1, ``shard_seq``); None where
+    #: each rank holds every slot of its rows
+    kv_slots: Optional[int] = None
 
     @property
     def model_size(self) -> int:
@@ -159,25 +163,30 @@ class MeshContext:
         the sequence whole without ``shard_seq``."""
         return ("batch", "model" if self.shard_seq else None, None)
 
-    def block(self, dim: int, name: Optional[str]):
+    def block(self, dim: int, name: Optional[str],
+              size: Optional[int] = None):
         """``(ranks, index, axis)`` of dimension ``dim`` (0: batch, 1:
-        sequence) laid out over ``name`` ("batch" or "model"): one rank and
-        the whole dimension where ``name`` is None or the global size does
-        not divide over the axis — then the dimension is replicated. The
-        layout rules of the port live here."""
+        sequence) laid out over ``name`` ("batch" or "model"; a sequence
+        over "batch" is the KV cache's slots at batch 1), of global size
+        ``size`` (default the bound shape's): one rank and the whole
+        dimension where ``name`` is None or the size does not divide over
+        the axis — then the dimension is replicated. The layout rules of
+        the port live here."""
         if name is None:
             return 1, 0, None
-        if self.shape is None:
-            raise ValueError("MeshContext.at(batch, seq) must bind the "
-                             "global shape before a layout is read")
-        if (dim, name) == (0, "batch"):
+        if size is None:
+            if self.shape is None:
+                raise ValueError("MeshContext.at(batch, seq) must bind the "
+                                 "global shape before a layout is read")
+            size = self.shape[dim]
+        if name == "batch" and dim in (0, 1):
             n, axis = self.data_size, self.batch_axes
         elif (dim, name) == (1, "model"):
             n, axis = self.model_size, self.model_axis
         else:
             raise ValueError(f"no layout rule for {name!r} on dimension "
                              f"{dim}")
-        if self.shape[dim] % n:
+        if size % n:
             return 1, 0, None
         return n, C.axis_index(axis, mesh=self.mesh), axis
 
@@ -298,13 +307,15 @@ def leaf_split(ctx: MeshContext, spec: Spec, shape
                ) -> Tuple[Optional[Tuple[str, ...]], ...]:
     """For each dimension of a leaf of whole ``shape`` laid out as
     ``spec``: the mesh axes it is split over — the FSDP axes for
-    ``"data"``, the model axis for ``"model"`` — or None where it stays
-    whole (no name, an axis of one rank, or a size that does not divide
-    the axis: GSPMD pads such a dimension, the port keeps it whole)."""
+    ``"data"``, the model axis for ``"model"``, the axes a tuple names (a
+    cache's batch axes) — or None where it stays whole (no name, an axis
+    of one rank, or a size that does not divide the axis: GSPMD pads such
+    a dimension, the port keeps it whole)."""
     out = []
     for name, size in zip(spec, shape):
-        axes = {"data": tuple(ctx.fsdp_axes),
-                "model": (ctx.model_axis,)}.get(name)
+        axes = tuple(name) if isinstance(name, (tuple, list)) else {
+            "data": tuple(ctx.fsdp_axes),
+            "model": (ctx.model_axis,)}.get(name)
         n = C.axis_size(axes, mesh=ctx.mesh) if axes else 1
         out.append(axes if n > 1 and size % n == 0 else None)
     return tuple(out)
@@ -654,16 +665,17 @@ def attention_block(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     ``(out [B, S, D], (ck, cv))``; the cache tensors are the ones passed
     in, updated.
 
-    With ``ctx`` (a bound :class:`MeshContext`, full-sequence forward from
-    position 0 only) ``x`` is this rank's block of the residual stream and
-    so is ``out``; ``(k, v)`` are this rank's heads of the gathered
-    sequence.
+    With ``ctx`` (a bound :class:`MeshContext`) ``x`` is this rank's block
+    of the residual stream and so is ``out``; without a cache ``(k, v)``
+    are this rank's heads of the gathered sequence, with one the cache is
+    this rank's block (``init_cache(ctx=...)``): its rows' slots of its KV
+    heads, or, where ``ctx.kv_slots`` is set (decode at batch 1), its
+    block of the slots, over which B7 runs and whose outputs are combined
+    over the batch axes (:func:`_decode_step`).
     """
     if ctx is not None:
-        if kv_cache is not None or start:
-            raise NotImplementedError("a mesh runs full-sequence forwards "
-                                      "only (no KV cache)")
-        return _attention_mesh(p, cfg, x, ctx, window, use_kernel, stash)
+        return _attention_mesh(p, cfg, x, ctx, window, use_kernel, stash,
+                               start, kv_cache, kv_len, ring)
     dt = torch_dtype(cfg.dtype)
     B, S = x.shape[:2]
     positions = torch.arange(start, start + S, dtype=torch.int32,
@@ -678,37 +690,66 @@ def attention_block(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                       stash=stash)
         new_kv = (k, v)
     else:
-        ck, cv = kv_cache
-        Sc = ck.shape[1]
         if S == 1:
-            if not ring and start >= Sc:
-                raise ValueError(
-                    f"decode at position {start} overruns the {Sc}-slot KV "
-                    "cache; allocate a longer cache (bucket_seq)")
-            slot = start % Sc if ring else start
-            ck[:, slot] = k[:, 0]
-            cv[:, slot] = v[:, 0]
-            o = decode_attention(q[:, 0], ck, cv, kv_len, window=window,
-                                 ring=ring, softcap=cfg.attn_softcap,
-                                 use_kernel=use_kernel)[:, None]
+            o = _decode_step(cfg, None, q, k, v, kv_cache, kv_len, start,
+                             window, ring, use_kernel)
         else:
-            if ring and S > Sc:
-                shift = (start + S - Sc) % Sc
-                ck.copy_(torch.roll(k[:, -Sc:], shift, dims=1))
-                cv.copy_(torch.roll(v[:, -Sc:], shift, dims=1))
-            elif S > Sc:
-                raise ValueError(f"a {S}-token prompt does not fit the "
-                                 f"{Sc}-slot KV cache")
-            else:
-                ck[:, :S] = k
-                cv[:, :S] = v
+            _write_prompt(*kv_cache, k, v, start, ring)
             o = attention(q, k, v, causal=cfg.causal, window=window,
                           softcap=cfg.attn_softcap, use_kernel=use_kernel)
-        new_kv = (ck, cv)
+        new_kv = kv_cache
 
     H, hd, D = p.wo.shape
     out = o.flatten(-2) @ p.wo.reshape(H * hd, D).to(dt)
     return out, new_kv
+
+
+def _holds(ck: torch.Tensor, k: torch.Tensor) -> None:
+    """Raise where the cache (block) ``ck`` does not hold the rows and
+    heads of ``k``."""
+    if ck.shape[2] != k.shape[2] or ck.shape[0] != k.shape[0]:
+        raise ValueError(f"a {tuple(ck.shape)} KV cache block does not hold "
+                         f"{k.shape[0]} rows of {k.shape[2]} heads: it is "
+                         "laid out for another mesh")
+
+
+def _write_slot(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, start: int, ring: bool, slot0: int = 0,
+                total: Optional[int] = None) -> None:
+    """A decode step's k/v ``[B, 1, H, hd]`` into slot ``start``
+    (``start % total`` in ring mode) of a ``total``-slot cache, in place,
+    where that slot lies in the block ``ck``/``cv`` holds (slots ``slot0
+    ..``; by default the whole cache)."""
+    _holds(ck, k)
+    Sc = ck.shape[1]
+    total = Sc if total is None else total
+    if not ring and start >= total:
+        raise ValueError(
+            f"decode at position {start} overruns the {total}-slot KV "
+            "cache; allocate a longer cache (bucket_seq)")
+    slot = (start % total if ring else start) - slot0
+    if 0 <= slot < Sc:
+        ck[:, slot] = k[:, 0]
+        cv[:, slot] = v[:, 0]
+
+
+def _write_prompt(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, start: int, ring: bool) -> None:
+    """A prefill's k/v ``[B, S, H, hd]`` into the cache from slot 0, in
+    place: in ring mode with ``S > Sc`` the last Sc positions, rolled so
+    slot ``j`` holds position ``j mod Sc``."""
+    _holds(ck, k)
+    Sc, S = ck.shape[1], k.shape[1]
+    if ring and S > Sc:
+        shift = (start + S - Sc) % Sc
+        ck.copy_(torch.roll(k[:, -Sc:], shift, dims=1))
+        cv.copy_(torch.roll(v[:, -Sc:], shift, dims=1))
+    elif S > Sc:
+        raise ValueError(f"a {S}-token prompt does not fit the "
+                         f"{Sc}-slot KV cache")
+    else:
+        ck[:, :S] = k
+        cv[:, :S] = v
 
 
 def _head_slices(cfg: ModelConfig, ctx: MeshContext):
@@ -722,10 +763,14 @@ def _head_slices(cfg: ModelConfig, ctx: MeshContext):
 
 def _attention_mesh(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                     ctx: MeshContext, window: int,
-                    use_kernel: Optional[bool], stash):
+                    use_kernel: Optional[bool], stash, start: int = 0,
+                    kv_cache=None, kv_len: Optional[torch.Tensor] = None,
+                    ring: bool = False):
     """:func:`attention_block` on a mesh: the reference's mesh branches
     (``layers.py`` ``attention_block``), each rank's attention on its
-    heads of its rows' gathered sequence."""
+    heads of its rows' gathered sequence; a prefill writes those heads'
+    k/v (the SP projections' under ``sp_matmuls``) into the rank's cache
+    block, a decode step writes its slot and attends the block."""
     dt = torch_dtype(cfg.dtype)
     heads = _head_slices(cfg, ctx)
     stream = ctx.stream()
@@ -743,13 +788,21 @@ def _attention_mesh(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         k = _project_heads(x, _part(p.wk, 1, nkv, kvs), dt)
         v = _project_heads(x, _part(p.wv, 1, nkv, kvs), dt)
     B, S = x.shape[0], q.shape[1]
-    positions = torch.arange(S, dtype=torch.int32, device=x.device
-                             ).expand(B, S)
+    positions = torch.arange(start, start + S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = attention(q, k, v, causal=cfg.causal, window=window,
-                  softcap=cfg.attn_softcap, use_kernel=use_kernel,
-                  stash=stash)
+    if kv_cache is not None and S == 1:
+        o = _decode_step(cfg, ctx, q, k, v, kv_cache, kv_len, start, window,
+                         ring, use_kernel)
+    else:
+        if kv_cache is not None:
+            _write_prompt(*kv_cache, k, v, start, ring)
+        o = attention(q, k, v, causal=cfg.causal, window=window,
+                      softcap=cfg.attn_softcap, use_kernel=use_kernel,
+                      stash=stash)
+    if kv_cache is not None:
+        k, v = kv_cache
     if sp:
         out = sp_out_proj(ctx, cfg, o, p.wo)
         return cst(ctx, out, *stream, frm=("batch", "model", None)), (k, v)
@@ -759,6 +812,40 @@ def _attention_mesh(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     if heads is not None:
         out = C.psum(out, ctx.model_axis, mesh=ctx.mesh)
     return cst(ctx, out, *stream, frm=("batch", None, None)), (k, v)
+
+
+def _decode_step(cfg: ModelConfig, ctx: Optional[MeshContext], q, k, v,
+                 kv_cache, kv_len, start: int, window: int, ring: bool,
+                 use_kernel: Optional[bool]) -> torch.Tensor:
+    """A decode step's attention: ``q``/``k``/``v`` ``[B_rows, 1, H, hd]``
+    (on a mesh this rank's heads) against the cache (this rank's block):
+    the step's slot written, then B7. Where ``ctx.kv_slots`` lays the
+    cache's slots over the batch axes, the rank
+    holds slots ``[i·Sc, (i+1)·Sc)`` of the whole cache: it writes the
+    step's slot if it is one of them, runs B7 on its block with the whole
+    cache's valid range (``slot0``, ``sc_total``) and its logsumexp, and
+    the ranks' outputs are all-gathered over the batch axes and combined
+    in float32 in rank order (:func:`~repro_torch.kernels.gqa_decode
+    .combine_blocks`). Returns ``[B_rows, 1, H, hd]``."""
+    ck, cv = kv_cache
+    kw = dict(window=window, ring=ring, softcap=cfg.attn_softcap,
+              use_kernel=use_kernel)
+    total = None if ctx is None else ctx.kv_slots
+    n, i, axis = (1, 0, None) if total is None else \
+        ctx.block(1, "batch", size=total)
+    if n == 1:
+        _write_slot(ck, cv, k, v, start, ring)
+        return decode_attention(q[:, 0], ck, cv, kv_len, **kw)[:, None]
+    Sc = ck.shape[1]
+    if Sc * n != total:
+        raise ValueError(f"a {Sc}-slot cache block is not one of {n} blocks "
+                         f"of {total} slots")
+    _write_slot(ck, cv, k, v, start, ring, i * Sc, total)
+    o, lse = decode_attention(q[:, 0], ck, cv, kv_len, slot0=i * Sc,
+                              sc_total=total, return_lse=True, **kw)
+    outs = C.all_gather(o, axis, 0, tiled=False, mesh=ctx.mesh)
+    lses = C.all_gather(lse, axis, 0, tiled=False, mesh=ctx.mesh)
+    return combine_blocks(outs, lses)[:, None]
 
 
 # ===========================================================================
@@ -1113,8 +1200,9 @@ def mamba_block(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
     step. Returns ``(out [B, S, D], (new_conv, new_ssm))``; the cache
     tensors passed in are not modified.
 
-    With ``ctx`` (no cache) ``x`` and ``out`` are this rank's stream
-    blocks, and the block runs on its rows' gathered sequence. Where the
+    With ``ctx`` ``x`` and ``out`` are this rank's stream blocks, the
+    cache (if any) is this rank's block (``init_cache(ctx=...)``), and the
+    block runs on its rows' gathered sequence. Where the
     SSM heads divide the model axis, this model rank computes heads ``[i ·
     H/m, (i+1) · H/m)`` (the reference's constraints on ``z``, ``xBC``,
     ``dt`` and ``xin``): its columns of ``z``, of ``xBC``'s ``x`` part and
@@ -1123,26 +1211,31 @@ def mamba_block(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
     scan of its heads with ``D_skip``, the gated norm with its sum of
     squares over ``d_inner`` a psum over the model axis, and its rows of
     ``out_proj``, summed over the model axis into the stream (a psum and a
-    slice, or a psum_scatter under SP). The new cache is that of its
-    channels and heads. Elsewhere the block runs whole on every model
-    rank."""
+    slice, or a psum_scatter under SP). The cache and the new cache are
+    those of its channels and heads: the conv state of its ``d_inner``
+    channels and the whole ``B``/``C`` channels, the SSM state of its
+    heads. Elsewhere the block runs whole on every model rank, with the
+    whole cache."""
     if ctx is not None:
-        if cache is not None:
-            raise NotImplementedError("a mesh runs full-sequence forwards "
-                                      "only (no cache)")
-        return _mamba_mesh(p, cfg, x, ctx, use_kernel)
+        return _mamba_mesh(p, cfg, x, ctx, use_kernel, cache)
     return _mamba_heads(p, cfg, x, cache, use_kernel)
 
 
 def _mamba_mesh(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
-                ctx: MeshContext, use_kernel: Optional[bool]):
+                ctx: MeshContext, use_kernel: Optional[bool], cache=None):
     """:func:`mamba_block` on a mesh."""
     stream = ctx.stream()
     x = cst(ctx, x, "batch", None, None, frm=stream)
     H, hp = cfg.ssm_heads, cfg.ssm_head_dim
     hs = _model_slice(ctx, H)
+    if cache is not None:
+        heads = H if hs is None else hs.stop - hs.start
+        if cache[1].shape[:2] != (x.shape[0], heads):
+            raise ValueError(f"a {tuple(cache[1].shape)} SSM cache block "
+                             f"does not hold {x.shape[0]} rows of {heads} "
+                             "heads: it is laid out for another mesh")
     if hs is None:
-        out, new_cache = _mamba_heads(p, cfg, x, None, use_kernel)
+        out, new_cache = _mamba_heads(p, cfg, x, cache, use_kernel)
         return cst(ctx, out, *stream, frm=("batch", None, None)), new_cache
     din, N = cfg.d_inner, cfg.ssm_state
     ch = slice(hs.start * hp, hs.stop * hp)      # this rank's d_inner
@@ -1158,7 +1251,7 @@ def _mamba_mesh(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
              norm_scale=_part(p.norm_scale, 0, din, ch),
              out_proj=_part(p.out_proj, 0, din, ch))
     out, new_cache = _mamba_heads(
-        _Local(p, w), cfg, x, None, use_kernel,
+        _Local(p, w), cfg, x, cache, use_kernel,
         sumsq=lambda t: C.psum(t, ctx.model_axis, mesh=ctx.mesh))
     if _sp_sharded(ctx):
         out = C.psum_scatter(out, ctx.model_axis, 1, mesh=ctx.mesh)

@@ -57,11 +57,11 @@ from . import layers as L
 from .config import ATTN_SWA, MAMBA, ModelConfig
 from .layers import MeshContext, cst
 
-__all__ = ["Cache", "DenseLayer", "LM", "MambaLayer", "cache_spec",
-           "decode_step", "embed_input", "embed_tokens", "forward",
-           "init_cache",
+__all__ = ["Cache", "CacheLayout", "DenseLayer", "LM", "MambaLayer",
+           "cache_pspecs", "cache_spec", "decode_step", "embed_input",
+           "embed_tokens", "forward", "gather_cache", "init_cache",
            "init_params", "leaf_pspecs", "logits_fn", "loss_fn",
-           "param_pspecs", "prefill",
+           "param_pspecs", "prefill", "shard_cache",
            "run_attention_stack", "run_hybrid_stack", "run_mamba_stack",
            "softmax_xent"]
 
@@ -458,10 +458,11 @@ def run_mamba_stack(model: LM, cfg: ModelConfig, x: torch.Tensor,
                            use_reentrant=False) if remat \
                 else _mamba_layer(lp, cfg, x, use_kernel, ctx)
             continue
+        lp = L.local_params(lp, cfg, ctx)
         h = L.rms_norm(x, lp.ln, cfg.norm_eps)
         m, (conv, ssm) = L.mamba_block(lp.block, cfg, h,
                                        cache=(cache.conv[i], cache.ssm[i]),
-                                       use_kernel=use_kernel)
+                                       use_kernel=use_kernel, ctx=ctx)
         cache.conv[i].copy_(conv)
         cache.ssm[i].copy_(ssm)
         x = x + m
@@ -527,6 +528,22 @@ def _run_stack(model: LM, cfg: ModelConfig, x: torch.Tensor, start: int,
 # Cache and the forward passes
 # ===========================================================================
 
+@dataclasses.dataclass(frozen=True)
+class CacheLayout:
+    """How a cache on a mesh is laid out: each field's spec
+    (:func:`cache_pspecs`: a tuple of axes, ``"model"`` or None a
+    dimension), its whole shape, whether the KV cache's sequence lies over
+    the batch axes, and ``conv``: ``(d_inner, 2N)`` where each model rank
+    keeps the conv state of its own ``d_inner`` channels and the whole
+    ``B``/``C`` channels (the SSM heads split over the model axis; None
+    where the channels stay whole). A dimension whose size does not divide
+    its axes stays whole, as :func:`~.layers.leaf_split` says."""
+    specs: Dict[str, Spec]
+    shapes: Dict[str, Tuple[int, ...]]
+    shard_seq: bool = False
+    conv: Optional[Tuple[int, int]] = None
+
+
 @dataclasses.dataclass
 class Cache:
     """Decode-time state, updated in place. Fields a family does not use
@@ -536,13 +553,15 @@ class Cache:
     dtype. ``conv``: ``[L_mamba, B, cw-1, din + 2N]`` in the compute dtype;
     ``ssm``: ``[L_mamba, B, H, P, N]`` float32. ``pos``: the next position
     to write, the same in every row (static batching), kept as a host int —
-    the reference keeps a ``[B]`` array.
+    the reference keeps a ``[B]`` array. On a mesh each field is this
+    rank's block, as ``layout`` says (None: whole tensors, one device).
     """
     kv_k: torch.Tensor
     kv_v: torch.Tensor
     conv: torch.Tensor
     ssm: torch.Tensor
     pos: int = 0
+    layout: Optional[CacheLayout] = None
 
     @property
     def has_kv(self) -> bool:
@@ -581,12 +600,125 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int
     return spec, ring
 
 
+_FIELDS = ("kv_k", "kv_v", "conv", "ssm")
+
+
+def cache_pspecs(cfg: ModelConfig, batch_axes=("data",),
+                 shard_seq: bool = False) -> Dict[str, Spec]:
+    """The reference's cache layout (``specs._cache_struct``, its
+    ``cache_pspecs`` over ``batch_axes``): batch over the batch axes, KV
+    heads, conv channels and SSM heads over ``"model"``; with
+    ``shard_seq`` (batch 1) the KV cache's sequence over the batch axes
+    instead of its batch. An attention-free family keeps its (empty) KV
+    heads whole."""
+    b = tuple(batch_axes)
+    kv_head = "model" if cache_spec(cfg, 1, 1)[0]["kv_k"][0][0] else None
+    rows, seq = (None, b) if shard_seq else (b, None)
+    return {"kv_k": (None, rows, seq, kv_head, None),
+            "kv_v": (None, rows, seq, kv_head, None),
+            "conv": (None, rows, None, "model"),
+            "ssm": (None, rows, "model", None, None)}
+
+
+def _cache_layout(cfg: ModelConfig, batch: int, max_seq: int,
+                  ctx: MeshContext, shard_seq: bool) -> CacheLayout:
+    spec, _ = cache_spec(cfg, batch, max_seq)
+    heads = spec["ssm"][0][2] and L._model_slice(ctx, cfg.ssm_heads)
+    return CacheLayout(
+        cache_pspecs(cfg, ctx.batch_axes, shard_seq),
+        {k: tuple(s) for k, (s, _) in spec.items()}, shard_seq,
+        (cfg.d_inner, 2 * cfg.ssm_state) if heads else None)
+
+
+def _block(t: torch.Tensor, field: str, layout: CacheLayout,
+           ctx: MeshContext) -> torch.Tensor:
+    """This rank's block of the whole cache field ``t``."""
+    spec = layout.specs[field]
+    if field != "conv":
+        return L.block_of(t, spec, ctx)
+    t = L.block_of(t, spec[:-1] + (None,), ctx)
+    if layout.conv is None:
+        return t
+    din, bc = layout.conv
+    m, i = ctx.model_size, ctx.model_index
+    own = din // m
+    return torch.cat([t[..., i * own:(i + 1) * own], t[..., din:din + bc]],
+                     -1)
+
+
+def _whole(t: torch.Tensor, field: str, layout: CacheLayout,
+           ctx: MeshContext) -> torch.Tensor:
+    """The whole cache field from every rank's block ``t`` (a collective
+    over the axes the field is split over: every rank calls it)."""
+    shape = layout.shapes[field]
+    if not int(np.prod(shape)):
+        return t.new_zeros(shape)
+    spec = layout.specs[field]
+    if field != "conv":
+        return L.whole_of(t, spec, shape, ctx)
+    rows = L.whole_of(t, spec[:-1] + (None,), shape[:-1] + t.shape[-1:],
+                      ctx)
+    if layout.conv is None:
+        return rows
+    din, bc = layout.conv
+    m = ctx.model_size
+    own = din // m
+    blocks = C.all_gather(rows, ctx.model_axis, 0, tiled=False,
+                          mesh=ctx.mesh)
+    return torch.cat([blocks[r][..., :own] for r in range(m)]
+                     + [blocks[0][..., own:own + bc]], -1)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device) -> Tuple[Cache, bool]:
-    """A zeroed cache on ``device`` and whether its KV part is a ring."""
+               device, ctx: Optional[MeshContext] = None,
+               shard_seq: bool = False) -> Tuple[Cache, bool]:
+    """A zeroed cache on ``device`` and whether its KV part is a ring.
+    With ``ctx``: this rank's block of each field as :func:`cache_pspecs`
+    lays it out (``shard_seq``: the KV cache's slots over the batch axes,
+    for decode at batch 1)."""
     spec, ring = cache_spec(cfg, batch, max_seq)
-    return Cache(**{k: torch.zeros(s, dtype=d, device=device)
-                    for k, (s, d) in spec.items()}), ring
+    if ctx is None:
+        return Cache(**{k: torch.zeros(s, dtype=d, device=device)
+                        for k, (s, d) in spec.items()}), ring
+    layout = _cache_layout(cfg, batch, max_seq, ctx, shard_seq)
+    fields = {k: torch.zeros(_block(torch.empty(s, device="meta"), k,
+                                    layout, ctx).shape, dtype=d,
+                             device=device)
+              for k, (s, d) in spec.items()}
+    return Cache(**fields, layout=layout), ring
+
+
+@torch.no_grad()
+def gather_cache(cache: Cache, ctx: Optional[MeshContext]) -> Cache:
+    """The whole cache from every rank's blocks, in the reference's order
+    (the conv channels ``[x | B | C]``): a collective, every rank calls it.
+    A cache without a layout is returned as it is."""
+    if cache.layout is None:
+        return cache
+    return Cache(**{k: _whole(getattr(cache, k), k, cache.layout, ctx)
+                    for k in _FIELDS}, pos=cache.pos)
+
+
+@torch.no_grad()
+def shard_cache(cache: Cache, ctx: MeshContext,
+                shard_seq: bool = True) -> Cache:
+    """``cache`` (whole, or this rank's blocks in another layout) as this
+    rank's blocks of the layout ``shard_seq`` names: a batch-1 prefill's
+    cache, whose rows stay whole over the batch axes, into the decode
+    layout with the KV cache's slots over them."""
+    layout = cache.layout
+    if layout is None:
+        raise ValueError("shard_cache takes a cache made for the mesh "
+                         "(init_cache(ctx=...)), whose layout it reads")
+    whole = gather_cache(cache, ctx)
+    rows, seq = (None, tuple(ctx.batch_axes)) if shard_seq else (
+        tuple(ctx.batch_axes), None)
+    specs = {k: (sp[0], rows) + ((seq,) + sp[3:] if k.startswith("kv")
+                                 else sp[2:])
+             for k, sp in layout.specs.items()}
+    layout = dataclasses.replace(layout, shard_seq=shard_seq, specs=specs)
+    return Cache(**{k: _block(getattr(whole, k), k, layout, ctx).clone()
+                    for k in _FIELDS}, pos=cache.pos, layout=layout)
 
 
 def _local_model(model, cfg: ModelConfig, ctx: Optional[MeshContext],
@@ -625,44 +757,115 @@ def forward(model: LM, cfg: ModelConfig,
     return _run_stack(model, cfg, x, 0, None, None, False, use_kernel, ctx)
 
 
+def _serve_ctx(cache: Cache, ctx: Optional[MeshContext], shape
+               ) -> Optional[MeshContext]:
+    """``ctx`` bound to the global ``(batch, seq)`` that ``shape()`` gives
+    and to the cache's layout (a mesh's cache comes from
+    ``init_cache(ctx=...)``)."""
+    if ctx is None:
+        if cache.layout is not None:
+            raise ValueError("a cache laid out over a mesh needs its ctx")
+        return None
+    batch, seq = shape()
+    if cache.layout is None:
+        raise ValueError("on a mesh the cache is each rank's blocks: make "
+                         "it with init_cache(ctx=...)")
+    ctx = ctx.at(batch, seq)
+    if not cache.layout.shard_seq:
+        return ctx
+    if seq > 1:
+        raise ValueError("a prefill fills a cache laid out by rows: lay its "
+                         "KV slots over the batch axes after it "
+                         "(shard_cache)")
+    if ctx.block(0, "batch")[0] > 1:
+        raise ValueError(f"a batch of {batch} rows splits over the batch "
+                         "axes: lay the cache out by rows (shard_seq="
+                         "False), not by slots")
+    return dataclasses.replace(ctx,
+                               kv_slots=cache.layout.shapes["kv_k"][2])
+
+
+def _rows_whole(ctx: Optional[MeshContext], t: torch.Tensor
+                ) -> torch.Tensor:
+    """``t``'s every row on every rank from this data rank's rows."""
+    if ctx is None:
+        return t
+    return cst(ctx, t, *(None,) * t.ndim, frm=("batch",) + (None,) *
+               (t.ndim - 1))
+
+
+def _last_position(ctx: Optional[MeshContext], x: torch.Tensor
+                   ) -> torch.Tensor:
+    """The last position ``[B_rows, 1, D]`` of a stream block: on a mesh
+    whose model axis holds the sequence, the last model rank's last
+    position, all-gathered over the model axis."""
+    if ctx is None:
+        return x[:, -1:]
+    n, _, axis = ctx.block(1, ctx.stream()[1])
+    if n == 1:
+        return x[:, -1:]
+    return C.all_gather(x[:, -1:], axis, 1, mesh=ctx.mesh)[:, -1:]
+
+
 @torch.no_grad()
 def prefill(model: LM, cfg: ModelConfig, tokens: Optional[torch.Tensor],
             cache: Cache, ring: bool, use_kernel: Optional[bool] = None, *,
             frames: Optional[torch.Tensor] = None,
-            patches: Optional[torch.Tensor] = None
+            patches: Optional[torch.Tensor] = None,
+            ctx: Optional[MeshContext] = None
             ) -> Tuple[torch.Tensor, Cache]:
     """Run the prompt (``[B, S]`` tokens, after the patches of a vision
     model, or an audio model's frames) through the model from position 0,
     filling the cache in place. Returns ``(last-position logits [B,
     V_pad], cache)`` with ``cache.pos`` advanced to the sequence length S.
-    Inference only: no autograd graph (the parameters are trainable)."""
-    x = embed_input(model, cfg, tokens, frames=frames, patches=patches)
-    B, S = x.shape[:2]
-    kv_len = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    x = _run_stack(model, cfg, x, 0, cache, kv_len, ring, use_kernel)
+    Inference only: no autograd graph (the parameters are trainable).
+
+    With ``ctx``: the global inputs on every rank, the cache this rank's
+    blocks (``init_cache(ctx=...)``, its rows laid out by rows), the
+    model replicated or stored as blocks; the global logits on every
+    rank."""
+    ctx = _serve_ctx(cache, ctx, lambda: _global_shape(cfg, tokens, frames,
+                                                       patches))
+    model = _local_model(model, cfg, ctx, tokens)
+    x = embed_input(model, cfg, tokens, frames=frames, patches=patches,
+                    ctx=ctx)
+    B, S = x.shape[:2] if ctx is None else ctx.shape
+    kv_len = cst(ctx, torch.full((B,), S, dtype=torch.int32,
+                                 device=x.device), "batch")
+    x = _run_stack(model, cfg, x, 0, cache, kv_len, ring, use_kernel, ctx)
     cache.pos = S
-    return logits_fn(model, cfg, x[:, -1:])[:, 0], cache
+    logits = logits_fn(model, cfg, _last_position(ctx, x))[:, 0]
+    return _rows_whole(ctx, logits), cache
 
 
 @torch.no_grad()
 def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor,
-                cache: Cache, ring: bool, use_kernel: Optional[bool] = None
+                cache: Cache, ring: bool, use_kernel: Optional[bool] = None,
+                ctx: Optional[MeshContext] = None
                 ) -> Tuple[torch.Tensor, Cache]:
     """One decode step for ``[B]`` tokens at position ``cache.pos``.
     Returns ``(logits [B, V_pad], cache)`` with ``cache.pos`` advanced by
     one. Raises :class:`ValueError` when a non-ring KV cache is full (an
-    ssm model has none and decodes on)."""
-    Sc = cache.kv_k.shape[2]
+    ssm model has none and decodes on). With ``ctx``: the global tokens
+    and logits on every rank, the cache this rank's blocks (at batch 1
+    perhaps its block of the KV slots: ``shard_cache``)."""
+    Sc = cache.kv_k.shape[2] if cache.layout is None else \
+        cache.layout.shapes["kv_k"][2]
     if cache.has_kv and not ring and cache.pos >= Sc:
         raise ValueError(f"decode at position {cache.pos} overruns the "
                          f"{Sc}-slot KV cache; allocate a longer cache")
-    x = embed_tokens(model, cfg, token[:, None])
-    kv_len = torch.full((token.shape[0],), cache.pos + 1, dtype=torch.int32,
-                        device=token.device)
+    B = token.shape[0]
+    ctx = _serve_ctx(cache, ctx, lambda: (B, 1))
+    model = _local_model(model, cfg, ctx)
+    x = embed_tokens(model, cfg, token[:, None], ctx)
+    if ctx is not None:
+        x = cst(ctx, x, *ctx.stream(), frm=("batch", None, None))
+    kv_len = cst(ctx, torch.full((B,), cache.pos + 1, dtype=torch.int32,
+                                 device=token.device), "batch")
     x = _run_stack(model, cfg, x, cache.pos, cache, kv_len, ring,
-                   use_kernel)
+                   use_kernel, ctx)
     cache.pos += 1
-    return logits_fn(model, cfg, x)[:, 0], cache
+    return _rows_whole(ctx, logits_fn(model, cfg, x)[:, 0]), cache
 
 
 # ===========================================================================

@@ -56,12 +56,15 @@ def _fold(m, l, a, m2, l2, a2):
 
 
 def _split_plan(q, kc, vc, kv_len, *, splits, window=0, ring=False,
-                softcap=0.0, drop_split=None):
+                softcap=0.0, drop_split=None, slot0=0, sc_total=None,
+                return_lse=False):
     """B7's arithmetic plan in float32: ``splits`` parts of each row's
-    valid range ``[lo, hi)``, a stream per group of lanes running the
-    online softmax over batches of UNROLL slots, then the merges in the
-    kernel's order. ``drop_split`` leaves one rank out of the merge (a
-    control)."""
+    valid range ``[lo, hi)`` (on the whole ``sc_total``-slot cache,
+    intersected with the block of slots ``slot0 ..`` that ``kc``/``vc``
+    hold), a stream per group of lanes running the online softmax over
+    batches of UNROLL slots, then the merges in the kernel's order, and
+    with ``return_lse`` the kernel's logsumexp. ``drop_split`` leaves one
+    rank out of the merge (a control)."""
     B, Hq, hd = q.shape
     Sc, Hkv = kc.shape[1], kc.shape[2]
     G = Hq // Hkv
@@ -70,11 +73,14 @@ def _split_plan(q, kc, vc, kv_len, *, splits, window=0, ring=False,
     scale = 1.0 / hd ** 0.5
     qf = q.float().reshape(B, Hkv, G, hd)
     kf, vf = kc.float(), vc.float()
+    total = Sc if sc_total is None else sc_total
     out = torch.zeros(B, Hkv, G, hd)
+    lse = torch.zeros(B, Hkv, G)
     for b in range(B):
         n = int(kv_len[b])
-        hi = max(0, min(n, Sc))
-        lo = max(0, n - window) if (not ring and window > 0) else 0
+        hi = min(max(0, min(n, total)), slot0 + Sc) - slot0
+        lo = max(max(0, n - window) if (not ring and window > 0) else 0,
+                 slot0) - slot0
         per = -(-max(hi - lo, 0) // splits)
         ranks = []
         for r in range(splits):
@@ -122,7 +128,10 @@ def _split_plan(q, kc, vc, kv_len, *, splits, window=0, ring=False,
             if r != drop_split:
                 fm, fl, fa = _fold(fm, fl, fa, bm, bl, ba)
         out[b] = fa / fl.clamp_min(1e-30)[..., None]
-    return out.reshape(B, Hq, hd).to(q.dtype)
+        lse[b] = torch.where(fl > 0, fm.clamp_min(SAFE) + torch.log(fl),
+                             NEG)
+    out = out.reshape(B, Hq, hd).to(q.dtype)
+    return (out, lse.reshape(B, Hq)) if return_lse else out
 
 
 def _inputs(case, dtype, seed):

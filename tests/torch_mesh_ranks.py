@@ -109,6 +109,87 @@ GAP_SHAPES = ((1, 2), (1, 4))
 CKPT_ARCH, CKPT_STEP = "mamba2_2p7b", 3
 
 
+class ServeCase(NamedTuple):
+    """Prefill and greedy decode of the smoke config of ``arch`` with
+    ``over``, in float32, on one mesh shape: ``B`` rows of SERVE_S tokens
+    (a vision model's SERVE_PATCHES patch embeddings before them), then
+    SERVE_STEPS decode steps; ``sp`` the prefill's ``sp_matmuls``;
+    ``blocks``: the port also serves the model stored as each rank's
+    blocks (``shard_module``); ``shard_seq``: a batch-1 prefill, then the
+    cache's KV slots laid over the batch axes for the decode steps (the
+    reference's ``_cache_struct(..., shard_seq_cache=True)``). An
+    encoder-only model (hubert) runs its mesh prefill: ``forward`` and
+    ``logits_fn`` of SERVE_S frames."""
+    name: str
+    arch: str
+    over: Tuple
+    shape: Tuple[int, int]
+    sp: bool = False
+    B: int = 4
+    blocks: bool = False
+    shard_seq: bool = False
+
+
+#: serving on a mesh: every family (mixtral's window of 8 under the
+#: 16-token prompt, so its ring of 8 slots wraps; tp mode with 6 experts
+#: over 4 model ranks), each of the three mesh shapes, one SP prefill, one
+#: model stored as blocks, and batch 1 with the KV slots over data = 4
+SERVE_S, SERVE_STEPS, SERVE_PATCHES = 16, 3, 8
+SERVE_CASES = (
+    ServeCase("smollm_22", "smollm_360m", (), (2, 2)),
+    ServeCase("yi_41", "yi_34b", (), (4, 1)),
+    ServeCase("yi_14", "yi_34b", (), (1, 4)),
+    ServeCase("yi_sp_22", "yi_34b", (), (2, 2), sp=True),
+    ServeCase("gemma2_41", "gemma2_27b", (), (4, 1)),
+    ServeCase("mixtral_22", "mixtral_8x7b", (("window", 8),), (2, 2)),
+    ServeCase("mixtral_tp_14", "mixtral_8x7b",
+              (("window", 8), ("n_experts", 6)), (1, 4)),
+    ServeCase("mamba2_41", "mamba2_2p7b", (), (4, 1)),
+    ServeCase("mamba2_14", "mamba2_2p7b", (), (1, 4)),
+    ServeCase("zamba2_22", "zamba2_2p7b", (), (2, 2), blocks=True),
+    ServeCase("zamba2_14", "zamba2_2p7b", (), (1, 4)),
+    ServeCase("internvl2_22", "internvl2_1b", (), (2, 2)),
+    ServeCase("hubert_22", "hubert_xlarge", (), (2, 2)),
+    ServeCase("mixtral_seq_41", "mixtral_8x7b", (("window", 8),), (4, 1),
+              B=1, shard_seq=True),
+    ServeCase("zamba2_seq_41", "zamba2_2p7b", (), (4, 1), B=1,
+              shard_seq=True),
+)
+#: the psum witness: four seeded bf16 rows of PSUM_N elements
+PSUM_N = 65536
+#: logits within SERVE_TOL of the reference's largest |logit|, every cache
+#: field (gathered whole) within SERVE_TOL of its largest |value|
+SERVE_TOL = 1e-5
+
+
+def serve_config(case: ServeCase, cfg):
+    return cfg.with_(dtype="float32", **dict(case.over))
+
+
+def serve_max_seq(case: ServeCase, cfg) -> int:
+    """The cache's slots: the prompt and the decode steps, rounded up to a
+    multiple of 4 (so that a batch-1 cache's slots split over 4 data
+    ranks)."""
+    n = SERVE_S + (SERVE_PATCHES if cfg.frontend == "vision" else 0) \
+        + SERVE_STEPS
+    return -(-n // 4) * 4
+
+
+def serve_inputs(case: ServeCase, cfg, seed: int = 2) -> Dict[str, np.ndarray]:
+    """The case's prompt from NumPy: ``tokens [B, S]``, or an audio
+    model's ``frames [B, S, D]``; a vision model's ``patches``."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio":
+        return {"frames": rng.standard_normal(
+            (case.B, SERVE_S, cfg.d_model)).astype(np.float32)}
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (case.B, SERVE_S),
+                                  dtype=np.int32)}
+    if cfg.frontend == "vision":
+        out["patches"] = rng.standard_normal(
+            (case.B, SERVE_PATCHES, cfg.d_model)).astype(np.float32)
+    return out
+
+
 def train_key(arch: str, shape: Tuple[int, int], compression) -> str:
     return f"{arch}_{shape[0]}{shape[1]}" + (f"_{compression}"
                                              if compression else "")
@@ -147,10 +228,7 @@ def unflatten(flat: Dict[str, np.ndarray], prefix: str) -> Dict:
 # the reference's subprocess and the ranks' spawn
 # ---------------------------------------------------------------------------
 
-def run_reference(tmp: str, part: str) -> str:
-    """tests/torch_mesh_reference.py's ``part`` ("models" or "train") in
-    one subprocess on a 4-device host platform; the path of its
-    ``.npz``."""
+def _reference_cmd(tmp: str, part: str):
     here = Path(__file__).resolve().parent
     path = os.path.join(tmp, f"ref_{part}.npz")
     env = dict(os.environ, JAX_PLATFORMS="cpu",
@@ -158,11 +236,61 @@ def run_reference(tmp: str, part: str) -> str:
                PYTHONPATH=os.pathsep.join(
                    [str(here.parent / "src"), os.environ.get("PYTHONPATH",
                                                              "")]))
-    proc = subprocess.run(
-        [sys.executable, str(here / "torch_mesh_reference.py"), path, part],
-        env=env, capture_output=True, text=True, timeout=SPAWN_TIMEOUT)
+    return [sys.executable, str(here / "torch_mesh_reference.py"), path,
+            part], env, path
+
+
+def run_reference(tmp: str, part: str) -> str:
+    """tests/torch_mesh_reference.py's ``part`` ("models" or "train") in
+    one subprocess on a 4-device host platform; the path of its
+    ``.npz``."""
+    cmd, env, path = _reference_cmd(tmp, part)
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=SPAWN_TIMEOUT)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return path
+
+
+class Reference:
+    """tests/torch_mesh_reference.py's ``part`` started in the background
+    (its output to a log file), so that the port's ranks run beside it."""
+
+    def __init__(self, tmp: str, part: str):
+        cmd, env, self.path = _reference_cmd(tmp, part)
+        self.log = open(os.path.join(tmp, f"ref_{part}.log"), "w+")
+        self.deadline = time.monotonic() + SPAWN_TIMEOUT
+        self.proc = subprocess.Popen(cmd, env=env, stdout=self.log,
+                                     stderr=subprocess.STDOUT)
+
+    def _failed(self) -> str:
+        self.log.seek(0)
+        return self.log.read()[-4000:]
+
+    def wait_for(self, path: str) -> str:
+        """``path`` once the reference has written it."""
+        while not os.path.exists(path):
+            if self.proc.poll() is not None or \
+                    time.monotonic() > self.deadline:
+                self.close()
+                raise AssertionError(f"the reference wrote no {path}: "
+                                     + self._failed())
+            time.sleep(0.2)
+        return path
+
+    def result(self) -> str:
+        """The ``.npz`` path once the reference has ended."""
+        try:
+            rc = self.proc.wait(timeout=max(1.0, self.deadline
+                                            - time.monotonic()))
+        finally:
+            self.close()
+        assert rc == 0, self._failed()
+        return self.path
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
 
 
 def _entry(rank: int, fn, world: int, tmp: str, args) -> None:
@@ -331,6 +459,134 @@ def gap_case(rank: int, ref_path: str, shape) -> Dict:
     with torch.no_grad():
         return dict(one=float(T.loss_fn(model, cfg, batch)),
                     mesh=float(T.loss_fn(model, cfg, batch, ctx=ctx)))
+
+
+def _serve_run(model, cfg, case: ServeCase, ctx, inputs: Dict) -> Dict:
+    """The case's prefill and SERVE_STEPS greedy decode steps on ``ctx``'s
+    mesh: the logits, this rank's cache block shapes, the whole cache after
+    the prefill and after the last step, the greedy tokens, the
+    collectives' calls of one decode step, and every B7 call's (cache
+    slots, slot0, sc_total) on the model layer."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+
+    def whole(cache):
+        w = T.gather_cache(cache, ctx)
+        return {f: getattr(w, f).numpy().copy()
+                for f in ("kv_k", "kv_v", "conv", "ssm")}
+
+    out: Dict = {}
+    cache, ring = T.init_cache(cfg, case.B, serve_max_seq(case, cfg), "cpu",
+                               ctx=ctx)
+    out["block_shapes"] = {f: tuple(getattr(cache, f).shape)
+                           for f in ("kv_k", "conv", "ssm")}
+    logits, cache = T.prefill(model, cfg, inputs.get("tokens"), cache, ring,
+                              patches=inputs.get("patches"), ctx=ctx)
+    out["prefill"] = dict(logits=logits.numpy().copy(), **whole(cache))
+    if case.shard_seq:
+        cache = T.shard_cache(cache, ctx)
+        out["seq_block_shapes"] = {f: tuple(getattr(cache, f).shape)
+                                   for f in ("kv_k", "conv", "ssm")}
+        fresh, _ = T.init_cache(cfg, case.B, serve_max_seq(case, cfg),
+                                "cpu", ctx=ctx, shard_seq=True)
+        out["seq_init_same"] = fresh.layout == cache.layout and all(
+            getattr(fresh, f).shape == getattr(cache, f).shape
+            for f in ("kv_k", "kv_v", "conv", "ssm"))
+    calls, orig = [], layers.decode_attention
+
+    def spy(q, kc, *a, **kw):
+        calls.append((int(kc.shape[1]), kw.get("slot0", 0),
+                      kw.get("sc_total")))
+        return orig(q, kc, *a, **kw)
+
+    toks = [logits.argmax(-1)]
+    layers.decode_attention = spy
+    try:
+        for i in range(SERVE_STEPS):
+            C.reset_counts()
+            logits, cache = T.decode_step(model, cfg, toks[-1], cache, ring,
+                                          ctx=ctx)
+            out[f"step{i}"] = logits.numpy().copy()
+            toks.append(logits.argmax(-1))
+    finally:
+        layers.decode_attention = orig
+    out["step_counts"] = {op: dict(c) for op, c in C.COUNTS.items()}
+    out["last"] = dict(logits=logits.numpy().copy(), **whole(cache))
+    out["tokens"] = torch.stack(toks).numpy()
+    out["b7"] = sorted(set(calls))
+    return out
+
+
+def serve_cases(rank: int, cases, inputs_path: str) -> Dict:
+    """The port's side of tests/test_torch_mesh_serve.py: each SERVE_CASES
+    case of this spawn's mesh shape from the reference's parameters and
+    prompt (:func:`_serve_run`; an encoder-only model's ``forward`` and
+    ``logits_fn``, gathered whole); a ``blocks`` case again with the model
+    stored as this rank's blocks (``shard_module``); and whether a cache
+    made without the mesh is refused on it."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import model_params_from_jax
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import MeshContext, cst, shard_module
+
+    inputs_all = dict(np.load(inputs_path))
+    out: Dict = {}
+    mesh = None
+    for case in cases:
+        cfg = serve_config(case, get_smoke_config(case.arch))
+        model = model_params_from_jax(
+            cfg, unflatten(inputs_all, f"{case.name}/params/"))
+        pre = f"{case.name}/input/"
+        inputs = {k[len(pre):]: torch.from_numpy(v)
+                  for k, v in inputs_all.items() if k.startswith(pre)}
+        if mesh is None:
+            mesh = make_host_mesh(model=case.shape[1], device="cpu")
+        ctx = MeshContext(mesh, ("data",), sp_matmuls=case.sp)
+        if cfg.encoder_only:
+            with torch.no_grad():
+                x = T.forward(model, cfg, frames=inputs["frames"], ctx=ctx)
+                logits = T.logits_fn(model, cfg, x)
+                B, S = inputs["frames"].shape[:2]
+                logits = cst(ctx.at(B, S), logits, None, None, None,
+                             frm=ctx.stream())
+            out[case.name] = dict(logits=logits.numpy().copy())
+            continue
+        out[case.name] = _serve_run(model, cfg, case, ctx, inputs)
+        if case.blocks:
+            blocks = shard_module(model, T.leaf_pspecs(model, cfg), ctx)
+            out[case.name]["blocks"] = _serve_run(blocks, cfg, case, ctx,
+                                                  inputs)
+        cache, ring = T.init_cache(cfg, case.B, serve_max_seq(case, cfg),
+                                   "cpu")
+        try:
+            T.prefill(model, cfg, inputs.get("tokens"), cache, ring,
+                      patches=inputs.get("patches"), ctx=ctx)
+            out[case.name]["refused"] = False
+        except ValueError:
+            out[case.name]["refused"] = True
+    return out
+
+
+def psum_case(rank: int, inputs_path: str) -> Dict:
+    """The bf16 witness of the psum repair on a (1, 4) mesh: this rank's
+    row of the reference's seeded ``[4, 65536]`` bf16 array through the
+    port's ``psum`` and ``psum_scatter`` over the model axis, and the old
+    running bf16 sum of the four rows (a control)."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rows = torch.from_numpy(dict(np.load(inputs_path))["psum/x"]).to(
+        torch.bfloat16)
+    mesh = make_host_mesh(model=4, device="cpu")
+    x = rows[C.axis_index("model", mesh=mesh)]
+    running = rows[0]
+    for r in range(1, 4):
+        running = running + rows[r]
+    return dict(psum=C.psum(x, "model", mesh=mesh).float().numpy(),
+                scatter=C.psum_scatter(x, "model", 0, mesh=mesh).float()
+                .numpy(), running=running.float().numpy())
 
 
 def model_cases(rank: int, cases, ref_path: str) -> Dict:

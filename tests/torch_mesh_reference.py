@@ -5,7 +5,7 @@ with ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` and
 ``make_host_mesh`` builds Explicit axes, on which its sharding constraints
 raise under JAX 0.9) and writes one ``.npz``:
 
-    python tests/torch_mesh_reference.py OUT.npz models|train|tp|gap
+    python tests/torch_mesh_reference.py OUT.npz models|train|tp|gap|serve
 
 ``models``: for each of torch_mesh_ranks.MODEL_CASES its initial
 parameters, for each ``sp_matmuls`` the forward's final hidden under
@@ -18,7 +18,15 @@ parameters given to ``run_training`` and its losses with ``mesh=``.
 ``tp``: the same as ``models`` for TP_CASES (the Mamba2 and Zamba2
 stacks with their heads split over the model axis). ``gap``: GAP_ARCH's
 bfloat16 loss on one device and on GAP_SHAPES's meshes
-(tests/torch_mesh_bf16_gap.py)."""
+(tests/torch_mesh_bf16_gap.py). ``serve``: first, for each of
+SERVE_CASES, its parameters and prompt into ``OUT.npz.inputs.npz`` (so
+that the port's ranks can start), then ``prefill`` and SERVE_STEPS greedy
+``decode_step`` calls under ``MeshContext`` (jitted under ``jax.set_mesh``;
+a ``shard_seq`` case's decode with the cache's ``in_shardings`` from
+``specs._cache_struct(..., shard_seq_cache=True)``): the logits, the
+greedy tokens and the cache after the prefill and after the last step; an
+encoder-only model's ``forward`` and ``logits_fn`` (the dry run's
+``encode`` cell)."""
 import os
 import sys
 
@@ -132,9 +140,104 @@ def gap_case(out):
             lambda p, b: T.loss_fn(p, cfg, b, ctx))(params, batch))
 
 
+def serve_inputs(path: str) -> None:
+    """Every SERVE_CASES case's parameters (seed 0) and prompt, written
+    atomically to ``path``."""
+    from repro.configs import get_smoke_config
+
+    out = {}
+    for case in R.SERVE_CASES:
+        cfg = R.serve_config(case, get_smoke_config(case.arch))
+        out.update(R.flatten(_params(cfg), f"{case.name}/params/"))
+        out.update({f"{case.name}/input/{k}": v
+                    for k, v in R.serve_inputs(case, cfg).items()})
+    rng = np.random.default_rng(3)
+    out["psum/x"] = np.asarray(jax.numpy.asarray(
+        rng.standard_normal((4, R.PSUM_N)), jax.numpy.bfloat16
+    ).astype(jax.numpy.float32))
+    np.savez(path + ".tmp.npz", **out)
+    os.replace(path + ".tmp.npz", path)
+
+
+def psum_witness(inputs, out):
+    """XLA's bf16 ``psum`` and ``psum_scatter`` of the four rows of
+    ``psum/x`` under ``shard_map`` over a 4-device model axis."""
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    x = jax.numpy.asarray(inputs["psum/x"], jax.numpy.bfloat16)
+    mesh = _mesh((1, 4))
+    total = shard_map(lambda r: jax.lax.psum(r[0], "model"), mesh=mesh,
+                      in_specs=P("model", None), out_specs=P(),
+                      check_rep=False)(x)
+    scatter = shard_map(lambda r: jax.lax.psum_scatter(
+        r[0], "model", scatter_dimension=0, tiled=True), mesh=mesh,
+        in_specs=P("model", None), out_specs=P("model"),
+        check_rep=False)(x)
+    out["psum/sum"] = np.asarray(total.astype(jax.numpy.float32))
+    out["psum/scatter"] = np.asarray(scatter.astype(jax.numpy.float32))
+
+
+def serve_case(case, inputs, out):
+    from repro.configs import get_smoke_config
+    from repro.launch.specs import _cache_struct, _sh
+    from repro.models import transformer as T
+    from repro.models.layers import MeshContext
+
+    cfg = R.serve_config(case, get_smoke_config(case.arch))
+    params = jax.tree_util.tree_map(
+        jax.numpy.asarray, R.unflatten(inputs, f"{case.name}/params/"))
+    batch = {k[len(f"{case.name}/input/"):]: jax.numpy.asarray(v)
+             for k, v in inputs.items()
+             if k.startswith(f"{case.name}/input/")}
+    mesh = _mesh(case.shape)
+    ctx = MeshContext(mesh, ("data",), sp_matmuls=case.sp)
+    key = case.name
+    with jax.set_mesh(mesh):
+        if cfg.encoder_only:
+            out[f"{key}/logits"] = np.asarray(jax.jit(
+                lambda p, b: T.logits_fn(p, cfg, T.forward(p, cfg, b, ctx),
+                                         ctx))(params, batch))
+            return
+        max_seq = R.serve_max_seq(case, cfg)
+        cache, ring = T.init_cache(cfg, case.B, max_seq)
+        logits, cache = jax.jit(lambda p, b, c: T.prefill(
+            p, cfg, b, c, ring, ctx))(params, batch, cache)
+
+        def keep(tag, logits, cache):
+            out[f"{key}/{tag}/logits"] = np.asarray(logits)
+            for f in ("kv_k", "kv_v", "conv", "ssm"):
+                out[f"{key}/{tag}/{f}"] = np.asarray(getattr(cache, f))
+
+        keep("prefill", logits, cache)
+        if case.shard_seq:
+            _, cp, _ = _cache_struct(cfg, case.B, max_seq, ("data",),
+                                     shard_seq_cache=True)
+            cache = jax.device_put(cache, _sh(mesh, cp))
+            step = jax.jit(lambda p, t, c: T.decode_step(p, cfg, t, c, ring,
+                                                         ctx),
+                           in_shardings=(None, None, _sh(mesh, cp)))
+        else:
+            step = jax.jit(lambda p, t, c: T.decode_step(p, cfg, t, c, ring,
+                                                         ctx))
+        toks = [np.asarray(logits).argmax(-1).astype(np.int32)]
+        for i in range(R.SERVE_STEPS):
+            logits, cache = step(params, jax.numpy.asarray(toks[-1]), cache)
+            out[f"{key}/step{i}/logits"] = np.asarray(logits)
+            toks.append(np.asarray(logits).argmax(-1).astype(np.int32))
+        keep("last", logits, cache)
+        out[f"{key}/tokens"] = np.stack(toks)
+
+
 def main(path: str, part: str) -> None:
     out = {}
-    if part == "gap":
+    if part == "serve":
+        serve_inputs(path + ".inputs.npz")
+        inputs = dict(np.load(path + ".inputs.npz"))
+        psum_witness(inputs, out)
+        for case in R.SERVE_CASES:
+            serve_case(case, inputs, out)
+    elif part == "gap":
         gap_case(out)
     elif part in ("models", "tp"):
         for case in R.MODEL_CASES if part == "models" else R.TP_CASES:
