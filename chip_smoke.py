@@ -2042,16 +2042,6 @@ def _randn(shape, dtype, gen):
     return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
 
 
-def _visible_pairs(Sq, Skv, causal, window) -> int:
-    """(query, key) pairs a prefill attends: the work its data needs."""
-    import numpy as np
-
-    q = np.arange(Sq)
-    hi = np.minimum(Skv, q + 1) if causal else np.full(Sq, Skv)
-    lo = np.maximum(0, q - window + 1) if window else np.zeros(Sq, int)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
 def _sdpa(q, k, v, **kw):
     """torch's scaled_dot_product_attention on [B, S, H, hd] tensors."""
     import torch.nn.functional as F
@@ -2140,9 +2130,8 @@ def phase_attention_kernels(dev) -> dict:
     plain = time_ms(lambda: fa.attention_ref(q, k, v, causal=True,
                                              return_lse=True))
     lib = time_ms(lambda: _sdpa(q, k, v, is_causal=True))
-    n_bytes = 2 * (2 * B * Sq * Hq * hd + 2 * B * Skv * Hkv * hd) \
-        + 4 * B * Hq * Sq
-    n_ops = 4 * hd * B * Hq * _visible_pairs(Sq, Skv, causal, window)
+    n_ops, n_bytes = fa.flash_attention_cost(B, Sq, Skv, Hq, Hkv, hd, 2,
+                                             causal, window)
     b, by = bound_ms(n_bytes, n_ops, BF16_OPS_S)
     out["flash_attention"] = dict(
         shape=[B, Sq, Hq, Hkv, hd], max_abs_err=err, ms=ms, plain_ms=plain,
@@ -2156,9 +2145,7 @@ def phase_attention_kernels(dev) -> dict:
         q = _randn((B, S, Hq, hd), dt, gen)
         k = _randn((B, S, Hkv, hd), dt, gen)
         v = _randn((B, S, Hkv, hd), dt, gen)
-        n_bytes = 2 * (2 * B * S * Hq * hd + 2 * B * S * Hkv * hd) \
-            + 4 * B * Hq * S
-        n_ops = 4 * hd * B * Hq * _visible_pairs(S, S, True, 0)
+        n_ops, n_bytes = fa.flash_attention_cost(B, S, S, Hq, Hkv, hd, 2)
         b, by = bound_ms(n_bytes, n_ops, BF16_OPS_S)
         shapes.append(dict(
             label=label, shape=[B, S, Hq, Hkv, hd],
@@ -2251,9 +2238,8 @@ def phase_attention_kernels(dev) -> dict:
         def sdpa():
             return _sdpa(q[:, None], kc, vc, attn_mask=mask)
 
-        slots = sum(min(n, Sc) for n in lens)   # valid cache slots read
-        n_bytes = 2 * (2 * B * Hkv * G * hd + 2 * slots * Hkv * hd) + 4 * B
-        n_ops = 4 * hd * G * Hkv * slots
+        slots = gd.decode_slots(lens, Sc)      # valid cache slots read
+        n_ops, n_bytes = gd.gqa_decode_cost(B, Hkv, G, hd, 2, slots)
         b, by = bound_ms(n_bytes, n_ops, BF16_OPS_S)
         timed[label] = dict(
             shape=[B, Sc, Hkv, G, hd], ms=time_ms(kernel),
@@ -2315,20 +2301,12 @@ def _ssd_err(out, ref) -> float:
 
 def _ssd_work(B, L, H, P, N, chunk, with_init
               ) -> tuple[float, float, str]:
-    """``(bytes, operations, algorithm)`` one scan needs: x, dtA, b, c (and
-    the initial state) read once, y and the final state written once; and
-    the operations of the cheaper of two algorithms, 2 per multiply-add:
-    the chunked one, with the C.B^T scores over the visible (s <= q) pairs
-    once per (row, chunk) (b and c are one group for every head), and per
-    (row, head) scores.X, C.state^T and the state update; or the sequential
-    recurrence, per (row, head, step) state * decay + x b^T and state.c,
-    5 P N."""
-    pairs = sum(q * (q + 1) // 2 for q in
-                (min(chunk, L - c0) for c0 in range(0, L, chunk)))
-    n_bytes = 4 * (2 * B * L * H * P + B * L * H + 2 * B * L * N
-                   + (2 if with_init else 1) * B * H * P * N)
-    ops = {"chunked": 2 * B * (pairs * N + H * (pairs * P + 2 * L * P * N)),
-           "sequential": 5 * B * H * L * P * N}
+    """``(bytes, operations, algorithm)`` one scan needs: the bytes and the
+    cheaper of the two algorithms' operations of
+    ``ssd_scan.ops.ssd_scan_work``."""
+    from repro_torch.kernels.ssd_scan import ops as ss_ops
+
+    n_bytes, ops = ss_ops.ssd_scan_work(B, L, H, P, N, chunk, with_init)
     algo = min(ops, key=ops.get)
     return n_bytes, ops[algo], algo
 
@@ -3130,16 +3108,13 @@ def _bwd_err(out, ref) -> float:
 
 def _bwd_work(B, Sq, Skv, Hq, Hkv, hd, causal, window, nbytes: int
               ) -> dict:
-    """``{kernel: (bytes, operations)}`` of B5 and B6: each input read
-    once, each output written once; 2·hd operations per visible (query,
-    key) pair and product, three products for dQ (S, dP, dS·k), four for
-    dK/dV (S, dP, Pᵀ·dO, dSᵀ·q)."""
-    pairs = B * Hq * _visible_pairs(Sq, Skv, causal, window)
-    q_side, kv_side, rows = B * Sq * Hq * hd, B * Skv * Hkv * hd, B * Hq * Sq
-    return {"flash_attention_dq": (nbytes * (3 * q_side + 2 * kv_side)
-                                   + 8 * rows, 6 * hd * pairs),
-            "flash_attention_dkv": (nbytes * (2 * q_side + 4 * kv_side)
-                                    + 8 * rows, 8 * hd * pairs)}
+    """``{kernel: (bytes, operations)}`` of B5 and B6, from
+    ``flash_attention.ops.flash_attention_bwd_cost``."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    return {name: (c.bytes, c.flops) for name, c in
+            fa_ops.flash_attention_bwd_cost(B, Sq, Skv, Hq, Hkv, hd, nbytes,
+                                            causal, window).items()}
 
 
 @contextlib.contextmanager
@@ -3645,22 +3620,12 @@ def phase_training(dev) -> dict:
 
 def _ssd_bwd_work(B, L, H, P, N, chunk, with_init, with_dfinal
                   ) -> tuple[float, float]:
-    """``(bytes, operations)`` one backward needs: x, dtA, b, c, dy, the
-    forward's entering states and chunk decay (and dfinal) read once, dx,
-    ddtA, db, dc and dinit written once; and 2 operations per multiply-add
-    of the chunked backward over the visible (s <= q) pairs: C.B^T once per
-    row and chunk, dCB's two products with B and C once per row and chunk,
-    and per (row, head) dy.x^T and the scores' product with dy over the
-    pairs, and four products of L P N (the entering gradient, the state
-    terms of dx, db and dc)."""
-    Lp = -(-L // chunk) * chunk
-    nc = Lp // chunk
-    pairs = nc * chunk * (chunk + 1) // 2
-    n_bytes = 4 * (3 * B * L * H * P + 2 * B * L * H + 4 * B * L * N
-                   + B * nc * H * (P * N + 1)
-                   + (2 if with_dfinal else 1) * B * H * P * N)
-    macs = B * (3 * pairs * N + H * (2 * pairs * P + 4 * Lp * P * N))
-    return n_bytes, 2 * macs
+    """``(bytes, operations)`` one backward needs, from
+    ``ssd_scan.ops.ssd_scan_bwd_cost``."""
+    from repro_torch.kernels.ssd_scan import ops as ss_ops
+
+    cost = ss_ops.ssd_scan_bwd_cost(B, L, H, P, N, chunk, with_dfinal)
+    return cost.bytes, cost.flops
 
 
 def _ssd_bwd_scratch_gb(B, L, H, P, N, chunk) -> float:
@@ -5924,9 +5889,8 @@ def _b7_block_check(dev) -> dict:
         return gd.gqa_decode_cuda(q, kc, vc, kv_len, ring=True, slot0=b,
                                   sc_total=Sc, return_lse=True)
 
-    n_bytes = 2 * (2 * B * Hkv * G * hd + 2 * b * Hkv * hd) + 4 * B \
-        + 4 * B * Hkv * G
-    n_ops = 4 * hd * G * Hkv * b
+    n_ops, n_bytes = gd.gqa_decode_cost(B, Hkv, G, hd, 2, gd.decode_slots(
+        [8192 + 17], b, ring=True, slot0=b, sc_total=Sc), True)
     bound, by = bound_ms(n_bytes, n_ops, BF16_OPS_S)
     out = dict(shape=[B, b, Hkv, G, hd], ms=time_ms(kernel),
                device_ms=device_ms_per_call(kernel, "gqa_decode_kernel"),
@@ -6250,6 +6214,121 @@ def _log_serve_mesh(ranks: list, wall: float) -> dict:
     return out
 
 
+
+# ===========================================================================
+# phase 27: the dry run against the card
+# ===========================================================================
+
+#: The dry run's predicted peak of a step against the card's
+#: max_memory_allocated over the same step: within this fraction.
+DRY_RUN_PEAK_TOL = 0.10
+#: The dry-run CLI's cell in a child process, and its time limit (s).
+DRY_RUN_CELL = ("smollm_360m", "train_4k")
+DRY_RUN_CHILD_S = 300
+
+
+def phase_dry_run(dev) -> dict:
+    """Phase 12's one-card smollm-360m training step (TRAIN_B x TRAIN_S,
+    remat, no mesh) traced by ``repro_torch.analysis.trace_step`` on fake
+    CUDA tensors: its kernel calls against ``_per_step`` (the launches the
+    card counts for the step), its predicted peak against
+    ``torch.cuda.max_memory_allocated`` over one real step of the same
+    configuration (within DRY_RUN_PEAK_TOL); and ``python -m
+    repro_torch.launch.dryrun`` on DRY_RUN_CELL at pod16x16 in a child
+    process (started first, so that it traces beside the rest)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis import trace_step
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step)
+
+    out_dir = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    arch, shape = DRY_RUN_CELL
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--single-pod", "--out", str(out_dir)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        cfg = get_config("smollm_360m").with_(remat=True)
+        opt = AdamWConfig(lr=TRAIN_LR)
+        step = make_train_step(cfg, opt)
+        pipe = TokenPipeline(cfg, global_batch=TRAIN_B, seq_len=TRAIN_S,
+                             seed=SEED)
+        t1 = time.perf_counter()
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            state = init_train_state(cfg, opt, torch.Generator(
+                device=dev).manual_seed(SEED))
+            batch = {k: torch.zeros(v.shape, dtype=getattr(torch, str(
+                v.dtype)), device=dev) for k, v in pipe.batch_at(0).items()}
+            cost, _ = trace_step(step, state, batch)
+            del state, batch
+        trace_s = time.perf_counter() - t1
+        calls = {k: v["calls"] for k, v in cost.kernels.items()}
+        want = {k: n for k, n in _per_step(cfg).items() if n}
+        log(f"  traced on fake CUDA tensors in {trace_s:.1f} s: kernel calls "
+            f"{calls} (the card's launches a step: {want}); dot FLOPs "
+            f"{cost.dot_flops:.4g}, FLOPs {cost.flops:.4g}, bytes at op and "
+            f"kernel boundaries {cost.hbm_bytes:.4g}; memory {cost.memory}")
+        check(calls == want, f"dry run kernel calls {calls} != {want}")
+
+        # the same step on the card, from a fresh state
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        state = init_train_state(cfg, opt, gen)
+        batch = _train_batch(pipe, 0, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_launches()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated(dev) - base
+        launches = {k: n for k, n in _launches().items() if n}
+        check(launches == want, f"the real step's launches {launches}")
+        check(bool(torch.isfinite(metrics["loss"])), "the real step's loss")
+        predicted = cost.memory["peak_bytes"]
+        rel = predicted / measured - 1
+        log(f"  peak of one step: predicted {predicted / 1e9:.4f} GB "
+            f"(arguments {cost.memory['argument_size_in_bytes'] / 1e9:.4f} "
+            f"GB, per_device_hbm_bytes "
+            f"{cost.memory['per_device_hbm_bytes'] / 1e9:.4f} GB), measured "
+            f"max_memory_allocated {measured / 1e9:.4f} GB above the "
+            f"{base / 1e9:.4f} GB held before the state: {100 * rel:+.2f} %"
+            f" (gate {100 * DRY_RUN_PEAK_TOL:.0f} %)")
+        del state, batch, metrics
+        torch.cuda.empty_cache()
+        check(abs(rel) <= DRY_RUN_PEAK_TOL,
+              f"dry run peak {predicted} vs measured {measured} ({rel:+.3%})")
+
+        stdout, stderr = child.communicate(timeout=DRY_RUN_CHILD_S)
+        child_s = time.perf_counter() - t0
+        line = next((x for x in stdout.splitlines() if x.startswith("[")),
+                    stdout.strip())
+        log(f"  python -m repro_torch.launch.dryrun --arch {arch} --shape "
+            f"{shape} --single-pod (child, {child_s:.1f} s from the phase's "
+            f"start; the fake process group under torch "
+            f"{torch.__version__}): {line}")
+        check(child.returncode == 0 and line.startswith("[ok]"),
+              f"the dry-run CLI: rc {child.returncode}: {stderr[-2000:]}")
+        rec = json.loads((out_dir / f"{arch}__{shape}__pod16x16.json"
+                          ).read_text())
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return dict(calls=calls, predicted_peak=predicted, measured_peak=measured,
+                rel=rel, trace_s=trace_s, cli=line, cli_trace_s=rec["trace_s"],
+                cli_memory=rec["memory"])
+
 def main() -> int:
     import torch
 
@@ -6413,6 +6492,13 @@ def main() -> int:
     kern["gqa_decode"]["block"] = served_mesh["block"]
     log(f"  phase 26 took {time.perf_counter() - t26:.1f} s; chip_smoke so "
         f"far {time.perf_counter() - t_start:.1f} s")
+    log("phase 27: the dry run against the card (phase 12's step traced on "
+        "fake CUDA tensors; the dry-run CLI on "
+        f"{' '.join(DRY_RUN_CELL)} in a child process)")
+    t27 = time.perf_counter()
+    dry = phase_dry_run(dev)
+    log(f"  phase 27 took {time.perf_counter() - t27:.1f} s; chip_smoke so "
+        f"far {time.perf_counter() - t_start:.1f} s")
     launches = {**main_path["launches"],
                 **served["smollm_360m"]["launches"],
                 **served["mamba2_2p7b"]["launches"],
@@ -6468,6 +6554,8 @@ def main() -> int:
                 f"{a} {d} {kind}": r[d][kind]["launches"][row["name"]]
                 for a, r in served_mesh["models"].items()
                 for d in ("float32", "bfloat16") for kind in ("one", "mesh")}
+        if row["name"] in dry["calls"]:
+            row["dry_run_calls"] = dry["calls"][row["name"]]
         if row["name"] in fleet["launches"]:
             row["fleet_launches"] = fleet["launches"][row["name"]]
         for arch, r in quant.items():
@@ -6478,6 +6566,9 @@ def main() -> int:
             row["profile_launches"] = prof["launches"]
             row["profile_device_ms"] = prof["device_ms"]
             row["profile_ms_per_launch"] = prof["ms_per_launch"]
+    log("dry_run " + json.dumps({k: dry[k] for k in (
+        "predicted_peak", "measured_peak", "rel", "calls", "cli",
+        "cli_trace_s")}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

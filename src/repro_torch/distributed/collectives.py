@@ -25,7 +25,11 @@ axis has one rank, so a one-card mesh exercises the same calls.
 Each exchange adds to :data:`COUNTS` (``calls`` and the ``bytes`` it
 sends; a psum is two exchanges, a reduce-scatter and an all-gather)
 and, while obs tracing is on, to the obs counters
-``mesh.collective.<op>.calls`` / ``.bytes``.
+``mesh.collective.<op>.calls`` / ``.bytes``. :data:`WIRE` counts the same
+exchanges by the ``torch.distributed`` call that carries them, with the
+operand and result bytes of each (the dry run's wire table): the port's
+psum is an ``all_to_all_single`` and an ``all_gather_into_tensor``, not
+an all-reduce, and the port makes no all-reduce call.
 """
 from __future__ import annotations
 
@@ -35,12 +39,13 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 from repro_torch.obs import count as obs_count
 
-__all__ = ["COUNTS", "all_gather", "axis_index", "axis_size",
+__all__ = ["COUNTS", "WIRE", "all_gather", "axis_index", "axis_size",
            "current_mesh", "psum", "psum_scatter", "reset_counts",
-           "use_mesh"]
+           "reset_groups", "use_mesh"]
 
 Axis = Union[str, Sequence[str]]
 
@@ -50,6 +55,15 @@ COUNTS: Dict[str, Dict[str, int]] = {
     op: {"calls": 0, "bytes": 0}
     for op in ("all_gather", "psum_scatter", "psum")}
 
+#: The same exchanges by the ``torch.distributed`` call made (the names
+#: of XLA's collectives): ``all-gather`` (``all_gather_into_tensor``),
+#: ``all-to-all`` (``all_to_all_single``) and ``all-reduce`` (none is
+#: made), each with its calls and the bytes of its operand (what this rank
+#: sends) and of its result (what it receives).
+WIRE: Dict[str, Dict[str, int]] = {
+    op: {"calls": 0, "operand_bytes": 0, "result_bytes": 0}
+    for op in ("all-gather", "all-to-all", "all-reduce")}
+
 _ACTIVE: List = []
 _GROUPS: Dict = {}
 
@@ -57,14 +71,33 @@ _GROUPS: Dict = {}
 def reset_counts() -> None:
     for c in COUNTS.values():
         c["calls"] = c["bytes"] = 0
+    for c in WIRE.values():
+        c["calls"] = c["operand_bytes"] = c["result_bytes"] = 0
+
+
+def reset_groups() -> None:
+    """Forget the process groups made for the meshes' axes (call it after
+    destroying the process group they belong to)."""
+    _GROUPS.clear()
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _counted(op: str, t: torch.Tensor) -> None:
-    n = t.numel() * t.element_size()
+    n = _nbytes(t)
     COUNTS[op]["calls"] += 1
     COUNTS[op]["bytes"] += n
     obs_count(f"mesh.collective.{op}.calls")
     obs_count(f"mesh.collective.{op}.bytes", n)
+
+
+def _wire(op: str, operand: torch.Tensor, result: torch.Tensor) -> None:
+    w = WIRE[op]
+    w["calls"] += 1
+    w["operand_bytes"] += _nbytes(operand)
+    w["result_bytes"] += _nbytes(result)
 
 
 @contextlib.contextmanager
@@ -119,16 +152,19 @@ def _group(mesh, axis: Axis):
     key = (mesh, names)
     if key not in _GROUPS:
         dims = _dims(mesh, names)
-        ranks = mesh.mesh
+        # the mesh's ranks as a host array, read outside any fake tensor
+        # mode (the dry run builds its groups inside one)
+        with unset_fake_temporarily():
+            ranks = mesh.mesh.numpy().copy()
         if len(dims) == 1:
             group = mesh.get_group(dims[0])
-        elif len(dims) == ranks.ndim and ranks.numel() == \
+        elif len(dims) == ranks.ndim and ranks.size == \
                 dist.get_world_size() and ranks.flatten().tolist() == \
-                list(range(ranks.numel())):
+                list(range(ranks.size)):
             group = dist.group.WORLD
         else:
             rest = [d for d in range(ranks.ndim) if d not in dims]
-            lines = ranks.permute(rest + dims).reshape(
+            lines = ranks.transpose(rest + dims).reshape(
                 -1, axis_size(names, mesh=mesh)).tolist()
             group, _ = dist.new_subgroups_by_enumeration(lines)
         _GROUPS[key] = group
@@ -145,6 +181,7 @@ def _gather(x: torch.Tensor, group, n: int, dim: int,
     x = x.contiguous()
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
     _counted(op, x)
+    _wire("all-gather", x, out)
     dist.all_gather_into_tensor(out, x, group=group)
     out = out.view((n,) + tuple(x.shape))
     return out.movedim(0, dim).flatten(dim, dim + 1)
@@ -162,14 +199,16 @@ def _scatter_sum(x: torch.Tensor, group, n: int, dim: int,
         x.movedim(dim, 0).shape[1:])).contiguous()
     recv = torch.empty_like(send)
     _counted(op, send)
+    _wire("all-to-all", send, recv)
     dist.all_to_all_single(recv, send, group=group)
     # a float narrower than float32 is summed in float32 and rounded once,
     # as XLA's psum of a bf16 array is (a running bf16 sum rounds at every
     # addition); the exchange stays in the input dtype
     wide = recv.is_floating_point() and torch.finfo(recv.dtype).bits < 32
-    acc = recv[0].float() if wide else recv[0]
-    for j in range(1, n):
-        acc = acc + recv[j]
+    terms = recv.unbind(0)
+    acc = terms[0].float() if wide else terms[0]
+    for term in terms[1:]:
+        acc = acc + term
     return (acc.to(recv.dtype) if wide else acc).movedim(0, dim)
 
 

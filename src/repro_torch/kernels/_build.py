@@ -11,9 +11,21 @@ failed build raises; nothing falls back to the plain PyTorch versions.
 :func:`check_cuda_tensor` and :func:`launch` are what every kernel wrapper
 (``kernels/*/ops.py``) uses to validate its arguments and call its entry
 point on the current stream.
+
+A wrapper given **fake** tensors (:func:`is_fake`: shapes and dtypes
+without storage, under ``torch._subclasses.FakeTensorMode``, as the dry
+run traces a step) on the card (:func:`on_card`) checks them as it would
+real ones and allocates its outputs, but reads no data pointer and
+launches nothing: it hands its
+kernel's name and :class:`KernelCost` (the FLOPs and HBM bytes of the
+work the kernel would do, from the cost function beside it in
+``ops.py``) to :func:`record`, which passes them to the open
+:func:`recording` blocks. A fake call counts no launch. A real CUDA
+tensor still goes to the kernel or raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -23,11 +35,14 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import Callable, Iterator, List, NamedTuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
-__all__ = ["NVCC_FLAGS", "build_dir", "check_cuda_tensor", "find_nvcc",
-           "launch", "load_library"]
+__all__ = ["KernelCost", "NVCC_FLAGS", "build_dir", "check_cuda_tensor",
+           "find_nvcc", "is_fake", "launch", "load_library", "on_card",
+           "record", "recording"]
 
 _PKG = Path(__file__).resolve().parents[1]          # src/repro_torch
 _CSRC = _PKG / "csrc"
@@ -175,14 +190,58 @@ def load_library() -> tuple[ctypes.CDLL, dict]:
     return lib, info
 
 
+class KernelCost(NamedTuple):
+    """The work of one kernel call: operations (2 per multiply-add) and
+    the bytes it must move to and from HBM (each input read once, each
+    output written once)."""
+    flops: float
+    bytes: float
+
+
+_RECORDERS: List[Callable[[str, KernelCost], None]] = []
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor (a shape and dtype without storage:
+    ``FakeTensorMode``'s)."""
+    return isinstance(t, FakeTensor)
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether the kernels take ``t``: a CUDA tensor, or a fake tensor on
+    the ``meta`` device, which stands in for the card where the dry run
+    traces on a PyTorch built without CUDA (there a fake CUDA tensor can
+    be made but not indexed, copied or differentiated: those need CUDA's
+    device guard)."""
+    return t.is_cuda or (t.device.type == "meta" and is_fake(t))
+
+
+def record(name: str, cost: KernelCost) -> None:
+    """A kernel call on fake tensors: hand it to every open
+    :func:`recording`."""
+    for fn in _RECORDERS:
+        fn(name, cost)
+
+
+@contextlib.contextmanager
+def recording(fn: Callable[[str, KernelCost], None]) -> Iterator:
+    """Within the block, ``fn(name, cost)`` sees every kernel call made on
+    fake tensors."""
+    _RECORDERS.append(fn)
+    try:
+        yield fn
+    finally:
+        _RECORDERS.remove(fn)
+
+
 def check_cuda_tensor(name: str, t, dtype, shape: tuple, device,
                       align: int = 1) -> int:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     the CUDA ``device`` whose data starts on an ``align``-byte boundary (16
     for kernels that read it with 16-byte loads); return its data
-    pointer."""
+    pointer (0 for a fake tensor, which has none)."""
     if not isinstance(t, torch.Tensor) or t.device != device \
-            or device.type != "cuda":
+            or not on_card(t):
         raise ValueError(f"{name}: expected a tensor on a CUDA device "
                          f"({device}), got {getattr(t, 'device', type(t))}")
     if t.dtype != dtype:
@@ -192,6 +251,8 @@ def check_cuda_tensor(name: str, t, dtype, shape: tuple, device,
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if is_fake(t):
+        return 0
     if t.data_ptr() % align:
         raise ValueError(f"{name}: expected a {align}-byte aligned tensor")
     return t.data_ptr()

@@ -9,6 +9,11 @@ raises for CPU tensors. Each ``*_cuda`` wrapper checks device, dtype,
 shape, alignment and contiguity, allocates its outputs with
 ``torch.empty``, launches on the current stream, raises on a CUDA error
 and adds one to its ``LAUNCHES`` entry. None falls back to a plain version.
+On fake tensors (the dry run's) a wrapper allocates its outputs and
+records its kernel's :class:`~repro_torch.kernels._build.KernelCost`
+(:func:`flash_attention_cost`, :func:`flash_attention_bwd_cost`: the
+work over the visible (query, key) pairs, the masked blocks it skips not
+counted) instead of launching; it counts no launch.
 
 A kernel's output has no autograd history, so under grad :func:`attention`
 goes through :class:`FlashAttention`, whose forward is B4 with its lse and
@@ -19,19 +24,24 @@ rematerialised layer's backward (``remat_policy="save_attn"``).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
-from repro_torch.kernels._build import check_cuda_tensor, launch
+from repro_torch.kernels._build import (KernelCost, check_cuda_tensor,
+                                        is_fake, launch, on_card,
+                                        record)
 
 from .ref import attention_ref, flash_attention_bwd_ref
 
 __all__ = ["AttentionStash", "BWD_HEAD_DIMS", "FlashAttention", "HEAD_DIMS",
            "LAUNCHES", "attention", "flash_attention_bwd",
-           "flash_attention_bwd_cuda", "flash_attention_cuda",
+           "flash_attention_bwd_cost", "flash_attention_bwd_cuda",
+           "flash_attention_cost", "flash_attention_cuda",
            "flash_attention_dkv_cuda", "flash_attention_dq_cuda",
-           "make_trainable_attention", "reset_launch_counts"]
+           "make_trainable_attention", "reset_launch_counts",
+           "visible_pairs"]
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
 LAUNCHES = {"flash_attention": 0, "flash_attention_dq": 0,
@@ -46,6 +56,44 @@ _DTYPES = (torch.float32, torch.bfloat16)
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def visible_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a prefill attends (positions from 0, the causal
+    and sliding-window masks): the work its data needs."""
+    q = np.arange(Sq)
+    hi = np.minimum(Skv, q + 1) if causal else np.full(Sq, Skv)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(Sq, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flash_attention_cost(B: int, Sq: int, Skv: int, Hq: int, Hkv: int,
+                         hd: int, itemsize: int, causal: bool = True,
+                         window: int = 0) -> KernelCost:
+    """B4's work: q, k and v read once, the output (``itemsize`` bytes an
+    element) and the float32 lse written once; two products of 2·hd
+    operations per visible pair and query head."""
+    return KernelCost(
+        flops=4 * hd * B * Hq * visible_pairs(Sq, Skv, causal, window),
+        bytes=itemsize * (2 * B * Sq * Hq * hd + 2 * B * Skv * Hkv * hd)
+        + 4 * B * Hq * Sq)
+
+
+def flash_attention_bwd_cost(B: int, Sq: int, Skv: int, Hq: int, Hkv: int,
+                             hd: int, itemsize: int, causal: bool = True,
+                             window: int = 0) -> Dict[str, KernelCost]:
+    """B5's and B6's work, by kernel: each input read once, each output
+    written once (lse and dsum float32); 2·hd operations per visible
+    (query, key) pair and product, three products for dQ (S, dP, dS·k),
+    four for dK/dV (S, dP, Pᵀ·dO, dSᵀ·q)."""
+    pairs = B * Hq * visible_pairs(Sq, Skv, causal, window)
+    q_side, kv_side, rows = B * Sq * Hq * hd, B * Skv * Hkv * hd, B * Hq * Sq
+    return {"flash_attention_dq": KernelCost(
+                6 * hd * pairs,
+                itemsize * (3 * q_side + 2 * kv_side) + 8 * rows),
+            "flash_attention_dkv": KernelCost(
+                8 * hd * pairs,
+                itemsize * (2 * q_side + 4 * kv_side) + 8 * rows)}
 
 
 def _check_shapes(what: str, q: torch.Tensor, k: torch.Tensor,
@@ -79,7 +127,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             check_cuda_tensor("v", v, q.dtype, (B, Skv, Hkv, hd), dev, 16)]
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
-    if q.numel():
+    if q.numel() and is_fake(q):
+        record("flash_attention", flash_attention_cost(
+            B, Sq, Skv, Hq, Hkv, hd, q.element_size(), causal, window))
+    elif q.numel():
         launch("flash_attention_launch", *ptrs, out.data_ptr(),
                lse.data_ptr(), B, Sq, Skv, Hq, Hkv, hd,
                int(q.dtype == torch.bfloat16), int(causal), int(window),
@@ -102,6 +153,12 @@ def _bwd_pointers(what: str, q, k, v, do, lse, dsum) -> list:
             check_cuda_tensor("dsum", dsum, f32, (B, Hq, Sq), dev)]
 
 
+def _bwd_cost(q, k, causal: bool, window: int) -> Dict[str, KernelCost]:
+    B, Sq, Hq, hd = q.shape
+    return flash_attention_bwd_cost(B, Sq, k.shape[1], Hq, k.shape[2], hd,
+                                    q.element_size(), causal, window)
+
+
 def _bwd_sizes(q, k, causal: bool, window: int, softcap: float) -> list:
     B, Sq, Hq, hd = q.shape
     return [B, Sq, k.shape[1], Hq, k.shape[2], hd,
@@ -118,7 +175,10 @@ def flash_attention_dq_cuda(q, k, v, do, lse, dsum, *, causal: bool = True,
     forward's ``softcap`` (0: none)."""
     ptrs = _bwd_pointers("flash_attention_dq", q, k, v, do, lse, dsum)
     dq = torch.empty_like(q)
-    if q.numel() and k.numel():
+    if q.numel() and k.numel() and is_fake(q):
+        record("flash_attention_dq", _bwd_cost(q, k, causal, window)[
+            "flash_attention_dq"])
+    elif q.numel() and k.numel():
         launch("flash_attention_dq_launch", *ptrs, dq.data_ptr(),
                *_bwd_sizes(q, k, causal, window, softcap), device=q.device)
         LAUNCHES["flash_attention_dq"] += 1
@@ -134,7 +194,10 @@ def flash_attention_dkv_cuda(q, k, v, do, lse, dsum, *, causal: bool = True,
     :func:`flash_attention_dq_cuda`."""
     ptrs = _bwd_pointers("flash_attention_dkv", q, k, v, do, lse, dsum)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if q.numel() and k.numel():
+    if q.numel() and k.numel() and is_fake(q):
+        record("flash_attention_dkv", _bwd_cost(q, k, causal, window)[
+            "flash_attention_dkv"])
+    elif q.numel() and k.numel():
         launch("flash_attention_dkv_launch", *ptrs, dk.data_ptr(),
                dv.data_ptr(), *_bwd_sizes(q, k, causal, window, softcap),
                device=q.device)
@@ -169,7 +232,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     version for CPU tensors (``use_kernel`` as for :func:`attention`).
     Returns ``(dq, dk, dv)``."""
     kw = dict(causal=causal, window=window, softcap=softcap)
-    if not (q.is_cuda if use_kernel is None else use_kernel):
+    if not (on_card(q) if use_kernel is None else use_kernel):
         return flash_attention_bwd_ref(q, k, v, o, do, lse, **kw)
     return flash_attention_bwd_cuda(q.contiguous(), k.contiguous(),
                                     v.contiguous(), o.contiguous(),
@@ -206,7 +269,7 @@ class FlashAttention(torch.autograd.Function):
         if stash is not None and stash.kept is not None:
             o, lse = stash.kept
             o = o.view_as(o)        # this graph's output, not the record
-        elif q.is_cuda if use_kernel is None else use_kernel:
+        elif on_card(q) if use_kernel is None else use_kernel:
             o, lse = flash_attention_cuda(q.contiguous(), k.contiguous(),
                                           v.contiguous(), causal=causal,
                                           window=window, softcap=softcap)
@@ -252,7 +315,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, softcap,
                                     use_kernel, stash)
-    if not (q.is_cuda if use_kernel is None else use_kernel):
+    if not (on_card(q) if use_kernel is None else use_kernel):
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)
     return flash_attention_cuda(q.contiguous(), k.contiguous(),

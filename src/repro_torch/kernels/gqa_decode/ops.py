@@ -14,20 +14,29 @@ Both take a block of a longer cache (``slot0``, ``sc_total``: a rank's
 slots when the cache's sequence is split over a mesh) and can return the
 float32 logsumexp beside the output (``return_lse``), which
 :func:`~.ref.combine_blocks` reads to merge the blocks.
+
+On fake tensors (the dry run's) :func:`gqa_decode_cuda` allocates its
+outputs and records the kernel's :func:`gqa_decode_cost` instead of
+launching (no launch counted). ``kv_len`` lives on the device and a fake
+one holds no values, so the record takes every row's as the whole
+cache's length: a full cache, as the dry run decodes at its last slot.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.kernels._build import check_cuda_tensor, launch
+from repro_torch.kernels._build import (KernelCost, check_cuda_tensor,
+                                        is_fake, launch, on_card,
+                                        record)
 
 from .ref import gqa_decode_ref
 
 __all__ = ["HEAD_DIMS", "LAUNCHES", "MAX_SPLITS", "decode_attention",
-           "decode_splits", "gqa_decode_cuda", "reset_launch_counts"]
+           "decode_slots", "decode_splits", "gqa_decode_cost",
+           "gqa_decode_cuda", "reset_launch_counts"]
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
 LAUNCHES = {"gqa_decode": 0}
@@ -51,6 +60,36 @@ def decode_splits(B: int, Hkv: int, Sc: int, sm_count: int) -> int:
     which lives on the device, so it never waits on the card."""
     return max(1, min(MAX_SPLITS, -(-Sc // 64),
                       -(-2 * sm_count // max(1, B * Hkv))))
+
+
+def decode_slots(kv_len: Sequence[int], Sc: int, *, window: int = 0,
+                 ring: bool = False, slot0: int = 0,
+                 sc_total: Optional[int] = None) -> int:
+    """Valid cache slots of the block ``slot0 .. slot0 + Sc - 1`` summed
+    over the rows of ``kv_len`` (host ints), by
+    :func:`~.ref.decode_valid_mask`'s rule: the slots the kernel reads."""
+    total = Sc if sc_total is None else int(sc_total)
+    out = 0
+    for n in kv_len:
+        if ring:
+            lo, hi = 0, total if n > total else min(n, total)
+        else:
+            hi = min(n, total)
+            lo = max(0, n - window) if window else 0
+        out += max(0, min(hi, slot0 + Sc) - max(lo, slot0))
+    return out
+
+
+def gqa_decode_cost(B: int, Hkv: int, G: int, hd: int, itemsize: int,
+                    slots: int, return_lse: bool = False) -> KernelCost:
+    """B7's work over ``slots`` valid cache slots (:func:`decode_slots`):
+    q read and the output written (``itemsize`` bytes an element), K and V
+    of the valid slots read, kv_len read (and the float32 lse written);
+    two products of 2·hd operations per slot and query head."""
+    return KernelCost(
+        flops=4 * hd * G * Hkv * slots,
+        bytes=itemsize * (2 * B * Hkv * G * hd + 2 * slots * Hkv * hd)
+        + 4 * B + (4 * B * Hkv * G if return_lse else 0))
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,7 +134,13 @@ def gqa_decode_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq), dtype=torch.float32, device=dev) \
         if return_lse else None
-    if q.numel():
+    if q.numel() and is_fake(q):
+        slots = decode_slots([total] * B, Sc, window=window, ring=ring,
+                             slot0=slot0, sc_total=total)
+        record("gqa_decode", gqa_decode_cost(B, Hkv, Hq // Hkv, hd,
+                                             q.element_size(), slots,
+                                             return_lse))
+    elif q.numel():
         splits = decode_splits(B, Hkv, Sc, _sm_count(dev.index))
         launch("gqa_decode_launch", *ptrs, out.data_ptr(),
                0 if lse is None else lse.data_ptr(), B, Sc, Hkv, Hq // Hkv,
@@ -118,7 +163,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     and with ``return_lse`` the float32 ``[B, Hq]`` logsumexp too."""
     kw = dict(window=window, ring=ring, softcap=softcap, slot0=slot0,
               sc_total=sc_total, return_lse=return_lse)
-    if not (q.is_cuda if use_kernel is None else use_kernel):
+    if not (on_card(q) if use_kernel is None else use_kernel):
         return gqa_decode_ref(q, k_cache, v_cache, kv_len, **kw)
     return gqa_decode_cuda(q.contiguous(), k_cache.contiguous(),
                            v_cache.contiguous(),

@@ -19,21 +19,28 @@ inputs with the forward's entering states and chunk decay; its backward is
 cores, the sums over heads taken on chip; one count in
 ``LAUNCHES["ssd_scan_bwd"]``, the same checks and no fallback) or the
 plain version.
+
+On fake tensors (the dry run's) both wrappers allocate their outputs
+and scratch and record the work (:func:`ssd_scan_cost`,
+:func:`ssd_scan_bwd_cost`) instead of launching; they count no launch.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels._build import check_cuda_tensor, launch
+from repro_torch.kernels._build import (KernelCost, check_cuda_tensor,
+                                        is_fake, launch, on_card,
+                                        record)
 
 from .ref import ssd_chunked_bwd, ssd_chunked_steps
 
 __all__ = ["LAUNCHES", "MAX_CHUNK", "SHAPES", "SSDScan",
-           "reset_launch_counts", "ssd", "ssd_scan_bwd", "ssd_scan_bwd_cuda",
-           "ssd_scan_cuda", "ssd_scan_cuda_steps"]
+           "reset_launch_counts", "ssd", "ssd_scan_bwd", "ssd_scan_bwd_cost",
+           "ssd_scan_bwd_cuda", "ssd_scan_cost", "ssd_scan_cuda",
+           "ssd_scan_cuda_steps", "ssd_scan_work"]
 
 #: Scans and backward scans run on the card since the last
 #: :func:`reset_launch_counts` (one per :func:`ssd_scan_cuda` call, which
@@ -51,6 +58,52 @@ MAX_CHUNK = 1024
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def ssd_scan_work(B: int, L: int, H: int, P: int, N: int, chunk: int,
+                  with_init: bool) -> Tuple[float, Dict[str, float]]:
+    """``(bytes, {algorithm: operations})`` of one scan: x, dtA, b, c (and
+    the initial state) read once, y and the final state written once,
+    float32; and the operations (2 per multiply-add) of two algorithms:
+    ``chunked``, with the C·Bᵀ scores over the visible (s <= q) pairs once
+    per (row, chunk) (b and c are one group for every head) and per (row,
+    head) scores·X, C·stateᵀ and the state update; ``sequential``, per
+    (row, head, step) state·decay + x bᵀ and state·c, 5 P N."""
+    pairs = sum(q * (q + 1) // 2 for q in
+                (min(chunk, L - c0) for c0 in range(0, L, chunk)))
+    n_bytes = 4 * (2 * B * L * H * P + B * L * H + 2 * B * L * N
+                   + (2 if with_init else 1) * B * H * P * N)
+    return n_bytes, {
+        "chunked": 2 * B * (pairs * N + H * (pairs * P + 2 * L * P * N)),
+        "sequential": 5 * B * H * L * P * N}
+
+
+def ssd_scan_cost(B: int, L: int, H: int, P: int, N: int, chunk: int,
+                  with_init: bool) -> KernelCost:
+    """B8's work: :func:`ssd_scan_work`'s bytes and the chunked
+    algorithm's operations, which B8 runs."""
+    n_bytes, ops = ssd_scan_work(B, L, H, P, N, chunk, with_init)
+    return KernelCost(ops["chunked"], n_bytes)
+
+
+def ssd_scan_bwd_cost(B: int, L: int, H: int, P: int, N: int, chunk: int,
+                      with_dfinal: bool) -> KernelCost:
+    """The backward's work: x, dtA, b, c, dy, the forward's entering
+    states and chunk decay (and dfinal) read once, dx, ddtA, db, dc and
+    dinit written once, float32; and 2 operations per multiply-add of the
+    chunked backward over the visible (s <= q) pairs: C·Bᵀ once per row
+    and chunk, dCB's two products with B and C once per row and chunk, and
+    per (row, head) dy·xᵀ and the scores' product with dy over the pairs,
+    and four products of L P N (the entering gradient, the state terms of
+    dx, db and dc)."""
+    Lp = -(-L // chunk) * chunk
+    nc = Lp // chunk
+    pairs = nc * chunk * (chunk + 1) // 2
+    n_bytes = 4 * (3 * B * L * H * P + 2 * B * L * H + 4 * B * L * N
+                   + B * nc * H * (P * N + 1)
+                   + (2 if with_dfinal else 1) * B * H * P * N)
+    macs = B * (3 * pairs * N + H * (2 * pairs * P + 4 * Lp * P * N))
+    return KernelCost(2 * macs, n_bytes)
 
 
 def _check_shape(P: int, N: int, L: int, chunk: int, what: str) -> None:
@@ -104,7 +157,10 @@ def ssd_scan_cuda_steps(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,
         chunk_decay=torch.empty((Bsz, nc, H), dtype=f32, device=dev),
         y=torch.empty_like(x),
         final_state=torch.empty((Bsz, H, P, N), dtype=f32, device=dev))
-    if x.numel():
+    if x.numel() and is_fake(x):
+        record("ssd_scan", ssd_scan_cost(Bsz, L, H, P, N, chunk,
+                                         initial_state is not None))
+    elif x.numel():
         launch("ssd_scan_launch", *ptrs, out["y"].data_ptr(),
                out["final_state"].data_ptr(), out["cb"].data_ptr(),
                out["chunk_states"].data_ptr(),
@@ -147,7 +203,11 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,
     out = (torch.empty_like(x), torch.empty_like(dtA), torch.empty_like(b),
            torch.empty_like(c),
            torch.empty((Bsz, H, P, N), dtype=f32, device=dev))
-    if x.numel():
+    if x.numel() and is_fake(x):
+        _bwd_scratch(Bsz, L, H, P, N, chunk, dev)   # allocated, as a launch
+        record("ssd_scan_bwd", ssd_scan_bwd_cost(Bsz, L, H, P, N, chunk,
+                                                 dfinal is not None))
+    elif x.numel():
         launch("ssd_scan_bwd_launch", *ptrs,
                *(t.data_ptr() for t in out),
                *(t.data_ptr() for t in _bwd_scratch(Bsz, L, H, P, N, chunk,
@@ -183,7 +243,7 @@ def ssd_scan_bwd(x: torch.Tensor, dtA: torch.Tensor, b: torch.Tensor,
     as for :func:`ssd_scan_bwd_cuda`): the kernel for CUDA tensors,
     :func:`.ref.ssd_chunked_bwd` for CPU tensors (``use_kernel`` as for
     :func:`ssd`). Returns ``(dx, ddtA, db, dc, dinit)``."""
-    if not (x.is_cuda if use_kernel is None else use_kernel):
+    if not (on_card(x) if use_kernel is None else use_kernel):
         return ssd_chunked_bwd(x, dtA, b, c, dy, dfinal, chunk=chunk,
                                entering_states=entering_states,
                                chunk_decay=chunk_decay)
@@ -208,7 +268,7 @@ class SSDScan(torch.autograd.Function):
     def forward(ctx, x, dtA, b, c, initial_state, chunk: int,
                 use_kernel: Optional[bool]):
         ctx.set_materialize_grads(False)
-        if x.is_cuda if use_kernel is None else use_kernel:
+        if on_card(x) if use_kernel is None else use_kernel:
             steps = ssd_scan_cuda_steps(
                 x.contiguous(), dtA.contiguous(), b.contiguous(),
                 c.contiguous(), chunk=chunk,

@@ -67,6 +67,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.distributed import collectives as C
+from repro_torch.kernels._build import is_fake
 from repro_torch.kernels.flash_attention import attention
 from repro_torch.kernels.gqa_decode import combine_blocks, decode_attention
 from repro_torch.kernels.ssd_scan import ssd, ssd_chunked
@@ -89,9 +90,13 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _normal(shape, generator: torch.Generator, dtype, std: float = 0.02):
+def _normal(shape, generator: torch.Generator, dtype, std: float = 0.02,
+            device=None):
+    """Normal(0, std) draws from ``generator`` on ``device`` (default the
+    generator's own)."""
     return torch.randn(shape, generator=generator, dtype=dtype,
-                       device=generator.device) * std
+                       device=generator.device if device is None
+                       else device) * std
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -372,16 +377,17 @@ class _LeafPlan:
         mesh = self.ctx.mesh
         n = C.axis_size(axes, mesh=mesh)
         stacked = C._gather(block.unsqueeze(0), C._group(mesh, axes), n, 0)
-
-        def assemble(t, sizes):
-            if not sizes:
-                return t[0]
-            k, dim = sizes[0]
-            parts = t.unflatten(0, (k, -1))
-            return torch.cat([assemble(parts[i], sizes[1:])
-                              for i in range(k)], dim=dim)
-
-        return assemble(stacked, self.sizes)
+        # [k1, k2, *block] in rank order (row-major over the gathered
+        # axes); each rank index moved in front of the dimension it splits
+        # and merged with it: the blocks concatenated in rank order
+        t = stacked.unflatten(0, tuple(k for k, _ in self.sizes))
+        nk = len(self.sizes)
+        at = {dim: (i, k) for i, (k, dim) in enumerate(self.sizes)}
+        perm = [p for d in range(block.ndim)
+                for p in ((at[d][0], nk + d) if d in at else (nk + d,))]
+        return t.permute(perm).reshape(
+            [s * at[d][1] if d in at else s for d, s in enumerate(
+                block.shape)])
 
     def reduce_grad(self, g: torch.Tensor) -> torch.Tensor:
         """This rank's block of the sum over :attr:`reduce`'s ranks (in
@@ -396,15 +402,27 @@ class _LeafPlan:
         m = C.axis_size(self.ctx.model_axis, mesh=mesh) \
             if self.ctx.model_axis in self.reduce else 1
         fsdp = tuple(self.ctx.fsdp_axes)
-        regions = []
-        for k in range(n):          # the reduce group's rank k
-            r = g
-            for (axes, dim), (size, _) in zip(self.gather, self.sizes):
-                idx = k // m if axes == fsdp else k % m
-                b = g.shape[dim] // size
-                r = r.narrow(dim, idx * b, b)
-            regions.append(r)
-        return C._scatter_sum(torch.stack(regions), group, n, 0)[0]
+        # the reduce group's rank k owns g's block (k // m) of a dimension
+        # split over the FSDP axes and block (k % m) of one split over the
+        # model axis: each split dimension unflattened into (blocks, b),
+        # its block index moved to the front as [FSDP, model], an axis the
+        # leaf is not split over broadcast, then [n, *block] in rank order
+        split = {dim: size for (_, dim), (size, _) in zip(self.gather,
+                                                          self.sizes)}
+        t = g
+        for dim in sorted(split, reverse=True):
+            t = t.unflatten(dim, (split[dim], -1))
+        # where each split dimension's block index now lies, by its axes
+        pos = {"fsdp" if axes == fsdp else "model":
+               dim + sum(d < dim for d in split) for axes, dim in self.gather}
+        front = [pos[k] for k in ("fsdp", "model") if k in pos]
+        t = t.movedim(front, list(range(len(front))))
+        if "fsdp" not in pos:
+            t = t.unsqueeze(0).expand(n // m, *t.shape)
+        if "model" not in pos:
+            t = t.unsqueeze(1).expand(t.shape[0], m, *t.shape[1:])
+        regions = t.reshape((n,) + tuple(t.shape[2:]))
+        return C._scatter_sum(regions, group, n, 0)[0]
 
 
 class _Materialize(torch.autograd.Function):
@@ -561,20 +579,23 @@ def dense(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype
     return x @ w.to(dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _rope_freqs(head_dim: int, theta: float, device: torch.device
-                ) -> torch.Tensor:
-    """The reference's float64 frequencies, as float32, kept on ``device``
-    (made once: a host-to-device copy per call would stall the stream)."""
+def _rope_table(head_dim: int, theta: float, device) -> torch.Tensor:
+    """The reference's float64 frequencies, as float32, on ``device``."""
     f = 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
     return torch.as_tensor(f, dtype=torch.float32).to(device)
+
+
+# made once a device: a host-to-device copy per call would stall the stream
+_rope_freqs = functools.lru_cache(maxsize=None)(_rope_table)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
     """Rotary embedding, split-halves convention. x: ``[..., S, H, hd]``;
-    positions: ``[..., S]`` integer."""
-    freqs = _rope_freqs(x.shape[-1], float(theta), x.device)
+    positions: ``[..., S]`` integer. A fake tensor's table is made anew
+    (a cached one would outlive its fake mode)."""
+    freqs = (_rope_table if is_fake(x) else _rope_freqs)(
+        x.shape[-1], float(theta), x.device)
     ang = positions.float()[..., :, None, None] * freqs   # [..., S, 1, hd/2]
     sin, cos = torch.sin(ang), torch.cos(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -606,24 +627,24 @@ class Attention(nn.Module):
 
 
 def init_attention(cfg: ModelConfig, generator: torch.Generator,
-                   dtype: torch.dtype) -> Attention:
-    """Normal(0, 0.02) projections on the generator's device; the slots of
-    padded (dummy) heads are zero, as in the reference."""
+                   dtype: torch.dtype, device=None) -> Attention:
+    """Normal(0, 0.02) projections on ``device`` (default the generator's);
+    the slots of padded (dummy) heads are zero, as in the reference."""
     pad = cfg.gqa
     D, hd = cfg.d_model, cfg.head_dim
-    dev = generator.device
+    dev = generator.device if device is None else device
 
     def slot_mask(slot_to_orig):
         return torch.tensor([1.0 if o >= 0 else 0.0 for o in slot_to_orig],
                             dtype=dtype, device=dev)
 
-    wq = _normal((D, pad.n_q_pad, hd), generator, dtype) \
+    wq = _normal((D, pad.n_q_pad, hd), generator, dtype, device=dev) \
         * slot_mask(pad.q_slot_to_q)[None, :, None]
-    wk = _normal((D, pad.n_kv_pad, hd), generator, dtype) \
+    wk = _normal((D, pad.n_kv_pad, hd), generator, dtype, device=dev) \
         * slot_mask(pad.kv_slot_to_kv)[None, :, None]
-    wv = _normal((D, pad.n_kv_pad, hd), generator, dtype) \
+    wv = _normal((D, pad.n_kv_pad, hd), generator, dtype, device=dev) \
         * slot_mask(pad.kv_slot_to_kv)[None, :, None]
-    wo = _normal((pad.n_q_pad, hd, D), generator, dtype) \
+    wo = _normal((pad.n_q_pad, hd, D), generator, dtype, device=dev) \
         * slot_mask(pad.q_slot_to_q)[:, None, None]
     return Attention(wq, wk, wv, wo)
 
@@ -862,11 +883,11 @@ class MLP(nn.Module):
 
 
 def init_mlp(cfg: ModelConfig, generator: torch.Generator,
-             dtype: torch.dtype) -> MLP:
+             dtype: torch.dtype, device=None) -> MLP:
     D, F_ = cfg.d_model, cfg.d_ff_pad
-    return MLP(_normal((D, F_), generator, dtype),
-               _normal((D, F_), generator, dtype),
-               _normal((F_, D), generator, dtype))
+    return MLP(_normal((D, F_), generator, dtype, device=device),
+               _normal((D, F_), generator, dtype, device=device),
+               _normal((F_, D), generator, dtype, device=device))
 
 
 def mlp_block(p: MLP, cfg: ModelConfig, x: torch.Tensor,
@@ -959,12 +980,12 @@ class MoE(nn.Module):
 
 
 def init_moe(cfg: ModelConfig, generator: torch.Generator,
-             dtype: torch.dtype) -> MoE:
+             dtype: torch.dtype, device=None) -> MoE:
     D, F_, E = cfg.d_model, cfg.d_ff_pad, cfg.n_experts
-    return MoE(_normal((D, E), generator, torch.float32),
-               _normal((E, D, F_), generator, dtype),
-               _normal((E, D, F_), generator, dtype),
-               _normal((E, F_, D), generator, dtype))
+    return MoE(_normal((D, E), generator, torch.float32, device=device),
+               _normal((E, D, F_), generator, dtype, device=device),
+               _normal((E, D, F_), generator, dtype, device=device),
+               _normal((E, F_, D), generator, dtype, device=device))
 
 
 def moe_capacity(n_tokens: int, cfg: ModelConfig) -> int:
@@ -1008,7 +1029,9 @@ def moe_route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
     flat_e = idx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
-    counts = torch.bincount(se, minlength=E)
+    # a count of fixed size E (bincount's output size depends on the data)
+    counts = torch.zeros(E, dtype=se.dtype, device=se.device
+                         ).scatter_add_(0, se, torch.ones_like(se))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=x.device) - starts[se]
     kept = pos < capacity
@@ -1149,27 +1172,28 @@ class Mamba(nn.Module):
 
 
 def init_mamba(cfg: ModelConfig, generator: torch.Generator,
-               dtype: torch.dtype) -> Mamba:
+               dtype: torch.dtype, device=None) -> Mamba:
     """Normal(0, 0.02) projections and conv, zero conv bias and norm scale;
     ``A_log = log(linspace(1, 16, H))`` and ``dt_bias`` the inverse softplus
-    of ``linspace(1e-3, 0.1, H)``, as in the reference."""
+    of ``linspace(1e-3, 0.1, H)``, as in the reference. On ``device``
+    (default the generator's)."""
     D = cfg.d_model
     din, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     conv_ch = din + 2 * N
-    dev = generator.device
+    dev = generator.device if device is None else device
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
     return Mamba(
-        _normal((D, 2 * din + 2 * N + H), generator, dtype),
-        _normal((cfg.conv_width, conv_ch), generator, dtype),
+        _normal((D, 2 * din + 2 * N + H), generator, dtype, device=dev),
+        _normal((cfg.conv_width, conv_ch), generator, dtype, device=dev),
         torch.zeros(conv_ch, dtype=dtype, device=dev),
         f32(np.log(np.linspace(1.0, 16.0, H).astype(np.float32))),
         torch.ones(H, dtype=torch.float32, device=dev),
         f32(np.log(np.expm1(np.linspace(1e-3, 0.1, H)))),
         torch.zeros(din, dtype=dtype, device=dev),
-        _normal((din, D), generator, dtype))
+        _normal((din, D), generator, dtype, device=dev))
 
 
 def ssd_decode_step(x: torch.Tensor, dtA: torch.Tensor, B: torch.Tensor,

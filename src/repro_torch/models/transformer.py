@@ -61,7 +61,7 @@ __all__ = ["Cache", "CacheLayout", "DenseLayer", "LM", "MambaLayer",
            "cache_pspecs", "cache_spec", "decode_step", "embed_input",
            "embed_tokens", "forward", "gather_cache", "init_cache",
            "init_params", "leaf_pspecs", "logits_fn", "loss_fn",
-           "param_pspecs", "prefill", "shard_cache",
+           "param_pspecs", "prefill", "retarget_fsdp", "shard_cache",
            "run_attention_stack", "run_hybrid_stack", "run_mamba_stack",
            "softmax_xent"]
 
@@ -118,42 +118,44 @@ class LM(nn.Module):
         self.head = None if head is None else L._param(head)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
-    """Random parameters in ``cfg.param_dtype`` on the generator's device:
-    Normal(0, 0.02) weights, zero norm scales (a gain of 1), zero padded
-    heads, the Mamba blocks' ``A_log``/``dt_bias`` schedules. The
-    reference's layout and distribution, not its numbers."""
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> LM:
+    """Random parameters in ``cfg.param_dtype`` on ``device`` (default the
+    generator's): Normal(0, 0.02) weights, zero norm scales (a gain of 1),
+    zero padded heads, the Mamba blocks' ``A_log``/``dt_bias`` schedules.
+    The reference's layout and distribution, not its numbers. (The dry run
+    draws fake CUDA tensors from a CPU generator.)"""
     pdt = L.torch_dtype(cfg.param_dtype)
     D, Vp = cfg.d_model, cfg.vocab_pad
-    dev = generator.device
+    dev = generator.device if device is None else device
 
     def zeros():
         return torch.zeros(D, dtype=pdt, device=dev)
 
     def dense_layer(post_norms: bool, moe: bool = False) -> DenseLayer:
-        attn = L.init_attention(cfg, generator, pdt)
-        ffn = (L.init_moe if moe else L.init_mlp)(cfg, generator, pdt)
+        attn = L.init_attention(cfg, generator, pdt, dev)
+        ffn = (L.init_moe if moe else L.init_mlp)(cfg, generator, pdt, dev)
         post = (zeros(), zeros()) if post_norms else (None, None)
         return DenseLayer(zeros(), attn, zeros(), ffn, *post)
 
-    tok = L._normal((Vp, D), generator, pdt)
+    tok = L._normal((Vp, D), generator, pdt, device=dev)
     parts = {}
     if cfg.frontend == "audio":
-        parts["frame_in"] = L._normal((D, D), generator, pdt)
+        parts["frame_in"] = L._normal((D, D), generator, pdt, device=dev)
     if cfg.frontend == "vision":
-        parts["patch_in"] = L._normal((D, D), generator, pdt)
+        parts["patch_in"] = L._normal((D, D), generator, pdt, device=dev)
     if cfg.family not in ("ssm", "hybrid"):
         parts["layers"] = [dense_layer(cfg.post_norms, bool(cfg.n_experts))
                            for _ in range(cfg.n_layers)]
     else:
         parts["mamba"] = [MambaLayer(zeros(), L.init_mamba(cfg, generator,
-                                                           pdt))
+                                                           pdt, dev))
                           for _ in range(cfg.n_layers)]
         if cfg.family == "hybrid":
             parts["shared"] = [dense_layer(False)
                                for _ in range(cfg.n_shared_blocks)]
     head = None if cfg.tie_embeddings and not cfg.encoder_only \
-        else L._normal((D, Vp), generator, pdt)
+        else L._normal((D, Vp), generator, pdt, device=dev)
     return LM(tok, zeros(), head, **parts)
 
 
@@ -225,6 +227,29 @@ def param_pspecs(cfg: ModelConfig, stacked: bool = True) -> Dict:
     if cfg.encoder_only or not cfg.tie_embeddings:
         specs["head"] = ("data", "model")
     return specs
+
+
+def retarget_fsdp(spec_tree, fsdp_axes):
+    """The reference's ``retarget_fsdp``: the spec tree (dicts and named
+    tuples of spec tuples, as :func:`param_pspecs` and
+    ``train_state_pspecs`` give) with every ``"data"`` (FSDP) entry
+    replaced by ``fsdp_axes``, e.g. ``("pod", "data")``, so the state
+    shards over the whole data-parallel domain. The port's own sharding
+    reads ``"data"`` as :attr:`~.layers.MeshContext.fsdp_axes`, which are
+    already the batch axes (``("pod", "data")`` on the multi-pod mesh), so
+    ``shard_train_state`` lays a multi-pod state out this way without it;
+    the dry run writes and compares the retargeted trees."""
+    if fsdp_axes == "data":
+        return spec_tree
+
+    def fix(node):
+        if isinstance(node, dict):
+            return {k: fix(v) for k, v in node.items()}
+        if hasattr(node, "_fields"):
+            return type(node)(*(fix(v) for v in node))
+        return tuple(fsdp_axes if a == "data" else a for a in node)
+
+    return fix(spec_tree)
 
 
 def leaf_pspecs(model: LM, cfg: Optional[ModelConfig] = None, *,

@@ -73,10 +73,10 @@ def param_tree(model: T.LM) -> Dict[str, torch.Tensor]:
 
 
 def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                     generator: torch.Generator) -> TrainState:
-    """Random parameters from ``generator`` (on its device) and zero
-    AdamW state."""
-    model = T.init_params(cfg, generator)
+                     generator: torch.Generator, device=None) -> TrainState:
+    """Random parameters from ``generator`` on ``device`` (default the
+    generator's) and zero AdamW state."""
+    model = T.init_params(cfg, generator, device)
     return TrainState(model, adamw_init(param_tree(model), opt_cfg))
 
 
