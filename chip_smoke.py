@@ -260,8 +260,9 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    smollm-360m at full width and depth (its float32 gradient at 8 layers),
    mixtral-8x7b at full width and 2 of its 32 layers and mamba2-2.7b at 2
    of its 64 (its heads split over the model axis): one float32 GRAD_B x
-   GRAD_S gradient without a mesh (one microbatch a data rank: the mesh's MoE gives each data
-   rank's tokens their own capacity) and on the mesh with sp_matmuls off
+   GRAD_S gradient without a mesh (one microbatch a data rank: the mesh's
+   MoE gives each data rank's tokens their own capacity) and on the mesh,
+   each rank fed its shard_batch block of the batch, with sp_matmuls off
    and on (on where the heads and d_ff split), the loss and every
    leaf within GRAD_TOL of its largest |value|, B4/B5/B6 launches equal
    to the no-mesh step's, the collectives' counters non-zero; then
@@ -287,11 +288,21 @@ Phases, each of which must pass (any failure exits nonzero, no result):
    serving smollm-360m, mamba2-2.7b and zamba2-2.7b at full width and
    depth and mixtral-8x7b at 4 of 32 layers (SERVE_B x SERVE_PROMPT
    prompts, SERVE_STEPS greedy steps through prefill(ctx=) and
-   decode_step(ctx=), the caches as each rank's blocks) beside the same
-   without the mesh: in float32 the greedy tokens equal and the prefill
-   logits within SERVE_MESH_TOL, in both dtypes each rank's launches equal;
-   prefill ms, decode ms a step, a decode step's collectives and the peak
-   memory of each.
+   decode_step(ctx=) on each rank's shard_batch blocks of the prompt and
+   of each step's tokens, each rank's vocabulary block of the logits
+   gathered whole for the argmax, the caches as each rank's blocks)
+   beside the same without the mesh: in float32 the greedy tokens equal
+   and the prefill logits within SERVE_MESH_TOL, in both dtypes each
+   rank's launches equal; prefill ms, decode ms a step, a decode step's
+   collectives, the peak memory, and a rank's prompt and logits bytes
+   beside the whole ones;
+27. the dry run against the card: phase 12's step traced on fake CUDA
+   tensors (its kernel calls against _per_step, its predicted peak
+   within DRY_RUN_PEAK_TOL of max_memory_allocated over one real step),
+   smollm-360m's training cell on rank 0 of a fake (2, 2) process group
+   (its traced argument bytes equal to the bytes of the same blocks made
+   real, the inputs shard_batch's blocks), and the dry-run CLI on
+   DRY_RUN_CELL in a child process.
 
 It prints a JSON line of per-kernel numbers and, last, the device line
 ``{"ok": true, "device": {...}}``. It needs the repository around it and
@@ -3408,6 +3419,19 @@ def _train_batch(pipe, step: int, dev) -> dict:
             for k, v in pipe.batch_at(step).items()}
 
 
+def _mesh_batch(pipe, step: int, dev, ctx, grad_accum: int = 1):
+    """``(blocks, ctx bound to the batch)``: this rank's ``shard_batch``
+    blocks of the pipeline's batch ``step``, made on the host and moved to
+    ``dev`` (the global batch stays on the host)."""
+    import torch
+
+    from repro_torch.models.transformer import shard_batch
+
+    blocks, ctx = shard_batch({k: torch.from_numpy(v) for k, v in
+                               pipe.batch_at(step).items()}, ctx, grad_accum)
+    return {k: v.to(dev) for k, v in blocks.items()}, ctx
+
+
 def _resume_check(dev) -> dict:
     """At full width and RESUME_LAYERS layers, with deterministic
     algorithms: 4 straight steps against 2 steps, a CheckpointManager save,
@@ -5314,8 +5338,8 @@ def _mesh_grads(dev, cfg, ctx) -> dict:
     model = T.init_params(cfg32, torch.Generator(device=dev)
                           .manual_seed(SEED))
     rows = -(-GRAD_B // ctx.data_size) * ctx.data_size
-    batch = _train_batch(TokenPipeline(cfg32, global_batch=rows,
-                                       seq_len=GRAD_S, seed=SEED), 0, dev)
+    pipe = TokenPipeline(cfg32, global_batch=rows, seq_len=GRAD_S, seed=SEED)
+    batch = _train_batch(pipe, 0, dev)
     _reset_launches()
     loss0, g = _grads(model, cfg32, batch, ctx.data_size)
     want = {n: t.detach().clone() for n, t in g.items()}
@@ -5328,8 +5352,9 @@ def _mesh_grads(dev, cfg, ctx) -> dict:
     for sp in (False, True) if splits else (False,):
         _reset_launches()
         C.reset_counts()
-        loss, g = _grads(model, cfg32, batch, 1,
-                         dataclasses.replace(ctx, sp_matmuls=sp))
+        blocks, bctx = _mesh_batch(pipe, 0, dev, dataclasses.replace(
+            ctx, sp_matmuls=sp))
+        loss, g = _grads(model, cfg32, blocks, 1, bctx)
         launches = _launches()
         err, worst = _leaf_err(g, want)
         loss_err = abs(float(loss) - float(loss0)) / abs(float(loss0))
@@ -5388,17 +5413,20 @@ def _mesh_steps(dev, cfg, mesh, arch: str, depth, sp: bool):
                 else None
             state = init_train_state(cfg, opt, torch.Generator(device=dev)
                                      .manual_seed(SEED))
-            step_fn = make_train_step(cfg, opt, ctx, grad_accum=accum)
             pipe = TokenPipeline(cfg, global_batch=TRAIN_B, seq_len=TRAIN_S,
                                  seed=SEED)
+            batches = [_mesh_batch(pipe, i, dev, ctx) if on else
+                       (_train_batch(pipe, i, dev), None)
+                       for i in range(MESH_STEPS)]
+            step_fn = make_train_step(cfg, opt, batches[0][1],
+                                      grad_accum=accum)
             losses, step_s = [], []
             for step in range(MESH_STEPS):
                 t = time.perf_counter()
-                state, metrics = step_fn(state, _train_batch(pipe, step,
-                                                             dev))
+                state, metrics = step_fn(state, batches[step][0])
                 losses.append(float(metrics["loss"]))
                 step_s.append(time.perf_counter() - t)
-            del state, step_fn, metrics
+            del state, step_fn, metrics, batches
         runs["mesh" if on else "one"] = dict(
             losses=losses, step_ms=[1e3 * x for x in step_s],
             launches={k: n // accum for k, n in _launches().items()})
@@ -5443,7 +5471,8 @@ def _mesh_sharded(dev, cfg, ctx, arch: str, tmp: str) -> dict:
     opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=10)
     pipe = TokenPipeline(cfg, global_batch=TRAIN_B, seq_len=TRAIN_S,
                          seed=SEED)
-    step = make_train_step(cfg, opt, ctx)
+    batches = [_mesh_batch(pipe, i, dev, ctx) for i in range(MESH_STEPS)]
+    step = make_train_step(cfg, opt, batches[0][1])
 
     def init():
         return init_train_state(cfg, opt, torch.Generator(device=dev)
@@ -5478,7 +5507,7 @@ def _mesh_sharded(dev, cfg, ctx, arch: str, tmp: str) -> dict:
         try:
             for i in range(MESH_STEPS):
                 t = time.perf_counter()
-                state, metrics = step(state, _train_batch(pipe, i, dev))
+                state, metrics = step(state, batches[i][0])
                 losses.append(float(metrics["loss"]))
                 ms.append(1e3 * (time.perf_counter() - t))
                 if cuda:
@@ -5571,16 +5600,17 @@ def _mesh_profile(dev, cfg, mesh) -> dict:
                                       make_train_step)
 
     opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=10)
-    batch = _train_batch(TokenPipeline(cfg, global_batch=TRAIN_B,
-                                       seq_len=TRAIN_S, seed=SEED), 0, dev)
+    pipe = TokenPipeline(cfg, global_batch=TRAIN_B, seq_len=TRAIN_S,
+                         seed=SEED)
     out = {}
     for on in (False, True):
         torch.cuda.empty_cache()
         state = init_train_state(cfg, opt, torch.Generator(device=dev)
                                  .manual_seed(SEED))
-        step_fn = make_train_step(
-            cfg, opt, MeshContext(mesh, ("data",)) if on else None,
-            grad_accum=1 if on else int(mesh.shape[0]))
+        batch, ctx = _mesh_batch(pipe, 0, dev, MeshContext(
+            mesh, ("data",))) if on else (_train_batch(pipe, 0, dev), None)
+        step_fn = make_train_step(cfg, opt, ctx,
+                                  grad_accum=1 if on else int(mesh.shape[0]))
         step_fn(state, batch)
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -5960,10 +5990,16 @@ def _serve_run(dev, model, cfg, tokens, ctx, max_seq: int, steps: int,
                shard_seq: bool = False) -> dict:
     """``prefill`` of ``tokens`` and ``steps`` greedy ``decode_step``
     calls (on ``ctx``'s mesh, or without one), the KV slots laid over the
-    batch axes after the prefill where ``shard_seq``: the prefill's logits
-    and every token on the host, the prefill's ms and each step's (host
-    clock, ended by a sync), the kernels' launches, the collectives of the
-    last step (calls and bytes) and the peak memory."""
+    batch axes after the prefill where ``shard_seq``. On the mesh each
+    rank gets its ``shard_batch`` block of the prompt and of each step's
+    tokens and gives its block of the logits; the greedy tokens are the
+    ``argmax`` of the logits gathered whole (``gather_logits``, inside the
+    timed step, as a greedy server on the mesh must). Returns the
+    prefill's whole logits and every token on the host, the prefill's ms
+    and each step's (host clock, ended by a sync), the kernels' launches,
+    the collectives of the last step's ``decode_step`` (calls and bytes),
+    the bytes of a rank's prompt and prefill logits beside the whole
+    ones', and the peak memory."""
     import torch
 
     from repro_torch.distributed import collectives as C
@@ -5975,34 +6011,48 @@ def _serve_run(dev, model, cfg, tokens, ctx, max_seq: int, steps: int,
         if cuda:
             torch.cuda.synchronize()
 
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    def blocks(tok):
+        if ctx is None:
+            return tok, None
+        b, bctx = T.shard_batch({"tokens": tok}, ctx)
+        return b["tokens"], bctx
+
     B = tokens.shape[0]
     _reset_launches()
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-    cache, ring = T.init_cache(cfg, B, max_seq, dev, ctx=ctx)
+    prompt, pctx = blocks(tokens)
+    cache, ring = T.init_cache(cfg, B, max_seq, dev, ctx=pctx)
     sync()
     t = time.perf_counter()
-    logits, cache = T.prefill(model, cfg, tokens, cache, ring, ctx=ctx)
-    toks = [logits.argmax(-1)]
+    logits, cache = T.prefill(model, cfg, prompt, cache, ring, ctx=pctx)
+    whole = T.gather_logits(logits, pctx, cfg)
+    toks = [whole.argmax(-1)]
     sync()
     prefill_ms = 1e3 * (time.perf_counter() - t)
-    first = logits.float().cpu()
+    first = whole.float().cpu()
+    in_bytes = dict(prompt=nbytes(prompt), prompt_whole=nbytes(tokens),
+                    logits=nbytes(logits), logits_whole=nbytes(whole))
     if shard_seq:
         cache = T.shard_cache(cache, ctx)
     step_ms = []
     for _ in range(steps):
-        C.reset_counts()
         t = time.perf_counter()
-        logits, cache = T.decode_step(model, cfg, toks[-1], cache, ring,
-                                      ctx=ctx)
-        toks.append(logits.argmax(-1))
+        tok, dctx = blocks(toks[-1])
+        C.reset_counts()
+        logits, cache = T.decode_step(model, cfg, tok, cache, ring,
+                                      ctx=dctx)
+        counts = {op: dict(c) for op, c in C.COUNTS.items()}
+        toks.append(T.gather_logits(logits, dctx, cfg).argmax(-1))
         sync()
         step_ms.append(1e3 * (time.perf_counter() - t))
     out = dict(logits=first, tokens=torch.stack(toks).cpu(),
                prefill_ms=prefill_ms, step_ms=step_ms,
-               launches=_launches(),
-               step_counts={op: dict(c) for op, c in C.COUNTS.items()},
+               launches=_launches(), step_counts=counts, bytes=in_bytes,
                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9
                if cuda else 0.0)
     del cache, logits
@@ -6195,6 +6245,11 @@ def _log_serve_mesh(ranks: list, wall: float) -> dict:
                            + ", ".join(f"{op} {c['calls']} {c['bytes']}"
                                        for op, c in s["step_counts"].items())
                            if kind == "mesh" else ""))
+                b = x["mesh"]["bytes"]
+                log(f"  {arch} {dtype}: a rank's prompt block "
+                    f"{b['prompt']} bytes (whole {b['prompt_whole']}), its "
+                    f"prefill logits block {b['logits']} bytes (whole "
+                    f"{b['logits_whole']})")
                 log(f"  {arch} {dtype}: prefill logits "
                     f"{x['logit_err']:.3g} of the largest |logit| off the "
                     f"no-mesh run, greedy tokens agree at "
@@ -6225,6 +6280,62 @@ DRY_RUN_PEAK_TOL = 0.10
 #: The dry-run CLI's cell in a child process, and its time limit (s).
 DRY_RUN_CELL = ("smollm_360m", "train_4k")
 DRY_RUN_CHILD_S = 300
+#: Layers of the cell whose traced argument bytes are held against its
+#: real blocks'.
+DRY_RUN_LAYERS = 4
+
+
+def _dry_run_blocks(dev) -> dict:
+    """smollm-360m's training cell at full width and DRY_RUN_LAYERS layers
+    (the bytes a layer are the same at any depth), TRAIN_B x TRAIN_S
+    tokens, on rank 0 of a fake (2, 2) process group
+    (``launch.specs.cell_step``: the state's blocks and ``shard_batch``'s
+    blocks of the batch): the
+    argument bytes of its step traced on fake tensors on ``dev`` against
+    the bytes of the same blocks made real (on the host: ``cell_step``
+    draws from a CPU generator, as the dry run does), and the inputs'
+    bytes a rank beside the whole batch's."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.analysis import tensors_of, trace_step
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shapes import ShapeCell
+    from repro_torch.launch.specs import cell_step, training_config
+
+    def storage_bytes(obj) -> int:
+        return sum({id(t.untyped_storage()): t.untyped_storage().nbytes()
+                    for t in tensors_of(obj)}.values())
+
+    cfg = training_config("smollm_360m", 2).with_(n_layers=DRY_RUN_LAYERS)
+    cell = ShapeCell("phase27", "train", TRAIN_S, TRAIN_B)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        mesh = make_host_mesh(model=2, device=dev.type)
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            step, args, _ = cell_step(cfg, cell, mesh, False, device=dev)
+            cost, _ = trace_step(step, *args)
+            del step, args
+        _, (state, batch), _ = cell_step(cfg, cell, mesh, False,
+                                         device="cpu")
+        real = storage_bytes((state, batch))
+        inputs = storage_bytes(batch)
+        whole = sum(TRAIN_B * TRAIN_S * t.element_size()
+                    for t in batch.values())
+        del state, batch
+    finally:
+        dist.destroy_process_group()
+        C.reset_groups()
+    traced = cost.memory["argument_size_in_bytes"]
+    log(f"  smollm_360m ({DRY_RUN_LAYERS} layers) train {TRAIN_B}x{TRAIN_S} "
+        f"on rank 0 of a fake (2, 2) mesh: traced argument bytes {traced}, "
+        f"the real blocks {real}; of "
+        f"them the inputs {inputs} bytes (the whole batch {whole})")
+    check(traced == real, f"the traced step's argument bytes {traced} != "
+          f"its real blocks' {real}")
+    return dict(traced=traced, real=real, inputs=inputs, inputs_whole=whole)
 
 
 def phase_dry_run(dev) -> dict:
@@ -6307,6 +6418,7 @@ def phase_dry_run(dev) -> dict:
         torch.cuda.empty_cache()
         check(abs(rel) <= DRY_RUN_PEAK_TOL,
               f"dry run peak {predicted} vs measured {measured} ({rel:+.3%})")
+        blocks = _dry_run_blocks(dev)
 
         stdout, stderr = child.communicate(timeout=DRY_RUN_CHILD_S)
         child_s = time.perf_counter() - t0
@@ -6327,7 +6439,7 @@ def phase_dry_run(dev) -> dict:
         shutil.rmtree(out_dir, ignore_errors=True)
     return dict(calls=calls, predicted_peak=predicted, measured_peak=measured,
                 rel=rel, trace_s=trace_s, cli=line, cli_trace_s=rec["trace_s"],
-                cli_memory=rec["memory"])
+                cli_memory=rec["memory"], blocks=blocks)
 
 def main() -> int:
     import torch
@@ -6568,7 +6680,7 @@ def main() -> int:
             row["profile_ms_per_launch"] = prof["ms_per_launch"]
     log("dry_run " + json.dumps({k: dry[k] for k in (
         "predicted_peak", "measured_peak", "rel", "calls", "cli",
-        "cli_trace_s")}))
+        "cli_trace_s", "blocks")}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

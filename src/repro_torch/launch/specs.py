@@ -5,23 +5,18 @@ tensor (the reference's shapes and dtypes, no bytes) with the
 reference's layout of it, a tuple of axis names per dimension as
 :func:`~repro_torch.models.transformer.param_pspecs` writes specs.
 :func:`build_cell` gives ``(step, args, meta)``: the function the cell
-runs on one rank of the mesh and its arguments, this rank's blocks made
-in the caller's ``FakeTensorMode`` on ``"cuda"`` (the dry run traces
+runs on one rank of the mesh and its arguments, this rank's blocks of the
+state or parameters, the inputs (:func:`~repro_torch.models.transformer
+.shard_batch`, the reference's ``in_shardings``) and the cache, made in
+the caller's ``FakeTensorMode`` on ``"cuda"`` (the dry run traces
 ``step(*args)``; nothing is allocated).
 
-Where the port's arguments differ from the reference's per device:
-
-* the port's steps take the **global** batch (tokens, frames, patches,
-  targets, mask, a decode step's tokens) on every rank, and each rank
-  takes its rows inside the step; the reference's are split over the
-  batch axes;
-* the port's cache keeps ``pos`` as a host int, where the reference's is
-  a ``[B]`` int32 array (:func:`input_specs` gives it, for the shapes);
-* a size that does not divide its axis stays whole
-  (:func:`~repro_torch.models.layers.leaf_split`), where GSPMD pads it;
-* a rank's conv cache is its own ``d_inner`` channels and the whole
-  ``B``/``C`` channels (``CacheLayout.conv``), not an even split of
-  ``d_inner + 2N``.
+The port's arguments are the reference's per device but for the cache's
+``pos``, which the port keeps as a host int where the reference's is a
+``[B]`` int32 array (:func:`input_specs` gives it, for the shapes). As
+everywhere in the port, a size that does not divide its axis stays whole
+(:func:`~repro_torch.models.layers.leaf_split`) where GSPMD pads it; no
+production cell of one pod has one.
 """
 from __future__ import annotations
 
@@ -150,8 +145,8 @@ def build_cell(arch: str, shape: str, mesh, multi_pod: bool,
     as in the reference). ``meta["kind"]`` is ``train``, ``encode``,
     ``prefill`` or ``decode``; ``meta["config"]`` the config. Call it in
     a ``FakeTensorMode``: the arguments are this rank's blocks of the
-    parameters, state and cache (a decode cache at its last slot, so the
-    step attends every slot), and the global inputs."""
+    parameters, state, inputs and cache (a decode cache at its last slot,
+    so the step attends every slot)."""
     ok, why = cell_plan(arch, shape)
     if not ok:
         raise ValueError(f"cell ({arch}, {shape}) skipped: {why}")
@@ -176,8 +171,9 @@ def cell_step(cfg: ModelConfig, cell: ShapeCell, mesh, multi_pod: bool,
         opt_cfg = AdamWConfig(state_dtype=opt_state_dtype)
         state = shard_train_state(
             init_train_state(cfg, opt_cfg, gen, device=device), cfg, ctx)
-        batch = {k: _on(v, device) for k, v in
-                 _batch_struct(cfg, cell, baxes, True)[0].items()}
+        batch, ctx = T.shard_batch(
+            {k: _on(v, device) for k, v in
+             _batch_struct(cfg, cell, baxes, True)[0].items()}, ctx)
         return (make_train_step(cfg, opt_cfg, ctx), (state, batch),
                 {"config": cfg, "kind": "train"})
 
@@ -185,14 +181,16 @@ def cell_step(cfg: ModelConfig, cell: ShapeCell, mesh, multi_pod: bool,
     params = L.shard_module(whole, T.leaf_pspecs(whole, cfg), ctx)
     del whole
     if cell.kind == "prefill":
-        batch = {k: _on(v, device) for k, v in
-                 _batch_struct(cfg, cell, baxes, False)[0].items()}
+        batch, ctx = T.shard_batch(
+            {k: _on(v, device) for k, v in
+             _batch_struct(cfg, cell, baxes, False)[0].items()}, ctx)
         if cfg.encoder_only:
             @torch.no_grad()
             def encode(model, batch):
+                # the reference's out_shardings: the stream's block, every
+                # vocabulary column
                 x = T.forward(model, cfg, ctx=ctx, **batch)
-                local = T._local_model(model, cfg, ctx.at(B, S))
-                return T.logits_fn(local, cfg, x)
+                return T.logits_fn(T._local_model(model, cfg, ctx), cfg, x)
             return encode, (params, batch), {"config": cfg,
                                              "kind": "encode"}
         cache, ring = T.init_cache(cfg, B, S, device, ctx=ctx)
@@ -208,7 +206,10 @@ def cell_step(cfg: ModelConfig, cell: ShapeCell, mesh, multi_pod: bool,
     cache, ring = T.init_cache(cfg, B, S, device, ctx=ctx,
                                shard_seq=B == 1)
     cache.pos = S - 1
-    token = torch.zeros((B,), dtype=torch.int32, device=device)
+    blocks, ctx = T.shard_batch(
+        {"tokens": torch.zeros((B,), dtype=torch.int32, device=device)},
+        ctx)
+    token = blocks["tokens"]
 
     def decode_fn(model, token, cache):
         return T.decode_step(model, cfg, token, cache, ring, ctx=ctx)

@@ -13,8 +13,9 @@ it: gradients → error-feedback compression with its carry → AdamW.
 On a device mesh, call ``run_training(mesh=make_host_mesh(model=m))``
 (:mod:`repro_torch.launch.mesh`) in every rank of an initialized process
 group (NCCL on the card; gloo with ``device="cpu"``): each rank trains on
-its data rank's rows of every batch and its model rank's heads, experts
-or ``d_ff`` slice, and the losses are the global ones. The CLI runs one
+its block of every batch (``shard_batch``: its data rank's rows, its
+model rank's positions) and its model rank's heads, experts or ``d_ff``
+slice, and the losses are the global ones. The CLI runs one
 process, as the reference's does.
 """
 from __future__ import annotations
@@ -32,6 +33,7 @@ from repro_torch.convert import reference_leaves
 from repro_torch.device import resolve_device
 from repro_torch.distributed import ErrorFeedback
 from repro_torch.models.layers import MeshContext
+from repro_torch.models.transformer import shard_batch
 from repro_torch.training import (AdamWConfig, init_train_state,
                                   make_train_step)
 from repro_torch.training.trainer import make_grad_and_apply
@@ -61,11 +63,13 @@ def run_training(arch: str = "smollm_360m", preset: str = "tiny",
 
     ``mesh`` (a ``("data", "model")`` DeviceMesh; call in every rank)
     trains with ``MeshContext(mesh, ("data",))``: every rank builds the
-    same parameters from ``seed``, takes its rows ``[r·B/d, (r+1)·B/d)``
-    of each batch (on the mesh's device: this rank's card, or the CPU for
-    a gloo mesh), and gets the mesh-summed gradients, so the ranks stay
-    identical; compression runs on those gradients. Only data rank 0 of
-    model rank 0 writes checkpoints; every rank restores."""
+    same parameters from ``seed``, keeps the pipeline's global batch on
+    the host and moves only its ``shard_batch`` block of it (its block of
+    each microbatch with ``grad_accum``) to the mesh's device (this rank's
+    card, or the CPU for a gloo mesh), and gets the mesh-summed gradients,
+    so the ranks stay identical; compression runs on those gradients. Only
+    data rank 0 of model rank 0 writes checkpoints; every rank
+    restores."""
     ctx = None
     if mesh is not None:
         ctx = MeshContext(mesh, ("data",))
@@ -81,6 +85,18 @@ def run_training(arch: str = "smollm_360m", preset: str = "tiny",
                           total_steps=max(sched, 10))
     pipe = TokenPipeline(cfg, global_batch=global_batch, seq_len=seq_len,
                          seed=seed)
+    accum = 1 if compression else grad_accum
+
+    def batch_at(step: int):
+        """The step's global batch on the host, or on a mesh this rank's
+        blocks of it."""
+        batch = {k: torch.from_numpy(v) for k, v in
+                 pipe.batch_at(step).items()}
+        return batch if ctx is None else shard_batch(batch, ctx, accum)[0]
+
+    if ctx is not None:     # bound to the pipeline's global batch
+        ctx = shard_batch({k: torch.from_numpy(v) for k, v in
+                           pipe.batch_at(0).items()}, ctx, accum)[1]
     state = init_train_state(cfg, opt_cfg,
                              torch.Generator(device=dev).manual_seed(seed))
     start_step = 0
@@ -108,8 +124,7 @@ def run_training(arch: str = "smollm_360m", preset: str = "tiny",
     t0 = time.perf_counter()
     for step in range(start_step, steps):
         t = time.perf_counter()
-        batch = {k: torch.from_numpy(v).to(dev)
-                 for k, v in pipe.batch_at(step).items()}
+        batch = {k: v.to(dev) for k, v in batch_at(step).items()}
         if ef is None:
             state, metrics = step_fn(state, batch)
         else:

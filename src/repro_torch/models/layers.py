@@ -30,11 +30,12 @@ do not divide the model axis the baseline runs the whole block on every
 model rank. The MoE shards its experts (ep) or its ``d_ff`` (tp) over the
 model axis, with the capacity of this rank's tokens. The Mamba2 block
 splits its SSM heads over the model axis (:func:`mamba_block`): each model
-rank computes its heads' columns of ``z``, ``x`` and ``dt`` and the whole
-``B``/``C`` channels, scans its heads through B8, takes the gated norm's
-sum of squares as a psum over the model axis and sums its rows of
-``out_proj`` back into the stream as the MLP does; where the heads do not
-divide the axis the block runs whole on every model rank.
+rank computes its heads' columns of ``z``, ``x`` and ``dt`` and its
+``N/model`` columns of ``B`` and of ``C``, all-gathers ``B``/``C`` before
+the scan, scans its heads through B8, takes the gated norm's sum of
+squares as a psum over the model axis and sums its rows of ``out_proj``
+back into the stream as the MLP does; where the heads do not divide the
+axis the block runs whole on every model rank.
 
 Parameters are stored in one of two layouts. **Replicated** (the layout
 ``init_params`` gives): every rank holds every parameter whole, slices it
@@ -77,9 +78,10 @@ from .config import ModelConfig
 __all__ = ["Attention", "MLP", "Mamba", "MeshContext", "MoE", "MoERouting",
            "apply_rope", "attention_block", "cst", "dense",
            "init_attention", "init_mamba", "init_mlp", "init_moe",
-           "mamba_block", "mlp_block", "moe_block", "moe_capacity",
-           "moe_local", "moe_route", "rms_norm", "sp_mlp", "sp_out_proj",
-           "sp_qkv", "ssd_chunked", "ssd_decode_step", "torch_dtype"]
+           "mamba_block", "mamba_channels", "mlp_block", "moe_block",
+           "moe_capacity", "moe_local", "moe_route", "rms_norm", "sp_mlp",
+           "sp_out_proj", "sp_qkv", "ssd_chunked", "ssd_decode_step",
+           "torch_dtype"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -1226,23 +1228,51 @@ def mamba_block(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
 
     With ``ctx`` ``x`` and ``out`` are this rank's stream blocks, the
     cache (if any) is this rank's block (``init_cache(ctx=...)``), and the
-    block runs on its rows' gathered sequence. Where the
-    SSM heads divide the model axis, this model rank computes heads ``[i ·
-    H/m, (i+1) · H/m)`` (the reference's constraints on ``z``, ``xBC``,
-    ``dt`` and ``xin``): its columns of ``z``, of ``xBC``'s ``x`` part and
-    of ``dt``, the whole ``B``/``C`` channels (replicated over the model
-    axis, as the reference keeps them), the conv on those channels, the
-    scan of its heads with ``D_skip``, the gated norm with its sum of
-    squares over ``d_inner`` a psum over the model axis, and its rows of
-    ``out_proj``, summed over the model axis into the stream (a psum and a
-    slice, or a psum_scatter under SP). The cache and the new cache are
-    those of its channels and heads: the conv state of its ``d_inner``
-    channels and the whole ``B``/``C`` channels, the SSM state of its
-    heads. Elsewhere the block runs whole on every model rank, with the
-    whole cache."""
+    block runs on its rows' gathered sequence. Where the SSM heads divide
+    the model axis, this model rank computes heads ``[i · H/m, (i+1) ·
+    H/m)`` (the reference's constraints on ``z``, ``xBC``, ``dt`` and
+    ``xin``, and its ``("data", "model")`` split of ``in_proj``): its
+    columns of ``z``, of ``xBC``'s ``x`` part and of ``dt``, its ``N/m``
+    columns of ``B`` and of ``C`` (whole where ``N`` does not divide the
+    axis), the conv and SiLU of those channels, then ``B``/``C``
+    all-gathered over the model axis in rank order (replicated, as the
+    reference keeps them for the scan; the gather's backward
+    reduce-scatters their gradients), the scan of its heads with
+    ``D_skip``, the gated norm with its sum of squares over ``d_inner`` a
+    psum over the model axis, and its rows of ``out_proj``, summed over
+    the model axis into the stream (a psum and a slice, or a
+    psum_scatter under SP). The cache and the new cache are those of its
+    channels and heads: the conv state of its ``[x | B | C]`` channels
+    (:func:`mamba_channels`), the SSM state of its heads. Elsewhere the
+    block runs whole on every model rank, with the whole cache."""
     if ctx is not None:
         return _mamba_mesh(p, cfg, x, ctx, use_kernel, cache)
     return _mamba_heads(p, cfg, x, cache, use_kernel)
+
+
+def mamba_channels(cfg: ModelConfig, ctx: MeshContext
+                   ) -> Optional[Tuple[Tuple[int, bool], ...]]:
+    """The conv channels ``[x | B | C]`` of a Mamba block on ``ctx``'s
+    mesh as ``((d_inner, True), (N, split), (N, split))``: each group's
+    whole size and whether each model rank keeps its ``1/model`` of it
+    (``B``/``C`` where ``N`` divides the axis); a rank's channels are its
+    part of each group in this order. None where the SSM heads do not
+    divide the axis: every rank keeps every channel."""
+    if _model_slice(ctx, cfg.ssm_heads) is None:
+        return None
+    split = _model_slice(ctx, cfg.ssm_state) is not None
+    return ((cfg.d_inner, True), (cfg.ssm_state, split),
+            (cfg.ssm_state, split))
+
+
+def _gather_bc(ctx: MeshContext, Bl: torch.Tensor, Cl: torch.Tensor):
+    """The whole ``B``/``C`` ``[b, S, N]`` from every model rank's ``N/m``
+    columns, in rank order: one all-gather of both (its backward sums the
+    ranks' gradients of each block in rank order)."""
+    nb = Bl.shape[-1]
+    g = C.all_gather(torch.cat([Bl, Cl], -1), ctx.model_axis, -2,
+                     tiled=False, mesh=ctx.mesh)        # [b, S, m, 2nb]
+    return g[..., :nb].flatten(-2), g[..., nb:].flatten(-2)
 
 
 def _mamba_mesh(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
@@ -1252,22 +1282,34 @@ def _mamba_mesh(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
     x = cst(ctx, x, "batch", None, None, frm=stream)
     H, hp = cfg.ssm_heads, cfg.ssm_head_dim
     hs = _model_slice(ctx, H)
+    groups = mamba_channels(cfg, ctx)
     if cache is not None:
         heads = H if hs is None else hs.stop - hs.start
-        if cache[1].shape[:2] != (x.shape[0], heads):
-            raise ValueError(f"a {tuple(cache[1].shape)} SSM cache block "
-                             f"does not hold {x.shape[0]} rows of {heads} "
-                             "heads: it is laid out for another mesh")
+        chans = sum(n // ctx.model_size if split else n
+                    for n, split in groups) if groups else \
+            cfg.d_inner + 2 * cfg.ssm_state
+        if cache[1].shape[:2] != (x.shape[0], heads) or \
+                cache[0].shape[-1] != chans:
+            raise ValueError(f"a {tuple(cache[0].shape)} conv and "
+                             f"{tuple(cache[1].shape)} SSM cache block do "
+                             f"not hold {x.shape[0]} rows of {chans} "
+                             f"channels and {heads} heads: they are laid "
+                             "out for another mesh")
     if hs is None:
         out, new_cache = _mamba_heads(p, cfg, x, cache, use_kernel)
         return cst(ctx, out, *stream, frm=("batch", None, None)), new_cache
     din, N = cfg.d_inner, cfg.ssm_state
     ch = slice(hs.start * hp, hs.stop * hp)      # this rank's d_inner
-    # [z | x | B | C | dt] columns of in_proj, [x | B | C] conv channels
-    cols = (ch, slice(din + ch.start, din + ch.stop),
-            slice(2 * din, 2 * din + 2 * N),
-            slice(2 * din + 2 * N + hs.start, 2 * din + 2 * N + hs.stop))
-    chans = (ch, slice(din, din + 2 * N))
+    bc = _model_slice(ctx, N) or slice(0, N)     # this rank's B/C columns
+
+    def at(off: int, s: slice) -> slice:
+        return slice(off + s.start, off + s.stop)
+
+    # this rank's [z | x | B | C | dt] columns of in_proj, [x | B | C]
+    # conv channels
+    cols = (ch, at(din, ch), at(2 * din, bc), at(2 * din + N, bc),
+            at(2 * din + 2 * N, hs))
+    chans = (ch, at(din, bc), at(din + N, bc))
     w = dict(in_proj=torch.cat([p.in_proj[:, c] for c in cols], 1),
              conv_w=torch.cat([p.conv_w[:, c] for c in chans], 1),
              conv_b=torch.cat([p.conv_b[c] for c in chans]),
@@ -1276,7 +1318,9 @@ def _mamba_mesh(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
              out_proj=_part(p.out_proj, 0, din, ch))
     out, new_cache = _mamba_heads(
         _Local(p, w), cfg, x, cache, use_kernel,
-        sumsq=lambda t: C.psum(t, ctx.model_axis, mesh=ctx.mesh))
+        sumsq=lambda t: C.psum(t, ctx.model_axis, mesh=ctx.mesh),
+        gather_bc=functools.partial(_gather_bc, ctx)
+        if groups[1][1] and ctx.model_size > 1 else None)
     if _sp_sharded(ctx):
         out = C.psum_scatter(out, ctx.model_axis, 1, mesh=ctx.mesh)
         return cst(ctx, out, *stream, frm=("batch", "model", None)), \
@@ -1286,20 +1330,23 @@ def _mamba_mesh(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _mamba_heads(p, cfg: ModelConfig, x: torch.Tensor, cache,
-                 use_kernel: Optional[bool], sumsq=None):
+                 use_kernel: Optional[bool], sumsq=None, gather_bc=None):
     """The Mamba2 block on the heads ``p``'s weights hold (``A_log``'s
-    length; every head on one device): ``sumsq`` sums the gated norm's
-    sums of squares over the ranks that hold the other heads (None: this
-    block holds all of ``d_inner``)."""
+    length; every head on one device) and the ``B``/``C`` columns they
+    hold (``conv_w``'s channels past ``d_inner``): ``sumsq`` sums the gated
+    norm's sums of squares over the ranks that hold the other heads (None:
+    this block holds all of ``d_inner``), ``gather_bc`` makes the whole
+    ``B``/``C`` of this block's columns of them (None: they are whole)."""
     dt_ = torch_dtype(cfg.dtype)
     Bsz, S, _ = x.shape
-    N, hp = cfg.ssm_state, cfg.ssm_head_dim
+    hp = cfg.ssm_head_dim
     H = p.A_log.shape[0]
     din = H * hp
-    conv_ch = din + 2 * N
+    conv_ch = p.conv_w.shape[1]
+    nb = (conv_ch - din) // 2
 
     zxbcdt = dense(x, p.in_proj, dt_)
-    z, xBC, dt = torch.split(zxbcdt, [din, din + 2 * N, H], dim=-1)
+    z, xBC, dt = torch.split(zxbcdt, [din, conv_ch, H], dim=-1)
     dt = _softplus(dt.float() + p.dt_bias.float())              # [B,S,H]
 
     cw = cfg.conv_width
@@ -1315,7 +1362,9 @@ def _mamba_heads(p, cfg: ModelConfig, x: torch.Tensor, cache,
                for i in range(cw))
     xBC = F.silu(conv + p.conv_b.to(dt_))
 
-    xin, Bmat, Cmat = torch.split(xBC, [din, N, N], dim=-1)
+    xin, Bmat, Cmat = torch.split(xBC, [din, nb, nb], dim=-1)
+    if gather_bc is not None:
+        Bmat, Cmat = gather_bc(Bmat, Cmat)
     xin = xin.reshape(Bsz, S, H, hp)
     A = -torch.exp(p.A_log.float())                             # [H]
     dtA = dt * A                                                # [B,S,H]

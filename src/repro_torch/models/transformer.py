@@ -28,15 +28,23 @@ layer, each Mamba2 layer and each shared-block application under grad;
 across its recompute (the Mamba layers and shared blocks recompute
 everything, as in the reference).
 
-On a device mesh (``ctx``, a :class:`~.layers.MeshContext`) :func:`forward`
-and :func:`loss_fn` take the **global** batch, the same on every rank,
-as the reference takes a global array; the embedding takes this data
-rank's rows (vocab-parallel above 4,096 tokens: a masked gather of the
-model rank's table rows, summed over the model axis), the stack runs on
-this rank's ``[B/data, S/model, D]`` block, and the loss is the global
-mean — its masked numerator and token count each summed over the mesh
-before the division. :func:`param_pspecs` gives the reference's
-sharding specs as tuples of axis names.
+On a device mesh (``ctx``, a :class:`~.layers.MeshContext`) every entry
+point takes and gives **each rank's blocks**, laid out as the reference's
+``in_shardings``/``out_shardings`` lay its arrays out:
+:func:`shard_batch` gives a rank its block of each input (tokens, targets
+and mask over ``(batch, model)``, frames and patches over ``(batch,
+model, None)``, a decode step's tokens over the batch axes) and binds the
+global ``(B, S)`` into ``ctx``, which the entry points read (an unbound
+``ctx``, or inputs that are not its blocks, raise). The embedding moves
+the blocks into the residual stream (vocab-parallel above 4,096 tokens:
+the ids all-gathered over the model axis, a masked gather of the model
+rank's table rows, summed over it), the stack runs on this rank's
+``[B/data, S/model, D]`` block, and the loss is the global mean — its
+masked numerator and token count each summed over the mesh before the
+division. :func:`prefill` and :func:`decode_step` give each rank its rows
+× ``V_pad/model`` block of the logits (:func:`gather_logits` makes them
+whole). :func:`param_pspecs` gives the reference's sharding specs as
+tuples of axis names.
 """
 from __future__ import annotations
 
@@ -59,9 +67,10 @@ from .layers import MeshContext, cst
 
 __all__ = ["Cache", "CacheLayout", "DenseLayer", "LM", "MambaLayer",
            "cache_pspecs", "cache_spec", "decode_step", "embed_input",
-           "embed_tokens", "forward", "gather_cache", "init_cache",
-           "init_params", "leaf_pspecs", "logits_fn", "loss_fn",
-           "param_pspecs", "prefill", "retarget_fsdp", "shard_cache",
+           "embed_tokens", "forward", "gather_cache", "gather_logits",
+           "init_cache", "init_params", "leaf_pspecs", "logits_fn",
+           "loss_fn", "param_pspecs", "prefill", "retarget_fsdp",
+           "shard_batch", "shard_cache",
            "run_attention_stack", "run_hybrid_stack", "run_mamba_stack",
            "softmax_xent"]
 
@@ -282,21 +291,35 @@ def embed_tokens(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
     """``[B, S]`` token ids → ``[B, S, D]`` in the compute dtype (times
     ``sqrt(D)``, rounded to that dtype, with ``scale_embed``).
 
-    With ``ctx``: the global ids in, this data rank's rows out (``[B/data,
-    S, D]``, the sequence whole). Decode-sized inputs (at most 4,096
-    tokens) and a batch that does not divide the data axes take a plain
-    lookup; else the lookup is vocab-parallel, the reference's
-    ``shard_map`` body: this model rank's ``V_pad/model`` table rows (the
-    FSDP shard all-gathered), a masked gather, a psum over the model
-    axis."""
+    With ``ctx`` (bound to the ids' global ``(B, S)``): this rank's
+    ``(batch, model)`` block of the ids in, its block of the residual
+    stream out (:meth:`~.layers.MeshContext.stream`)."""
+    x, layout = _embed_block(model, cfg, tokens, ctx)
+    if ctx is None:
+        return x
+    return cst(ctx, x, *ctx.stream(), frm=layout)
+
+
+def _embed_block(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
+                 ctx: Optional[MeshContext]):
+    """``(x, layout)``: the embedding of this rank's block of the ids (on a
+    mesh, ``ctx`` bound to their global shape) and the layout ``x`` is in.
+    Decode-sized inputs (at most 4,096 tokens) and a batch that does not
+    divide the data axes take a plain lookup of the block, ``(batch,
+    model, None)``; else the lookup is vocab-parallel, the reference's
+    ``shard_map`` body: the ids all-gathered over the model axis (its
+    ``in_specs``), this model rank's ``V_pad/model`` table rows (the FSDP
+    shard all-gathered), a masked gather, a psum over the model axis,
+    ``(batch, None, None)``."""
     dt = L.torch_dtype(cfg.dtype)
-    vocab_parallel = _vocab_parallel(ctx, tokens)
+    layout = ("batch", "model", None)
     if ctx is not None:
-        ctx = ctx.at(*tokens.shape)
-        tokens = cst(ctx, tokens, "batch", None)
-    if not vocab_parallel:
+        _expect_block(ctx, tokens, ("batch", "model"), "token ids")
+    if not _vocab_parallel(ctx):
         x = model.tok[tokens].to(dt)
     else:
+        layout = ("batch", None, None)
+        tokens = cst(ctx, tokens, "batch", None, frm=("batch", "model"))
         L._divides(ctx, "vocabulary rows", cfg.vocab_pad)
         rows = L._model_slice(ctx, cfg.vocab_pad)
         table = L._fsdp(ctx, L._part(model.tok, 0, cfg.vocab_pad, rows)
@@ -307,26 +330,41 @@ def embed_tokens(model: LM, cfg: ModelConfig, tokens: torch.Tensor,
         x = C.psum(x, ctx.model_axis, mesh=ctx.mesh)
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
-    return x
+    return x, layout
 
 
-def _vocab_parallel(ctx: Optional[MeshContext],
-                    tokens: Optional[torch.Tensor]) -> bool:
-    """Whether :func:`embed_tokens` looks ``tokens`` up vocab-parallel:
-    on a mesh, above 4,096 tokens, a batch that divides the data axes."""
-    if ctx is None or tokens is None:
+def _vocab_parallel(ctx: Optional[MeshContext]) -> bool:
+    """Whether :func:`embed_tokens` looks ids up vocab-parallel: on a mesh
+    bound to the ids' global ``(B, S)``, above 4,096 tokens, a batch that
+    divides the data axes (the reference decides on the global shape)."""
+    if ctx is None:
         return False
-    B, S = tokens.shape
+    B, S = _bound(ctx).shape
     return B * S > 4096 and B % ctx.data_size == 0
 
 
-def _global_shape(cfg: ModelConfig, tokens, frames, patches
-                  ) -> Tuple[int, int]:
-    """The input's global ``(B, S)``."""
-    if cfg.frontend == "audio":
-        return tuple(frames.shape[:2])
-    B, S = tokens.shape
-    return B, S + (patches.shape[1] if cfg.frontend == "vision" else 0)
+def _bound(ctx: MeshContext) -> MeshContext:
+    """``ctx``, which must be bound to the inputs' global shape."""
+    if ctx.shape is None:
+        raise ValueError("on a mesh the entry points take each rank's "
+                         "blocks of the inputs: bind their global (B, S) "
+                         "into the MeshContext with shard_batch")
+    return ctx
+
+
+def _expect_block(ctx: MeshContext, t: torch.Tensor, layout, what: str
+                  ) -> None:
+    """Raise unless ``t``'s leading dimensions are this rank's block,
+    under ``layout`` (entries ``"batch"``, ``"model"`` or None), of the
+    global shape ``ctx`` is bound to."""
+    shape = _bound(ctx).shape[:len(layout)]
+    want = tuple(size // ctx.block(dim, name, size)[0]
+                 for dim, (name, size) in enumerate(zip(layout, shape)))
+    if tuple(t.shape[:len(want)]) != want:
+        raise ValueError(
+            f"{what} {tuple(t.shape)}: on a mesh an entry point takes this "
+            f"rank's {want} block of the global {tuple(shape)} "
+            f"({layout}); shard_batch gives it")
 
 
 def embed_input(model: LM, cfg: ModelConfig,
@@ -336,10 +374,13 @@ def embed_input(model: LM, cfg: ModelConfig,
                 ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """The model's input ``[B, S, D]`` in the compute dtype: ``frames [B,
     S, D] @ frame_in`` (audio), ``patches [B, P, D] @ patch_in`` followed
-    by the embedded ``tokens [B, S_t]`` (vision: S = P + S_t), or the
-    embedded tokens (the reference's ``embed_input`` over its ``batch``
-    dict). With ``ctx``: global inputs in, this rank's stream block
-    out."""
+    by the embedded ``tokens [B, S_t]`` (vision: S = P + S_t, P =
+    ``cfg.n_vision_tokens``), or the embedded tokens (the reference's
+    ``embed_input`` over its ``batch`` dict). With ``ctx`` (bound by
+    :func:`shard_batch`): this rank's blocks in, its stream block out —
+    frames projected on their ``(batch, model, None)`` block, a vision
+    model's patches and tokens each on its block and all-gathered over the
+    model axis for the concatenation, as GSPMD reshards them."""
     dt = L.torch_dtype(cfg.dtype)
     if cfg.frontend == "audio":
         if frames is None:
@@ -347,37 +388,123 @@ def embed_input(model: LM, cfg: ModelConfig,
     elif tokens is None or (cfg.frontend == "vision" and patches is None):
         raise ValueError(f"{cfg.name} takes tokens" + (
             " after its patches" if cfg.frontend == "vision" else ""))
-    if ctx is not None:
-        ctx = ctx.at(*_global_shape(cfg, tokens, frames, patches))
     if cfg.frontend == "audio":
-        x = L.dense(cst(ctx, frames, "batch", None, None).to(dt),
-                    model.frame_in, dt)
-    else:
-        x = embed_tokens(model, cfg, tokens, ctx)
-        if cfg.frontend == "vision":
-            px = L.dense(cst(ctx, patches, "batch", None, None).to(dt),
-                         model.patch_in, dt)
-            x = torch.cat([px, x], 1)
+        if ctx is not None:
+            _expect_block(ctx, frames, ("batch", "model"), "frames")
+        x = L.dense(frames.to(dt), model.frame_in, dt)
+        return cst(ctx, x, *ctx.stream(), frm=("batch", "model", None)) \
+            if ctx is not None else x
     if ctx is None:
+        x = embed_tokens(model, cfg, tokens)
+        if cfg.frontend == "vision":
+            x = torch.cat([L.dense(patches.to(dt), model.patch_in, dt), x],
+                          1)
         return x
+    if cfg.frontend != "vision":
+        return embed_tokens(model, cfg, tokens, ctx)
+    B, S = _bound(ctx).shape
+    P = cfg.n_vision_tokens
+    pctx, tctx = ctx.at(B, P), ctx.at(B, S - P)
+    _expect_block(pctx, patches, ("batch", "model"), "patches")
+    px = L.dense(patches.to(dt), model.patch_in, dt)
+    x, layout = _embed_block(model, cfg, tokens, tctx)
+    x = torch.cat([cst(pctx, px, "batch", None, None,
+                       frm=("batch", "model", None)),
+                   cst(tctx, x, "batch", None, None, frm=layout)], 1)
     return cst(ctx, x, *ctx.stream(), frm=("batch", None, None))
 
 
 def logits_fn(model: LM, cfg: ModelConfig, x: torch.Tensor,
               ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """Final norm and head (tied: the embedding's transpose), float32
-    logits, logit softcap, and −1e30 added on padded vocab slots; on a
-    mesh, of this rank's tokens (``ctx`` is not read, as in the
-    reference)."""
+    logits, logit softcap, and −1e30 added on padded vocab slots. With
+    ``ctx``: this rank's ``V_pad/model`` columns of them (the head's
+    columns, a tied table's rows; the whole vocabulary where it does not
+    divide the model axis), the padded slots by their global index — the
+    reference's ``out_shardings`` of a prefill's or decode step's
+    logits."""
     dt = L.torch_dtype(cfg.dtype)
+    Vp, V = cfg.vocab_pad, cfg.vocab_size
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    w = model.tok.T if model.head is None else model.head
+    cols = None if ctx is None else L._model_slice(ctx, Vp)
+    w = L._part(model.tok, 0, Vp, cols).T if model.head is None \
+        else L._part(model.head, 1, Vp, cols)
     logits = (x @ w.to(dt)).float()
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    if cfg.vocab_pad != cfg.vocab_size:      # out of place: autograd-safe
-        V = cfg.vocab_size
-        logits = torch.cat([logits[..., :V], logits[..., V:] + -1e30], -1)
+    lo = 0 if cols is None else cols.start
+    if lo + logits.shape[-1] > V:         # out of place: autograd-safe
+        k = max(V - lo, 0)
+        logits = torch.cat([logits[..., :k], logits[..., k:] + -1e30], -1)
+    return logits
+
+
+# ===========================================================================
+# Inputs and logits on a mesh
+# ===========================================================================
+
+def shard_batch(batch: Dict[str, torch.Tensor], ctx: MeshContext,
+                grad_accum: int = 1
+                ) -> Tuple[Dict[str, torch.Tensor], MeshContext]:
+    """``(blocks, ctx.at(B, S))``: this rank's block of each input of the
+    global ``batch`` — the port's stand-in for the reference's
+    ``in_shardings`` (``launch/specs._batch_struct``): ``tokens``,
+    ``targets`` and ``mask`` ``[B, S]`` over (batch axes, model),
+    ``frames``/``patches`` ``[B, S, D]`` over (batch axes, model, None), a
+    decode step's ``tokens [B]`` over the batch axes; a dimension whose
+    size does not divide its axes stays whole (``leaf_split``'s rule).
+    ``(B, S)`` is the global shape the entry points read: ``frames``'s,
+    the patches and tokens together, or ``(B, 1)`` for a decode step.
+
+    With ``grad_accum = a``, the rows are this rank's block of each
+    microbatch in turn, as the reference's step slices global rows ``[i ·
+    B/a, (i+1) · B/a)`` and then splits them over the batch axes (so a
+    data rank's MoE routes, and drops, the tokens the reference's device
+    does). Each block is a copy holding only its own elements."""
+    if "frames" in batch:
+        B, S = batch["frames"].shape[:2]
+    else:
+        tok = batch["tokens"]
+        B = tok.shape[0]
+        S = 1 if tok.ndim == 1 else tok.shape[1] + (
+            batch["patches"].shape[1] if "patches" in batch else 0)
+    if B % grad_accum:
+        raise ValueError(f"a batch of {B} rows does not split into "
+                         f"{grad_accum} microbatches")
+    rows = B // grad_accum
+    n, i, _ = ctx.block(0, "batch", rows)
+    blocks = {}
+    for key, t in batch.items():
+        if t.shape[0] != B:
+            raise ValueError(f"{key} {tuple(t.shape)} does not hold the "
+                             f"batch's {B} rows")
+        t = t.unflatten(0, (grad_accum, rows)).narrow(1, i * (rows // n),
+                                                      rows // n)
+        t = t.flatten(0, 1)
+        if t.ndim > 1:
+            m, j, _ = ctx.block(1, "model", t.shape[1])
+            t = t.narrow(1, j * (t.shape[1] // m), t.shape[1] // m)
+        blocks[key] = t.clone(memory_format=torch.contiguous_format)
+    return blocks, ctx.at(B, S)
+
+
+@torch.no_grad()
+def gather_logits(logits: torch.Tensor, ctx: Optional[MeshContext],
+                  cfg: ModelConfig) -> torch.Tensor:
+    """The whole ``[B, V_pad]`` logits from every rank's block of a
+    :func:`prefill` or :func:`decode_step` (``ctx`` the one it ran with),
+    as ``np.asarray`` of the reference's sharded output gives them: a
+    collective, every rank calls it. For tests and tools: nothing on the
+    serving path calls it."""
+    if ctx is None:
+        return logits
+    n, _, axis = ctx.block(0, "batch", _bound(ctx).shape[0])
+    if n > 1:
+        logits = C.all_gather(logits, axis, 0, mesh=ctx.mesh)
+    if L._model_slice(ctx, cfg.vocab_pad) is not None and \
+            ctx.model_size > 1:
+        logits = C.all_gather(logits, ctx.model_axis, logits.ndim - 1,
+                              mesh=ctx.mesh)
     return logits
 
 
@@ -558,15 +685,17 @@ class CacheLayout:
     """How a cache on a mesh is laid out: each field's spec
     (:func:`cache_pspecs`: a tuple of axes, ``"model"`` or None a
     dimension), its whole shape, whether the KV cache's sequence lies over
-    the batch axes, and ``conv``: ``(d_inner, 2N)`` where each model rank
-    keeps the conv state of its own ``d_inner`` channels and the whole
-    ``B``/``C`` channels (the SSM heads split over the model axis; None
-    where the channels stay whole). A dimension whose size does not divide
-    its axes stays whole, as :func:`~.layers.leaf_split` says."""
+    the batch axes, and ``conv``: the conv channels' groups ``[x | B |
+    C]`` as :func:`~.layers.mamba_channels` gives them, each model rank
+    keeping its part of each group in that order (None where every rank
+    keeps every channel). Where every group splits, a rank holds ``1 /
+    model`` of the ``d_inner + 2N`` channels, as the reference's even
+    split does. A dimension whose size does not divide its axes stays
+    whole, as :func:`~.layers.leaf_split` says."""
     specs: Dict[str, Spec]
     shapes: Dict[str, Tuple[int, ...]]
     shard_seq: bool = False
-    conv: Optional[Tuple[int, int]] = None
+    conv: Optional[Tuple[Tuple[int, bool], ...]] = None
 
 
 @dataclasses.dataclass
@@ -648,11 +777,10 @@ def cache_pspecs(cfg: ModelConfig, batch_axes=("data",),
 def _cache_layout(cfg: ModelConfig, batch: int, max_seq: int,
                   ctx: MeshContext, shard_seq: bool) -> CacheLayout:
     spec, _ = cache_spec(cfg, batch, max_seq)
-    heads = spec["ssm"][0][2] and L._model_slice(ctx, cfg.ssm_heads)
     return CacheLayout(
         cache_pspecs(cfg, ctx.batch_axes, shard_seq),
         {k: tuple(s) for k, (s, _) in spec.items()}, shard_seq,
-        (cfg.d_inner, 2 * cfg.ssm_state) if heads else None)
+        L.mamba_channels(cfg, ctx) if spec["ssm"][0][2] else None)
 
 
 def _block(t: torch.Tensor, field: str, layout: CacheLayout,
@@ -664,11 +792,14 @@ def _block(t: torch.Tensor, field: str, layout: CacheLayout,
     t = L.block_of(t, spec[:-1] + (None,), ctx)
     if layout.conv is None:
         return t
-    din, bc = layout.conv
     m, i = ctx.model_size, ctx.model_index
-    own = din // m
-    return torch.cat([t[..., i * own:(i + 1) * own], t[..., din:din + bc]],
-                     -1)
+    parts, off = [], 0
+    for size, split in layout.conv:
+        own = size // m if split else size
+        parts.append(t[..., off + i * own:off + (i + 1) * own] if split
+                     else t[..., off:off + size])
+        off += size
+    return torch.cat(parts, -1)
 
 
 def _whole(t: torch.Tensor, field: str, layout: CacheLayout,
@@ -685,13 +816,16 @@ def _whole(t: torch.Tensor, field: str, layout: CacheLayout,
                       ctx)
     if layout.conv is None:
         return rows
-    din, bc = layout.conv
     m = ctx.model_size
-    own = din // m
     blocks = C.all_gather(rows, ctx.model_axis, 0, tiled=False,
                           mesh=ctx.mesh)
-    return torch.cat([blocks[r][..., :own] for r in range(m)]
-                     + [blocks[0][..., own:own + bc]], -1)
+    parts, off = [], 0
+    for size, split in layout.conv:
+        own = size // m if split else size
+        parts += [blocks[r][..., off:off + own]
+                  for r in (range(m) if split else (0,))]
+        off += own
+    return torch.cat(parts, -1)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -747,20 +881,35 @@ def shard_cache(cache: Cache, ctx: MeshContext,
 
 
 def _local_model(model, cfg: ModelConfig, ctx: Optional[MeshContext],
-                 tokens: Optional[torch.Tensor] = None):
+                 lookup: bool = False, head: bool = False):
     """The model read through its embedding, head, frontends and final
     norm as this rank's working tensors (:func:`~.layers.local_params`,
     once a forward: a tied table's embedding and head, and every chunk of
     the loss, share one materialized copy); a model stored as blocks
-    needs its mesh. An untied table looked up vocab-parallel
-    (:func:`embed_tokens` on ``tokens``) is used as stored: this model
-    rank's rows, its FSDP block gathered by the lookup."""
+    needs its mesh. Used as stored: an untied table's model rows where
+    ``lookup`` (the vocab-parallel lookup gathers its FSDP block itself),
+    the head's vocabulary block where ``head`` (:func:`logits_fn` on the
+    mesh)."""
     if ctx is None and L.is_blocks(model):
         raise ValueError("a model stored as blocks (shard_train_state) "
                          "runs on its mesh: pass ctx")
-    rows = model.head is not None and _vocab_parallel(ctx, tokens)
-    return L.local_params(model, cfg, ctx, recurse=False,
-                          kept={"tok": (0, 1)} if rows else {})
+    kept = {}
+    if ctx is not None and model.head is not None:
+        if lookup:
+            kept["tok"] = (0, 1)
+        if head and L._model_slice(ctx, cfg.vocab_pad) is not None:
+            kept["head"] = (1,)
+    return L.local_params(model, cfg, ctx, recurse=False, kept=kept)
+
+
+def _token_ctx(cfg: ModelConfig, ctx: Optional[MeshContext]
+               ) -> Optional[MeshContext]:
+    """``ctx`` bound to the token ids' global shape: a vision model's
+    tokens follow its ``n_vision_tokens`` patches."""
+    if ctx is None or cfg.frontend != "vision":
+        return ctx
+    B, S = _bound(ctx).shape
+    return ctx.at(B, S - cfg.n_vision_tokens)
 
 
 def forward(model: LM, cfg: ModelConfig,
@@ -771,31 +920,33 @@ def forward(model: LM, cfg: ModelConfig,
             ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """Full-sequence forward of ``[B, S]`` tokens (and the frontend's
     ``frames`` or ``patches``, as :func:`embed_input` takes them); the
-    final hidden ``[B, S, D]`` (before the final norm). With ``ctx``: the
-    global inputs on every rank, this rank's ``[B/data, S/model, D]``
-    block of the final hidden out (:meth:`~.layers.MeshContext.stream`)."""
-    if ctx is not None:
-        ctx = ctx.at(*_global_shape(cfg, tokens, frames, patches))
-    model = _local_model(model, cfg, ctx, tokens)
+    final hidden ``[B, S, D]`` (before the final norm). With ``ctx``
+    (bound by :func:`shard_batch`): this rank's blocks of the inputs in,
+    its ``[B/data, S/model, D]`` block of the final hidden out
+    (:meth:`~.layers.MeshContext.stream`)."""
+    lookup = tokens is not None and _vocab_parallel(_token_ctx(cfg, ctx))
+    model = _local_model(model, cfg, ctx, lookup=lookup)
     x = embed_input(model, cfg, tokens, frames=frames, patches=patches,
                     ctx=ctx)
     return _run_stack(model, cfg, x, 0, None, None, False, use_kernel, ctx)
 
 
-def _serve_ctx(cache: Cache, ctx: Optional[MeshContext], shape
-               ) -> Optional[MeshContext]:
-    """``ctx`` bound to the global ``(batch, seq)`` that ``shape()`` gives
-    and to the cache's layout (a mesh's cache comes from
-    ``init_cache(ctx=...)``)."""
+def _serve_ctx(cache: Cache, ctx: Optional[MeshContext],
+               seq: Optional[int] = None) -> Optional[MeshContext]:
+    """``ctx`` (bound to the global ``(batch, seq)``; ``seq`` rebinds the
+    sequence: 1 for a decode step) and the cache's layout (a mesh's cache
+    comes from ``init_cache(ctx=...)``)."""
     if ctx is None:
         if cache.layout is not None:
             raise ValueError("a cache laid out over a mesh needs its ctx")
         return None
-    batch, seq = shape()
+    batch = _bound(ctx).shape[0]
+    if seq is not None:
+        ctx = ctx.at(batch, seq)
+    seq = ctx.shape[1]
     if cache.layout is None:
         raise ValueError("on a mesh the cache is each rank's blocks: make "
                          "it with init_cache(ctx=...)")
-    ctx = ctx.at(batch, seq)
     if not cache.layout.shard_seq:
         return ctx
     if seq > 1:
@@ -808,15 +959,6 @@ def _serve_ctx(cache: Cache, ctx: Optional[MeshContext], shape
                          "False), not by slots")
     return dataclasses.replace(ctx,
                                kv_slots=cache.layout.shapes["kv_k"][2])
-
-
-def _rows_whole(ctx: Optional[MeshContext], t: torch.Tensor
-                ) -> torch.Tensor:
-    """``t``'s every row on every rank from this data rank's rows."""
-    if ctx is None:
-        return t
-    return cst(ctx, t, *(None,) * t.ndim, frm=("batch",) + (None,) *
-               (t.ndim - 1))
 
 
 def _last_position(ctx: Optional[MeshContext], x: torch.Tensor
@@ -845,13 +987,14 @@ def prefill(model: LM, cfg: ModelConfig, tokens: Optional[torch.Tensor],
     V_pad], cache)`` with ``cache.pos`` advanced to the sequence length S.
     Inference only: no autograd graph (the parameters are trainable).
 
-    With ``ctx``: the global inputs on every rank, the cache this rank's
-    blocks (``init_cache(ctx=...)``, its rows laid out by rows), the
-    model replicated or stored as blocks; the global logits on every
-    rank."""
-    ctx = _serve_ctx(cache, ctx, lambda: _global_shape(cfg, tokens, frames,
-                                                       patches))
-    model = _local_model(model, cfg, ctx, tokens)
+    With ``ctx`` (bound by :func:`shard_batch`): this rank's blocks of the
+    inputs, the cache this rank's blocks (``init_cache(ctx=...)``, its
+    rows laid out by rows), the model replicated or stored as blocks; this
+    rank's ``[B_rows, V_pad/model]`` block of the logits
+    (:func:`logits_fn`; :func:`gather_logits` makes them whole)."""
+    ctx = _serve_ctx(cache, ctx)
+    lookup = tokens is not None and _vocab_parallel(_token_ctx(cfg, ctx))
+    model = _local_model(model, cfg, ctx, lookup=lookup, head=True)
     x = embed_input(model, cfg, tokens, frames=frames, patches=patches,
                     ctx=ctx)
     B, S = x.shape[:2] if ctx is None else ctx.shape
@@ -859,8 +1002,7 @@ def prefill(model: LM, cfg: ModelConfig, tokens: Optional[torch.Tensor],
                                  device=x.device), "batch")
     x = _run_stack(model, cfg, x, 0, cache, kv_len, ring, use_kernel, ctx)
     cache.pos = S
-    logits = logits_fn(model, cfg, _last_position(ctx, x))[:, 0]
-    return _rows_whole(ctx, logits), cache
+    return logits_fn(model, cfg, _last_position(ctx, x), ctx)[:, 0], cache
 
 
 @torch.no_grad()
@@ -871,26 +1013,28 @@ def decode_step(model: LM, cfg: ModelConfig, token: torch.Tensor,
     """One decode step for ``[B]`` tokens at position ``cache.pos``.
     Returns ``(logits [B, V_pad], cache)`` with ``cache.pos`` advanced by
     one. Raises :class:`ValueError` when a non-ring KV cache is full (an
-    ssm model has none and decodes on). With ``ctx``: the global tokens
-    and logits on every rank, the cache this rank's blocks (at batch 1
-    perhaps its block of the KV slots: ``shard_cache``)."""
+    ssm model has none and decodes on). With ``ctx`` (bound to the global
+    batch: :func:`shard_batch` of the step's tokens, or the prefill's):
+    this rank's block of the tokens (its rows; every row at batch 1), the
+    cache this rank's blocks (at batch 1 perhaps its block of the KV
+    slots: ``shard_cache``), this rank's ``[B_rows, V_pad/model]`` block
+    of the logits."""
     Sc = cache.kv_k.shape[2] if cache.layout is None else \
         cache.layout.shapes["kv_k"][2]
     if cache.has_kv and not ring and cache.pos >= Sc:
         raise ValueError(f"decode at position {cache.pos} overruns the "
                          f"{Sc}-slot KV cache; allocate a longer cache")
-    B = token.shape[0]
-    ctx = _serve_ctx(cache, ctx, lambda: (B, 1))
-    model = _local_model(model, cfg, ctx)
+    ctx = _serve_ctx(cache, ctx, seq=1)
+    B = token.shape[0] if ctx is None else ctx.shape[0]
+    model = _local_model(model, cfg, ctx, lookup=_vocab_parallel(ctx),
+                         head=True)
     x = embed_tokens(model, cfg, token[:, None], ctx)
-    if ctx is not None:
-        x = cst(ctx, x, *ctx.stream(), frm=("batch", None, None))
     kv_len = cst(ctx, torch.full((B,), cache.pos + 1, dtype=torch.int32,
                                  device=token.device), "batch")
     x = _run_stack(model, cfg, x, cache.pos, cache, kv_len, ring,
                    use_kernel, ctx)
     cache.pos += 1
-    return _rows_whole(ctx, logits_fn(model, cfg, x)[:, 0]), cache
+    return logits_fn(model, cfg, x, ctx)[:, 0], cache
 
 
 # ===========================================================================
@@ -926,18 +1070,21 @@ def softmax_xent(model: LM, cfg: ModelConfig, x: torch.Tensor,
     ``[B, S, V]`` float32 logits never exist at once — the reference's
     ``lax.map`` over ``jax.checkpoint``-ed chunks.
 
-    With ``ctx``: ``x`` is this rank's stream block, ``targets``/``mask``
-    the global ``[B, S]``; the masked numerator and the token count are
+    With ``ctx`` (bound to the global ``[B, S]``): ``x`` is this rank's
+    stream block, ``targets``/``mask`` its ``(batch, model)`` blocks
+    (:func:`shard_batch`); the masked numerator and the token count are
     each summed over the mesh before the division, a token held by several
     ranks counting on the first of them only. The value is the global
     mean on every rank; its backward is this rank's term of it."""
     if ctx is None:
         loss, mass = _xent_sums(model, cfg, x, targets, mask, chunk)
         return loss / mass.clamp_min(1.0)
-    ctx = ctx.at(*targets.shape)
+    for t, what in ((targets, "targets"), (mask, "mask")):
+        _expect_block(ctx, t, ("batch", "model"), what)
     model = _local_model(model, cfg, ctx)
     layout = ctx.stream()[:2]
-    targets, mask = (cst(ctx, t, *layout) for t in (targets, mask))
+    targets, mask = (cst(ctx, t, *layout, frm=("batch", "model"))
+                     for t in (targets, mask))
     loss, mass = _xent_sums(model, cfg, x, targets, mask, chunk)
     if not ctx.unique(layout):
         loss, mass = loss * 0.0, mass * 0.0
@@ -981,9 +1128,11 @@ def loss_fn(model: LM, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             ctx: Optional[MeshContext] = None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch`` (``tokens`` or the
     frontend's ``frames``/``patches``, ``targets`` ``[B, S]`` and an
-    optional float ``mask``); with ``ctx`` the global batch on every rank
-    and the global mean (:func:`softmax_xent`)."""
-    model = _local_model(model, cfg, ctx, batch.get("tokens"))
+    optional float ``mask``); with ``ctx`` (bound by :func:`shard_batch`)
+    this rank's blocks of the batch and the global mean
+    (:func:`softmax_xent`)."""
+    lookup = "tokens" in batch and _vocab_parallel(_token_ctx(cfg, ctx))
+    model = _local_model(model, cfg, ctx, lookup=lookup)
     x = forward(model, cfg, batch.get("tokens"), use_kernel,
                 frames=batch.get("frames"), patches=batch.get("patches"),
                 ctx=ctx)

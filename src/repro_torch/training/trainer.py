@@ -10,9 +10,12 @@ updated in place, leaf by leaf and block by block (the reference returns
 new arrays). Each parameter's ``.grad`` holds the step's (averaged)
 gradient until the next step clears it.
 
-With a :class:`~repro_torch.models.layers.MeshContext` the step runs in
-every rank of the mesh on the same global batch, and takes the training
-state in one of two layouts, giving it back in the same one:
+With a :class:`~repro_torch.models.layers.MeshContext` (bound to the
+global batch's ``(B, S)`` by :func:`~repro_torch.models.transformer
+.shard_batch`) the step runs in every rank of the mesh on that rank's
+blocks of the batch (with ``grad_accum``, its block of each microbatch in
+turn: ``shard_batch(..., grad_accum=...)``), and takes the training state
+in one of two layouts, giving it back in the same one:
 
 * **replicated** (as :func:`init_train_state` makes it, and as the
   reference's ``run_training`` jits its step without state shardings):
@@ -169,8 +172,11 @@ def _grads(model: T.LM, cfg: ModelConfig, batch: Batch, grad_accum: int,
            ctx: Optional[MeshContext] = None) -> Tuple[torch.Tensor, Dict]:
     """Mean loss and gradients over ``grad_accum`` equal microbatches (the
     leading axis split in order), accumulated in ``.grad`` and divided
-    once, as the reference sums and divides. With ``ctx`` each gradient
-    is summed over the mesh before the division."""
+    once, as the reference sums and divides. With ``ctx`` (bound to the
+    global ``(B, S)``) ``batch`` is this rank's blocks, its rows its block
+    of each microbatch of ``B / grad_accum`` rows in turn
+    (``shard_batch(..., grad_accum=...)``), and each gradient is summed
+    over the mesh before the division."""
     for p in model.parameters():
         p.grad = None
     n = next(iter(batch.values())).shape[0]
@@ -178,6 +184,12 @@ def _grads(model: T.LM, cfg: ModelConfig, batch: Batch, grad_accum: int,
         raise ValueError(f"batch of {n} does not split into {grad_accum} "
                          "microbatches")
     per = n // grad_accum
+    if ctx is not None:
+        B, S = T._bound(ctx).shape
+        if B % grad_accum:
+            raise ValueError(f"a global batch of {B} rows does not split "
+                             f"into {grad_accum} microbatches")
+        ctx = ctx.at(B // grad_accum, S)
     loss = None
     for i in range(grad_accum):
         mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
@@ -239,11 +251,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     ``loss``, ``grad_norm`` and ``lr`` as device scalars. ``grad_accum >
     1`` averages the gradients of that many microbatches;
     ``grad_transform`` maps the gradient dictionary before the optimizer
-    (the hook for gradient compression). With ``ctx`` the step is called
-    in every rank with the global batch, on a replicated state or one of
-    :func:`shard_train_state`'s, which it gives back in its layout; the
-    loss is the global one. ``grad_transform`` maps whole gradients, so a
-    state stored as blocks refuses it."""
+    (the hook for gradient compression). With ``ctx`` (bound by
+    ``shard_batch``) the step is called in every rank with its blocks of
+    the batch, on a replicated state or one of :func:`shard_train_state`'s,
+    which it gives back in its layout; the loss is the global one.
+    ``grad_transform`` maps whole gradients, so a state stored as blocks
+    refuses it."""
 
     def step(state: TrainState, batch: Batch):
         if grad_transform is not None and L.is_blocks(state.params):
@@ -264,8 +277,10 @@ def make_grad_and_apply(cfg: ModelConfig, opt_cfg: AdamWConfig,
                         ctx: Optional[MeshContext] = None):
     """The step split in two for host-side gradient transforms:
     ``grad_fn(model, batch) -> (loss, grads)`` and ``apply_fn(grads,
-    state) -> (state, metrics)``; with ``ctx`` the gradients are the
-    mesh-summed ones (a sharded state's: this rank's blocks of them)."""
+    state) -> (state, metrics)``; with ``ctx`` (bound by ``shard_batch``)
+    ``grad_fn`` takes this rank's blocks of the batch and the gradients
+    are the mesh-summed ones (a sharded state's: this rank's blocks of
+    them)."""
 
     def grad_fn(model: T.LM, batch: Batch):
         return _grads(model, cfg, batch, 1, ctx)

@@ -9,14 +9,19 @@ Explicit axes, on which its constraints raise under JAX 0.9). The port
 runs in one spawn of 4 gloo ranks per mesh shape (tests/torch_mesh_ranks
 .py), each rank doing every check of its shape: the smoke configs in
 float32 at (data, model) = (4, 1), (2, 2) and (1, 4), with ``sp_matmuls``
-off and on. The final hidden state gathered from the ranks' blocks within
-1e-5 of the reference's mesh forward; the loss within 1e-4 of it and every
-gradient leaf within 1e-4 of the leaf's largest |value| against
-``jax.grad`` of the reference's ``loss_fn`` under the mesh (with
-``sp_matmuls`` off: the reference's SP gradient is the same function) and
-against the port's own one-device gradient with one microbatch a data rank
-(the mesh's MoE gives each data rank's tokens their own capacity); every
-rank's summed gradients bit-identical."""
+off and on, each rank fed its ``shard_batch`` blocks, which are bit-equal
+to the ``addressable_shards`` of the batch put on the reference's mesh
+with its ``batch_pspecs`` (whole, at ``grad_accum = 2``, and a decode
+step's tokens); a mesh call given the global batch raises. The final
+hidden state gathered from the ranks' blocks within 1e-5 of the
+reference's mesh forward; the loss within 1e-4 of it and every gradient
+leaf within 1e-4 of the leaf's largest |value| against ``jax.grad`` of the
+reference's ``loss_fn`` under the mesh (with ``sp_matmuls`` off: the
+reference's SP gradient is the same function; over two microbatches for
+mixtral with a capacity that drops) and against the port's own one-device
+gradient with one microbatch a data rank (the mesh's MoE gives each data
+rank's tokens their own capacity); every rank's summed gradients
+bit-identical."""
 import numpy as np
 import pytest
 import torch
@@ -90,6 +95,20 @@ def test_ranks_hold_the_same_gradients_and_counted_collectives(results,
         assert counts["psum_scatter"]["calls"] > 0
 
 
+@pytest.mark.parametrize("case", R.MODEL_CASES,
+                         ids=[c.name for c in R.MODEL_CASES])
+def test_shard_batch_blocks_are_the_reference_s_shards(results, case):
+    """Each rank's ``shard_batch`` blocks of the batch, of its two
+    microbatches (the reference's row order) and of a decode step's tokens
+    are its device's addressable shards on the reference's mesh; the
+    global batch is refused."""
+    for rank in results[case.name]:
+        r = rank[case.sps[0]]
+        for what in ("blocks", "accum_blocks", "decode_blocks"):
+            assert r[what] and all(r[what].values()), (what, r[what])
+        assert r["global_refused"]
+
+
 def test_the_per_shard_capacity_drops_assignments(results):
     """mixtral_drops_22: T_local = 320 tokens route 640 assignments into
     capacity 80 per expert, half what one device gives the whole batch
@@ -103,6 +122,11 @@ def test_the_per_shard_capacity_drops_assignments(results):
     cfg = R.case_config(case, get_smoke_config(case.arch))
     T = case.B * case.S
     assert moe_capacity(T // case.shape[0], cfg) < moe_capacity(T, cfg) / 1.5
+    # mixtral_accum_22: a data rank's microbatch is one row of 160 tokens
+    case = next(c for c in R.MODEL_CASES if c.name == "mixtral_accum_22")
+    local = T // (case.shape[0] * case.accum)
+    assert local * cfg.top_k > 256 and \
+        moe_capacity(local, cfg) < local * cfg.top_k / cfg.n_experts
 
 
 ZOO = ("smollm_360m", "gemma2_27b", "command_r_35b", "yi_34b",

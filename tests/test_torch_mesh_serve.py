@@ -13,10 +13,16 @@ smoke configs in float32, 4 rows of 16-token prompts and 3 greedy decode
 steps (SERVE_CASES: smollm, yi, gemma2, mixtral in ep and tp mode with a
 ring that wraps, mamba2, zamba2, internvl2 with its patches, hubert's
 mesh prefill; (4, 1), (2, 2), (1, 4); an SP prefill; zamba2 stored as
-blocks; mixtral and zamba2 at batch 1 with the KV slots over data = 4):
-the logits within 1e-5 of the reference's largest |logit|, every cache
-field gathered whole within 1e-5 of its largest |value|, the greedy tokens
-exact. ``cache_pspecs`` equals the reference's ``_cache_struct`` specs for
+blocks; mixtral and zamba2 at batch 1 with the KV slots over data = 4),
+each rank fed its ``shard_batch`` blocks and giving its rows ×
+``V_pad/model`` block of the logits: each block within 1e-5 of the
+reference's shard on that device under ``build_cell``'s
+``out_shardings``, the logits gathered whole (``gather_logits``) within
+1e-5 of the reference's largest |logit|, every cache field gathered whole
+within 1e-5 of its largest |value| (the Mamba conv cache kept as each
+model rank's ``[x | B | C]`` channels), the greedy tokens exact (``argmax``
+of the gathered logits, fed back as blocks); the global prompt is
+refused. ``cache_pspecs`` equals the reference's ``_cache_struct`` specs for
 the zoo. The port's bf16 ``psum``/``psum_scatter`` are bit-equal to XLA's
 under ``shard_map`` on seeded ``[4, 65536]`` rows, where a running bf16
 sum is not. B7's plain version over 1-4 blocks of the cache, combined, is
@@ -117,11 +123,13 @@ def test_serving_matches_the_reference_mesh(results, case):
                              and heads % m == 0 else heads)
         if cfg.family in ("ssm", "hybrid"):
             split = cfg.ssm_heads % m == 0
+            N = cfg.ssm_state
             assert r["block_shapes"]["ssm"][2] == (
                 cfg.ssm_heads // m if split else cfg.ssm_heads)
+            # a rank's [x | B | C] channels: 1/model of d_inner + 2N
             assert r["block_shapes"]["conv"][3] == (
-                cfg.d_inner // m if split else cfg.d_inner) \
-                + 2 * cfg.ssm_state
+                cfg.d_inner // m + 2 * (N // m if N % m == 0 else N)
+                if split else cfg.d_inner + 2 * N)
         if case.shard_seq:
             # the KV slots over data = 4: B7 runs on each rank's block
             Sc = ref[f"{case.name}/last/kv_k"].shape[2]
@@ -139,6 +147,36 @@ def test_serving_matches_the_reference_mesh(results, case):
                            and cfg.ssm_heads % m == 0 or cfg.n_experts)
         if split or case.shard_seq:
             assert sum(c["calls"] for c in counts.values()) > 0
+
+
+@pytest.mark.parametrize("case", R.SERVE_CASES, ids=IDS)
+def test_logits_blocks_are_the_reference_s_shards(results, case):
+    """Each rank's block of the prefill's and every decode step's logits
+    (an encoder's stream block) has the shape of the reference's shard on
+    that rank's device and its values within SERVE_TOL; a mesh prefill
+    given the global prompt raises."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = R.serve_config(case, get_smoke_config(case.arch))
+    ref = results["ref"]
+    key = case.name
+    d, m = case.shape
+    # the 16-token prompt splits over any model axis; a batch of 1 over
+    # (4, 1) is its own block
+    blocked = m > 1 or case.B % d == 0
+    for r in [r["serve"][key] for r in results[case.shape]]:
+        if cfg.encoder_only:
+            pairs = [(r["block"], ref[f"{key}/encode/shard/{r['coord']}"])]
+        else:
+            assert r["global_refused"] == blocked
+            pairs = [(r["prefill_block"],
+                      ref[f"{key}/prefill/shard/{r['coord']}"])] + [
+                (r[f"step{i}_block"], ref[f"{key}/step{i}/shard/"
+                                          f"{r['coord']}"])
+                for i in range(R.SERVE_STEPS)]
+        for got, want in pairs:
+            assert got.shape == want.shape
+            assert _rel(got, want) <= R.SERVE_TOL
 
 
 def test_blocks_serve_as_the_replicated_model(results):

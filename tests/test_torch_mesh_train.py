@@ -11,10 +11,15 @@ As in tests/test_torch_mesh.py: the reference in one subprocess on a
 ranks per mesh shape. mamba2 and zamba2 (smoke configs, float32, 8 SSM
 heads) at (data, model) = (4, 1), (2, 2) and (1, 4), a 6-head mamba2 at
 (1, 4) (the heads do not divide: the whole block on each model rank),
-hubert and internvl2 at (2, 2): the gathered final hidden within 1e-5 of
-the reference's, the loss and every gradient leaf within 1e-4 (of the
-leaf's largest |value|) of ``jax.grad`` under the mesh and of the port's
-one-device gradient, and each rank's SSD scans on ``H/model`` heads.
+hubert and internvl2 at (2, 2), each rank fed its ``shard_batch`` blocks
+(bit-equal to the reference's ``addressable_shards`` of the batch under
+its ``batch_pspecs``: frames, patches, tokens, targets, mask; at
+``grad_accum = 2`` too): the gathered final hidden within 1e-5 of the
+reference's, the loss and every gradient leaf within 1e-4 (of the leaf's
+largest |value|) of ``jax.grad`` under the mesh and of the port's
+one-device gradient, and each rank's SSD scans on ``H/model`` heads (each
+model rank computing its ``N/model`` columns of ``B``/``C``, gathered
+before the scan).
 The sharded state of smollm, mixtral (ep), mamba2 and zamba2 at the three
 shapes: shard then gather is the identity, each rank holds the
 replicated bytes over the world plus the leaves that stay whole, and
@@ -114,6 +119,22 @@ def test_ssm_and_frontends_match_the_reference_mesh(results, case, sp):
                     if e > R.GRAD_TOL})
         assert not bad, bad
         assert np.array_equal(r["digest"], ranks[0]["digest"])
+
+
+@pytest.mark.parametrize("case", sorted({c for c, _ in CASE_SP}),
+                         ids=lambda c: c.name)
+def test_ssm_and_frontend_inputs_are_the_reference_s_blocks(results, case):
+    """Each rank's ``shard_batch`` blocks (frames, patches, tokens,
+    targets, mask; whole and at ``grad_accum = 2``; a decode step's
+    tokens) are its device's addressable shards on the reference's mesh;
+    the global inputs are refused."""
+    part = "tp" if case in R.TP_CASES else "models"
+    for rank in results[case.shape]:
+        r = rank[part][case.name][case.sps[0]]
+        for what in ("blocks", "accum_blocks"):
+            assert r[what] and all(r[what].values()), (what, r[what])
+        assert all(r["decode_blocks"].values()), r["decode_blocks"]
+        assert r["global_refused"]
 
 
 @pytest.mark.parametrize("arch,shape,compression", R.TRAIN_CASES,

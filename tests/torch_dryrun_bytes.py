@@ -14,22 +14,17 @@ group of the mesh's size.
 The two must be equal once :func:`listed` has taken out what the test
 works out here, leaf by leaf, and nothing else:
 
-* ``kept``: the state, parameter and cache leaves with a dimension that
-  does not divide its axes, which ``layers.leaf_split`` keeps whole (the
-  reference pads it): their bytes by each side's rule;
-* ``conv``: the conv cache, whose block a rank of the port holds as its
-  own ``d_inner`` channels and the whole ``B``/``C`` channels
-  (``CacheLayout.conv``), where the reference splits ``d_inner + 2N``
-  evenly;
-* ``inputs``: the tokens, frames, patches, targets and mask, and a decode
-  step's tokens, which the port's steps take whole on every rank (each
-  rank takes its rows inside the step) and the reference's split over the
-  batch axes;
+* ``kept``: the leaves with a dimension that does not divide its axes,
+  which ``layers.leaf_split`` keeps whole (the reference pads it): their
+  bytes by each side's rule (none at ``pod16x16``);
 * ``pos``: the reference's ``Cache.pos``, a ``[B]`` int32 array, which
   the port keeps as a host int.
+
+The inputs (``shard_batch``'s blocks) and the conv cache (each rank's
+``[x | B | C]`` channels, ``CacheLayout.conv``) are held to the
+reference's split like every other leaf.
 """
 import functools
-import math
 
 import numpy as np
 
@@ -78,7 +73,9 @@ def _kept(shape, spec, multi_pod) -> bool:
 @functools.lru_cache(maxsize=None)
 def _reference_leaves(arch: str, shape: str, multi_pod: bool):
     """``[(group, name, shape, itemsize, spec)]`` of the reference's cell
-    arguments; ``group`` is ``state``, ``conv``, ``pos`` or ``inputs``."""
+    arguments; ``group`` is ``state``, ``conv``, ``pos`` or ``inputs``
+    (``conv`` and ``inputs`` are split as ``state`` is; the groups name
+    where a leaf comes from)."""
     import jax
     from jax.sharding import PartitionSpec as P
 
@@ -136,34 +133,37 @@ def listed(arch: str, shape: str, multi_pod: bool):
     a rank; the terms are the module docstring's, ``kept`` itemized by
     leaf."""
     leaves, cfg = _reference_leaves(arch, shape, multi_pod)
-    m = MESH_SIZES["model"]
     ref = port = 0
     terms = {}
     for group, name, shape_, size, spec in leaves:
         r = _gspmd(shape_, spec, multi_pod) * size
         ref += r
-        if group == "state" and not _kept(shape_, spec, multi_pod):
-            port += r
+        if group == "pos":
+            terms["pos"] = (r, 0)
             continue
-        if group == "state":
-            p = _port_rule(shape_, spec, multi_pod) * size
-            key = f"kept {name}"
-        elif group == "conv":
-            L_, B, w, ch = shape_
-            rows = _port_rule((B,), spec[1:2], multi_pod)
-            din, bc = cfg.d_inner, 2 * cfg.ssm_state
-            own = din // m + bc if ch and cfg.ssm_heads % m == 0 else ch
-            p = L_ * rows * w * own * size
-            key = "conv"
-        elif group == "inputs":
-            p = math.prod(shape_) * size
-            key = f"inputs {name}"
+        if group == "conv":
+            p = _conv_bytes(cfg, shape_, spec, multi_pod) * size
         else:
-            p = 0
-            key = "pos"
+            p = _port_rule(shape_, spec, multi_pod) * size
         port += p
-        terms[key] = (r, p)
+        if p != r:
+            terms[f"kept {name}"] = (r, p)
     return ref, port, terms
+
+
+def _conv_bytes(cfg, shape, spec, multi_pod: bool) -> int:
+    """Elements of a rank's conv cache block in the port: its rows, and of
+    each channel group ``[x | B | C]`` its ``1/model`` where the SSM heads
+    (for ``x``) and ``N`` (for ``B``/``C``) divide the model axis, the
+    whole group elsewhere; every channel where the heads do not divide
+    (``layers.mamba_channels``)."""
+    L_, B, w, ch = shape
+    rows = _port_rule((B,), spec[1:2], multi_pod)
+    m = MESH_SIZES["model"]
+    din, N = cfg.d_inner, cfg.ssm_state
+    if ch and cfg.ssm_heads % m == 0:
+        ch = din // m + 2 * (N // m if N % m == 0 else N)
+    return L_ * rows * w * ch
 
 
 def port_bytes(arch: str, shape: str, mesh, multi_pod: bool) -> int:

@@ -29,7 +29,9 @@ class Case(NamedTuple):
     """One configuration on one mesh shape: the smoke config of ``arch``
     with ``over``, in float32 with remat, ``B x S`` tokens of the
     pipeline's batch 0 (seed 1), run with each ``sp_matmuls`` in
-    ``sps``."""
+    ``sps``; the loss and gradients over ``accum`` microbatches (the
+    reference's ``make_train_step`` order: global rows ``[i · B/accum,
+    (i+1) · B/accum)``, each split over the data axis)."""
     name: str
     arch: str
     over: Tuple
@@ -37,6 +39,7 @@ class Case(NamedTuple):
     sps: Tuple[bool, ...]
     B: int = 4
     S: int = 40
+    accum: int = 1
 
 
 MODEL_CASES = (
@@ -54,6 +57,10 @@ MODEL_CASES = (
     # per-data-shard capacity that drops assignments (T_local = 320)
     Case("mixtral_drops_22", "mixtral_8x7b", (("capacity_factor", 0.5),),
          (2, 2), (False,), 4, 160),
+    # two microbatches of 2 rows, a row a data rank: a data rank routes
+    # global rows 0 and 2, or 1 and 3, at the capacity of 160 tokens
+    Case("mixtral_accum_22", "mixtral_8x7b", (("capacity_factor", 0.5),),
+         (2, 2), (False,), 4, 160, accum=2),
 )
 SSM_CASES = (
     Case("mamba2_41", "mamba2_2p7b", (), (4, 1), (False,)),
@@ -367,6 +374,32 @@ def _gathered(ctx, x: torch.Tensor) -> torch.Tensor:
     return cst(ctx, x, None, None, None, frm=ctx.stream())
 
 
+def coord(ctx) -> str:
+    """This rank's mesh coordinate as the reference's ``.npz`` keys
+    write it: ``"<data index><model index>"``."""
+    return f"{ctx.data_index}{ctx.model_index}"
+
+
+def _inputs_vs(blocks: Dict[str, torch.Tensor], ref, prefix: str
+               ) -> Dict[str, bool]:
+    """Each ``shard_batch`` block against the reference's addressable
+    shard of it on this rank's device (``prefix<key>``): bit-equal, and
+    the same shape."""
+    return {k: ref[prefix + k].shape == tuple(t.shape)
+            and bool(np.array_equal(ref[prefix + k], t.numpy()))
+            for k, t in blocks.items()}
+
+
+def _refuses_global(fn) -> bool:
+    """Whether ``fn()`` (a mesh call given the global inputs) raises
+    ValueError."""
+    try:
+        fn()
+    except ValueError:
+        return True
+    return False
+
+
 def model_case(rank: int, case: Case, ref_path: str) -> Dict:
     """Forward, loss and gradients of ``case`` on this rank's mesh with
     each ``sp_matmuls``, against the reference's Auto-mesh results and the
@@ -388,28 +421,43 @@ def model_case(rank: int, case: Case, ref_path: str) -> Dict:
     cfg = case_config(case, get_smoke_config(case.arch))
     model = model_params_from_jax(cfg, unflatten(ref, f"{case.name}/params/"))
     batch = _batch(cfg, case.B, case.S)
-    inputs = {k: batch[k] for k in ("frames", "patches") if k in batch}
-    _, g = _grads(model, cfg, batch, case.shape[0])
+    _, g = _grads(model, cfg, batch, case.shape[0] * case.accum)
     one = {n: t.clone() for n, t in g.items()}
     mesh = make_host_mesh(model=case.shape[1], device="cpu")
     out: Dict = {}
     for sp in case.sps:
         key = f"{case.name}/sp{int(sp)}"
         ctx = MeshContext(mesh, ("data",), sp_matmuls=sp)
+        blocks, bctx = T.shard_batch(batch, ctx)
+        inputs = {k: blocks[k] for k in ("frames", "patches")
+                  if k in blocks}
         C.reset_counts()
         with _scanned_heads() as heads:
             with torch.no_grad():
-                x = T.forward(model, cfg, batch.get("tokens"), ctx=ctx,
+                x = T.forward(model, cfg, blocks.get("tokens"), ctx=bctx,
                               **inputs)
-                B, S = ref[f"{key}/x"].shape[:2]
-                xg = _gathered(ctx.at(B, S), x)
-            loss, grads = _grads(model, cfg, batch, 1, ctx)
+                xg = _gathered(bctx, x)
+            if case.accum > 1:
+                blocks, bctx = T.shard_batch(batch, ctx, case.accum)
+            loss, grads = _grads(model, cfg, blocks, case.accum, bctx)
         want = param_tree(model_params_from_jax(
             cfg, unflatten(ref, f"{case.name}/grads/")))
         digest = torch.stack([g.double().sum() for g in grads.values()])
+        at = f"{case.name}/blocks/{coord(ctx)}/"
+        decode = {"tokens": batch["tokens"][:, 0]} if "tokens" in batch \
+            else {}
         out[sp] = dict(
             fwd=float((xg - torch.from_numpy(ref[f"{key}/x"])).abs().max()),
             local_shape=tuple(x.shape),
+            blocks=_inputs_vs(T.shard_batch(batch, ctx)[0], ref, at + "a1/"),
+            accum_blocks=_inputs_vs(T.shard_batch(batch, ctx, 2)[0], ref,
+                                    at + "a2/"),
+            decode_blocks=_inputs_vs(T.shard_batch(decode, ctx)[0], ref,
+                                     at + "decode/") if decode else {},
+            global_refused=_refuses_global(lambda: T.forward(
+                model, cfg, batch.get("tokens"), ctx=bctx,
+                **{k: batch[k] for k in ("frames", "patches")
+                   if k in batch})),
             loss=float(loss), ref_loss=float(ref[f"{case.name}/loss"]),
             vs_ref=_leaf_errs(grads, want),
             vs_one=_leaf_errs(grads, one),
@@ -456,17 +504,20 @@ def gap_case(rank: int, ref_path: str, shape) -> Dict:
     batch = _batch(cfg, GAP_B, GAP_S)
     ctx = MeshContext(make_host_mesh(model=shape[1], device="cpu"),
                       ("data",), sp_matmuls=True)
+    blocks, ctx = T.shard_batch(batch, ctx)
     with torch.no_grad():
         return dict(one=float(T.loss_fn(model, cfg, batch)),
-                    mesh=float(T.loss_fn(model, cfg, batch, ctx=ctx)))
+                    mesh=float(T.loss_fn(model, cfg, blocks, ctx=ctx)))
 
 
 def _serve_run(model, cfg, case: ServeCase, ctx, inputs: Dict) -> Dict:
     """The case's prefill and SERVE_STEPS greedy decode steps on ``ctx``'s
-    mesh: the logits, this rank's cache block shapes, the whole cache after
-    the prefill and after the last step, the greedy tokens, the
-    collectives' calls of one decode step, and every B7 call's (cache
-    slots, slot0, sc_total) on the model layer."""
+    mesh from this rank's ``shard_batch`` blocks: the logits gathered whole
+    and this rank's block of them, this rank's cache block shapes, the
+    whole cache after the prefill and after the last step, the greedy
+    tokens (``argmax`` of the gathered logits, fed back as each rank's
+    block), the collectives' calls of one decode step, and every B7
+    call's (cache slots, slot0, sc_total) on the model layer."""
     from repro_torch.distributed import collectives as C
     from repro_torch.models import layers
     from repro_torch.models import transformer as T
@@ -477,13 +528,16 @@ def _serve_run(model, cfg, case: ServeCase, ctx, inputs: Dict) -> Dict:
                 for f in ("kv_k", "kv_v", "conv", "ssm")}
 
     out: Dict = {}
+    blocks, pctx = T.shard_batch(inputs, ctx)
     cache, ring = T.init_cache(cfg, case.B, serve_max_seq(case, cfg), "cpu",
-                               ctx=ctx)
+                               ctx=pctx)
     out["block_shapes"] = {f: tuple(getattr(cache, f).shape)
                            for f in ("kv_k", "conv", "ssm")}
-    logits, cache = T.prefill(model, cfg, inputs.get("tokens"), cache, ring,
-                              patches=inputs.get("patches"), ctx=ctx)
-    out["prefill"] = dict(logits=logits.numpy().copy(), **whole(cache))
+    logits, cache = T.prefill(model, cfg, blocks.get("tokens"), cache, ring,
+                              patches=blocks.get("patches"), ctx=pctx)
+    out["prefill"] = dict(logits=T.gather_logits(logits, pctx, cfg).numpy()
+                          .copy(), **whole(cache))
+    out["prefill_block"] = logits.numpy().copy()
     if case.shard_seq:
         cache = T.shard_cache(cache, ctx)
         out["seq_block_shapes"] = {f: tuple(getattr(cache, f).shape)
@@ -500,21 +554,25 @@ def _serve_run(model, cfg, case: ServeCase, ctx, inputs: Dict) -> Dict:
                       kw.get("sc_total")))
         return orig(q, kc, *a, **kw)
 
-    toks = [logits.argmax(-1)]
+    toks = [torch.from_numpy(out["prefill"]["logits"]).argmax(-1)]
     layers.decode_attention = spy
     try:
         for i in range(SERVE_STEPS):
+            step_in, dctx = T.shard_batch({"tokens": toks[-1]}, ctx)
             C.reset_counts()
-            logits, cache = T.decode_step(model, cfg, toks[-1], cache, ring,
-                                          ctx=ctx)
-            out[f"step{i}"] = logits.numpy().copy()
-            toks.append(logits.argmax(-1))
+            logits, cache = T.decode_step(model, cfg, step_in["tokens"],
+                                          cache, ring, ctx=dctx)
+            out["step_counts"] = {op: dict(c) for op, c in C.COUNTS.items()}
+            full = T.gather_logits(logits, dctx, cfg)
+            out[f"step{i}"] = full.numpy().copy()
+            out[f"step{i}_block"] = logits.numpy().copy()
+            toks.append(full.argmax(-1))
     finally:
         layers.decode_attention = orig
-    out["step_counts"] = {op: dict(c) for op, c in C.COUNTS.items()}
-    out["last"] = dict(logits=logits.numpy().copy(), **whole(cache))
+    out["last"] = dict(logits=full.numpy().copy(), **whole(cache))
     out["tokens"] = torch.stack(toks).numpy()
     out["b7"] = sorted(set(calls))
+    out["coord"] = coord(ctx)
     return out
 
 
@@ -522,9 +580,10 @@ def serve_cases(rank: int, cases, inputs_path: str) -> Dict:
     """The port's side of tests/test_torch_mesh_serve.py: each SERVE_CASES
     case of this spawn's mesh shape from the reference's parameters and
     prompt (:func:`_serve_run`; an encoder-only model's ``forward`` and
-    ``logits_fn``, gathered whole); a ``blocks`` case again with the model
-    stored as this rank's blocks (``shard_module``); and whether a cache
-    made without the mesh is refused on it."""
+    ``logits_fn``, its stream block and gathered whole); a ``blocks`` case
+    again with the model stored as this rank's blocks (``shard_module``);
+    whether a cache made without the mesh is refused on it, and whether
+    the global prompt is."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.convert import model_params_from_jax
     from repro_torch.launch.mesh import make_host_mesh
@@ -544,28 +603,33 @@ def serve_cases(rank: int, cases, inputs_path: str) -> Dict:
         if mesh is None:
             mesh = make_host_mesh(model=case.shape[1], device="cpu")
         ctx = MeshContext(mesh, ("data",), sp_matmuls=case.sp)
+        blocks, pctx = T.shard_batch(inputs, ctx)
         if cfg.encoder_only:
             with torch.no_grad():
-                x = T.forward(model, cfg, frames=inputs["frames"], ctx=ctx)
-                logits = T.logits_fn(model, cfg, x)
-                B, S = inputs["frames"].shape[:2]
-                logits = cst(ctx.at(B, S), logits, None, None, None,
-                             frm=ctx.stream())
-            out[case.name] = dict(logits=logits.numpy().copy())
+                x = T.forward(model, cfg, frames=blocks["frames"], ctx=pctx)
+                logits = T.logits_fn(T._local_model(model, cfg, pctx), cfg,
+                                     x)
+                whole = cst(pctx, logits, None, None, None,
+                            frm=pctx.stream())
+            out[case.name] = dict(logits=whole.numpy().copy(),
+                                  block=logits.numpy().copy(),
+                                  coord=coord(ctx))
             continue
         out[case.name] = _serve_run(model, cfg, case, ctx, inputs)
         if case.blocks:
-            blocks = shard_module(model, T.leaf_pspecs(model, cfg), ctx)
-            out[case.name]["blocks"] = _serve_run(blocks, cfg, case, ctx,
+            stored = shard_module(model, T.leaf_pspecs(model, cfg), ctx)
+            out[case.name]["blocks"] = _serve_run(stored, cfg, case, ctx,
                                                   inputs)
         cache, ring = T.init_cache(cfg, case.B, serve_max_seq(case, cfg),
                                    "cpu")
-        try:
-            T.prefill(model, cfg, inputs.get("tokens"), cache, ring,
-                      patches=inputs.get("patches"), ctx=ctx)
-            out[case.name]["refused"] = False
-        except ValueError:
-            out[case.name]["refused"] = True
+        out[case.name]["refused"] = _refuses_global(lambda: T.prefill(
+            model, cfg, blocks.get("tokens"), cache, ring,
+            patches=blocks.get("patches"), ctx=pctx))
+        cache, ring = T.init_cache(cfg, case.B, serve_max_seq(case, cfg),
+                                   "cpu", ctx=pctx)
+        out[case.name]["global_refused"] = _refuses_global(
+            lambda: T.prefill(model, cfg, inputs.get("tokens"), cache, ring,
+                              patches=inputs.get("patches"), ctx=pctx))
     return out
 
 
@@ -740,6 +804,14 @@ def _shard_setup(arch: str, shape, seed: int = 0, sp: bool = False):
         cfg, opt, torch.Generator().manual_seed(seed))
 
 
+def _blocks_at(pipe, step: int, ctx):
+    """``(blocks, bound ctx)`` of the pipeline's batch ``step``."""
+    from repro_torch.models.transformer import shard_batch
+
+    return shard_batch({k: torch.from_numpy(v)
+                        for k, v in pipe.batch_at(step).items()}, ctx)
+
+
 def _state_leaves(state) -> Dict[str, torch.Tensor]:
     """``{"params/<n>" | "m/<n>" | "v/<n>": tensor}`` of a TrainState."""
     from repro_torch.training import param_tree
@@ -801,12 +873,11 @@ def shard_case(rank: int, arch: str, shape) -> Dict:
         if any(a not in split for a in multi):
             stay_whole[n] = 3 * p.numel() * p.element_size()
     pipe = TokenPipeline(cfg, global_batch=SHARD_B, seq_len=SHARD_S, seed=1)
-    step = make_train_step(cfg, opt, ctx)
+    batches = [_blocks_at(pipe, i, ctx) for i in range(SHARD_STEPS)]
+    step = make_train_step(cfg, opt, batches[0][1])
     losses = {"replicated": [], "sharded": []}
     with _scanned_heads() as heads:
-        for i in range(SHARD_STEPS):
-            batch = {k: torch.from_numpy(v)
-                     for k, v in pipe.batch_at(i).items()}
+        for batch, _ in batches:
             state, m1 = step(state, batch)
             sharded, m2 = step(sharded, batch)
             losses["replicated"].append(float(m1["loss"]))
@@ -831,17 +902,17 @@ def shard_sp_case(rank: int, arch: str, shape) -> Dict:
     sharded = shard_train_state(state, cfg, ctx)
     pipe = TokenPipeline(cfg, global_batch=SHARD_SP_B, seq_len=SHARD_SP_S,
                          seed=1)
-    batches = [{k: torch.from_numpy(v) for k, v in pipe.batch_at(i).items()}
-               for i in range(SHARD_STEPS)]
+    batches = [_blocks_at(pipe, i, ctx) for i in range(SHARD_STEPS)]
+    ctx = batches[0][1]
     try:
         make_train_step(cfg, opt, ctx, grad_transform=dict)(sharded,
-                                                            batches[0])
+                                                            batches[0][0])
         refused = False
     except ValueError:
         refused = True
     step = make_train_step(cfg, opt, ctx)
     losses = {"replicated": [], "sharded": []}
-    for batch in batches:
+    for batch, _ in batches:
         state, m1 = step(state, batch)
         sharded, m2 = step(sharded, batch)
         losses["replicated"].append(float(m1["loss"]))
@@ -909,12 +980,11 @@ def checkpoint_case(rank: int, ckpt: str, shape) -> Dict:
     out = {"reference": restored_vs_one_device(f"{ckpt}/reference", 1)}
     if shape == (2, 2):
         sharded = shard_train_state(state, cfg, ctx)
-        step = make_train_step(cfg, opt, ctx)
         pipe = TokenPipeline(cfg, global_batch=SHARD_B, seq_len=SHARD_S,
                              seed=1)
+        step = make_train_step(cfg, opt, _blocks_at(pipe, 0, ctx)[1])
         for i in range(SHARD_STEPS):
-            sharded, _ = step(sharded, {k: torch.from_numpy(v) for k, v in
-                                        pipe.batch_at(i).items()})
+            sharded, _ = step(sharded, _blocks_at(pipe, i, ctx)[0])
         save_checkpoint(f"{ckpt}/sharded", CKPT_STEP, sharded, mesh=mesh,
                         pspecs=pspecs)
         mgr = CheckpointManager(f"{ckpt}/managed", every=1)

@@ -11,7 +11,13 @@ raise under JAX 0.9) and writes one ``.npz``:
 parameters, for each ``sp_matmuls`` the forward's final hidden under
 ``MeshContext(mesh, ("data",), sp_matmuls=sp)``, and the loss and
 ``jax.grad`` of ``loss_fn`` under the first of them (the reference's SP
-and baseline gradients are one function; a compile is most of the cost).
+and baseline gradients are one function; a compile is most of the cost),
+over the case's ``accum`` microbatches as its ``make_train_step`` slices
+them; and each device's addressable shard of the batch put on the mesh
+with its ``batch_pspecs`` (``specs._batch_struct``), of each of its
+microbatches at ``grad_accum = 2`` (concatenated in order), and of a
+decode step's tokens (``input_specs``'s ``token_pspecs``), keyed by the
+device's mesh coordinate.
 ``train``: the same for SSM_CASES and FRONTEND_CASES, and for
 TRAIN_CASES the initial
 parameters given to ``run_training`` and its losses with ``mesh=``.
@@ -24,9 +30,10 @@ that the port's ranks can start), then ``prefill`` and SERVE_STEPS greedy
 ``decode_step`` calls under ``MeshContext`` (jitted under ``jax.set_mesh``;
 a ``shard_seq`` case's decode with the cache's ``in_shardings`` from
 ``specs._cache_struct(..., shard_seq_cache=True)``): the logits, the
-greedy tokens and the cache after the prefill and after the last step; an
-encoder-only model's ``forward`` and ``logits_fn`` (the dry run's
-``encode`` cell)."""
+greedy tokens and the cache after the prefill and after the last step, and
+each device's shard of every step's logits under ``build_cell``'s
+``out_shardings``; an encoder-only model's ``forward`` and ``logits_fn``
+(the dry run's ``encode`` cell) and each device's shard of them."""
 import os
 import sys
 
@@ -60,6 +67,72 @@ def _params(cfg, seed: int = 0):
             (rng.standard_normal(s.shape) * 0.02).astype(s.dtype)), shapes)
 
 
+def _shards(mesh, x, spec):
+    """``{"<data index><model index>": shard}``: each device's addressable
+    shard of ``x`` put on ``mesh`` with ``spec`` (a dimension that does
+    not divide its axes whole, where ``device_put`` refuses it and the
+    port keeps it whole)."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    def n(entry):
+        names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        return int(np.prod([mesh.shape[a] for a in names]))
+
+    spec = P(*(e if size % n(e) == 0 else None
+               for e, size in zip(tuple(spec), x.shape)))
+    arr = jax.device_put(x, NamedSharding(mesh, spec))
+    by_device = {s.device: np.asarray(s.data) for s in arr.addressable_shards}
+    return {f"{i}{j}": by_device[dev]
+            for (i, j), dev in np.ndenumerate(mesh.devices)}
+
+
+def batch_blocks(case, cfg, batch, out):
+    """The devices' shards of ``batch`` under the reference's
+    ``batch_pspecs`` at ``<case>/blocks/<coordinate>/``: whole (``a1/``),
+    each of two microbatches of rows ``[i · B/2, (i+1) · B/2)``
+    concatenated in order (``a2/``), and a decode step's tokens
+    (``decode/``)."""
+    from jax.sharding import PartitionSpec as P
+
+    from repro.launch.shapes import ShapeCell
+    from repro.launch.specs import _batch_struct
+
+    mesh = _mesh(case.shape)
+    _, specs = _batch_struct(cfg, ShapeCell("x", "train", case.S, case.B),
+                             ("data",), with_targets=True)
+    half = case.B // 2
+    for k, v in batch.items():
+        whole = _shards(mesh, v, specs[k])
+        micro = [_shards(mesh, v[i * half:(i + 1) * half], specs[k])
+                 for i in range(2)]
+        for c, block in whole.items():
+            out[f"{case.name}/blocks/{c}/a1/{k}"] = block
+            out[f"{case.name}/blocks/{c}/a2/{k}"] = np.concatenate(
+                [m[c] for m in micro], 0)
+    if "tokens" in batch:
+        for c, block in _shards(mesh, batch["tokens"][:, 0],
+                                P(("data",))).items():
+            out[f"{case.name}/blocks/{c}/decode/tokens"] = block
+
+
+def _accumulated(cfg, ctx, params, batch, accum: int):
+    """The loss and gradients of ``make_train_step``'s ``grad_accum``:
+    ``value_and_grad`` of ``loss_fn`` on each microbatch of global rows
+    ``[i · B/accum, (i+1) · B/accum)``, summed and divided."""
+    from repro.models import transformer as T
+
+    fn = jax.jit(jax.value_and_grad(lambda p, b: T.loss_fn(p, cfg, b, ctx)))
+    per = next(iter(batch.values())).shape[0] // accum
+    loss, grads = 0.0, None
+    for i in range(accum):
+        l, g = fn(params, {k: v[i * per:(i + 1) * per]
+                           for k, v in batch.items()})
+        loss = loss + l
+        grads = g if grads is None else jax.tree_util.tree_map(
+            jax.numpy.add, grads, g)
+    return loss / accum, jax.tree_util.tree_map(lambda t: t / accum, grads)
+
+
 def model_case(case, out):
     from repro.configs import get_smoke_config
     from repro.data import TokenPipeline
@@ -71,6 +144,7 @@ def model_case(case, out):
     out.update(R.flatten(params, f"{case.name}/params/"))
     batch = {k: jax.numpy.asarray(v) for k, v in TokenPipeline(
         cfg, global_batch=case.B, seq_len=case.S, seed=1).batch_at(0).items()}
+    batch_blocks(case, cfg, batch, out)
     for sp in case.sps:
         ctx = MeshContext(_mesh(case.shape), ("data",), sp_matmuls=sp)
         key = f"{case.name}/sp{int(sp)}"
@@ -88,6 +162,8 @@ def model_case(case, out):
 
         (loss, x), grads = jax.jit(jax.value_and_grad(
             loss_and_x, has_aux=True))(params, batch)
+        if case.accum > 1:
+            loss, grads = _accumulated(cfg, ctx, params, batch, case.accum)
         out[f"{key}/x"] = np.asarray(x)
         out[f"{case.name}/loss"] = np.asarray(loss)
         out.update(R.flatten(grads, f"{case.name}/grads/"))
@@ -179,6 +255,8 @@ def psum_witness(inputs, out):
 
 
 def serve_case(case, inputs, out):
+    from jax.sharding import PartitionSpec as P
+
     from repro.configs import get_smoke_config
     from repro.launch.specs import _cache_struct, _sh
     from repro.models import transformer as T
@@ -193,11 +271,22 @@ def serve_case(case, inputs, out):
     mesh = _mesh(case.shape)
     ctx = MeshContext(mesh, ("data",), sp_matmuls=case.sp)
     key = case.name
+    d, m = case.shape
+    # build_cell's out_shardings of the logits (a size that does not
+    # divide its axis whole, as the port keeps it)
+    logits_spec = P("data" if case.B % d == 0 else None,
+                    "model" if cfg.vocab_pad % m == 0 else None)
+
+    def shards(tag, logits, spec=logits_spec):
+        for c, block in _shards(mesh, logits, spec).items():
+            out[f"{key}/{tag}/shard/{c}"] = block
+
     with jax.set_mesh(mesh):
         if cfg.encoder_only:
-            out[f"{key}/logits"] = np.asarray(jax.jit(
-                lambda p, b: T.logits_fn(p, cfg, T.forward(p, cfg, b, ctx),
-                                         ctx))(params, batch))
+            logits = jax.jit(lambda p, b: T.logits_fn(
+                p, cfg, T.forward(p, cfg, b, ctx), ctx))(params, batch)
+            out[f"{key}/logits"] = np.asarray(logits)
+            shards("encode", logits, P("data", "model", None))
             return
         max_seq = R.serve_max_seq(case, cfg)
         cache, ring = T.init_cache(cfg, case.B, max_seq)
@@ -210,6 +299,7 @@ def serve_case(case, inputs, out):
                 out[f"{key}/{tag}/{f}"] = np.asarray(getattr(cache, f))
 
         keep("prefill", logits, cache)
+        shards("prefill", logits)
         if case.shard_seq:
             _, cp, _ = _cache_struct(cfg, case.B, max_seq, ("data",),
                                      shard_seq_cache=True)
@@ -224,6 +314,7 @@ def serve_case(case, inputs, out):
         for i in range(R.SERVE_STEPS):
             logits, cache = step(params, jax.numpy.asarray(toks[-1]), cache)
             out[f"{key}/step{i}/logits"] = np.asarray(logits)
+            shards(f"step{i}", logits)
             toks.append(np.asarray(logits).argmax(-1).astype(np.int32))
         keep("last", logits, cache)
         out[f"{key}/tokens"] = np.stack(toks)

@@ -171,10 +171,13 @@ def routing_rank(rank: int, world: int, init_file: str, out_dir: str,
                     return r
 
                 layers.moe_route = spy
+                blocks, pctx = T.shard_batch({"tokens": tokens}, ctx) if on \
+                    else ({"tokens": tokens}, None)
                 cache, ring = T.init_cache(cfg, c.SERVE_B, c.SERVE_SEQ, dev,
-                                           ctx=ctx if on else None)
-                logits, _ = T.prefill(params, cfg, tokens, cache, ring,
-                                      ctx=ctx if on else None)
+                                           ctx=pctx)
+                logits, _ = T.prefill(params, cfg, blocks["tokens"], cache,
+                                      ring, ctx=pctx)
+                logits = T.gather_logits(logits, pctx, cfg)
                 runs[on] = (logits.float().cpu(), routes)
                 layers.moe_route = orig
             (l0, r0), (l1, r1) = runs[False], runs[True]
