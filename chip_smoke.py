@@ -800,9 +800,22 @@ def time_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def device_ops(events) -> list:
+    """The device's operations among a profile's events (``prof.events()``
+    or ``key_averages()``): the program's ranges, which the profile also
+    shows on the device's timeline as user annotations, are no device
+    work."""
+    import torch
+
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
 def device_ms_by_kernel(fn) -> dict:
     """Device milliseconds per kernel name over one ``fn()`` call, from
-    ``torch.profiler`` (empty if the profiler records no device activity)."""
+    ``torch.profiler`` (empty if the profiler records no device activity).
+    The program's ranges are skipped (:func:`device_ops`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -811,9 +824,7 @@ def device_ms_by_kernel(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     out = {}
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for evt in device_ops(prof.key_averages()):
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
@@ -824,7 +835,7 @@ def device_ms_by_kernel(fn) -> dict:
 def device_events(fn) -> list:
     """``[(name, device ms)]`` of every device activity (kernels, copies)
     of one ``fn()`` call after one warm-up call, in order, from
-    ``torch.profiler``."""
+    ``torch.profiler``; the program's ranges are skipped."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -834,8 +845,8 @@ def device_events(fn) -> list:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [(e.name, e.time_range.elapsed_us() / 1e3)
+            for e in device_ops(prof.events())]
 
 
 def device_ms_per_call(fn, name_part: str, reps: int = REPS):
@@ -854,9 +865,8 @@ def device_ms_per_call(fn, name_part: str, reps: int = REPS):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and name_part in e.name]
+    us = [e.time_range.elapsed_us() for e in device_ops(prof.events())
+          if name_part in e.name]
     return statistics.median(us) / 1e3 if us else None
 
 
@@ -4604,7 +4614,7 @@ def _profiled_tick(tmp: Path) -> dict:
 
 def profile_child(tmp: str) -> None:
     """Phase 3's tick and route and one 10^4-user sweep item, warmed once,
-    then under torch.profiler with obs annotations on: each QoS kernel's
+    then under torch.profiler with the obs ring on: each QoS kernel's
     launches in the profile against LAUNCHES, each inside its
     dispatcher's scope, and their device milliseconds by stage; the
     result as JSON in ``<tmp>/profile.json``."""
@@ -4630,7 +4640,7 @@ def profile_child(tmp: str) -> None:
     run_sweep(one, device=dev)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    tracer = obs.enable(annotations=True)
+    tracer = obs.enable()
     # the launches after each stage split a kernel's device times (a cold
     # sweep chunk runs twice: once more for a warm timing)
     counts = {}

@@ -23,10 +23,15 @@ field. Opt in with::
         ...
     obs.save("trace.json")
 
-``obs.enable(annotations=True)`` mirrors every span into
-``torch.profiler.record_function``, so the spans show in a torch/CUDA
-profile. Instrumented: :mod:`repro_torch.sweeps` (per-chunk spans, items/s,
-store I/O timing, ``chunk`` frames), :mod:`repro_torch.workloads.batched`
+While a ``torch.profiler`` collects, every span also enters a
+``torch.profiler.record_function`` of its name, ring on or off, so the
+spans show in a torch/CUDA profile. Instrumented: the training step
+(:mod:`repro_torch.training.trainer`: ``train.step``, ``train.forward``,
+``train.backward``, ``train.optimizer``), ``ModelServer.generate``
+(``serve.generate``, ``serve.init_cache``, ``serve.prefill``,
+``serve.decode_step``, ``serve.readback``), :mod:`repro_torch.sweeps`
+(per-chunk spans, items/s, store I/O timing, ``chunk`` frames),
+:mod:`repro_torch.workloads.batched`
 (the ``placement.bucket_pad_waste`` and ``placement.candidate_k`` gauges),
 the QoS kernel dispatchers (``kernel.qos_matrix`` and
 ``kernel.qos_candidates`` spans, a profiler range around each CUDA or

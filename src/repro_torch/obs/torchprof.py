@@ -3,19 +3,21 @@ port of :mod:`repro.obs.jaxprof`).
 
 Two directions of the same timeline:
 
-* **obs spans → torch profiler**: a :class:`~repro_torch.obs.trace.Tracer`
-  enabled with ``annotations=True`` mirrors every span into a
-  ``torch.profiler.record_function``, so the driver-level structure
-  (``tick.place``, ``sweep.chunk``, ``kernel.qos_matrix``, ...) shows up
-  in the profile next to the CUDA kernels it launches.
+* **obs spans → torch profiler**: while a ``torch.profiler`` collects,
+  every obs span enters a ``torch.profiler.record_function`` of its name,
+  with or without the obs ring, so the program's structure
+  (``tick.place``, ``sweep.chunk``, ``train.optimizer``,
+  ``serve.prefill``, ``kernel.qos_matrix``, ...) shows up in the profile
+  next to the CUDA kernels it launches.
 * **kernel time → obs**: :func:`kernel_span` is the host-side wrapper the
   kernel dispatchers use — an obs span named ``kernel.<x>`` — and
   :func:`named_scope` tags the CUDA or the plain branch of a dispatcher
   (``qos_matrix_cuda``, ``greedy_argmax_ref``, ...) on the profiler's
   timeline, so a kernel's device time is attributable to its dispatcher.
-  Both follow the tracer's ``annotations`` switch: a profile taken without
-  it holds the kernels alone (a ``record_function`` range also shows on
-  the device timeline, where it would add to a sum of device times).
+  Both follow the profiler: with none collecting they cost one flag read.
+  A ``record_function`` range also shows on the device timeline, as a
+  user annotation: a sum of device times skips those events
+  (``is_user_annotation``).
 
 :func:`profile_trace` runs a block under ``torch.profiler.profile`` and
 writes a Chrome trace (``chrome://tracing`` / https://ui.perfetto.dev).
@@ -23,24 +25,27 @@ On a machine with CUDA it always records the CUDA activity too, and
 raises rather than profile without it. :func:`kernel_launches` reads such
 a trace back: one kernel's device launches, their device times, and how
 many of them a named range (a dispatcher's scope, a ``kernel.*`` span)
-launched.
+launched; :func:`scope_device_ms` the device time of every operation a
+named range launched.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import json
 import os
 from pathlib import Path
-from typing import Any, Dict, Iterator, Mapping, Union
+from typing import Any, Dict, Iterator, List, Mapping, Tuple, Union
 
-from . import trace as _trace
-from .trace import kernel_span
+from .trace import _NULL_SPAN, _profiler, kernel_span
 
 __all__ = ["kernel_span", "named_scope", "profile_trace",
-           "have_torch_profiler", "kernel_launches"]
+           "have_torch_profiler", "kernel_launches", "scope_device_ms"]
 
 #: Chrome-trace categories of the host calls that launch a device kernel
 _LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+#: Chrome-trace categories of the device's operations
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def have_torch_profiler() -> bool:
@@ -52,13 +57,12 @@ def have_torch_profiler() -> bool:
 
 
 def named_scope(name: str):
-    """A ``torch.profiler.record_function`` range named ``name`` while the
-    obs tracer runs with ``annotations=True``, else a null context (one
-    global read: the dispatchers open one per call, hundreds a tick)."""
-    tracer = _trace._TRACER
-    if tracer is not None and tracer._ann is not None:
-        return tracer._ann(name)
-    return contextlib.nullcontext()
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler collects, else the shared no-op span (one flag read: the
+    dispatchers open one per call, hundreds a tick)."""
+    if _profiler._is_profiler_enabled:
+        return _profiler.record_function(name)
+    return _NULL_SPAN
 
 
 @contextlib.contextmanager
@@ -69,10 +73,9 @@ def profile_trace(log_dir) -> Iterator[str]:
 
     It records the CUDA activity whenever a CUDA device is there, and a
     profiler that cannot record it raises instead of quietly profiling
-    the CPU alone. Enable obs with ``annotations=True`` to see its spans
-    and the dispatchers' scopes inside the dump::
+    the CPU alone. The program's spans and the dispatchers' scopes are in
+    the dump whether or not the obs ring is on::
 
-        obs.enable(annotations=True)
         with profile_trace("/tmp/torchprof") as path:
             run_sweep(spec)
     """
@@ -98,6 +101,28 @@ def profile_trace(log_dir) -> Iterator[str]:
     prof.export_chrome_trace(str(path))
 
 
+def _x_events(trace) -> list:
+    """The complete (``X``) events of a Chrome trace or its path."""
+    doc = trace if isinstance(trace, Mapping) else \
+        json.loads(Path(trace).read_text())
+    return [e for e in doc.get("traceEvents", []) if e.get("ph") == "X"]
+
+
+def _ranges(events: list, scope: str) -> List[Tuple[float, float]]:
+    """The host ``record_function`` ranges named ``scope``, in time
+    order."""
+    return sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                  if e.get("cat") == "user_annotation"
+                  and e.get("name") == scope)
+
+
+def _launched_at(events: list) -> Dict[Any, float]:
+    """Host time of each launch call, by its correlation id."""
+    return {e["args"]["correlation"]: e["ts"] for e in events
+            if e.get("cat") in _LAUNCH_CATS
+            and "correlation" in e.get("args", {})}
+
+
 def kernel_launches(trace: Union[str, os.PathLike, Mapping[str, Any]],
                     kernel: str, scope: str) -> Dict[str, Any]:
     """One kernel's device launches in a Chrome trace written by
@@ -107,14 +132,9 @@ def kernel_launches(trace: Union[str, os.PathLike, Mapping[str, Any]],
     ``kernel``, and ``m`` of them launched (their host launch call, found
     by its correlation id) inside a ``record_function`` range named
     ``scope``."""
-    doc = trace if isinstance(trace, Mapping) else \
-        json.loads(Path(trace).read_text())
-    events = [e for e in doc.get("traceEvents", []) if e.get("ph") == "X"]
-    ranges = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
-              if e.get("cat") == "user_annotation" and e.get("name") == scope]
-    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
-                   if e.get("cat") in _LAUNCH_CATS
-                   and "correlation" in e.get("args", {})}
+    events = _x_events(trace)
+    ranges = _ranges(events, scope)
+    launched_at = _launched_at(events)
     kernels = sorted((e for e in events if e.get("cat") == "kernel"
                       and kernel in e.get("name", "")),
                      key=lambda e: e["ts"])
@@ -129,3 +149,33 @@ def kernel_launches(trace: Union[str, os.PathLike, Mapping[str, Any]],
             inside += 1
     return {"launches": len(device_ms), "device_ms": device_ms,
             "queued_ms": queued_ms, "in_scope": inside}
+
+
+def scope_device_ms(trace: Union[str, os.PathLike, Mapping[str, Any]],
+                    scope: str) -> Dict[str, Any]:
+    """The device operations (kernels, copies, sets) that each
+    ``record_function`` range named ``scope`` launched, in a Chrome trace
+    written by :func:`profile_trace`, each operation's host launch call
+    found by its correlation id as :func:`kernel_launches` finds it:
+    ``{"ranges": [(start_us, end_us) of each range, in time order],
+    "device_ms": [ms summed over each range's operations], "ops":
+    [operations of each range], "unpaired": k}``, ``k`` the device
+    operations without a launch call in the trace."""
+    events = _x_events(trace)
+    ranges = _ranges(events, scope)
+    starts = [a for a, _ in ranges]
+    launched_at = _launched_at(events)
+    device_ms, ops, unpaired = [0.0] * len(ranges), [0] * len(ranges), 0
+    for e in events:
+        if e.get("cat") not in _DEVICE_CATS:
+            continue
+        t = launched_at.get(e.get("args", {}).get("correlation"))
+        if t is None:
+            unpaired += 1
+            continue
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0 and t <= ranges[i][1]:
+            device_ms[i] += e.get("dur", 0) / 1e3
+            ops[i] += 1
+    return {"ranges": ranges, "device_ms": device_ms, "ops": ops,
+            "unpaired": unpaired}

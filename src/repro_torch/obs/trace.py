@@ -21,10 +21,12 @@ other's artifacts); :func:`to_chrome_trace` converts any such document
 into Chrome-trace / Perfetto JSON (open ``chrome://tracing`` or
 https://ui.perfetto.dev and load the file).
 
-When the owning :class:`Tracer` was enabled with ``annotations=True``
-every span additionally enters a ``torch.profiler.record_function`` of the
-same name, so obs spans appear on a ``torch.profiler`` timeline next to
-the CUDA kernels they launch.
+Spans follow ``torch.profiler`` too: whenever a profiler is collecting,
+every span (and :func:`kernel_span`) also enters a
+``torch.profiler.record_function`` of its name, whether or not the ring is
+on, so the spans appear on the profiler's timeline next to the CUDA
+kernels they launch. With neither the ring nor a profiler on, a span is
+one global load, one read of the profiler's own flag and the shared no-op.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import time
 from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import numpy as np
+from torch.autograd import profiler as _profiler
 
 from .metrics import MetricsRegistry
 
@@ -95,7 +98,7 @@ _NULL_SPAN = _NullSpan()
 class _Span:
     """Live span handle; records into the tracer's ring on ``__exit__``."""
 
-    __slots__ = ("_tracer", "_name_id", "_args", "_t0", "_ann_ctx")
+    __slots__ = ("_tracer", "_name_id", "_args", "_t0", "_range")
 
     def __init__(self, tracer: "Tracer", name_id: int,
                  args: Optional[Dict[str, Any]]):
@@ -103,13 +106,13 @@ class _Span:
         self._name_id = name_id
         self._args = args
         self._t0 = 0
-        self._ann_ctx = None
+        self._range = None
 
     def __enter__(self) -> "_Span":
         tr = self._tracer
-        if tr._ann is not None:
-            self._ann_ctx = tr._ann(tr._names[self._name_id])
-            self._ann_ctx.__enter__()
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler.record_function(tr._names[self._name_id])
+            self._range.__enter__()
         tr._depth_of(threading.get_ident())  # ensure tid registered
         local = tr._local
         local.depth = getattr(local, "depth", 0) + 1
@@ -123,8 +126,8 @@ class _Span:
         depth = getattr(local, "depth", 1)
         local.depth = depth - 1
         tr._record(self._name_id, self._t0, t1, depth - 1, self._args)
-        if self._ann_ctx is not None:
-            self._ann_ctx.__exit__(*(exc or (None, None, None)))
+        if self._range is not None:
+            self._range.__exit__(*(exc or (None, None, None)))
         return False
 
 
@@ -133,15 +136,13 @@ class Tracer:
 
     ``clock`` is injectable (defaults to :func:`time.perf_counter_ns`) so
     tests can drive a deterministic fake clock and golden-test the export
-    byte-for-byte. ``annotations=True`` mirrors every span into a
-    ``torch.profiler.record_function`` (near no-op when no profiler is
-    collecting), putting obs spans on the torch/CUDA profile next to the
-    kernels' device time.
+    byte-for-byte. While a ``torch.profiler`` collects, every span also
+    enters a ``record_function`` of its name, putting obs spans on the
+    torch/CUDA profile next to the kernels' device time.
     """
 
     def __init__(self, capacity: int = DEFAULT_CAPACITY, *,
-                 clock: Optional[Callable[[], int]] = None,
-                 annotations: bool = False):
+                 clock: Optional[Callable[[], int]] = None):
         self.capacity = int(capacity)
         if self.capacity <= 0:
             raise ValueError(f"capacity must be positive, got {capacity}")
@@ -169,10 +170,6 @@ class Tracer:
         self.metrics = MetricsRegistry()
         # small-int thread ids, stable within this tracer
         self._tids: Dict[int, int] = {}
-        self._ann = None
-        if annotations:
-            from torch.profiler import record_function
-            self._ann = record_function
 
     # -- recording ---------------------------------------------------------
     def _depth_of(self, ident: int) -> int:
@@ -316,13 +313,12 @@ _TRACER: Optional[Tracer] = None
 
 
 def enable(capacity: int = DEFAULT_CAPACITY, *,
-           clock: Optional[Callable[[], int]] = None,
-           annotations: bool = False) -> Tracer:
+           clock: Optional[Callable[[], int]] = None) -> Tracer:
     """Install (and return) the process-global tracer. Idempotent-ish:
     enabling over a live tracer replaces it (the old one keeps working
     for code still holding a reference)."""
     global _TRACER
-    _TRACER = Tracer(capacity, clock=clock, annotations=annotations)
+    _TRACER = Tracer(capacity, clock=clock)
     return _TRACER
 
 
@@ -344,10 +340,15 @@ def get_tracer() -> Optional[Tracer]:
 
 def span(name: str, **args: Any):
     """``with span("tick.place"): ...`` — the one instrumentation
-    primitive on every hot path. Disabled cost: one global load, one
-    ``None`` check, one shared no-op context manager."""
+    primitive on every hot path. With the ring on it records there; while
+    a ``torch.profiler`` collects it is also a ``record_function`` range of
+    ``name`` (with the ring off, that range alone: ``args`` go to the ring
+    only). Cost with neither on: one global load, one ``None`` check, one
+    read of the profiler's flag, one shared no-op context manager."""
     tr = _TRACER
     if tr is None:
+        if _profiler._is_profiler_enabled:
+            return _profiler.record_function(name)
         return _NULL_SPAN
     return tr.span(name, args or None)
 
@@ -355,9 +356,8 @@ def span(name: str, **args: Any):
 def kernel_span(name: str, **args: Any):
     """An obs span in the ``kernel`` category (``kernel.<name>``), the
     reference's ``repro.obs.jaxprof.kernel_span``: recorded on the obs
-    timeline and, when the tracer runs with ``annotations=True``, on the
-    ``torch.profiler`` timeline as well. The shared null span when tracing
-    is off."""
+    timeline when the ring is on and on the ``torch.profiler`` timeline
+    while a profiler collects. The shared null span when neither is on."""
     full = name if name.startswith("kernel.") else "kernel." + name
     return span(full, **args)
 

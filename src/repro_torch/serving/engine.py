@@ -8,7 +8,10 @@ application; the SSD scan, B8, once per Mamba layer), then decode one token
 per step (GQA decode, B7, once per attention application per step; Mamba
 layers step their recurrent state in plain PyTorch). It measures wall-clock
 prefill and decode time, with ``torch.cuda.synchronize()`` before each
-clock read on a CUDA device.
+clock read on a CUDA device. Its phases are obs spans (``serve.generate``
+around a call; ``serve.init_cache``, ``serve.prefill``, one
+``serve.decode_step`` a step, ``serve.readback``), on the
+``torch.profiler`` timeline whenever a profiler collects.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -89,29 +93,37 @@ class ModelServer:
         bb = self.bucket_batch
         if b > bb:
             raise ValueError(f"{b} prompts exceed the batch bucket {bb}")
-        cache, ring = T.init_cache(self.cfg, bb, self.bucket_seq,
-                                   self.device)
-        if cache.has_kv and not ring and s + n_steps > self.bucket_seq:
-            raise ValueError(
-                f"{s} prompt tokens + {n_steps} new tokens overrun the "
-                f"{self.bucket_seq}-slot KV cache (bucket_seq)")
-        toks = np.pad(np.asarray(prompts), ((0, bb - b), (0, 0)))
-        toks = torch.from_numpy(toks.astype(np.int64)).to(self.device)
-        V = self.cfg.vocab_size
+        with obs.span("serve.generate", b=b, s=s, n_steps=n_steps):
+            with obs.span("serve.init_cache"):
+                cache, ring = T.init_cache(self.cfg, bb, self.bucket_seq,
+                                           self.device)
+            if cache.has_kv and not ring and s + n_steps > self.bucket_seq:
+                raise ValueError(
+                    f"{s} prompt tokens + {n_steps} new tokens overrun the "
+                    f"{self.bucket_seq}-slot KV cache (bucket_seq)")
+            toks = np.pad(np.asarray(prompts), ((0, bb - b), (0, 0)))
+            toks = torch.from_numpy(toks.astype(np.int64)).to(self.device)
+            V = self.cfg.vocab_size
 
-        self._sync()
-        t0 = time.perf_counter()
-        logits, cache = T.prefill(self.params, self.cfg, toks, cache, ring)
-        self._sync()
-        t1 = time.perf_counter()
-        outs = []
-        tok = logits[:, :V].argmax(-1)
-        for _ in range(n_steps):
-            outs.append(tok)
-            logits, cache = T.decode_step(self.params, self.cfg, tok, cache,
+            self._sync()
+            # the span opens on an idle device and closes after the sync,
+            # so only prefill's operations fall inside it
+            with obs.span("serve.prefill"):
+                t0 = time.perf_counter()
+                logits, cache = T.prefill(self.params, self.cfg, toks, cache,
                                           ring)
+                self._sync()
+                t1 = time.perf_counter()
+            outs = []
             tok = logits[:, :V].argmax(-1)
-        self._sync()
-        t2 = time.perf_counter()
-        new_tokens = torch.stack(outs, dim=1)[:b].cpu().numpy()
+            for _ in range(n_steps):
+                outs.append(tok)
+                with obs.span("serve.decode_step"):
+                    logits, cache = T.decode_step(self.params, self.cfg, tok,
+                                                  cache, ring)
+                    tok = logits[:, :V].argmax(-1)
+            self._sync()
+            t2 = time.perf_counter()
+            with obs.span("serve.readback"):
+                new_tokens = torch.stack(outs, dim=1)[:b].cpu().numpy()
         return new_tokens.astype(np.int32), t1 - t0, t2 - t1

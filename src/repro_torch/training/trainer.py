@@ -4,7 +4,11 @@
 the loss's gradients by autograd (through the flash-attention backward
 kernels B5/B6 and the SSD scan's backward kernel on a CUDA device),
 microbatch gradient accumulation, an optional gradient transform, then
-:func:`adamw_update_`. The parameters live in the state's
+:func:`adamw_update_`. Its phases are obs spans (``train.step`` around
+the step; ``train.forward`` and ``train.backward`` around each
+microbatch's loss and its backward; ``train.optimizer`` around the global
+norm and AdamW), on the ``torch.profiler`` timeline whenever a profiler
+collects. The parameters live in the state's
 :class:`~repro_torch.models.LM`, and they and the optimizer moments are
 updated in place, leaf by leaf and block by block (the reference returns
 new arrays). Each parameter's ``.grad`` holds the step's (averaged)
@@ -41,6 +45,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.distributed import collectives as C
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -193,8 +198,10 @@ def _grads(model: T.LM, cfg: ModelConfig, batch: Batch, grad_accum: int,
     loss = None
     for i in range(grad_accum):
         mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
-        l = T.loss_fn(model, cfg, mb, ctx=ctx)
-        l.backward()
+        with obs.span("train.forward"):
+            l = T.loss_fn(model, cfg, mb, ctx=ctx)
+        with obs.span("train.backward"):
+            l.backward()
         loss = l.detach() if loss is None else loss + l.detach()
     params = dict(model.named_parameters())
     grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
@@ -235,11 +242,12 @@ def _mesh_sum_(grads: Dict[str, torch.Tensor], ctx: MeshContext) -> None:
 
 def _apply(grads: Dict, state: TrainState, opt_cfg: AdamWConfig,
            ctx: Optional[MeshContext] = None):
-    params = param_tree(state.params)
-    norm = sharded_grad_norm(grads, params, ctx) \
-        if L.is_blocks(state.params) else None
-    new_opt, metrics = adamw_update_(grads, state.opt, params, opt_cfg,
-                                     grad_norm=norm)
+    with obs.span("train.optimizer"):
+        params = param_tree(state.params)
+        norm = sharded_grad_norm(grads, params, ctx) \
+            if L.is_blocks(state.params) else None
+        new_opt, metrics = adamw_update_(grads, state.opt, params, opt_cfg,
+                                         grad_norm=norm)
     return TrainState(state.params, new_opt), metrics
 
 
@@ -263,10 +271,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             raise ValueError("grad_transform maps whole gradients; a state "
                              "stored as blocks (shard_train_state) holds "
                              "this rank's blocks of them")
-        loss, grads = _grads(state.params, cfg, batch, grad_accum, ctx)
-        if grad_transform is not None:
-            grads = grad_transform(grads)
-        state, metrics = _apply(grads, state, opt_cfg, ctx)
+        with obs.span("train.step"):
+            loss, grads = _grads(state.params, cfg, batch, grad_accum, ctx)
+            if grad_transform is not None:
+                grads = grad_transform(grads)
+            state, metrics = _apply(grads, state, opt_cfg, ctx)
         metrics["loss"] = loss
         return state, metrics
 

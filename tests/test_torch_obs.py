@@ -1,8 +1,8 @@
 """The port's obs core against the JAX package's: the same spans, counters,
 gauges and histograms give the same artifact; each package loads the
 other's saved artifact; the Chrome export validates in both; spans mirror
-into torch.profiler with ``annotations=True``; and tracing changes no byte
-of a stored sweep."""
+into torch.profiler whenever a profiler collects; and tracing changes no
+byte of a stored sweep."""
 import json
 import os
 
@@ -156,12 +156,19 @@ def test_annotations_mirror_spans_into_torch_profiler():
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    tr = tobs.enable(annotations=True)
+    tr = tobs.enable()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with tobs.span("sweep.chunk", items=1):
             torch.ones(4).sum()
     assert tr.n_spans == 1
     assert "sweep.chunk" in {e.key for e in prof.key_averages()}
+    # the ring off: the profiler still gets the range, the ring nothing
+    tobs.disable()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tobs.span("sweep.materialize", items=1):
+            torch.ones(4).sum()
+    assert tr.n_spans == 1
+    assert "sweep.materialize" in {e.key for e in prof.key_averages()}
 
 
 def test_tracing_changes_no_stored_sweep_byte(tmp_path):
@@ -172,9 +179,12 @@ def test_tracing_changes_no_stored_sweep_byte(tmp_path):
                      override_grid=(SMALL,))
     off = run_sweep(spec, store_dir=tmp_path / "off", device="cpu",
                     chunk_size=3)
-    tr = tobs.enable(annotations=True)
-    on = run_sweep(spec, store_dir=tmp_path / "on", device="cpu",
-                   chunk_size=3)
+    from torch.profiler import ProfilerActivity, profile
+
+    tr = tobs.enable()
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = run_sweep(spec, store_dir=tmp_path / "on", device="cpu",
+                       chunk_size=3)
     tobs.disable()
     names = {tr._names[i] for i in tr.snapshot()["spans"]["name"]}
     assert names == {"sweep.materialize", "sweep.chunk", "store.add_chunk"}

@@ -3,9 +3,10 @@ spans of the port's QoS dispatchers: with both packages' tracers on and
 the same instance, the port records the reference's ``kernel.qos_matrix``
 and ``kernel.qos_candidates`` spans with the reference's args; the
 dispatchers' named scopes and the obs spans land in a CPU
-``profile_trace`` dump, which is a valid Chrome trace; outputs and launch
-counts do not move; and on a card the profile finds each QoS kernel by
-name, as often as ``LAUNCHES`` counts it, inside its dispatcher's scope.
+``profile_trace`` dump, ring on or off, which is a valid Chrome trace; the
+repo's device sums skip those ranges; outputs and launch counts do not
+move; and on a card the profile finds each QoS kernel by name, as often
+as ``LAUNCHES`` counts it, inside its dispatcher's scope.
 
 JAX is imported by a fixture, so this file also runs where only the port
 is installed (as on a card without JAX): the comparison with the
@@ -92,9 +93,11 @@ def test_spans_move_no_output_and_no_launch_count():
     inst = _instance(U=200, E=4, seed=5)
     ops.reset_launch_counts()
     q0, (ci0, cq0) = _port_calls(inst, None)
-    tobs.enable(annotations=True)
+    tobs.enable()
     try:
-        q1, (ci1, cq1) = _port_calls(inst, None)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            q1, (ci1, cq1) = _port_calls(inst, None)
     finally:
         tobs.disable()
     assert torch.equal(q0, q1) and torch.equal(ci0, ci1) and \
@@ -103,22 +106,28 @@ def test_spans_move_no_output_and_no_launch_count():
 
 
 def test_named_scope_follows_the_annotation_switch(ref):
-    import contextlib
+    """The scope is a profiler range while a profiler collects, with the
+    obs ring on or off, and the shared no-op span otherwise."""
+    from torch.profiler import ProfilerActivity, profile
 
-    assert isinstance(torchprof.named_scope("qos_matrix_ref"),
-                      contextlib.nullcontext)
+    from repro_torch.obs.trace import _NULL_SPAN
+
+    assert torchprof.named_scope("qos_matrix_ref") is _NULL_SPAN
     tobs.enable()
     try:
-        assert isinstance(torchprof.named_scope("qos_matrix_ref"),
-                          contextlib.nullcontext)
+        assert torchprof.named_scope("qos_matrix_ref") is _NULL_SPAN
     finally:
         tobs.disable()
-    tobs.enable(annotations=True)
-    try:
-        assert isinstance(torchprof.named_scope("qos_matrix_ref"),
-                          torch.profiler.record_function)
-    finally:
-        tobs.disable()
+    for ring in (False, True):
+        if ring:
+            tobs.enable()
+        try:
+            with profile(activities=[ProfilerActivity.CPU]):
+                assert isinstance(torchprof.named_scope("qos_matrix_ref"),
+                                  torch.profiler.record_function)
+        finally:
+            tobs.disable()
+    assert torchprof.named_scope("qos_matrix_ref") is _NULL_SPAN
     assert torchprof.have_torch_profiler()
     assert tobs.kernel_span is torchprof.kernel_span
     robs = ref.obs
@@ -127,23 +136,37 @@ def test_named_scope_follows_the_annotation_switch(ref):
 
 
 def test_a_profile_without_annotations_holds_no_scope(tmp_path):
-    """The earlier profiles' device sums must not take in a dispatcher's
-    range: without obs annotations the dispatchers add none."""
+    """A profile taken with the obs ring off holds the dispatcher's scope
+    and its kernel span as ranges (user annotations), and the repo's
+    device sums skip such events: a range on the device's timeline is no
+    device work."""
+    import chip_smoke
+
     inst = _instance(U=120, E=3, seed=1)
     ti = TC.TorchInstance.from_pies(inst, "cpu")
     with torchprof.profile_trace(tmp_path) as path:
         ops.qos_matrix_from_instance(ti)
     names = {e.get("name") for e in json.loads(open(path).read())[
         "traceEvents"] if e.get("cat") == "user_annotation"}
-    assert not names & {"qos_matrix_ref", "qos_matrix_cuda",
-                        "kernel.qos_matrix"}
+    assert {"qos_matrix_ref", "kernel.qos_matrix"} <= names
+    assert "qos_matrix_cuda" not in names
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [types.SimpleNamespace(name=n, device_type=cuda,
+                                    is_user_annotation=ann)
+              for n, ann in (("kernel.qos_matrix", True),
+                             ("qos_matrix_kernel", False))]
+    events.append(types.SimpleNamespace(
+        name="aten::mul", device_type=torch.autograd.DeviceType.CPU,
+        is_user_annotation=False))
+    assert [e.name for e in chip_smoke.device_ops(events)] == \
+        ["qos_matrix_kernel"]
 
 
 def test_cpu_profile_trace_holds_scopes_and_spans(tmp_path):
     inst = _instance(U=120, E=3, seed=1)
     ti = TC.TorchInstance.from_pies(inst, "cpu")
     v = torch.rand(3, inst.P, generator=torch.Generator().manual_seed(0))
-    tobs.enable(annotations=True)
+    tobs.enable()
     try:
         with torchprof.profile_trace(tmp_path / "prof") as path:
             ops.qos_matrix_from_instance(ti)
@@ -220,11 +243,44 @@ def test_kernel_launches_reads_a_chrome_trace():
                                      "qos_matrix_cuda")["in_scope"] == 0
 
 
+def test_scope_device_ms_reads_a_chrome_trace():
+    """Two ranges of one name: each sums the kernels, copies and sets its
+    launch calls launched, whenever they ran; an operation launched
+    before a range opened stays out of it; a device operation without its
+    launch call is counted apart."""
+    def launch(corr, ts):
+        return {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+                "ts": ts, "dur": 1.0, "pid": 1, "tid": 1,
+                "args": {"correlation": corr}}
+
+    def device(cat, corr, ts, dur):
+        return {"ph": "X", "cat": cat, "name": cat, "ts": ts, "dur": dur,
+                "pid": 0, "tid": 7, "args": {"correlation": corr}}
+
+    doc = {"traceEvents": [
+        {"ph": "X", "cat": "user_annotation", "name": "train.optimizer",
+         "ts": 10.0, "dur": 10.0, "pid": 1, "tid": 1},
+        {"ph": "X", "cat": "user_annotation", "name": "train.optimizer",
+         "ts": 100.0, "dur": 10.0, "pid": 1, "tid": 1},
+        {"ph": "X", "cat": "gpu_user_annotation", "name": "train.optimizer",
+         "ts": 12.0, "dur": 50.0, "pid": 0, "tid": 7},
+        launch(1, 5.0), launch(2, 12.0), launch(3, 15.0), launch(4, 105.0),
+        device("kernel", 1, 8.0, 10.0),        # launched before the range
+        device("kernel", 2, 18.0, 4.0),
+        device("gpu_memcpy", 3, 30.0, 2.0),    # runs after the range closed
+        device("gpu_memset", 4, 106.0, 1.0),
+        device("kernel", 5, 107.0, 3.0)]}      # no launch call
+    got = torchprof.scope_device_ms(doc, "train.optimizer")
+    assert got == {"ranges": [(10.0, 20.0), (100.0, 110.0)],
+                   "device_ms": [0.006, 0.001], "ops": [2, 1],
+                   "unpaired": 1}
+
+
 @pytest.mark.cuda
 def test_card_profile_finds_each_kernel_in_its_scope(tmp_path):
-    """A sparse tick and a dense route on the card, profiled with obs
-    annotations on: each QoS kernel appears by name as often as LAUNCHES
-    counts it, every launch inside its dispatcher's scope."""
+    """A sparse tick and a dense route on the card, profiled with the obs
+    ring on: each QoS kernel appears by name as often as LAUNCHES counts
+    it, every launch inside its dispatcher's scope."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from repro_torch.serving import Router
@@ -236,7 +292,7 @@ def test_card_profile_finds_each_kernel_in_its_scope(tmp_path):
     _, xs = evaluate_sparse([inst], device=dev)      # warm: build, upload
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    tobs.enable(annotations=True)
+    tobs.enable()
     try:
         with torchprof.profile_trace(tmp_path) as path:
             _, xs = evaluate_sparse([inst], device=dev)

@@ -72,7 +72,7 @@ def device_ms(fn, name_part: str, reps: int):
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
-          and name_part in e.name]
+          and not e.is_user_annotation and name_part in e.name]
     return statistics.median(us) / 1e3 if us else None
 
 

@@ -90,7 +90,8 @@ def device_activity(fn, reps: int):
             fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.is_user_annotation]
     if not evs:
         return None, None, []
     return (sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3,

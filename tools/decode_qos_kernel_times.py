@@ -74,6 +74,7 @@ def device_ms(fn, reps: int, name_part: str | None = None):
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
+          and not e.is_user_annotation
           and (name_part is None or name_part in e.name)]
     if not us:
         return None

@@ -76,7 +76,7 @@ def device_ms(fn, reps: int) -> dict:
     return {kernel_name(e.key): e.self_device_time_total / 1e3 / reps
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total}
+            and not e.is_user_annotation and e.self_device_time_total}
 
 
 def main() -> int:
